@@ -1,0 +1,56 @@
+"""Import hygiene of the port: ``vdtpu_torch`` and ``chip_smoke.py`` use
+torch, never JAX, flax, YAML or the JAX package ``vdtpu``."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "vdtpu_torch")
+
+_BLOCKED = ("jax", "jaxlib", "flax", "yaml", "vdtpu")
+_IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|yaml|vdtpu)(?:\.|\s|$)",
+                        re.MULTILINE)
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_every_module_imports_with_jax_flax_yaml_blocked():
+    modules = ["vdtpu_torch"] + [m.name for m in pkgutil.walk_packages([PKG], "vdtpu_torch.")]
+    assert len(modules) > 15
+    code = "\n".join([
+        "import importlib, sys",
+        *[f"sys.modules[{name!r}] = None" for name in _BLOCKED],
+        f"for m in {modules!r}: importlib.import_module(m)",
+        "import chip_smoke",
+        "print('imported', len(sys.modules))",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
+
+
+def test_sources_name_no_jax_package_and_no_library_attention():
+    for path in _sources():
+        with open(path) as f:
+            text = f.read()
+        rel = os.path.relpath(path, ROOT)
+        assert not _IMPORT_RE.search(text), f"{rel} imports a JAX-side module"
+        if rel.startswith("vdtpu_torch"):
+            # the port's path holds no library attention and no compiler
+            assert "F.scaled_dot_product_attention" not in text, rel
+            assert "functional.scaled_dot_product_attention" not in text, rel
+            assert "torch.compile" not in text, rel

@@ -1,0 +1,31 @@
+"""Component registry of the port: config ``type`` name -> module class.
+
+The port's own table (the JAX package's maps to flax classes). Classes are
+imported when first looked up, so importing the registry builds nothing.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Any
+
+_TYPES = {
+    "openai_unet_2d_next": ("vdtpu_torch.models.unet", "UNet2DNext"),
+    "openai_unet_0d_next": ("vdtpu_torch.models.unet", "UNet0DNext"),
+    "autoencoderkl": ("vdtpu_torch.models.autoencoder", "AutoencoderKL"),
+    "clip_text_context_encoder": ("vdtpu_torch.models.clip", "CLIPTextContextEncoder"),
+}
+
+
+def get_class(type_name: str):
+    if type_name not in _TYPES:
+        raise KeyError(f"component type {type_name!r} is not ported; the port has "
+                       f"{sorted(_TYPES)}")
+    module, cls = _TYPES[type_name]
+    return getattr(importlib.import_module(module), cls)
+
+
+def build(cfg: dict, **overrides) -> Any:
+    """Instantiate a component from a resolved config ({type, args})."""
+    args = dict(cfg.get("args") or {})
+    args.update(overrides)
+    return get_class(cfg["type"])(**args)

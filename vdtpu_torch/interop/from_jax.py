@@ -1,0 +1,71 @@
+"""JAX param trees -> the port's state dict (numpy, reference torch keys).
+
+The port's own copy of the renaming and transposing rules of
+``vdtpu/interop/torch_convert.py::flax_to_torch`` and ``vd_conv1x1_pred``:
+a flax path joined with "." plus the leaf renamed (kernel/scale/embedding
+-> weight) is the torch key; conv kernels [kh, kw, I, O] become
+[O, I, kh, kw], dense kernels [I, O] become [O, I], and the dense kernels
+that the reference stores as 1x1 convs get [O, I, 1, 1].
+
+Input leaves are numpy arrays, e.g. ``jax.device_get(system.params[...])``.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+
+_LEAF_RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+
+
+def vd_conv1x1_pred(torch_key: str) -> bool:
+    """Dense in flax, 1x1 Conv2d in the reference: SpatialTransformer
+    proj_in/proj_out and the 0-D diffuser's FC-block convs."""
+    k = torch_key
+    if k.endswith((".proj_in.weight", ".proj_out.weight")) and "context_blocks" in k:
+        return True
+    return "diffuser.text." in k and "data_blocks" in k and k.endswith(
+        ("in_layers.2.weight", "out_layers.3.weight", "skip_connection.weight"))
+
+
+def _flatten(tree: Mapping[str, Any], path=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def state_dict_from_jax(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
+    """One flax param tree -> {prefix + torch key: numpy array}."""
+    sd: dict[str, np.ndarray] = {}
+    for path, val in _flatten(tree):
+        *parents, leaf = path
+        key = prefix + ".".join([*parents, _LEAF_RENAME.get(leaf, leaf)])
+        v = np.asarray(val)
+        if leaf == "kernel":
+            if v.ndim == 4:
+                v = v.transpose(3, 2, 0, 1)
+            elif v.ndim == 3:
+                v = v.transpose(2, 1, 0)
+            elif v.ndim == 2:
+                v = v.T
+                if vd_conv1x1_pred(key):
+                    v = v[:, :, None, None]
+        sd[key] = v
+    return sd
+
+
+def system_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """A JAX ``VDSystem.params`` tree ({"diffuser", "vae", "ctx"}) -> the flat
+    reference checkpoint, key for key what ``VDSystem.export_torch_checkpoint``
+    writes. The Optimus text VAE is not ported, so a ``vae.text`` tree is
+    refused rather than converted."""
+    if "text" in params.get("vae", {}):
+        raise NotImplementedError("the Optimus text VAE is not ported; drop params['vae']['text']")
+    sd = state_dict_from_jax(params["diffuser"], "diffuser.")
+    for name, p in params.get("vae", {}).items():
+        sd.update(state_dict_from_jax(p, f"vae.{name}."))
+    for name, p in params.get("ctx", {}).items():
+        sd.update(state_dict_from_jax(p, f"ctx.{name}.model."))
+    return sd

@@ -1,0 +1,45 @@
+"""Attention: one entry point, two backends (``vdtpu/ops/attention.py``).
+
+- ``plain``: two matmuls with an f32 softmax (``_xla_attention``), for the
+  short cross-attentions (77 keys), the 256-token self-attentions and the
+  VAE's one 512-wide head;
+- ``flash``: the hand-written flash-attention kernel (``ops/flash.py``) for
+  the long self-attentions (1024 and 4096 tokens).
+
+The rule is the JAX package's ``_pick_backend``: a site goes to flash when
+its tensors are on CUDA, q_len >= 256, kv_len >= 1024 and d_head <= 256.
+"""
+from __future__ import annotations
+
+import torch
+
+from vdtpu_torch.ops.flash import MAX_HEAD_DIM, flash_attention
+
+_FLASH_MIN_Q = 256
+_FLASH_MIN_KV = 1024
+
+
+def pick_backend(q, k) -> str:
+    if (q.is_cuda and q.shape[1] >= _FLASH_MIN_Q and k.shape[1] >= _FLASH_MIN_KV
+            and q.shape[-1] <= MAX_HEAD_DIM):
+        return "flash"
+    return "plain"
+
+
+def plain_attention(q, k, v, mask=None, scale: float = 1.0):
+    """matmul + f32 softmax + matmul, [B, Q, H, D] -> [B, Q, H, D]."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def scaled_dot_product_attention(q, k, v, mask=None, scale: float | None = None):
+    """Multi-head attention; q [B, Q, H, D], k/v [B, K, H, D]; mask
+    broadcastable to [B, H, Q, K] (True = keep) forces the plain path."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if mask is None and pick_backend(q, k) == "flash":
+        return flash_attention(q, k, v, scale)
+    return plain_attention(q, k, v, mask, scale)
