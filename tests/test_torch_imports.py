@@ -26,9 +26,16 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
+# modules of the int8 + ToMe slice: they name no attention library call at all
+_SLICE2 = ("ops/nomax.py", "ops/qconv.py", "ops/quant.py", "ops/tome.py",
+           "csrc/nomax_fwd.cu", "csrc/qconv3.cu")
+
+
 def test_every_module_imports_with_jax_flax_yaml_blocked():
     modules = ["vdtpu_torch"] + [m.name for m in pkgutil.walk_packages([PKG], "vdtpu_torch.")]
     assert len(modules) > 15
+    assert {"vdtpu_torch.ops.nomax", "vdtpu_torch.ops.qconv", "vdtpu_torch.ops.quant",
+            "vdtpu_torch.ops.tome"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         *[f"sys.modules[{name!r}] = None" for name in _BLOCKED],
@@ -54,3 +61,11 @@ def test_sources_name_no_jax_package_and_no_library_attention():
             assert "F.scaled_dot_product_attention" not in text, rel
             assert "functional.scaled_dot_product_attention" not in text, rel
             assert "torch.compile" not in text, rel
+
+
+def test_slice2_sources_name_no_library_attention_or_compiler():
+    for rel in _SLICE2:
+        with open(os.path.join(PKG, rel)) as f:
+            text = f.read()
+        assert "scaled_dot_product_attention" not in text, rel
+        assert "torch.compile" not in text, rel

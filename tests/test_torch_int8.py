@@ -1,0 +1,470 @@
+"""The calibrated int8 serving policy, port against vdtpu (tiny config, f32).
+
+Inputs are seeded numpy arrays handed to both packages. On the CPU every
+port product is exact (int32 / f64 accumulation of s8 codes) and both
+sides take the exact-softmax attention path, so a single int8 site with
+the same input and the same scales gives the same codes and agrees to f32
+rounding.
+
+A whole UNet is different: the int8 pass is chaotic in its input. The two
+packages' f32 activations differ in the last bits (summation order), a
+code flips wherever x / s lies within that of a half-integer, and the
+flipped codes feed the next site. After a few int8 sites the two
+quantization noises are independent. vdtpu shows the same thing against
+itself: calibrating on probes moved by one ulp moves its scales by up to
+about 2% (measured 1.4e-2 to 1.8e-2). So the whole-model checks here hold the port
+to vdtpu's own one-ulp sensitivity, measured in the same test, rather than
+to a fixed f32 tolerance. The arithmetic of each policy mode is held at
+f32 rounding one level down, on a whole ResBlock with vdtpu's scales.
+
+The JAX policy is process-global: every test restores it.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _tiny import det_tokenizer
+from test_torch_slice import PROMPT, build_tiny_systems
+from vdtpu.models.transformer import CrossAttention as JCrossAttention
+from vdtpu.ops import quant as jquant
+from vdtpu.sampling.ddim import DDIMSampler as JDDIMSampler
+from vdtpu_torch.interop.from_jax import quant_state_from_jax
+from vdtpu_torch.models.transformer import CrossAttention
+from vdtpu_torch.ops import quant
+from vdtpu_torch.ops.flash import flash_attention
+from vdtpu_torch.ops.gn_silu import gn_silu, gn_silu_q, gn_stats
+from vdtpu_torch.ops.nomax import flash_attention_nomax
+from vdtpu_torch.ops.qconv import qconv3, qconv3_gn
+from vdtpu_torch.ops.quant import QConv, QuantPolicy, int8_linear
+
+torch.set_num_threads(2)
+
+COUNTERS = (flash_attention, gn_silu, gn_silu_q, gn_stats, flash_attention_nomax, qconv3,
+            qconv3_gn, int8_linear)
+
+
+@pytest.fixture(autouse=True)
+def _restore_jax_policy_and_no_launches():
+    for c in COUNTERS:
+        c.launches = 0
+    yield
+    jquant.set_policy(None)
+    assert all(c.launches == 0 for c in COUNTERS)
+
+
+# ---- primitives -------------------------------------------------------------
+
+@pytest.mark.parametrize("clip", [None, "q99.9", "sigma3"])
+def test_quant_primitives_match_jax(clip, monkeypatch):
+    rs = np.random.RandomState(0)
+    x = (rs.randn(2, 9, 7, 16) * 3).astype(np.float32)
+    w = rs.randn(3, 3, 16, 24).astype(np.float32)
+    wq_j, ws_j = jquant._quantize_weight(jnp.asarray(w), (0, 1, 2))
+    wq_p, ws_p = quant.quantize_weight(torch.from_numpy(w.transpose(3, 0, 1, 2)))
+    np.testing.assert_array_equal(wq_p.numpy(), np.asarray(wq_j).transpose(3, 0, 1, 2))
+    np.testing.assert_array_equal(ws_p.numpy(), np.asarray(ws_j).reshape(-1))
+    for s in (None, np.float32(0.021)):
+        xq_j, sx_j = jquant._quantize_act(jnp.asarray(x), None if s is None else jnp.asarray(s))
+        xq_p, sx_p = quant.quantize_act(torch.from_numpy(x), None if s is None
+                                        else torch.tensor(s))
+        np.testing.assert_array_equal(xq_p.numpy(), np.asarray(xq_j))
+        np.testing.assert_array_equal(np.float32(sx_p), np.float32(sx_j))
+    monkeypatch.setenv("VDTPU_INT8_CLIP", clip or "")
+    # the quantile interpolates between sorted neighbours: f32 rounding only
+    np.testing.assert_allclose(float(quant.calib_stat(torch.from_numpy(x), clip)),
+                               float(jquant._calib_stat(jnp.asarray(x))), rtol=1e-6)
+
+
+def test_policy_validation_and_site_filter():
+    with pytest.raises(NotImplementedError, match="queue 2, row 11"):
+        QuantPolicy(conv="fused2")
+    for bad in (dict(gn_prologue="1"), dict(conv="fused3"), dict(clip="p99")):
+        with pytest.raises(ValueError):
+            QuantPolicy(**bad)
+    pol = QuantPolicy(skip_sites="in_layers.2@320, attn1.qkv, -ff.net.0@640")
+    assert not pol.site_enabled("image.data_blocks.3.0.in_layers.2", 320)
+    assert pol.site_enabled("image.data_blocks.3.0.in_layers.2", 640)
+    assert not pol.site_enabled("text.context_blocks.0.0.transformer_blocks.0.attn1.qkv", 1280)
+    assert not pol.site_enabled("text.context_blocks.0.0.transformer_blocks.0.ff.net.0.proj",
+                                640)
+    assert pol.site_enabled("text.context_blocks.0.0.transformer_blocks.0.ff.net.0.proj", 320)
+    assert pol.site_enabled("image.data_blocks.3.0.out_layers.3", 320)
+
+
+# ---- single sites: the same input and the same scales -----------------------
+
+def _calibrate_jax(module, params, *args):
+    """vdtpu's calibration of one module: sow, then scales and tables (its
+    table pass visits sites below the root, hence the one-level wrap)."""
+    jquant.set_policy("int8_calib")
+    _, col = module.apply({"params": params}, *args, mutable=["quant_calib"])
+    scales = {"site": jquant._to_scales(jax.device_get(col["quant_calib"]))}
+    jquant._attach_weight_tables(scales, {"site": params})
+    jquant.set_policy("int8")
+    return jax.device_get(scales["site"])
+
+
+@pytest.mark.parametrize("c,n,stride,add", [(4, 32, 1, "film"), (32, 32, 2, None),
+                                            (64, 32, 1, "full")])
+def test_qconv_site_matches_jax(c, n, stride, add):
+    rs = np.random.RandomState(c + n)
+    x = rs.randn(2, 16, 16, c).astype(np.float32)
+    kernel = (rs.randn(3, 3, c, n) / np.sqrt(9 * c)).astype(np.float32)
+    bias = (rs.randn(n) * 0.1).astype(np.float32)
+    ho = (16 - 1) // stride + 1
+    addv = {"film": rs.randn(2, 1, 1, n), "full": rs.randn(2, ho, ho, n), None: None}[add]
+    addv = None if addv is None else addv.astype(np.float32)
+    jmod = jquant.QConv(n, strides=(stride, stride))
+    params = {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(bias)}
+    jadd = None if addv is None else jnp.asarray(addv)
+    scales = _calibrate_jax(jmod, params, jnp.asarray(x), None, jadd)
+    ref = np.asarray(jmod.apply({"params": params, "quant": scales}, jnp.asarray(x), add=jadd))
+
+    pmod = QConv(c, n, stride)
+    with torch.no_grad():
+        pmod.weight.copy_(torch.from_numpy(kernel.transpose(3, 2, 0, 1)))
+        pmod.bias.copy_(torch.from_numpy(bias))
+    quant.set_quant_policy(pmod, QuantPolicy())
+    xp = torch.from_numpy(x).permute(0, 3, 1, 2)
+    padd = None if addv is None else torch.from_numpy(addv).permute(0, 3, 1, 2)
+    own = quant.calibrate(pmod, lambda: pmod(xp, add=padd))
+    theirs = quant_state_from_jax(scales)
+    assert sorted(own) == sorted(theirs) == ["act_scale", "w_q", "w_scale"]
+    np.testing.assert_array_equal(own["w_q"].numpy(), theirs["w_q"])
+    # max|w| / 127 in f32: XLA may round the division once differently
+    np.testing.assert_allclose(own["w_scale"].numpy(), theirs["w_scale"], rtol=1.2e-7)
+    np.testing.assert_allclose(own["act_scale"].numpy(), theirs["act_scale"], rtol=1e-6)
+    quant.load_quant_state(pmod, theirs)
+    with torch.no_grad():
+        out = pmod(xp, add=padd).permute(0, 2, 3, 1).numpy()
+    # identical codes, exact integer sums, the same f32 epilogue
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_attention_site_matches_jax(cross):
+    """fused_proj (one quantize for q/k/v; a q site and a _kv site across
+    attention), the residual in the output projection's epilogue, and the
+    calibrated per-head logit bound."""
+    rs = np.random.RandomState(int(cross))
+    heads, dh, dim, cdim = 2, 8, 16, 12
+    x = rs.randn(2, 40, dim).astype(np.float32)
+    ctx = rs.randn(2, 7, cdim).astype(np.float32) if cross else None
+    kdim = cdim if cross else dim
+    p = {"to_q": {"kernel": rs.randn(dim, heads * dh) / 4},
+         "to_k": {"kernel": rs.randn(kdim, heads * dh) / 4},
+         "to_v": {"kernel": rs.randn(kdim, heads * dh) / 4},
+         "to_out.0": {"kernel": rs.randn(heads * dh, dim) / 4, "bias": rs.randn(dim) / 10}}
+    p = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), p)
+    jmod = JCrossAttention(heads, dh, dim)
+    jctx = None if ctx is None else jnp.asarray(ctx)
+    scales = _calibrate_jax(jmod, p, jnp.asarray(x), jctx, None, jnp.asarray(x))
+    ref = np.asarray(jmod.apply({"params": p, "quant": scales}, jnp.asarray(x), jctx,
+                                residual=jnp.asarray(x)))
+
+    pmod = CrossAttention(dim, heads, dh, cdim if cross else None)
+    sd = {"to_q.weight": p["to_q"]["kernel"].T, "to_k.weight": p["to_k"]["kernel"].T,
+          "to_v.weight": p["to_v"]["kernel"].T, "to_out.0.weight": p["to_out.0"]["kernel"].T,
+          "to_out.0.bias": p["to_out.0"]["bias"]}
+    pmod.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                         strict=True)
+    quant.set_quant_policy(pmod, QuantPolicy())
+    xp = torch.from_numpy(x)
+    cp = None if ctx is None else torch.from_numpy(ctx)
+    own = quant.calibrate(pmod, lambda: pmod(xp, cp, residual=xp))
+    theirs = quant_state_from_jax(scales)
+    assert sorted(own) == sorted(theirs)
+    assert ("act_scale_kv" in own) == cross and "attn_shift" in own
+    for k, v in own.items():
+        if v.dtype == torch.int8:
+            np.testing.assert_array_equal(v.numpy(), theirs[k], err_msg=k)
+        else:  # f32 logits and projections in another summation order
+            np.testing.assert_allclose(v.numpy(), theirs[k], rtol=1e-5, err_msg=k)
+    quant.load_quant_state(pmod, theirs)
+    with torch.no_grad():
+        out = pmod(xp, cp, residual=xp).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def _counting(fn, calls, name):
+    def spy(*args, **kwargs):
+        calls[name] = calls.get(name, 0) + 1
+        return fn(*args, **kwargs)
+    return spy
+
+
+# The ResBlock's two convs in each policy mode, and the functions each side
+# must reach (the port's prologue functions; vdtpu's Pallas kernels, run in
+# interpret mode). vdtpu's default mode runs GN+SiLU through
+# VDTPU_FUSED_GN's FusedGNSiLU, whose arithmetic the port's GroupNorm32
+# follows (flax's nn.GroupNorm sums in another order and flips a code
+# about once per block); VDTPU_QCONV_GN=1 needs its TPU-only slab check
+# lifted.
+RESBLOCK_MODES = {
+    "default": (QuantPolicy(), {"VDTPU_FUSED_GN": "1"}, {"qconv3": 2}, {}),
+    "gn_fused": (QuantPolicy(gn_prologue="fused"), {"VDTPU_QCONV_GN": "1"},
+                 {"gn_silu_q": 2, "qconv3": 2}, {"gn_silu_q": 2}),
+    "gn_stats": (QuantPolicy(gn_prologue="stats"), {"VDTPU_QCONV_GN": "stats"},
+                 {"gn_stats": 2, "qconv3": 2}, {"gn_stats": 2}),
+    "conv_fused": (QuantPolicy(conv="fused"), {"VDTPU_QCONV": "fused", "VDTPU_QCONV_FORCE": "1"},
+                   {"gn_stats": 2, "qconv3_gn": 2}, {"qconv3_flat": 2}),
+}
+
+
+@pytest.mark.parametrize("mode", list(RESBLOCK_MODES))
+def test_resblock_int8_matches_jax(mode, monkeypatch):
+    """ResBlock2D under each int8 policy mode with vdtpu's scales carried
+    across: the same quantizer inputs up to f32 rounding give the same
+    codes, the integer sums are exact, so the outputs agree to f32
+    rounding. 128 channels (vdtpu's statistics kernel takes C % 128 == 0
+    only) on a 32x32 map (conv="fused" takes >= 1024 pixels)."""
+    from test_torch_modules import _derandomize, _load
+    from vdtpu.models.blocks import ResBlock2D as JResBlock2D
+    from vdtpu.ops.pallas import gn_silu as jgn
+    from vdtpu.ops.pallas import qconv as jqc
+    from vdtpu_torch.models.blocks import ResBlock2D
+    policy, env, port_calls, jax_calls = RESBLOCK_MODES[mode]
+    c = 128
+    rs = np.random.RandomState(5)
+    x = rs.randn(2, 32, 32, c).astype(np.float32)
+    emb = rs.randn(2, 64).astype(np.float32)
+    jm = JResBlock2D(c, c)
+    params = _derandomize(jm.init(jax.random.PRNGKey(1), jnp.asarray(x),
+                                  jnp.asarray(emb))["params"], 2)
+    scales = _calibrate_jax(jm, params, jnp.asarray(x), jnp.asarray(emb))
+    pm = _load(ResBlock2D(c, c, 64), params, "diffuser.image.data_blocks.1.0.")
+    xp, ep = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(), torch.from_numpy(emb)
+    with torch.no_grad():
+        exact = pm(xp, ep).permute(0, 2, 3, 1).numpy()
+
+    seen_jax, seen_port = {}, {}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    if mode == "gn_fused":
+        monkeypatch.setattr(jgn, "eligible", lambda *a, **k: True)
+    monkeypatch.setattr(jgn, "gn_silu_q", _counting(
+        functools.partial(jgn.gn_silu_q, interpret=True), seen_jax, "gn_silu_q"))
+    monkeypatch.setattr(jgn, "gn_stats", _counting(jgn.gn_stats, seen_jax, "gn_stats"))
+    monkeypatch.setattr(jqc, "qconv3_flat", _counting(jqc.qconv3_flat, seen_jax, "qconv3_flat"))
+    ref = np.asarray(jm.apply({"params": params, "quant": scales}, jnp.asarray(x),
+                              jnp.asarray(emb)))
+    for name in ("gn_silu_q", "gn_stats", "qconv3", "qconv3_gn"):
+        monkeypatch.setattr(quant, name, _counting(getattr(quant, name), seen_port, name))
+    quant.set_quant_policy(pm, policy)
+    quant.load_quant_state(pm, quant_state_from_jax(scales))
+    with torch.no_grad():
+        out = pm(xp, ep).permute(0, 2, 3, 1).numpy()
+    assert seen_jax == jax_calls and seen_port == port_calls, (seen_jax, seen_port)
+    # identical codes, exact integer sums, f32 epilogues and GroupNorms
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+    # the control: int8's own effect is three orders above that tolerance
+    assert np.abs(exact - ref).max() > 1e-2
+
+
+def test_quant_buffers_stay_out_of_checkpoints_and_keep_their_dtype():
+    m = QConv(8, 16)
+    quant.set_quant_policy(m, QuantPolicy())
+    quant.calibrate(m, lambda: m(torch.randn(1, 8, 16, 16)))
+    assert set(m.state_dict()) == {"weight", "bias"}
+    m.to(torch.bfloat16)
+    assert m.weight.dtype == torch.bfloat16
+    assert m.act_scale.dtype == m.w_scale.dtype == torch.float32 and m.w_q.dtype == torch.int8
+
+
+def test_int8_linear_refuses_off_cpu_and_cuda():
+    xq = torch.zeros(32, 16, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError):
+        int8_linear(xq, torch.zeros(8, 16, dtype=torch.int8, device="meta"),
+                    torch.ones(()), torch.ones(8))
+
+
+# ---- the tiny system ---------------------------------------------------------
+
+TIMESTEPS = (0, 500, 999)
+
+
+def _probes(rs):
+    ctx = rs.randn(4, 16, 96).astype(np.float32)
+    return [(rs.randn(4, 32, 32, 4).astype(np.float32), np.full((4,), t, np.int32), ctx)
+            for t in TIMESTEPS]
+
+
+def _jax_calibrate(jsys, probes):
+    jquant.set_policy("int8")
+    try:
+        scales = jquant.calibrate(jsys.model, jsys.params["diffuser"], [
+            (jnp.asarray(x), jnp.asarray(t), jnp.asarray(c), "image", "text")
+            for x, t, c in probes])
+    finally:
+        jsys.model.quant_scales = None
+        jquant.set_policy(None)
+    return jax.device_get(scales)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """Both systems, vdtpu's scales (and its scales on probes one ulp
+    away), and the port's own calibration state on the same probes."""
+    jsys, psys, sd = build_tiny_systems()
+    probes = _probes(np.random.RandomState(11))
+    jscales = _jax_calibrate(jsys, probes)
+    jscales_ulp = _jax_calibrate(jsys, [(np.nextafter(x, np.float32(np.inf)), t, c)
+                                        for x, t, c in probes])
+    psys.calibrate([(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(),
+                     torch.from_numpy(t).long(), torch.from_numpy(c), "image", "text")
+                    for x, t, c in probes])
+    own = {k: v.clone() for k, v in quant.quant_state(psys.model.diffuser).items()}
+    return jsys, psys, sd, jscales, jscales_ulp, own
+
+
+def _max_rel(a, b, keys):
+    return max(float(np.abs(np.asarray(a[k]) - b[k]).max() / np.abs(b[k]).max()) for k in keys)
+
+
+def test_calibration_matches_jax(tiny):
+    _, _, _, jscales, jscales_ulp, own = tiny
+    theirs = quant_state_from_jax(jscales)
+    ulp = quant_state_from_jax(jscales_ulp)
+    assert sorted(own) == sorted(theirs)
+    assert sum(k.endswith(".act_scale") for k in own) > 50
+    assert any(k.endswith(".attn_shift") for k in own) and any(".act_scale_kv" in k
+                                                             for k in own)
+    for k, v in own.items():
+        if v.dtype == torch.int8:   # weight tables: identical
+            np.testing.assert_array_equal(v.numpy(), theirs[k], err_msg=k)
+    # weight scales: max|w| / 127 in f32, one rounding apart at most
+    ws = [k for k in own if k.endswith("w_scale")]
+    assert _max_rel({k: own[k].numpy() for k in ws}, theirs, ws) <= 1.2e-7
+    # sites whose input no quantizer has touched (conv_in reads the probe
+    # latents, every cross-attention k/v site the probe contexts): exact
+    # but for f32 rounding of the statistic's division by 127
+    clean = [k for k in own if k.endswith("act_scale_kv")] + ["image.data_blocks.0.0.act_scale"]
+    assert _max_rel({k: own[k].numpy() for k in clean}, theirs, clean) <= 1e-6
+    # the rest: every site downstream of a quantizer inherits the chaos of
+    # the int8 calibration pass. Held to vdtpu's own spread on probes one
+    # ulp away, by the RMS over sites (the max over 97 sites is one sample
+    # of a heavy tail: measured 0.037 port, 0.014-0.018 vdtpu against
+    # itself, with RMS 0.0065 against 0.0042-0.0047), and to a fixed 10%
+    # worst case: int8's resolution, not f32's, sets these scales.
+    acts = [k for k in own if k.endswith(("act_scale", "act_scale_kv", "attn_shift"))]
+    rel = lambda a: np.array([float(np.abs(np.asarray(a[k]) - theirs[k]).max()
+                                    / np.abs(theirs[k]).max()) for k in acts])
+    port, spread = rel({k: own[k].numpy() for k in acts}), rel(ulp)
+    rms = lambda r: float(np.sqrt(np.mean(r ** 2)))
+    assert 0 < rms(spread) < 0.02
+    assert rms(port) <= 3 * rms(spread) and port.max() <= 0.1, (rms(port), rms(spread),
+                                                                  port.max())
+
+
+def _contexts(jsys):
+    u, c = (np.repeat(np.asarray(jsys.ctx_encode(det_tokenizer([t]), "text")), 2, axis=0)
+            for t in ("", PROMPT))
+    return u, c
+
+
+def _jax_t2i(jsys, jscales, xt, u, c):
+    """4 guided DDIM steps and the decode, on a fresh sampler (its jit cache
+    does not key on the VDTPU_* environment)."""
+    jquant.set_policy("int8")
+    try:
+        z = np.asarray(JDDIMSampler(jsys.model).sample(
+            {"params": jsys.params["diffuser"], "quant": jscales}, jax.random.PRNGKey(0), 4,
+            xt.shape, {"type": "image", "xt": xt},
+            {"type": "text", "conditioning": c, "unconditional_conditioning": u,
+             "unconditional_guidance_scale": 7.5}))
+    finally:
+        jquant.set_policy(None)
+    return z, np.asarray(jsys.vae_decode(z, "image"))
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+MODES = {
+    "default": (QuantPolicy(), {}),
+    "gn_stats": (QuantPolicy(gn_prologue="stats"), {"VDTPU_QCONV_GN": "stats"}),
+    "conv_fused": (QuantPolicy(conv="fused"), {"VDTPU_QCONV": "fused",
+                                               "VDTPU_QCONV_FORCE": "1"}),
+}
+
+
+def _port_t2i(psys, xt, u, c):
+    z = psys.sampler.sample(
+        None, 4, xt.shape, {"type": "image", "xt": xt},
+        {"type": "text", "conditioning": torch.from_numpy(c),
+         "unconditional_conditioning": torch.from_numpy(u),
+         "unconditional_guidance_scale": 7.5}, device="cpu")
+    return z.numpy(), psys.vae_decode(z, "image").numpy()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_int8_slice_matches_jax(tiny, mode, monkeypatch):
+    """The int8 t2i slice with vdtpu's scales carried across: 4 DDIM steps
+    at CFG 7.5 from the same x_T and contexts, then the decode.
+
+    With static scales a change of one ulp at the input is absorbed by the
+    first quantize, but the two packages' f32 roundings inside the network
+    (GroupNorm and LayerNorm sums, softmax, the time embedding) reach
+    quantizers at every site, so their quantization noises end up
+    independent: the port's distance to vdtpu is of the size of int8's own
+    effect (vdtpu int8 against the exact f32 path, for which the port's f32
+    path stands in: it agrees with vdtpu's to 1e-4, test_torch_slice). It
+    must stay within twice that, and within 10% relative L2.
+
+    That bound is a smoke test: the port's exact path reads about 1x the
+    effect and would pass it. What makes the test bite is the rest: every
+    site carries the mode's policy, the mode's own functions ran, and the
+    port's int8 result sits away from its exact path. Each mode's
+    arithmetic is held to vdtpu's at f32 rounding one block down
+    (test_resblock_int8_matches_jax)."""
+    jsys, psys, _, jscales, _, _ = tiny
+    policy, env = MODES[mode]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    u, c = _contexts(jsys)
+    xt = np.random.RandomState(1).randn(2, 32, 32, 4).astype(np.float32)
+    z_j, img_j = _jax_t2i(jsys, jscales, xt, u, c)
+    z_f, img_f = _port_t2i(psys, xt, u, c)
+    psys.load_int8(quant_state_from_jax(jscales), policy)
+    seen = {}
+    for name in ("gn_stats", "qconv3", "qconv3_gn", "int8_linear"):
+        monkeypatch.setattr(quant, name, _counting(getattr(quant, name), seen, name))
+    try:
+        sites = quant.quant_sites(psys.model.diffuser)
+        assert sites and all(m.policy is policy for _, m in sites)
+        z_p, img_p = _port_t2i(psys, xt, u, c)
+    finally:
+        psys.set_quant_policy(None)
+    assert seen["qconv3"] and seen["int8_linear"]
+    assert bool(seen.get("gn_stats")) == (mode != "default")
+    assert bool(seen.get("qconv3_gn")) == (mode == "conv_fused")
+    assert z_p.shape == z_j.shape and np.isfinite(z_p).all()
+    effect, port = _rel_l2(z_j, z_f), _rel_l2(z_p, z_j)
+    assert 0.005 < effect and port <= 2 * effect and port <= 0.1, (port, effect)
+    # int8 is on: the port's int8 latent is as far from its exact one as
+    # int8's effect makes it (measured 0.987-0.996 of vdtpu's effect)
+    assert _rel_l2(z_p, z_f) >= 0.5 * effect, (_rel_l2(z_p, z_f), effect)
+    assert _rel_l2(img_p, img_j) <= 2 * _rel_l2(img_j, img_f)
+
+
+def test_enable_int8_api(tiny):
+    """Calibration through the serving API: seeded torch probes, every site
+    gets scales, a second call is a no-op, flows the port lacks raise."""
+    _, _, sd, _, _, own = tiny
+    from vdtpu_torch.serving.api import VDSystem
+    psys = VDSystem("vd_test_tiny", device="cpu")
+    psys.load_state_dict(sd, strict=True)
+    with pytest.raises(NotImplementedError):
+        psys.enable_int8(image_size=64, latent_downsample=2, flows=(("image", "image"),))
+    psys.enable_int8(image_size=64, latent_downsample=2, n=1)
+    state = quant.quant_state(psys.model.diffuser)
+    assert sorted(state) == sorted(own)
+    first = {k: v.clone() for k, v in state.items()}
+    psys.enable_int8(image_size=64, latent_downsample=2, n=1, seed=5)
+    assert all(torch.equal(first[k], v)
+               for k, v in quant.quant_state(psys.model.diffuser).items())

@@ -1,9 +1,10 @@
 """The port's kernel functions against the JAX package's kernels.
 
 On CPU tensors each wrapper runs its kernel's plain version; the JAX side
-runs its Pallas kernel in interpret mode, as tests/test_flash_attention.py
-and tests/test_gn_silu.py do. Inputs are seeded numpy arrays handed to
-both. Launch counters must stay at 0: nothing here reaches a CUDA kernel.
+runs its Pallas kernel in interpret mode, as tests/test_flash_attention.py,
+tests/test_gn_silu.py and tests/test_qconv_fused.py do. Inputs are seeded
+numpy arrays handed to both. Launch counters must stay at 0: nothing here
+reaches a CUDA kernel.
 """
 import types
 
@@ -14,21 +15,32 @@ import torch
 
 from vdtpu.ops import schedules as jsched
 from vdtpu.ops.attention import _xla_attention
+from jax import lax
+
+from vdtpu.ops.pallas import flash as jflash
+from vdtpu.ops.pallas import gn_silu as jgn
+from vdtpu.ops.pallas import qconv as jqconv
 from vdtpu.ops.pallas.flash import flash_attention as jax_flash
 from vdtpu.ops.pallas.gn_silu import gn_silu as jax_gn_silu
 from vdtpu_torch.ops import attention, schedules
 from vdtpu_torch.ops.flash import flash_attention, flash_attention_plain
-from vdtpu_torch.ops.gn_silu import gn_silu, gn_silu_plain, split_count
+from vdtpu_torch.ops.gn_silu import (
+    gn_silu, gn_silu_plain, gn_silu_q, gn_stats, split_count)
+from vdtpu_torch.ops.nomax import flash_attention_nomax
+from vdtpu_torch.ops.qconv import qconv3, qconv3_flat, qconv3_gn
 
 torch.set_num_threads(2)
+
+COUNTERS = (flash_attention, gn_silu, gn_silu_q, gn_stats, flash_attention_nomax, qconv3,
+            qconv3_gn)
 
 
 @pytest.fixture(autouse=True)
 def _counters_stay_zero():
-    flash_attention.launches = 0
-    gn_silu.launches = 0
+    for c in COUNTERS:
+        c.launches = 0
     yield
-    assert flash_attention.launches == 0 and gn_silu.launches == 0
+    assert all(c.launches == 0 for c in COUNTERS)
 
 
 def _qkv(rs, b, n, m, h, d):
@@ -106,6 +118,16 @@ def test_wrappers_raise_off_cpu_and_cuda():
     x = torch.zeros(1, 32, 2, 2, device="meta")
     with pytest.raises(ValueError):
         gn_silu(x, torch.ones(32), torch.zeros(32))
+    with pytest.raises(ValueError):
+        flash_attention_nomax(q, q, q, 1.0)
+    for fn in (gn_stats, lambda t: gn_silu_q(t, torch.ones(32), torch.zeros(32),
+                                               torch.ones(()))):
+        with pytest.raises(ValueError):
+            fn(x)
+    with pytest.raises(ValueError):
+        qconv3(torch.zeros(1, 4, 4, 8, dtype=torch.int8, device="meta"),
+               torch.zeros(8, 3, 3, 8, dtype=torch.int8), torch.ones(8), torch.zeros(8),
+               torch.ones(()))
 
 
 # f32: the JAX test's kernel-vs-GroupNorm tolerance (same E[x^2]-E[x]^2
@@ -170,3 +192,180 @@ def test_timestep_embedding_matches_jax():
         ref = jsched.timestep_embedding(jnp.asarray(t), dim)
         out = schedules.timestep_embedding(torch.from_numpy(t), dim)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4, rtol=0)
+
+
+# ---- no-max attention (K1) against the TPU's three no-max kernels ----------
+
+def _true_shift(q, k):
+    """Per-head max of the scaled logits: the calibrated bound's ideal."""
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    return s.max(axis=(0, 2, 3)).astype(np.float32)
+
+
+# f32: exp2(s log2e - M log2e) against the TPU kernels' own exp / exp2
+# forms and summation orders (the flash tests' tolerance)
+@pytest.mark.parametrize("n,m,d,packed", [
+    (128, 128, 8, False),     # slim kernel, narrow head
+    (256, 256, 40, False),    # d_head of the 64^2 level
+    (160, 200, 80, False),    # ragged q and kv
+    (128, 200, 40, True),     # the head-packed kernel, ragged kv
+])
+def test_nomax_plain_matches_jax_kernels_f32(n, m, d, packed, monkeypatch):
+    monkeypatch.setenv("VDTPU_NOMAX_PACKED", "1" if packed else "0")
+    rs = np.random.RandomState(n + m + d)
+    q, k, v = _qkv(rs, 2, n, m, 2, d)
+    shift = _true_shift(q, k)
+    ref = jflash.flash_attention_nomax(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       jnp.asarray(shift), interpret=True)
+    out = flash_attention_nomax(*(torch.from_numpy(t) for t in (q, k, v)),
+                                torch.from_numpy(shift))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-4)
+
+
+def test_nomax_plain_matches_jax_lane_kernel_f32():
+    """d % 8 != 0: ``_nomax_impl`` (shift in an extra K lane, denominator
+    from a ones column of V), called directly on the folded layout, with a
+    float shift above the true maximum."""
+    rs = np.random.RandomState(12)
+    q, k, v = _qkv(rs, 2, 96, 130, 2, 12)
+    shift = float(_true_shift(q, k).max()) + 1.5
+    fold = lambda t: jnp.asarray(t).transpose(0, 2, 1, 3).reshape(4, t.shape[1], 12)
+    ref = jflash._nomax_impl(fold(q), fold(k), fold(v), 12 ** -0.5,
+                             jnp.full((4,), shift, jnp.float32), 96, 256, True)
+    ref = np.asarray(ref).reshape(2, 2, 96, 12).transpose(0, 2, 1, 3)
+    out = flash_attention_nomax(*(torch.from_numpy(t) for t in (q, k, v)), shift)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=1e-4)
+
+
+def test_nomax_plain_matches_jax_slim_kernel_bf16():
+    """bf16: the slim kernel's q~ rounding and bf16(p) . v, as the port's
+    kernel does; two bf16 ulps of the output."""
+    rs = np.random.RandomState(8)
+    q, k, v = _qkv(rs, 1, 128, 192, 2, 40)
+    shift = _true_shift(*(np.asarray(jnp.asarray(t).astype(jnp.bfloat16).astype(jnp.float32))
+                          for t in (q, k)))
+    ref = jflash.flash_attention_nomax(*(jnp.asarray(t).astype(jnp.bfloat16) for t in (q, k, v)),
+                                       jnp.asarray(shift), interpret=True)
+    out = flash_attention_nomax(*(torch.from_numpy(t).bfloat16() for t in (q, k, v)),
+                                torch.from_numpy(shift))
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               atol=1e-2, rtol=1.6e-2)
+
+
+# ---- GN+SiLU+int8 and GN statistics (K2) against rows 7, 8 and 9 -----------
+
+# GroupNorm sums in another order: a code may differ by one where y / s
+# lies within f32 rounding of a half-integer; at most 1 in 1000, never by 2
+def _codes_agree(ours, theirs, max_frac=1e-3):
+    diff = np.abs(ours.astype(np.int32) - theirs.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= max_frac, (diff.max(), (diff > 0).mean())
+
+
+def _gn_inputs(rs, b, hw, c):
+    x = (rs.randn(b, hw, c) * 2 + 0.3).astype(np.float32)      # flat NHWC
+    return (x, (rs.rand(c) + 0.5).astype(np.float32), (rs.randn(c) * 0.1).astype(np.float32))
+
+
+def _nchw(x, h, w):
+    return torch.from_numpy(x).reshape(x.shape[0], h, w, -1).permute(0, 3, 1, 2).contiguous()
+
+
+@pytest.mark.parametrize("with_silu", [True, False])
+def test_gn_silu_q_plain_matches_jax_whole_slab(with_silu):
+    rs = np.random.RandomState(21)
+    x, g, b = _gn_inputs(rs, 2, 12 * 10, 64)
+    s = np.float32(0.02)
+    ref = jgn.gn_silu_q(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), jnp.asarray(s), 32,
+                        1e-5, with_silu, interpret=True)
+    out = gn_silu_q(_nchw(x, 12, 10), torch.from_numpy(g), torch.from_numpy(b),
+                    torch.tensor(s), 32, 1e-5, with_silu)
+    assert out.dtype == torch.int8 and out.shape == (2, 12, 10, 64)
+    _codes_agree(out.reshape(2, 120, 64).numpy(), np.asarray(ref))
+
+
+def test_gn_silu_q_plain_matches_jax_blocked():
+    rs = np.random.RandomState(22)
+    x, g, b = _gn_inputs(rs, 2, 32 * 32, 64)        # N % 512 == 0
+    s = np.float32(0.03)
+    ref = jgn._gn_silu_q_blocked(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                                 jnp.asarray(s), 32, 1e-5, True, True)
+    out = gn_silu_q(_nchw(x, 32, 32), torch.from_numpy(g), torch.from_numpy(b),
+                    torch.tensor(s), 32, 1e-5, True)
+    _codes_agree(out.reshape(2, 1024, 64).numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("c", [128, 256])
+def test_gn_stats_plain_matches_jax(c):
+    rs = np.random.RandomState(c)
+    x, _, _ = _gn_inputs(rs, 2, 16 * 16, c)
+    ref = jgn.gn_stats(jnp.asarray(x), 32, 1e-5, interpret=True)
+    out = gn_stats(_nchw(x, 16, 16), 32, 1e-5)
+    assert out.shape == (2, 2, c) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+# ---- int8 3x3 conv (K3) against row 10 and the s8 lax conv ----------------
+
+def _qconv_case(rs, b, h, w, c, n):
+    x = rs.randn(b, h * w, c).astype(np.float32)
+    gs = (rs.randn(c) * 0.2 + 1.0).astype(np.float32)
+    gb = (rs.randn(c) * 0.1).astype(np.float32)
+    wq = rs.randint(-127, 128, (3, 3, c, n)).astype(np.int8)
+    s_w = (rs.rand(n) * 0.01 + 0.001).astype(np.float32)
+    bias = (rs.randn(n) * 0.1).astype(np.float32)
+    return x, gs, gb, wq, s_w, bias, rs.randn(b, n).astype(np.float32), \
+        rs.randn(b, h * w, n).astype(np.float32)
+
+
+# identical codes feed exact integer sums, so only the f32 epilogue and the
+# GN statistics' summation order differ (tests/test_qconv_fused.py's 2e-5);
+# a GN code flip moves its outputs further: at most 1 in 1000 outputs
+@pytest.mark.parametrize("h,w,c,n,groups,adds", [
+    (8, 8, 64, 128, 8, "film"),
+    (8, 8, 64, 128, 8, "skip"),
+    (16, 8, 32, 64, 4, "film+skip"),   # non-square, C_in != C_out
+    (8, 8, 64, 64, 32, "film+skip"),
+])
+def test_qconv3_flat_plain_matches_jax_kernel(h, w, c, n, groups, adds):
+    rs = np.random.RandomState(h * w + c + n)
+    x, gs, gb, wq, s_w, bias, av, af = _qconv_case(rs, 2, h, w, c, n)
+    av = av if "film" in adds else None
+    af = af if "skip" in adds else None
+    j = lambda t: None if t is None else jnp.asarray(t)
+    ref = jqconv.qconv3_flat(j(x), j(gs), j(gb), jnp.float32(0.05), j(wq), j(s_w), j(bias), h, w,
+                             groups=groups, add_vec=j(av), add_full=j(af), interpret=True)
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    out = qconv3_flat(t(x), t(gs), t(gb), 0.05, t(wq), t(s_w), t(bias), h, w, groups=groups,
+                      add_vec=t(av), add_full=t(af))
+    assert out.shape == (2, h * w, n)
+    bad = ~np.isclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+    assert bad.mean() <= 1e-3, bad.mean()
+
+
+@pytest.mark.parametrize("c,n,stride", [(4, 32, 1), (4, 32, 2), (32, 48, 2), (64, 16, 1)])
+def test_qconv3_plain_matches_lax_s8_conv(c, n, stride):
+    """The s8-input conv (every QConv site): exact s32 sums, then the f32
+    dequant, bias and adds, against lax's s8 conv (``_ref_conv_dequant``
+    takes stride 1 only, so stride 2 calls lax.conv_general_dilated as
+    ``QConv`` does)."""
+    rs = np.random.RandomState(c * n + stride)
+    b, h, w = 2, 12, 10
+    xq = rs.randint(-127, 128, (b, h, w, c)).astype(np.int8)
+    wq = rs.randint(-127, 128, (3, 3, c, n)).astype(np.int8)
+    s_w = (rs.rand(n) * 0.01).astype(np.float32)
+    bias = rs.randn(n).astype(np.float32)
+    sx = np.float32(0.05)
+    if stride == 1:
+        ref = np.asarray(jqconv._ref_conv_dequant(jnp.asarray(xq), jnp.asarray(wq),
+                                                  jnp.asarray(sx), jnp.asarray(s_w),
+                                                  jnp.asarray(bias)))
+    else:
+        dims = lax.conv_dimension_numbers(xq.shape, wq.shape, ("NHWC", "HWIO", "NHWC"))
+        acc = lax.conv_general_dilated(jnp.asarray(xq), jnp.asarray(wq), (2, 2),
+                                       [(1, 1), (1, 1)], dimension_numbers=dims,
+                                       preferred_element_type=jnp.int32)
+        ref = np.asarray(acc.astype(jnp.float32) * (sx * jnp.asarray(s_w)) + jnp.asarray(bias))
+    out = qconv3(torch.from_numpy(xq), torch.from_numpy(wq.transpose(3, 0, 1, 2).copy()),
+                 torch.from_numpy(s_w), torch.from_numpy(bias), torch.tensor(sx), stride,
+                 out_dtype=torch.float32)
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, rtol=1e-6, atol=1e-6)

@@ -1,7 +1,8 @@
 """The text-to-image slice, port against the JAX package, on the tiny config.
 
-One JAX ``VDSystem("vd_test_tiny")`` from ``init_random(0, image_size=64)``
-(without the Optimus text VAE, which this slice does not port) exports its
+One JAX ``VDSystem("vd_test_tiny")`` with the weights of
+``init_random(0, image_size=64)`` for the parts the port builds (no
+Optimus text VAE, no image context encoder: this slice ports neither) exports its
 checkpoint; every all-zero array in it is replaced by seeded normals
 (std 0.02), as ``tests/_reference.py::derandomize_zeros`` does, because a
 zero-initialized output conv makes the UNet output identically zero. The
@@ -10,6 +11,7 @@ token ids and the same numpy x_T go through both samplers (f32, 64^2 output,
 latent_downsample 2, n = 2, 4 DDIM steps, CFG 7.5) and both VAE decoders.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,9 +28,25 @@ torch.set_num_threads(2)
 PROMPT = "a red cat"
 
 
-@pytest.fixture(scope="module")
-def systems():
-    jsys = JVDSystem("vd_test_tiny", with_text_vae=False).init_random(0, image_size=64)
+def _jax_init(jsys, seed: int = 0, image_size: int = 64):
+    """``init_random(seed, image_size)`` of the parts the port builds (the
+    diffusers, the image VAE, the text encoder): the same keys, each init
+    under ``jax.jit``, which gives the same arrays as the eager init in
+    about half its time. The image context encoder is left out."""
+    kd, kv, _, kc2, _ = jax.random.split(jax.random.PRNGKey(seed), 5)
+    x = jnp.zeros((1, image_size, image_size, 3))
+    ids = jnp.zeros((1, jsys.ctx["text"].max_len), jnp.int32)
+    jsys.params["diffuser"] = jax.jit(jsys.model.init_params)(kd)
+    jsys.params["vae"]["image"] = jax.jit(lambda k: jsys.vae["image"].init(k, x))(kv)["params"]
+    jsys.params["ctx"] = {"text": jax.jit(lambda k: jsys.ctx["text"].init(k, ids))(kc2)["params"]}
+    return jsys
+
+
+def build_tiny_systems():
+    """(JAX system, port system on the CPU, the shared checkpoint): the
+    tiny config's JAX init, its all-zero arrays replaced by seeded
+    normals, loaded into both with strict=True."""
+    jsys = _jax_init(JVDSystem("vd_test_tiny", with_text_vae=False))
     sd = jsys.export_torch_checkpoint()
     rs = np.random.RandomState(0)
     sd = {k: (rs.normal(0, 0.02, np.shape(sd[k])).astype(np.float32)
@@ -38,6 +56,11 @@ def systems():
     result = psys.load_state_dict(sd, strict=True)
     assert not result.missing_keys and not result.unexpected_keys
     return jsys, psys, sd
+
+
+@pytest.fixture(scope="module")
+def systems():
+    return build_tiny_systems()
 
 
 @pytest.fixture(autouse=True)

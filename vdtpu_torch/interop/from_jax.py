@@ -8,6 +8,8 @@ a flax path joined with "." plus the leaf renamed (kernel/scale/embedding
 that the reference stores as 1x1 convs get [O, I, 1, 1].
 
 Input leaves are numpy arrays, e.g. ``jax.device_get(system.params[...])``.
+``quant_state_from_jax`` converts the int8 serving policy's calibrated
+scales and weight tables the same way.
 """
 from __future__ import annotations
 
@@ -69,3 +71,53 @@ def system_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, np.ndarra
     for name, p in params.get("ctx", {}).items():
         sd.update(state_dict_from_jax(p, f"ctx.{name}.model."))
     return sd
+
+
+def _leaf_nodes(tree: Mapping[str, Any], path=()):
+    """(path, {leaf name: value}) for every node of a nested dict with leaves."""
+    leaves = {k: v for k, v in tree.items() if not isinstance(v, Mapping)}
+    if leaves:
+        yield path, leaves
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaf_nodes(v, path + (k,))
+
+
+def quant_state_from_jax(scales: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """The JAX ``quant`` collection (``system.params["diffuser"]["quant"]``
+    after ``enable_int8``, numpy leaves) -> the port's quant buffers,
+    ``quant_state`` keys relative to the ``MultiDiffuser``.
+
+    Scales become 0-d (``act_scale``, ``act_scale_kv``) or [H]
+    (``attn_shift``); conv tables [3, 3, C, N] become [N, 3, 3, C] and
+    dense tables [K, N] become [N, K], with [N] scales. An attention owner
+    (a node with ``attn_shift``) holds its projections' tables side by
+    side (q|k|v, or q and k|v with a ``_kv`` site); they are split onto
+    ``to_q``, ``to_k`` and ``to_v``."""
+    out: dict[str, np.ndarray] = {}
+    f32 = lambda v: np.asarray(v, np.float32)
+    for path, leaves in _leaf_nodes(scales):
+        at = lambda *names: ".".join(path + names)
+        for key in ("act_scale", "act_scale_kv"):
+            if key in leaves:
+                out[at(key)] = f32(leaves[key]).reshape(())
+        if "attn_shift" in leaves:
+            out[at("attn_shift")] = f32(leaves["attn_shift"]).reshape(-1)
+            groups = ([("w_q", "w_scale", ("to_q",)), ("w_q_kv", "w_scale_kv", ("to_k", "to_v"))]
+                      if "act_scale_kv" in leaves else
+                      [("w_q", "w_scale", ("to_q", "to_k", "to_v"))])
+            for wkey, skey, names in groups:
+                if wkey not in leaves:
+                    continue
+                wq = np.asarray(leaves[wkey], np.int8)
+                ws = f32(leaves[skey]).reshape(-1)
+                f = wq.shape[1] // len(names)
+                for i, name in enumerate(names):
+                    out[at(name, "w_q")] = np.ascontiguousarray(wq[:, i * f:(i + 1) * f].T)
+                    out[at(name, "w_scale")] = ws[i * f:(i + 1) * f].copy()
+        elif "w_q" in leaves:
+            wq = np.asarray(leaves["w_q"], np.int8)
+            wq = wq.transpose(3, 0, 1, 2) if wq.ndim == 4 else wq.T
+            out[at("w_q")] = np.ascontiguousarray(wq)
+            out[at("w_scale")] = f32(leaves["w_scale"]).reshape(-1)
+    return out

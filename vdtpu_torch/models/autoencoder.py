@@ -22,9 +22,9 @@ class VAEResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.norm1 = GroupNorm32(in_channels, eps=1e-6)
-        self.conv1 = conv3(in_channels, out_channels)
+        self.conv1 = conv3(in_channels, out_channels, quant=False)
         self.norm2 = GroupNorm32(out_channels, eps=1e-6)
-        self.conv2 = conv3(out_channels, out_channels)
+        self.conv2 = conv3(out_channels, out_channels, quant=False)
         if in_channels != out_channels:
             self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
@@ -90,7 +90,7 @@ class VAEDecoder(nn.Module):
         num_res = len(ch_mult)
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (num_res - 1)
-        self.conv_in = conv3(z_channels, block_in)
+        self.conv_in = conv3(z_channels, block_in, quant=False)
         self.mid = _Mid(block_in)
         levels = [None] * num_res
         for i_level in reversed(range(num_res)):
@@ -101,13 +101,13 @@ class VAEDecoder(nn.Module):
                 block_in = block_out
                 if curr_res in attn_resolutions:
                     attns.append(VAEAttnBlock(block_in))
-            up = Upsample2D(block_in) if i_level != 0 else None
+            up = Upsample2D(block_in, quant=False) if i_level != 0 else None
             if i_level != 0:
                 curr_res *= 2
             levels[i_level] = _UpLevel(blocks, attns, up)
         self.up = nn.ModuleList(levels)
         self.norm_out = GroupNorm32(block_in, eps=1e-6)
-        self.conv_out = conv3(block_in, out_ch)
+        self.conv_out = conv3(block_in, out_ch, quant=False)
 
     def forward(self, z):
         h = self.mid(self.conv_in(z))

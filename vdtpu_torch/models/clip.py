@@ -38,10 +38,10 @@ class _SelfAttention(nn.Module):
     def __init__(self, cfg: CLIPTowerConfig):
         super().__init__()
         self.heads = cfg.heads
-        self.q_proj = dense(cfg.hidden, cfg.hidden)
-        self.k_proj = dense(cfg.hidden, cfg.hidden)
-        self.v_proj = dense(cfg.hidden, cfg.hidden)
-        self.out_proj = dense(cfg.hidden, cfg.hidden)
+        self.q_proj = dense(cfg.hidden, cfg.hidden, quant=False)
+        self.k_proj = dense(cfg.hidden, cfg.hidden, quant=False)
+        self.v_proj = dense(cfg.hidden, cfg.hidden, quant=False)
+        self.out_proj = dense(cfg.hidden, cfg.hidden, quant=False)
 
     def forward(self, h, mask):
         b, n, c = h.shape
@@ -56,8 +56,8 @@ class _SelfAttention(nn.Module):
 class _MLP(nn.Module):
     def __init__(self, cfg: CLIPTowerConfig):
         super().__init__()
-        self.fc1 = dense(cfg.hidden, cfg.intermediate)
-        self.fc2 = dense(cfg.intermediate, cfg.hidden)
+        self.fc1 = dense(cfg.hidden, cfg.intermediate, quant=False)
+        self.fc2 = dense(cfg.intermediate, cfg.hidden, quant=False)
 
     def forward(self, x):
         return self.fc2(quick_gelu(self.fc1(x)))
@@ -119,7 +119,7 @@ class CLIPTextContextEncoder(nn.Module):
         tower = tower if isinstance(tower, CLIPTowerConfig) else CLIPTowerConfig(**tower)
         self.max_len = max_len
         self.text_model = CLIPTextTower(tower, vocab_size, max_len)
-        self.text_projection = dense(tower.hidden, projection_dim, bias=False)
+        self.text_projection = dense(tower.hidden, projection_dim, bias=False, quant=False)
 
     def forward(self, input_ids):
         hidden = self.text_model(input_ids)

@@ -5,6 +5,13 @@ checkpoint exported by the JAX package (``VDSystem.export_torch_checkpoint``)
 loads with ``strict=True``. Every GroupNorm runs through the GN(+SiLU)
 kernel of ``ops/gn_silu.py``, fused with the SiLU that follows it where
 there is one. Norm statistics are f32 whatever the compute dtype.
+
+``conv3`` and ``dense`` build the int8-capable ``QConv`` / ``QDense`` of
+``ops/quant.py`` (plain layers until a policy is attached) unless
+``quant=False``, which the JAX package sets on the time-embed MLP, the
+ResBlock FiLM projections, the context encoders and the VAE. Under int8 a
+``GroupNorm32`` also serves as the parameter holder of a fused GN prologue
+(the JAX ``GNParams``): the conv reads its weight and bias.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vdtpu_torch.ops.gn_silu import gn_silu
+from vdtpu_torch.ops.quant import QConv, QDense
 
 
 class GroupNorm32(nn.Module):
@@ -37,18 +45,17 @@ class LayerNorm(nn.LayerNorm):
                             self.bias.float(), self.eps).to(x.dtype)
 
 
-class Conv1x1Linear(nn.Module):
+class Conv1x1Linear(QDense):
     """A 1x1 convolution stored as the reference stores it ([O, I, 1, 1]
     weight) applied as a linear map over the last axis of its input."""
 
     def __init__(self, in_features: int, out_features: int, zero_init: bool = False):
-        super().__init__()
+        super().__init__(in_features, out_features)
         self.weight = nn.Parameter(torch.empty(out_features, in_features, 1, 1))
-        self.bias = nn.Parameter(torch.zeros(out_features))
         self.weight.zero_init = zero_init
 
-    def forward(self, x):
-        return F.linear(x, self.weight.flatten(1), self.bias)
+    def weight2d(self):
+        return self.weight.flatten(1)
 
 
 def zero_init(module: nn.Module) -> nn.Module:
@@ -57,30 +64,42 @@ def zero_init(module: nn.Module) -> nn.Module:
     return module
 
 
-def conv3(in_ch: int, out_ch: int, stride: int = 1, zero: bool = False) -> nn.Conv2d:
-    conv = nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1)
+def conv3(in_ch: int, out_ch: int, stride: int = 1, zero: bool = False,
+          quant: bool = True) -> nn.Conv2d:
+    conv = (QConv(in_ch, out_ch, stride) if quant
+            else nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1))
     return zero_init(conv) if zero else conv
 
 
 def dense(in_features: int, out_features: int, bias: bool = True,
-          zero: bool = False) -> nn.Linear:
-    lin = nn.Linear(in_features, out_features, bias=bias)
+          zero: bool = False, quant: bool = True) -> nn.Linear:
+    lin = (QDense(in_features, out_features, bias=bias) if quant
+           else nn.Linear(in_features, out_features, bias=bias))
     return zero_init(lin) if zero else lin
+
+
+def apply_add(module: nn.Module, x, add):
+    """module(x) + add; under int8 the add rides the layer's f32 epilogue
+    (one rounding to the compute dtype instead of two)."""
+    if getattr(module, "policy", None) is not None:
+        return module(x, add=add)
+    return module(x) + add
 
 
 class TimeEmbedMLP(nn.Sequential):
     """Dense -> SiLU -> Dense, torch layout ``time_embed.{0,2}``."""
 
     def __init__(self, in_dim: int, dim: int):
-        super().__init__(dense(in_dim, dim), nn.SiLU(), dense(dim, dim))
+        super().__init__(dense(in_dim, dim, quant=False), nn.SiLU(),
+                         dense(dim, dim, quant=False))
 
 
 class Upsample2D(nn.Module):
     """Nearest 2x upsample + 3x3 conv."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, quant: bool = True):
         super().__init__()
-        self.conv = conv3(channels, channels)
+        self.conv = conv3(channels, channels, quant=quant)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))

@@ -7,14 +7,26 @@ diffuser's channel-major latent), so its GroupNorm runs on contiguous
 groups; tokens are the [B, N, C] transpose of that. Attention dispatches
 through ``ops/attention.py``: the long self-attentions go to the flash
 kernel, which reads q, k and v as views of the projections, without copies.
+
+Under an int8 policy the q/k/v projections share one activation quantize
+(``fused_proj``; a cross-attention has a q site and a ``_kv`` site on the
+context), residuals ride the output projections' f32 epilogues, and each
+attention owns a calibrated per-head bound on its scaled logits
+(``attn_shift``), which sends its long sites to the no-max kernel. With a
+``ToMeWalk`` (token merging) the self-attention of long maps runs on the
+merged tokens.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vdtpu_torch.models.layers import Conv1x1Linear, GroupNorm32, LayerNorm, dense
+from vdtpu_torch.models.layers import Conv1x1Linear, GroupNorm32, LayerNorm, apply_add, dense
 from vdtpu_torch.ops.attention import scaled_dot_product_attention
+from vdtpu_torch.ops.quant import QuantState, fused_proj
+
+_SHIFT_CHUNK = 256  # queries per block of the calibration pass's logit max
 
 
 class GEGLU(nn.Module):
@@ -37,17 +49,23 @@ class FeedForward(nn.Module):
         inner = dim * mult
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), dense(inner, dim)])
 
-    def forward(self, x):
-        return self.net[2](self.net[0](x))
+    def forward(self, x, residual=None):
+        h = self.net[0](x)
+        return self.net[2](h) if residual is None else apply_add(self.net[2], h, residual)
 
 
-class CrossAttention(nn.Module):
+class CrossAttention(QuantState, nn.Module):
     """Multi-head attention; self-attention when context is None. Scale
-    d_head**-0.5; q/k/v projections have no bias, the output one does."""
+    d_head**-0.5; q/k/v projections have no bias, the output one does.
+    Under int8 it owns the shared activation scales of its projections
+    (``act_scale``, ``act_scale_kv``) and its logit bound ``attn_shift``."""
+
+    QUANT_BUFFERS = ("act_scale", "act_scale_kv", "attn_shift")
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: int | None = None):
         super().__init__()
+        self.init_quant()
         inner = heads * dim_head
         context_dim = query_dim if context_dim is None else context_dim
         self.heads, self.dim_head = heads, dim_head
@@ -56,15 +74,41 @@ class CrossAttention(nn.Module):
         self.to_v = dense(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([dense(inner, query_dim)])
 
-    def forward(self, x, context=None):
-        context = x if context is None else context
+    def forward(self, x, context=None, residual=None):
         b, n, _ = x.shape
-        m = context.shape[1]
-        q = self.to_q(x).view(b, n, self.heads, self.dim_head)
-        k = self.to_k(context).view(b, m, self.heads, self.dim_head)
-        v = self.to_v(context).view(b, m, self.heads, self.dim_head)
-        out = scaled_dot_product_attention(q, k, v)
-        return self.to_out[0](out.reshape(b, n, self.heads * self.dim_head))
+        if context is None:
+            q, k, v = fused_proj(self, x, [self.to_q, self.to_k, self.to_v])
+        else:
+            (q,) = fused_proj(self, x, [self.to_q])
+            k, v = fused_proj(self, context, [self.to_k, self.to_v], "_kv")
+        m = k.shape[1]
+        q = q.view(b, n, self.heads, self.dim_head)
+        k = k.view(b, m, self.heads, self.dim_head)
+        v = v.view(b, m, self.heads, self.dim_head)
+        out = scaled_dot_product_attention(q, k, v, softmax_shift=self._logit_shift(q, k))
+        out = out.reshape(b, n, self.heads * self.dim_head)
+        return self.to_out[0](out) if residual is None else apply_add(self.to_out[0], out,
+                                                                      residual)
+
+    def _logit_shift(self, q, k):
+        """The calibrated per-head bound on the scaled logits: recorded while
+        calibrating (the max over blocks of 256 queries, in f32), read at
+        serving; None outside the int8 policy."""
+        if self.calib is not None:
+            scale = q.shape[-1] ** -0.5
+            kf = k.float()
+            mx = torch.full((self.heads,), -1e30, device=q.device)
+            for q0 in range(0, q.shape[1], _SHIFT_CHUNK):
+                s = torch.einsum("bqhd,bkhd->bhqk", q[:, q0:q0 + _SHIFT_CHUNK].float(), kf)
+                mx = torch.maximum(mx, (s * scale).amax(dim=(0, 2, 3)))
+            self.record("logit_max", mx)
+            return None
+        return self.attn_shift if self.policy is not None else None
+
+    def attach_tables(self) -> None:
+        if self.act_scale is not None:
+            for d in (self.to_q, self.to_k, self.to_v):
+                d.w_q, d.w_scale = (t.contiguous() for t in d.tables())
 
 
 class BasicTransformerBlock(nn.Module):
@@ -79,10 +123,14 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.norm3 = LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x, context):
-        x = self.attn1(self.norm1(x)) + x
-        x = self.attn2(self.norm2(x), context=context) + x
-        return self.ff(self.norm3(x)) + x
+    def forward(self, x, context, tome=None):
+        if tome is not None and tome.applies(x):
+            merge, unmerge, _ = tome.merge(x)
+            x = x + unmerge(self.attn1(merge(self.norm1(x))))
+        else:
+            x = self.attn1(self.norm1(x), residual=x)
+        x = self.attn2(self.norm2(x), context=context, residual=x)
+        return self.ff(self.norm3(x), residual=x)
 
 
 class SpatialTransformer(nn.Module):
@@ -99,9 +147,11 @@ class SpatialTransformer(nn.Module):
             [BasicTransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth)])
         self.proj_out = Conv1x1Linear(inner, channels, zero_init=True)
 
-    def forward(self, x, context):
+    def forward(self, x, context, tome=None):
         """x: [B, C, N] channel-first; returns the same layout."""
         h = self.proj_in(self.norm(x).transpose(1, 2))
         for block in self.transformer_blocks:
-            h = block(h, context)
+            h = block(h, context, tome)
+        if self.proj_out.policy is not None:
+            return self.proj_out(h, add=x.transpose(1, 2)).transpose(1, 2)
         return x + self.proj_out(h).transpose(1, 2)

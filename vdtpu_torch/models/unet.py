@@ -9,6 +9,13 @@ Data blocks and context blocks can come from different diffusers
 data blocks and the time embedding and the text diffuser the context blocks,
 and the data stream's owner decides how its state becomes tokens
 (``run_context(..., tokenizer=data_host)``). There is no remat.
+
+Under int8 (``ops/quant.py``) ``conv_in`` (4 -> model channels) and the
+output conv (model channels -> 4) are int8 sites like the ResBlock,
+Downsample and Upsample convs, as in the JAX package; the time-embed MLP
+is not. With token merging, ``walk`` makes one ``ToMeWalk`` per walk and
+hands it to every context block, so the merge built at a walk's first long
+site is reused by the later ones of that size and dropped with the walk.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from vdtpu_torch.models.layers import (
     Downsample2D, GroupNorm32, TimeEmbedMLP, Upsample2D, conv3, dense)
 from vdtpu_torch.models.transformer import SpatialTransformer
 from vdtpu_torch.ops.schedules import timestep_embedding
+from vdtpu_torch.ops.tome import ToMeSpec, ToMeWalk
 
 SAVE, LOAD, D, C = "save", "load", "d", "c"
 
@@ -257,21 +265,23 @@ class UNetBase(nn.Module):
             return mod(h, emb)
         return mod(h)
 
-    def run_context(self, i: int, h, ctx, tokenizer: "UNetBase | None" = None):
+    def run_context(self, i: int, h, ctx, tokenizer: "UNetBase | None" = None,
+                    tome: ToMeWalk | None = None):
         """Context block i on h; ``tokenizer`` is the diffuser that owns the
         data stream (its layout decides the tokens)."""
         x_cf, restore = (tokenizer or self).channel_first(h, i)
-        return restore(self.context_blocks[i][0](x_cf, ctx))
+        return restore(self.context_blocks[i][0](x_cf, ctx, tome))
 
     def _run_tokens(self, tokens, h, hs, emb, context, data_host: "UNetBase",
-                    ctx_host: "UNetBase", di: int = 0, ci: int = 0):
+                    ctx_host: "UNetBase", di: int = 0, ci: int = 0,
+                    tome: ToMeWalk | None = None):
         hs = list(hs)
         for token in tokens:
             if token == D:
                 h = data_host.run_data(di, h, emb)
                 di += 1
             elif token == C:
-                h = ctx_host.run_context(ci, h, context, tokenizer=data_host)
+                h = ctx_host.run_context(ci, h, context, tokenizer=data_host, tome=tome)
                 ci += 1
             elif token == SAVE:
                 hs.append(h)
@@ -279,9 +289,10 @@ class UNetBase(nn.Module):
                 h = torch.cat([h, hs.pop()], dim=1)
         return h, hs
 
-    def walk(self, x, emb, context, data_host: "UNetBase", ctx_host: "UNetBase"):
+    def walk(self, x, emb, context, data_host: "UNetBase", ctx_host: "UNetBase",
+             tome: ToMeSpec | None = None):
         h, _ = self._run_tokens(self.program.layer_order, x, [], emb, context,
-                                data_host, ctx_host)
+                                data_host, ctx_host, tome=tome and ToMeWalk(tome))
         return h
 
 

@@ -5,7 +5,9 @@ diffusers, the flow walk, the schedule and the latent scaling.
 keys are ``<name>.…`` and, under ``VDSystem``, ``diffuser.<name>.…`` as
 in the reference checkpoint. ``apply_flow`` takes its data blocks and time
 embedding from the ``x_type`` diffuser (or ``global_layer_ptr``) and its
-context blocks from the ``c_type`` diffuser.
+context blocks from the ``c_type`` diffuser. ``MultiDiffuser.tome`` is the
+serving system's token-merging spec (``VDSystem.enable_tome``; None: off),
+handed to every walk.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from torch import nn
 
 from vdtpu_torch.config.registry import build
 from vdtpu_torch.ops.schedules import DiffusionSchedule
+from vdtpu_torch.ops.tome import ToMeSpec
 
 
 class MultiDiffuser(nn.ModuleDict):
@@ -24,6 +27,7 @@ class MultiDiffuser(nn.ModuleDict):
     def __init__(self, diffuser_cfgs, global_layer_ptr: str | None = None):
         super().__init__({name: build(cfg) for name, cfg in diffuser_cfgs})
         self.global_layer_ptr = global_layer_ptr
+        self.tome: ToMeSpec | None = None
         orders = [u.program.layer_order for u in self.values()]
         if any(o != orders[0] for o in orders[1:]):
             raise ValueError("diffuser layer programs are not aligned")
@@ -32,7 +36,7 @@ class MultiDiffuser(nn.ModuleDict):
         """Data blocks from x_type, context blocks from c_type (vd.py:330-381)."""
         emb = self[self.global_layer_ptr or x_type].time_embedding(timesteps, x.dtype)
         host = self[x_type]
-        return host.walk(x, emb, context, host, self[c_type])
+        return host.walk(x, emb, context, host, self[c_type], tome=self.tome)
 
 
 @dataclasses.dataclass

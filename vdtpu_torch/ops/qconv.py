@@ -1,0 +1,201 @@
+"""int8 3x3 convolution: a hand-written CUDA kernel and its plain versions.
+
+Counterpart of ``vdtpu/ops/pallas/qconv.py::qconv3_flat`` (its ``_kernel``:
+GN+SiLU+quantize, the nine-tap s8 conv, dequant, bias, FiLM, residual) and
+of the s8 x s8 -> s32 ``lax.conv_general_dilated`` inside
+``vdtpu/ops/quant.py::QConv``, which every int8 conv site needs: PyTorch
+has no int8 convolution on CUDA. The kernel is ``csrc/qconv3.cu``; its
+header has the bound and the design.
+
+- ``qconv3``: s8 channels-last input [B, H, W, C] (the per-site path, after
+  a quantize), NCHW output.
+- ``qconv3_gn``: the compute-dtype NCHW activation plus its GroupNorm
+  statistics ([B, 2, C] from ``ops/gn_silu.py::gn_stats``); GN, SiLU and
+  the divide-quantize run while the kernel stages each tile (the
+  ``conv="fused"`` policy).
+- ``qconv3_flat``: the JAX signature, flat [B, H*W, C] in and out, weights
+  [3, 3, C, N].
+
+Weights are int8 [N, 3, 3, C] (channels last), scales f32 [N]. The
+epilogue is f32: acc * (s_x * s_w[n]) + bias[n] (+ FiLM [B, N]) (+ full
+residual), then the output dtype. Padding is 1 and the stride 1 or 2.
+
+The wrappers take the plain versions for CPU tensors only. For CUDA
+tensors they launch the kernel or raise. The plain versions accumulate
+the integer products in f64: every partial sum of s8 x s8 products over
+at most 9 x 2560 taps stays far below 2^53, so it is exact (and CUDA has
+no integer convolution).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from vdtpu_torch.ops.gn_silu import gn_apply, gn_stats
+
+
+def _epilogue(acc, s_x, w_scale, bias, add_vec, add_full, out_dtype):
+    """acc [B, N, Ho, Wo] exact integers -> the dequantized output."""
+    n = acc.shape[1]
+    y = acc.float() * (s_x * w_scale.float()).reshape(1, n, 1, 1)
+    if bias is not None:
+        y = y + bias.float().reshape(1, n, 1, 1)
+    if add_vec is not None:
+        y = y + add_vec.float().reshape(add_vec.shape[0], n, 1, 1)
+    if add_full is not None:
+        y = y + add_full.float()
+    return y.to(out_dtype)
+
+
+def qconv3_plain(xq, wq, w_scale, bias, s_x, stride: int = 1, add_vec=None, add_full=None,
+                 out_dtype=torch.float32):
+    """The kernel's function (s8 input) in plain PyTorch: xq int8
+    [B, H, W, C]; add_full NCHW; returns NCHW [B, N, Ho, Wo]."""
+    acc = F.conv2d(xq.permute(0, 3, 1, 2).double(), wq.permute(0, 3, 1, 2).double(),
+                   stride=stride, padding=1)
+    return _epilogue(acc, s_x, w_scale, bias, add_vec, add_full, out_dtype)
+
+
+def gn_quantize_plain(x, stats, gamma, beta, s_x, with_silu: bool = True):
+    """The kernel's prologue: GroupNorm from [B, 2, C] statistics, affine,
+    SiLU and the divide-quantize, in f32; NCHW in, int8 [B, H, W, C] out."""
+    y = gn_apply(x, stats, gamma, beta, with_silu)
+    q = torch.clamp(torch.round(y / s_x), -127, 127).to(torch.int8)
+    return q.permute(0, 2, 3, 1)
+
+
+def qconv3_gn_plain(x, stats, gamma, beta, s_x, wq, w_scale, bias, with_silu: bool = True,
+                    stride: int = 1, add_vec=None, add_full=None):
+    """The kernel's function with the GN prologue, in plain PyTorch."""
+    xq = gn_quantize_plain(x, stats, gamma, beta, s_x, with_silu)
+    return qconv3_plain(xq, wq, w_scale, bias, s_x, stride, add_vec, add_full, x.dtype)
+
+
+def _launch(x4, in_kind, wq, w_scale, bias, s_x, stride, add_vec, res4, out4,
+            stats=None, gamma=None, beta=None, with_silu=True):
+    """One kernel launch on logical NHWC views (any strides) of the input,
+    the residual and the output."""
+    from vdtpu_torch.ops.kernels.build import load
+    b, h, w, c = x4.shape
+    n = wq.shape[0]
+    dev = x4.device
+    if wq.dtype != torch.int8 or wq.shape != (n, 3, 3, c) or not wq.is_contiguous():
+        raise ValueError(f"qconv3: weights must be contiguous int8 [N, 3, 3, {c}], got "
+                         f"{wq.dtype} {tuple(wq.shape)}")
+    if stride not in (1, 2):
+        raise ValueError(f"qconv3: stride {stride} (1 or 2)")
+    if not (torch.is_tensor(s_x) and s_x.numel() == 1 and s_x.dtype == torch.float32):
+        raise ValueError("qconv3: s_x must be a one-element f32 tensor")
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    out_kind = {torch.bfloat16: 0, torch.float32: 1}.get(out4.dtype)
+    if out_kind is None:
+        raise TypeError(f"qconv3 kernel writes bf16 or f32, not {out4.dtype}")
+    f32 = lambda t: t.float().contiguous()
+    w_scale, bias = f32(w_scale), (f32(bias) if bias is not None else
+                                   torch.zeros(n, device=dev))
+    if w_scale.shape != (n,) or bias.shape != (n,):
+        raise ValueError("qconv3: w_scale and bias must be [N]")
+    tensors = [x4, wq, w_scale, bias, s_x, out4]
+    if add_vec is not None:
+        if add_vec.shape != (b, n) or add_vec.dtype != out4.dtype or add_vec.stride(1) != 1:
+            raise ValueError(f"qconv3: FiLM vector must be [{b}, {n}] {out4.dtype}, "
+                             f"unit-stride channels")
+        tensors.append(add_vec)
+    if res4 is not None:
+        if res4.shape != (b, ho, wo, n) or res4.dtype != out4.dtype:
+            raise ValueError(f"qconv3: residual must be [{b}, {n}, {ho}, {wo}] {out4.dtype}")
+        tensors.append(res4)
+    if in_kind == 1:
+        if stats.shape != (b, 2, c) or stats.dtype != torch.float32 or not stats.is_contiguous():
+            raise ValueError(f"qconv3_gn: stats must be contiguous f32 [{b}, 2, {c}]")
+        gamma, beta = f32(gamma), f32(beta)
+        tensors += [stats, gamma, beta]
+    if any(t.device != dev for t in tensors):
+        raise ValueError("qconv3: every tensor must be on the input's device")
+    vec_a = int(in_kind == 0 and c % 64 == 0 and x4.stride(3) == 1
+                and x4.data_ptr() % 16 == 0 and all(s % 16 == 0 for s in x4.stride()[:3]))
+    vec_b = int(c % 64 == 0 and wq.data_ptr() % 16 == 0)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    rs = res4.stride() if res4 is not None else (0, 0, 0, 0)
+    lib = load("qconv3")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vd_qconv3(
+            x4.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), s_x.data_ptr(),
+            ptr(stats), ptr(gamma), ptr(beta), ptr(add_vec), ptr(res4), out4.data_ptr(),
+            b, h, w, c, n, stride, int(bool(with_silu)), vec_a, vec_b, *x4.stride(), *rs,
+            *out4.stride(), add_vec.stride(0) if add_vec is not None else 0, in_kind,
+            out_kind, stream)
+    if rc != 0:
+        raise RuntimeError(f"qconv3 launch failed: cudaError {rc}")
+
+
+def _nhwc(t):
+    return None if t is None else t.permute(0, 2, 3, 1)
+
+
+def qconv3(xq, wq, w_scale, bias, s_x, stride: int = 1, add_vec=None, add_full=None,
+           out_dtype=torch.bfloat16):
+    """int8 3x3 conv of s8 codes xq [B, H, W, C] -> [B, N, Ho, Wo] (NCHW) in
+    out_dtype; add_vec [B, N], add_full [B, N, Ho, Wo]."""
+    if xq.device.type == "cpu":
+        return qconv3_plain(xq, wq, w_scale, bias, s_x, stride, add_vec, add_full, out_dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"qconv3: no kernel for device {xq.device}")
+    if xq.dtype != torch.int8 or xq.dim() != 4:
+        raise TypeError(f"qconv3 takes int8 [B, H, W, C] codes, got {xq.dtype} "
+                        f"{tuple(xq.shape)}")
+    b, h, w, _ = xq.shape
+    n = wq.shape[0]
+    out = torch.empty((b, n, (h - 1) // stride + 1, (w - 1) // stride + 1), dtype=out_dtype,
+                      device=xq.device)
+    _launch(xq, 0, wq, w_scale, bias, s_x, stride, add_vec, _nhwc(add_full), _nhwc(out))
+    qconv3.launches += 1
+    return out
+
+
+qconv3.launches = 0
+
+
+def qconv3_gn(x, stats, gamma, beta, s_x, wq, w_scale, bias, with_silu: bool = True,
+              stride: int = 1, add_vec=None, add_full=None):
+    """GroupNorm(+SiLU)+quantize prologue and int8 3x3 conv: x [B, C, H, W]
+    in the compute dtype, stats [B, 2, C] -> [B, N, Ho, Wo] in x's dtype."""
+    if x.device.type == "cpu":
+        return qconv3_gn_plain(x, stats, gamma, beta, s_x, wq, w_scale, bias, with_silu,
+                               stride, add_vec, add_full)
+    if x.device.type != "cuda":
+        raise ValueError(f"qconv3_gn: no kernel for device {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 4:
+        raise TypeError(f"qconv3_gn takes bf16 or f32 [B, C, H, W], got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    b, _, h, w = x.shape
+    n = wq.shape[0]
+    out = torch.empty((b, n, (h - 1) // stride + 1, (w - 1) // stride + 1), dtype=x.dtype,
+                      device=x.device)
+    _launch(_nhwc(x), 1, wq, w_scale, bias, s_x, stride, add_vec, _nhwc(add_full), _nhwc(out),
+            stats, gamma, beta, with_silu)
+    qconv3_gn.launches += 1
+    return out
+
+
+qconv3_gn.launches = 0
+
+
+def qconv3_flat(x, gn_scale, gn_bias, s_act, wq, s_w, bias, h: int, w: int, groups: int = 32,
+                eps: float = 1e-5, with_silu: bool = True, add_vec=None, add_full=None):
+    """``vdtpu/ops/pallas/qconv.py::qconv3_flat``'s signature: flat
+    [B, H*W, C] in, [B, H*W, N] out, weights int8 [3, 3, C, N], add_full
+    [B, H*W, N]. The statistics come from ``gn_stats``."""
+    b, m, c = x.shape
+    if m != h * w:
+        raise ValueError(f"qconv3_flat: {m} rows are not {h} x {w}")
+    n = wq.shape[-1]
+    x_nchw = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
+    stats = gn_stats(x_nchw.contiguous(), groups, eps)
+    w_oc = wq.permute(3, 0, 1, 2).contiguous()
+    res = None if add_full is None else add_full.reshape(b, h, w, n).permute(0, 3, 1, 2)
+    s_act = torch.as_tensor(s_act, dtype=torch.float32, device=x.device).reshape(())
+    y = qconv3_gn(x_nchw, stats, gn_scale, gn_bias, s_act, w_oc, s_w.reshape(n), bias,
+                  with_silu, 1, add_vec, res)
+    return y.permute(0, 2, 3, 1).reshape(b, m, n)

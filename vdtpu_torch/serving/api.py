@@ -7,6 +7,11 @@ text-to-image.
 ``vae.image`` decoder; its ``net`` module carries the reference's state-dict
 keys. It runs on CUDA unless the caller passes ``device="cpu"``, and raises
 when CUDA is absent and the CPU was not asked for.
+
+Serving policy: ``enable_int8`` attaches a ``QuantPolicy`` to the
+diffusers' call sites and calibrates them (``ops/quant.py``);
+``enable_tome`` switches token merging on (``ops/tome.py``). Both are
+state of the system, not of the process.
 """
 from __future__ import annotations
 
@@ -21,6 +26,9 @@ from vdtpu_torch.config.registry import build
 from vdtpu_torch.interop.from_jax import system_state_dict_from_jax
 from vdtpu_torch.models.layers import init_random
 from vdtpu_torch.models.vd import VDModel
+from vdtpu_torch.ops.quant import (
+    QuantPolicy, calibrate, load_quant_state, quant_state, set_quant_policy)
+from vdtpu_torch.ops.tome import ToMeSpec
 from vdtpu_torch.sampling.ddim import DDIMSampler
 
 
@@ -68,6 +76,7 @@ class VDSystem:
         self.net.eval().requires_grad_(False)
         self.net.to(dtype)
         self.sampler = DDIMSampler(self.model)
+        self.quant_policy: QuantPolicy | None = None
 
     @property
     def ctx(self) -> Mapping[str, nn.Module]:
@@ -100,6 +109,74 @@ class VDSystem:
     def load_jax_params(self, params: Mapping[str, Any], strict: bool = True):
         """Load a JAX ``VDSystem.params`` tree (numpy leaves)."""
         return self.load_state_dict(system_state_dict_from_jax(params), strict=strict)
+
+    # ---- serving policy ----
+
+    def set_quant_policy(self, policy: QuantPolicy | None) -> "VDSystem":
+        """Attach ``policy`` to every diffuser call site (None: the exact
+        compute-dtype path). Calibrated state stays, so a calibrated system
+        can switch between policy modes."""
+        set_quant_policy(self.model.diffuser, policy)
+        self.quant_policy = policy
+        return self
+
+    @torch.no_grad()
+    def enable_int8(self, image_size: int = 512, latent_downsample: int = 8, n: int = 2,
+                    timesteps=(0, 250, 500, 750, 999), seed: int = 0,
+                    flows=(("image", "text"),), policy: QuantPolicy = QuantPolicy()):
+        """Calibrated int8 serving (``vdtpu/serving/api.py::enable_int8``):
+        attach ``policy`` and record every site's activation scale and every
+        attention's logit bound over (noise, t, context) probes spanning the
+        timestep range, 2n samples each; the statistics merge by max across
+        probes and flows. Probes come from a ``torch.Generator`` seeded with
+        ``seed``, the context from this system's text encoder on random ids.
+        A second call is a no-op."""
+        if self.quant_policy is not None and quant_state(self.model.diffuser):
+            return self
+        for x_type, c_type in flows:
+            if (x_type, c_type) != ("image", "text"):
+                raise NotImplementedError(f"flow ({x_type}, {c_type}): its context encoder or "
+                                          f"data diffuser is a later slice of the port")
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        enc = self.ctx["text"]
+        vocab = enc.text_model.embeddings.token_embedding.num_embeddings
+        ids = torch.randint(0, vocab, (2 * n, enc.max_len), generator=gen, device=self.device)
+        ctx = self.ctx_encode(ids.cpu().numpy(), "text").to(self.dtype)
+        in_ch = self.model.diffuser["image"].program.data[0].in_ch
+        s = image_size // latent_downsample
+        probes = [(torch.randn((2 * n, in_ch, s, s), generator=gen, device=self.device,
+                               dtype=self.dtype),
+                   torch.full((2 * n,), t, device=self.device), ctx, "image", "text")
+                  for t in timesteps]
+        return self.calibrate(probes, policy)
+
+    def calibrate(self, probes, policy: QuantPolicy = QuantPolicy()) -> "VDSystem":
+        """Calibrate on explicit probes: (x NCHW, t, context, x_type, c_type)."""
+        self.set_quant_policy(policy)
+
+        def run():
+            for x, t, ctx, x_type, c_type in probes:
+                self.model.apply_model(x, t, ctx, x_type, c_type)
+
+        calibrate(self.model.diffuser, run)
+        return self
+
+    def load_int8(self, state: Mapping[str, Any],
+                  policy: QuantPolicy = QuantPolicy()) -> "VDSystem":
+        """int8 serving with given scales and tables (``quant_state`` keys,
+        e.g. ``interop.from_jax.quant_state_from_jax``) instead of a
+        calibration pass."""
+        self.set_quant_policy(policy)
+        load_quant_state(self.model.diffuser, state)
+        return self
+
+    def enable_tome(self, ratio: float = 0.5, min_tokens: int = 4096) -> "VDSystem":
+        """Token merging at every self-attention site of at least
+        ``min_tokens`` tokens (``vdtpu/serving/api.py::enable_tome``);
+        ratio 0 switches it off. Composes with int8."""
+        self.model.diffuser.tome = (ToMeSpec(float(ratio), int(min_tokens))
+                                    if ratio else None)
+        return self
 
     # ---- stages ----
 
