@@ -33,6 +33,14 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             at every distinct site of its call
   eps_int8  one full-width int8 eps call on the card (bf16) against the
             port's int8 plain path on the CPU in f32, same scales
+  train     t2i training at full width: frees the serving system, builds
+            vd_four_flow_v1-0 with f32 parameters (bf16 compute, no remat),
+            encodes 8 stand-in prompts, holds one micro-batch-2 gradient of
+            the trainable tree through the kernels against the same
+            gradient through the plain versions, then runs Trainer steps
+            (global batch 8 at 512^2, grad_accum 2, AdamW with the t2i
+            experiment's groups, EMA 0.9999), each with its launch counts;
+            one more step under torch.profiler
   profile   (not run by default) the warm request split into its stages,
             and one CFG UNet step under torch.profiler: device busy and
             idle share, kernel time by kind and the top kernels
@@ -57,7 +65,7 @@ import time
 import zlib
 
 PHASES = ("device", "build", "kernels", "main", "eps", "main_int8", "modes", "eps_int8",
-          "profile")
+          "train", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
@@ -102,6 +110,20 @@ INT8_MAX_REL_L2, INT8_MIN_COS = 0.10, 0.995
 # y / s lies within f32 rounding of a half-integer (other summation order
 # of the statistics, y / (1 + exp(-y)) against y * sigmoid(y))
 GNQ_MAX_OFF_BY_ONE = 1e-3
+# flash backward against its plain version: the gradients are small (about
+# 1e-2 at the path's shapes), so the two bf16 ulps are taken at the largest
+# magnitude of each output, |k - p| <= ATOL * max|p| + RTOL * |p|, and the
+# relative L2 error must stay under 1e-2; lse (f32) within 1e-3
+BWD_MAX_REL_L2, LSE_ATOL = 1e-2, 1e-3
+# training: one micro-batch-2 gradient of the trainable tree through the
+# kernels against the plain versions on the card, fixed before the first run
+TRAIN_MIN_COS, TRAIN_MAX_REL_L2 = 0.995, 0.05
+TRAIN_STEPS = 4          # Trainer steps; the first is cold
+TRAIN_BATCH, TRAIN_ACCUM = 8, 2
+TRAIN_FREEZE = ("diffuser_text_data",)
+# vdtpu/config/experiments/vd_laion_t2i.yaml
+TRAIN_PG_LRSCALE = {"diffuser_image_data": 1.0, "diffuser_image_context": 1.0,
+                    "diffuser_text_data": 0.5, "diffuser_text_context": 0.5}
 TOME_RATIO = 0.75
 SEED = 0      # weights, noise and inputs are made from it
 STEPS = 50    # DDIM steps of the main-path request
@@ -236,6 +258,14 @@ def _attention_case(shape, gen, nomax: bool = False):
     out, ref = kern(), plain()
     torch.cuda.synchronize()
     err, rel, ok = compare(out, ref)
+    extra = {}
+    if not nomax:  # the lse output (training's forward) and its time
+        from vdtpu_torch.ops.flash import flash_attention_fwd
+        kern_lse = lambda: flash_attention_fwd(q, k, v, d ** -0.5, with_lse=True)
+        (out_l, lse), (_, lse_ref) = kern_lse(), flash_attention_plain(q, k, v, with_lse=True)
+        lse_err = float((lse - lse_ref).abs().max())
+        ok = ok and compare(out_l, ref)[2] and lse_err <= LSE_ATOL
+        extra = dict(lse_max_abs_err=lse_err, ms_with_lse=time_graph_ms(kern_lse))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)
     eager = dict(ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3, warmup=1),
@@ -247,7 +277,54 @@ def _attention_case(shape, gen, nomax: bool = False):
     return dict(shape=list(shape), max_abs_err=err, rel_l2_err=rel, ok=ok, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, library="F.scaled_dot_product_attention",
                 bound_ms=bound_ms, bound_by=bound_by, eager=eager,
-                bound_detail=dict(bytes=nbytes, flops=flops, exps=exps))
+                bound_detail=dict(bytes=nbytes, flops=flops, exps=exps), **extra)
+
+
+def _flash_bwd_case(shape, gen):
+    """The backward kernels against the plain backward on the same (q, k, v,
+    o, lse, dO), and the backward of SDPA (autograd fwd + bwd minus fwd)."""
+    import torch
+    import torch.nn.functional as F
+    from vdtpu_torch.ops.flash import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain)
+    b, n, h, d = shape
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = flash_attention_plain(q, k, v, with_lse=True)
+    kern = lambda: flash_attention_bwd(q, k, v, o, lse, do, scale)
+    plain = lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    outs, refs = kern(), plain()
+    torch.cuda.synchronize()
+    err = rel = 0.0
+    ok = True
+    for a, r in zip(outs, refs):
+        a, r = a.float(), r.float()
+        e = (a - r).abs()
+        top = float(r.abs().max())
+        ok = ok and bool(torch.isfinite(a).all()) and bool(
+            (e <= ATOL * top + RTOL * r.abs()).all())
+        err, rel = max(err, float(e.max())), max(rel, float(e.norm() / r.norm()))
+    ok = ok and rel <= BWD_MAX_REL_L2
+    del outs, refs
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    lib_f = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+    lib_fb = lambda: torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt),
+                                         (qt, kt, vt), dot)
+    eager = dict(ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3, warmup=1))
+    ms, plain_ms = time_graph_ms(kern), time_graph_ms(plain, 2, 2)
+    lib_ms = time_ms(lib_fb, 20) - time_ms(lib_f, 20)
+    prod = 2.0 * b * h * n * n * d             # one q.k^T-sized product
+    exps = float(b * h * n * n)
+    nbytes = 8 * q.numel() * q.element_size() + lse.numel() * lse.element_size()
+    bound_ms, bound_by = _bound(nbytes, max(5 * prod / PEAK_BF16, exps / PEAK_EXP))
+    split_ms, _ = _bound(nbytes, max(7 * prod / PEAK_BF16, 2 * exps / PEAK_EXP))
+    return dict(shape=list(shape), max_abs_err=err, rel_l2_err=rel, ok=ok, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                library="F.scaled_dot_product_attention backward (autograd fwd+bwd minus fwd)",
+                bound_ms=bound_ms, bound_by=bound_by, two_kernel_split_bound_ms=split_ms,
+                eager=eager, bound_detail=dict(bytes=nbytes, flops=5 * prod, exps=exps))
 
 
 def _gn_case(shape, gen):
@@ -408,6 +485,8 @@ def phase_kernels(state):
     specs = [
         ("flash_fwd", "cuda", "vdtpu_torch/csrc/flash_fwd.cu",
          "vdtpu/ops/pallas/flash.py:40", _attention_case, FLASH_SHAPES),
+        ("flash_bwd", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
+         "vdtpu/ops/pallas/flash.py:444", _flash_bwd_case, FLASH_SHAPES),
         ("gn_silu", "triton", "vdtpu_torch/ops/gn_silu.py",
          "vdtpu/ops/pallas/gn_silu.py:45", _gn_case, GN_SHAPES),
         ("nomax_fwd", "cuda", "vdtpu_torch/csrc/nomax_fwd.cu",
@@ -441,6 +520,8 @@ def phase_kernels(state):
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=head.get("library"), shape=head["shape"],
             shapes=rows)
+        if name == "flash_bwd":  # _bwd_impl's two TPU kernels: dq :444, dk/dv :474
+            state["kernels"][name]["replaces_also"] = "vdtpu/ops/pallas/flash.py:474"
     if failed:
         raise RuntimeError(f"kernels disagree with their plain versions: {failed}")
 
@@ -873,8 +954,231 @@ def phase_eps_int8(state):
         raise RuntimeError("eps_int8: card result disagrees with the f32 CPU result")
 
 
+def _fingerprint(t):
+    """An int64 sum of a tensor's bit patterns: equal before and after iff no
+    element changed (short of changes that cancel exactly)."""
+    import torch
+    bits = t.detach().view(torch.int32) if t.element_size() == 4 else t.detach().view(torch.int16)
+    return int(bits.sum(dtype=torch.int64))
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Route the training path's kernel calls (flash forward and backward,
+    GN+SiLU) to their plain versions on the card, for the reference
+    gradient; the kernel wrappers themselves never fall back."""
+    from vdtpu_torch.ops import flash, gn_silu
+    saved = flash.flash_attention_fwd, flash.flash_attention_bwd, gn_silu._gn_silu_fwd
+
+    def fwd(q, k, v, scale, with_lse=False):
+        res = flash.flash_attention_plain(q, k, v, scale, with_lse)
+        return res if with_lse else (res, None)
+
+    flash.flash_attention_fwd, flash.flash_attention_bwd = fwd, flash.flash_attention_bwd_plain
+    gn_silu._gn_silu_fwd = gn_silu.gn_silu_plain
+    try:
+        yield
+    finally:
+        flash.flash_attention_fwd, flash.flash_attention_bwd, gn_silu._gn_silu_fwd = saved
+
+
+def _train_counters():
+    from vdtpu_torch.ops.flash import flash_attention, flash_attention_bwd
+    from vdtpu_torch.ops.gn_silu import gn_silu
+    return {"flash_fwd": flash_attention, "flash_bwd": flash_attention_bwd, "gn_silu": gn_silu}
+
+
+def _train_grads(loss_fn, params, x, ctx, t, noise):
+    """One micro-batch's gradients by name (moved out of .grad), its loss
+    and the launch counts of the call."""
+    import torch
+    for p in params.values():
+        p.grad = None
+    for c in _train_counters().values():
+        c.launches = 0
+    loss, _ = loss_fn(x, ctx, t, noise)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {k: p.grad for k, p in params.items() if p.grad is not None}
+    for p in params.values():
+        p.grad = None
+    return grads, loss.item(), {k: c.launches for k, c in _train_counters().items()}
+
+
+def phase_train(state):
+    """t2i training at full width through ``Trainer``, on pre-encoded batches
+    (the harness's default contract; the VAE encoder is not ported, so the
+    latents are seeded normals)."""
+    import gc
+    import torch
+    from vdtpu_torch.serving.api import VDSystem
+    from vdtpu_torch.training.harness import Trainer, make_loss_fn
+    from vdtpu_torch.training.optim import get_optimizer, parameter_group_of
+    from vdtpu_torch.training.schedulers import get_scheduler
+    state.pop("system", None)  # free the serving system of the earlier phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    system = VDSystem("vd_four_flow_v1-0", dtype=torch.float32, device="cuda",
+                      use_checkpoint=False)
+    system.init_random(SEED)
+    nz = derandomize_zeros(system.net, SEED + 1)
+    params = system.for_training(torch.bfloat16)
+    model = system.model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    prompts = [f"a photo of a {w} on a table in the morning light" for w in (
+        "cat", "dog", "red apple", "blue cup", "lamp", "book", "violin", "plant")]
+    ctx = system.ctx_encode(stand_in_tokenizer(prompts), "text")
+    x = torch.randn(TRAIN_BATCH, 4, 64, 64, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    frozen = {k for k in params if parameter_group_of(k) in TRAIN_FREEZE}
+    log(f"train: system {sum(p.numel() for p in params.values()) / 1e6:.1f} M diffuser "
+        f"params in f32 ({nz} zero tensors randomized), frozen "
+        f"{sum(params[k].numel() for k in frozen) / 1e6:.1f} M, context {tuple(ctx.shape)}, "
+        f"latents {tuple(x.shape)}, built in {time.perf_counter() - t0:.1f} s")
+
+    # one micro-batch-2 gradient: kernels against plain versions on the card
+    loss_fn = make_loss_fn(model, "image", "text", TRAIN_FREEZE)
+    t_mb = torch.tensor([100, 700], device="cuda")
+    noise = torch.randn(2, 4, 64, 64, device="cuda", generator=gen)
+    args = (x[:2], ctx[:2], t_mb, noise)
+    g_kern, loss_k, counts_k = _train_grads(loss_fn, params, *args)
+    with _plain_kernels():
+        g_plain, loss_p, counts_p = _train_grads(loss_fn, params, *args)
+    if set(g_kern) != set(g_plain):
+        raise RuntimeError("train: the two gradient runs reached different parameters")
+    dot = na = nb = nd = 0.0
+    for k, a in g_kern.items():
+        a, b = a.double(), g_plain[k].double()
+        dot += float((a * b).sum())
+        na += float((a * a).sum())
+        nb += float((b * b).sum())
+        nd += float(((a - b) ** 2).sum())
+    cos, rel = dot / math.sqrt(na * nb), math.sqrt(nd / nb)
+    n_gn = _gn_sites(system)[0]
+    expect_mb = {"flash_fwd": 10, "flash_bwd": 10, "gn_silu": n_gn}
+    log(f"train: micro-batch-2 gradient of {len(g_kern)} tensors "
+        f"({sum(g.numel() for g in g_kern.values()) / 1e6:.1f} M), kernels vs plain on the "
+        f"card: cosine {cos:.6f} rel_l2 {rel:.5f} (limits cos >= {TRAIN_MIN_COS}, rel_l2 <= "
+        f"{TRAIN_MAX_REL_L2}); loss {loss_k:.6f} vs {loss_p:.6f}; launches {counts_k} "
+        f"(expected {expect_mb}), plain run {counts_p} [{state.get('card')}]")
+    del g_kern, g_plain
+    if not (math.isfinite(cos) and cos >= TRAIN_MIN_COS and rel <= TRAIN_MAX_REL_L2):
+        raise RuntimeError("train: the kernels' gradient disagrees with the plain versions'")
+    if counts_k != expect_mb or any(counts_p.values()):
+        raise RuntimeError(f"train: gradient-check launches {counts_k} / {counts_p}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt, set_lr = get_optimizer("adamw", params, TRAIN_PG_LRSCALE, TRAIN_FREEZE,
+                                weight_decay=0.01)
+    sched = get_scheduler({"type": "stable_diffusion_linear", "base_lr": 1e-7},
+                          global_batch_size=TRAIN_BATCH, gradacc_every=TRAIN_ACCUM)
+    trainer = Trainer(model, params, opt, set_lr, sched, x_type="image", c_type="text",
+                      ema_decay=0.9999, grad_accum=TRAIN_ACCUM, freeze_groups=TRAIN_FREEZE,
+                      log_every=1)
+    before = {k: _fingerprint(p) for k, p in params.items()}
+    batches = [{"x": x, "ctx": ctx}] * (TRAIN_STEPS + 1)
+    expect = {"flash_fwd": 10 * TRAIN_ACCUM, "flash_bwd": 10 * TRAIN_ACCUM,
+              "gn_silu": n_gn * TRAIN_ACCUM}
+    steps = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        for c in _train_counters().values():
+            c.launches = 0
+        t = time.perf_counter()
+        trainer.run(batches, num_iters=i + 1, seed=SEED)
+        loss = trainer.last_loss  # waits for the step
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = {k: c.launches for k, c in _train_counters().items()}
+        steps.append(dict(seconds=dt, loss=loss, launches=counts))
+        log(f"train step {i + 1}: {dt:.3f} s, {TRAIN_BATCH / dt:.3f} images/s, loss "
+            f"{loss:.6f}, launches {counts} (expected {expect}) [{state.get('card')}]")
+        if not math.isfinite(loss):
+            raise RuntimeError(f"train step {i + 1}: loss {loss}")
+        if counts != expect:
+            raise RuntimeError(f"train step {i + 1}: launch counts {counts} != {expect}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    touched = {k for k, p in params.items() if p.grad is not None}
+    moved = {k for k, p in params.items() if _fingerprint(p) != before[k]}
+    frozen_moved = frozen & moved
+    untouched = set(params) - touched - frozen
+    log(f"train: {len(touched)} tensors with gradients ({sum(params[k].numel() for k in touched) / 1e6:.1f}"
+        f" M), {len(touched & moved)} moved; frozen moved {len(frozen_moved)} of {len(frozen)}; "
+        f"non-frozen without gradients on this flow {len(untouched)} "
+        f"({sum(params[k].numel() for k in untouched) / 1e6:.1f} M, decay only), moved "
+        f"{len(untouched & moved)}; EMA updates {trainer.state.ema.num_updates}; optimizer "
+        f"groups {[(g['label'], len(g['params'])) for g in opt.param_groups]}")
+    if frozen_moved or touched - moved or trainer.state.ema.num_updates != TRAIN_STEPS:
+        raise RuntimeError(f"train: frozen moved {sorted(frozen_moved)[:3]}, trainable not "
+                           f"moved {sorted(touched - moved)[:3]}, EMA count "
+                           f"{trainer.state.ema.num_updates}")
+
+    # one more step under the profiler: device busy and idle share
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t = time.perf_counter()
+        trainer.run(batches, num_iters=TRAIN_STEPS + 1, seed=SEED)
+        trainer.last_loss
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = _device_rows(prof)
+    busy = sum(_dev_t(e) for e in rows) / 1e6
+    kinds: dict[str, float] = {}
+    for e in rows:
+        kinds[_kernel_kind(e.key)] = kinds.get(_kernel_kind(e.key), 0.0) + _dev_t(e) / 1e6
+    log(f"train profile (one step): wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
+        f"{1 - busy / wall:.3f}, {sum(e.count for e in rows)} kernels [{state.get('card')}]")
+    for kind, sec in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"  kind {kind}: {1e3 * sec:.2f} ms ({sec / max(busy, 1e-12):.3f})")
+    for e in sorted(rows, key=_dev_t, reverse=True)[:10]:
+        log(f"  top {_dev_t(e) / 1e3:.3f} ms x{e.count} {e.key[:90]}")
+
+    warm = steps[1:]
+    step_s = sum(r["seconds"] for r in warm) / len(warm)
+    log(f"train: warm step {step_s:.3f} s ({TRAIN_BATCH / step_s:.3f} images/s, global batch "
+        f"{TRAIN_BATCH}, grad_accum {TRAIN_ACCUM}, 512^2), cold step {steps[0]['seconds']:.3f} s, "
+        f"peak {peak:.2f} GiB, launches per step {expect} [{state.get('card')}]")
+    state["train"] = dict(warm_step_s=step_s, images_per_s=TRAIN_BATCH / step_s,
+                          cold_step_s=steps[0]["seconds"], peak_gib=peak, steps=steps,
+                          grad_cosine=cos, grad_rel_l2=rel,
+                          profile=dict(wall_s=wall, busy_s=busy, kinds=kinds))
+    for name, n in steps[-1]["launches"].items():
+        k = state["kernels"].get(name)
+        if k is None:
+            continue
+        if name == "flash_bwd":
+            k["launches"] = n
+            k["path"] = "train (one optimizer step, global batch 8, grad_accum 2)"
+        else:
+            k["launches_train_step"] = n
+    del trainer, opt, params, system, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dev_t(e) -> float:
+    """Self device time of a profiler row, us."""
+    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _device_rows(prof):
+    """The profiler's device rows that are kernels and copies: the GPU spans
+    of annotated ranges (``Optimizer.step#AdamW.step``) would count their
+    kernels' time twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _dev_t(e)
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+
+
 def _kernel_kind(name: str) -> str:
     n = name.lower()
+    if "flash_bwd" in n:
+        return "flash bwd (hand)"
     if "flash_fwd" in n:
         return "flash (hand)"
     if "nomax_fwd" in n:
@@ -901,7 +1205,6 @@ def _profile_mode(state, system, label):
     """The warm request split into its stages, and one CFG UNet step under
     torch.profiler, under the system's current policy."""
     import torch
-    from torch.autograd import DeviceType
     ids = stand_in_tokenizer(["", "a red cat sitting on a wooden bench in the sun"])
     sync = torch.cuda.synchronize
     sync()
@@ -943,10 +1246,8 @@ def _profile_mode(state, system, label):
                 step()
             sync()
             wall = (time.perf_counter() - t) / iters
-    dev_t = lambda e: (getattr(e, "self_device_time_total", 0)
-                       or getattr(e, "self_cuda_time_total", 0))
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_t(e)]
-    busy = sum(dev_t(e) for e in rows) / iters / 1e3  # ms per step
+    rows = _device_rows(prof)
+    busy = sum(_dev_t(e) for e in rows) / iters / 1e3  # ms per step
     n_kernels = sum(e.count for e in rows) / iters
     log(f"profile {label} UNet step (batch 4 = 2 x CFG, 64^2 latent): wall {1e3 * wall:.2f} "
         f"ms, device busy {busy:.2f} ms, idle share {1 - busy / (1e3 * wall):.3f}, "
@@ -956,11 +1257,11 @@ def _profile_mode(state, system, label):
         return
     kinds: dict[str, float] = {}
     for e in rows:
-        kinds[_kernel_kind(e.key)] = kinds.get(_kernel_kind(e.key), 0.0) + dev_t(e)
+        kinds[_kernel_kind(e.key)] = kinds.get(_kernel_kind(e.key), 0.0) + _dev_t(e)
     for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
         log(f"  kind {kind}: {us / iters / 1e3:.3f} ms/step ({us / iters / 1e3 / busy:.3f})")
-    for e in sorted(rows, key=dev_t, reverse=True)[:12]:
-        log(f"  top {dev_t(e) / iters / 1e3:.3f} ms/step x{e.count // iters} {e.key[:90]}")
+    for e in sorted(rows, key=_dev_t, reverse=True)[:12]:
+        log(f"  top {_dev_t(e) / iters / 1e3:.3f} ms/step x{e.count // iters} {e.key[:90]}")
     state.setdefault("profile", {})[label] = dict(wall_ms=1e3 * wall, busy_ms=busy,
                                                   kinds=kinds)
 
@@ -1010,7 +1311,7 @@ def main() -> int:
         log(f"all phases: {time.perf_counter() - t_all:.1f} s")
     finally:
         _LOG.close()
-    if {"main", "main_int8", "modes"} <= set(phases):
+    if {"main", "main_int8", "modes", "train"} <= set(phases):
         missing = [k for k, v in state["kernels"].items() if not v["launches"]]
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: {missing}")

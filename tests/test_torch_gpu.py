@@ -9,6 +9,8 @@ Each kernel is held against its plain version on the same CUDA inputs at
 shapes the main path does not cover: ragged lengths, head widths that need
 the kernel's unaligned load path, strided views, other dtypes.
 """
+import math
+
 import pytest
 import torch
 
@@ -347,3 +349,144 @@ def test_tiny_int8_and_tome_on_the_card(gen):
         b = cpu_sys.model.apply_model(x.float().cpu(), t.cpu(), ctx.float().cpu(),
                                       "image", "text").flatten()
     assert float(a @ b / (a.norm() * b.norm())) > 0.99
+
+
+# ---- training: flash backward, autograd through the kernels, tiny train steps ----
+
+def _bwd_close(out, ref):
+    """Two bf16 ulps at each gradient's largest magnitude (the gradients are
+    small), and relative L2 under 1e-2."""
+    for a, r in zip(out, ref):
+        a, r = a.float(), r.float()
+        top = float(r.abs().max())
+        assert bool(torch.isfinite(a).all())
+        assert bool(((a - r).abs() <= ATOL * top + RTOL * r.abs()).all())
+        assert float((a - r).norm() / r.norm()) < 1e-2
+
+
+@pytest.mark.parametrize("b,n,m,h,d", [
+    (2, 100, 300, 3, 8),
+    (1, 257, 1023, 2, 36),     # d % 8 != 0: the unaligned (scalar-load) path
+    (2, 128, 128, 2, 128),     # widest head the backward takes
+    (1, 64, 65, 1, 72),
+    (2, 1024, 77, 8, 40),      # a cross-attention shape, ragged kv
+])
+def test_flash_bwd_kernel_matches_plain(gen, b, n, m, h, d):
+    from vdtpu_torch.ops.flash import flash_attention_bwd, flash_attention_bwd_plain
+    q, k, v = _randn(gen, b, n, h, d), _randn(gen, b, m, h, d), _randn(gen, b, m, h, d)
+    do = _randn(gen, b, n, h, d)
+    o, lse = flash_attention_plain(q, k, v, with_lse=True)
+    before = flash_attention_bwd.launches
+    out = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)
+    assert flash_attention_bwd.launches == before + 1
+    _bwd_close(out, flash_attention_bwd_plain(q, k, v, o, lse, do, d ** -0.5))
+
+
+def test_flash_lse_kernel_matches_plain(gen):
+    from vdtpu_torch.ops.flash import flash_attention_fwd
+    q, k, v = _randn(gen, 2, 300, 3, 40), _randn(gen, 2, 200, 3, 40), _randn(gen, 2, 200, 3, 40)
+    out, lse = flash_attention_fwd(q, k, v, 40 ** -0.5, with_lse=True)
+    ref, lse_ref = flash_attention_plain(q, k, v, with_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    assert flash_attention_fwd(q, k, v, 40 ** -0.5)[1] is None
+
+
+def test_flash_autograd_on_strided_views(gen):
+    """flash_attention under autograd on views of one packed projection:
+    the forward with lse, the backward kernels, gradients into the packed
+    tensor, against autograd through the plain forward."""
+    from vdtpu_torch.ops.flash import flash_attention_bwd
+    b, n, h, d = 2, 300, 4, 40
+    qkv = _randn(gen, b, n, 3, h, d).requires_grad_()
+    do = _randn(gen, b, n, h, d)
+    before = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(*qkv.unbind(dim=2))
+    (g,) = torch.autograd.grad(out, qkv, do)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    ref = torch.autograd.grad(flash_attention_plain(*qkv.unbind(dim=2)), qkv, do)[0]
+    _bwd_close(g.unbind(dim=2), ref.unbind(dim=2))
+
+
+def test_flash_bwd_refuses(gen):
+    from vdtpu_torch.ops.flash import flash_attention_bwd
+    q = _randn(gen, 1, 64, 1, 136)
+    o, lse = flash_attention_plain(q, q, q, with_lse=True)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, q, q, o, lse, q, 0.1)
+
+
+def _tiny_train_system(gen):
+    from vdtpu_torch.serving.api import VDSystem
+    system = VDSystem("vd_test_tiny", device="cuda", use_checkpoint=False).init_random(0)
+    with torch.no_grad():  # zero output convs would zero every gradient upstream
+        for p in system.net.parameters():
+            if not bool(p.any()):
+                p.copy_(torch.randn(p.shape, device="cuda", generator=gen) * 0.02)
+    return system, system.for_training(torch.bfloat16)
+
+
+def test_tiny_training_on_the_card(gen, tmp_path, monkeypatch):
+    """Tiny-config training in bf16 autocast on the card: its 32^2 latent
+    gives 1024-token self-attention sites, so a micro-batch runs the flash
+    forward and backward kernels and the GN kernel; its gradient agrees with
+    the same gradient through the plain versions (cosine > 0.99). Then
+    Trainer steps with a checkpoint, and a fresh system restored from it
+    holds the same parameters, EMA and optimizer state."""
+    from vdtpu_torch.ops import flash as flash_mod
+    from vdtpu_torch.ops import gn_silu as gn_mod
+    from vdtpu_torch.ops.flash import flash_attention_bwd
+    from vdtpu_torch.training.harness import Trainer, make_loss_fn
+    from vdtpu_torch.training.optim import get_optimizer
+    freeze = ("diffuser_text_data",)
+    system, params = _tiny_train_system(gen)
+    tok = torch.arange(16, device="cuda").repeat(4, 1) + 1
+    ctx = system.ctx_encode(tok.cpu().numpy(), "text")
+    x = _randn(gen, 4, 4, 32, 32, dtype=torch.float32)
+    t = torch.tensor([10, 300, 600, 990], device="cuda")
+    noise = _randn(gen, 4, 4, 32, 32, dtype=torch.float32)
+    loss_fn = make_loss_fn(system.model, "image", "text", freeze)
+
+    def grads():
+        for p in params.values():
+            p.grad = None
+        loss_fn(x, ctx, t, noise)[0].backward()
+        return torch.cat([p.grad.flatten() for p in params.values() if p.grad is not None])
+
+    flash_attention.launches = flash_attention_bwd.launches = gn_silu.launches = 0
+    g_kern = grads()
+    assert flash_attention.launches > 0 and gn_silu.launches > 0
+    assert flash_attention_bwd.launches == flash_attention.launches
+    with monkeypatch.context() as mp:
+        mp.setattr(flash_mod, "flash_attention_fwd",
+                   lambda q, k, v, s, with_lse=False: (
+                       flash_mod.flash_attention_plain(q, k, v, s, True) if with_lse
+                       else (flash_mod.flash_attention_plain(q, k, v, s), None)))
+        mp.setattr(flash_mod, "flash_attention_bwd", flash_mod.flash_attention_bwd_plain)
+        mp.setattr(gn_mod, "_gn_silu_fwd", gn_mod.gn_silu_plain)
+        launches = flash_attention.launches
+        g_plain = grads()
+        assert flash_attention.launches == launches
+    assert float(g_kern @ g_plain / (g_kern.norm() * g_plain.norm())) > 0.99
+
+    def trainer(system, params):
+        opt, set_lr = get_optimizer("adamw", params, {"diffuser_text_context": 0.5}, freeze,
+                                    weight_decay=0.01)
+        return Trainer(system.model, params, opt, set_lr, None, ema_decay=0.99, grad_accum=2,
+                       ckpt_dir=str(tmp_path), freeze_groups=freeze, log_every=1)
+
+    first = trainer(system, params)
+    first.run([{"x": x, "ctx": ctx}] * 2, num_iters=2)
+    assert math.isfinite(first.last_loss)
+    restored = trainer(*_tiny_train_system(gen))
+    restored.restore()
+    a, b = first.state, restored.state
+    assert b.step == 2 and b.ema.num_updates == 2
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]) and torch.equal(a.ema.shadow[k],
+                                                                     b.ema.shadow[k]), k
+    sa, sb = a.opt_state.state_dict()["state"], b.opt_state.state_dict()["state"]
+    assert sa.keys() == sb.keys() and all(torch.equal(sa[i]["nu"], sb[i]["nu"]) for i in sa)
+    restored.run([{"x": x, "ctx": ctx}], num_iters=3)
+    assert math.isfinite(restored.last_loss)

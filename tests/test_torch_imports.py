@@ -26,9 +26,12 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
-# modules of the int8 + ToMe slice: they name no attention library call at all
+# modules of the int8 + ToMe slice and of the training slice: they name no
+# attention library call at all
 _SLICE2 = ("ops/nomax.py", "ops/qconv.py", "ops/quant.py", "ops/tome.py",
-           "csrc/nomax_fwd.cu", "csrc/qconv3.cu")
+           "csrc/nomax_fwd.cu", "csrc/qconv3.cu", "csrc/flash_bwd.cu", "ops/flash.py",
+           "training/harness.py", "training/optim.py", "training/ema.py",
+           "training/schedulers.py", "training/checkpoints.py", "utils/logging.py")
 
 
 def test_every_module_imports_with_jax_flax_yaml_blocked():
@@ -36,6 +39,9 @@ def test_every_module_imports_with_jax_flax_yaml_blocked():
     assert len(modules) > 15
     assert {"vdtpu_torch.ops.nomax", "vdtpu_torch.ops.qconv", "vdtpu_torch.ops.quant",
             "vdtpu_torch.ops.tome"} <= set(modules)
+    assert {"vdtpu_torch.training.harness", "vdtpu_torch.training.optim",
+            "vdtpu_torch.training.ema", "vdtpu_torch.training.schedulers",
+            "vdtpu_torch.training.checkpoints", "vdtpu_torch.utils.logging"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         *[f"sys.modules[{name!r}] = None" for name in _BLOCKED],

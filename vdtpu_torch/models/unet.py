@@ -8,7 +8,17 @@ Data blocks and context blocks can come from different diffusers
 (``_run_tokens``): in the (image, text) flow the image diffuser supplies the
 data blocks and the time embedding and the text diffuser the context blocks,
 and the data stream's owner decides how its state becomes tokens
-(``run_context(..., tokenizer=data_host)``). There is no remat.
+(``run_context(..., tokenizer=data_host)``).
+
+Remat (``use_checkpoint``, the JAX package's ``UNetBase._remat``): while
+autograd records, each ResBlock, FCBlock and SpatialTransformer of a
+diffuser with ``use_checkpoint`` runs under
+``torch.utils.checkpoint(use_reentrant=False)``, so the backward recomputes
+the block's activations instead of keeping them; ``remat_max_channels``
+limits it to blocks of at most that many channels (the high-resolution
+levels, where most activation bytes live). Each diffuser's flag governs the
+blocks it owns: the data blocks of the data diffuser, the context blocks
+of the context diffuser. Forward values are the same either way.
 
 Under int8 (``ops/quant.py``) ``conv_in`` (4 -> model channels) and the
 output conv (model channels -> 4) are int8 sites like the ResBlock,
@@ -24,6 +34,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vdtpu_torch.models.blocks import FCBlock, ResBlock2D
 from vdtpu_torch.models.layers import (
@@ -221,6 +232,15 @@ class UNetBase(nn.Module):
 
     program: UNetProgram
     model_channels: int
+    use_checkpoint: bool = False
+    remat_max_channels: int | None = None
+
+    def _remat(self, block: nn.Module, channels: int, *args):
+        """block(*args), rematerialized in the backward where remat applies."""
+        if (self.use_checkpoint and torch.is_grad_enabled()
+                and (self.remat_max_channels is None or channels <= self.remat_max_channels)):
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
     def _build(self, parts: Sequence[str], context_dim: int):
         emb_dim = self.model_channels * 4
@@ -261,8 +281,9 @@ class UNetBase(nn.Module):
 
     def run_data(self, i: int, h, emb):
         mod = self.data_blocks[i][0]
-        if self.program.data[i].kind in ("res", "fc"):
-            return mod(h, emb)
+        spec = self.program.data[i]
+        if spec.kind in ("res", "fc"):
+            return self._remat(mod, spec.out_ch, h, emb)
         return mod(h)
 
     def run_context(self, i: int, h, ctx, tokenizer: "UNetBase | None" = None,
@@ -270,7 +291,8 @@ class UNetBase(nn.Module):
         """Context block i on h; ``tokenizer`` is the diffuser that owns the
         data stream (its layout decides the tokens)."""
         x_cf, restore = (tokenizer or self).channel_first(h, i)
-        return restore(self.context_blocks[i][0](x_cf, ctx, tome))
+        block = self.context_blocks[i][0]
+        return restore(self._remat(block, self.program.ctx[i].channels, x_cf, ctx, tome))
 
     def _run_tokens(self, tokens, h, hs, emb, context, data_host: "UNetBase",
                     ctx_host: "UNetBase", di: int = 0, ci: int = 0,
@@ -304,9 +326,12 @@ class UNet2DNext(UNetBase):
                  attention_resolutions: Sequence[int] = (4, 2, 1),
                  channel_mult: Sequence[int] = (1, 2, 4, 4), num_heads: int | None = 8,
                  num_head_channels: int | None = None, context_dim: int = 768,
-                 parts: Sequence[str] = ("global", "data", "context"), **_unused):
+                 parts: Sequence[str] = ("global", "data", "context"),
+                 use_checkpoint: bool = False, remat_max_channels: int | None = None,
+                 **_unused):
         super().__init__()
         self.model_channels = model_channels
+        self.use_checkpoint, self.remat_max_channels = use_checkpoint, remat_max_channels
         self.program = build_program_2d(
             in_channels, model_channels, out_channels, tuple(num_res_blocks),
             tuple(attention_resolutions), tuple(channel_mult), num_heads, num_head_channels)
@@ -327,9 +352,12 @@ class UNet0DNext(UNetBase):
                  with_attn: Sequence[bool] = (True, True, True, False),
                  num_heads: int | None = 8, num_head_channels: int | None = None,
                  context_dim: int = 768,
-                 parts: Sequence[str] = ("global", "data", "context"), **_unused):
+                 parts: Sequence[str] = ("global", "data", "context"),
+                 use_checkpoint: bool = False, remat_max_channels: int | None = None,
+                 **_unused):
         super().__init__()
         self.model_channels = model_channels
+        self.use_checkpoint, self.remat_max_channels = use_checkpoint, remat_max_channels
         self.channel_mult = tuple(channel_mult)
         self.second_dim = tuple(second_dim)
         self.program = build_program_0d(

@@ -11,7 +11,10 @@
 The rule is the JAX package's ``_pick_backend``: a site goes to flash when
 its tensors are on CUDA, q_len >= 256, kv_len >= 1024 and d_head <= 256.
 The plain path is exact softmax and ignores the shift (softmax is
-shift-invariant), as the JAX package's XLA path does.
+shift-invariant), as the JAX package's XLA path does. Both paths are
+differentiable (the flash kernel through its backward kernels; the no-max
+kernel is forward-only and raises under autograd). The plain path's logits
+and softmax are f32 with autocast off, as ``_xla_attention``'s are.
 """
 from __future__ import annotations
 
@@ -33,11 +36,12 @@ def pick_backend(q, k) -> str:
 
 def plain_attention(q, k, v, mask=None, scale: float = 1.0):
     """matmul + f32 softmax + matmul, [B, Q, H, D] -> [B, Q, H, D]."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if mask is not None:
-        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    with torch.autocast(q.device.type, enabled=False):
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def scaled_dot_product_attention(q, k, v, mask=None, scale: float | None = None,

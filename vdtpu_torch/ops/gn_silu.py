@@ -48,7 +48,9 @@ codes once more. Bound: one read of x and one s8 write, at [4, 320, 64,
 re-read mostly hits L2).
 
 Every wrapper takes the plain version for CPU tensors only; for CUDA
-tensors it launches the kernels or raises.
+tensors it launches the kernels or raises. ``gn_silu`` is differentiable
+(``GNSiLU``): its backward recomputes the plain version and differentiates
+it, as the JAX package's custom_vjp does; a backward kernel is later work.
 """
 from __future__ import annotations
 
@@ -219,8 +221,8 @@ def _triton_kernels():
     return _kernels
 
 
-def gn_silu(x, weight, bias, groups: int = 32, eps: float = 1e-5, with_silu: bool = True):
-    """GroupNorm(groups)(+SiLU) over the channel axis of [B, C, *spatial]."""
+def _gn_silu_fwd(x, weight, bias, groups: int, eps: float, with_silu: bool):
+    """The GN(+SiLU) kernel, or its plain version for CPU tensors."""
     if x.device.type == "cpu":
         return gn_silu_plain(x, weight, bias, groups, eps, with_silu)
     _check_gn_input("gn_silu", x, groups, weight, bias)
@@ -236,6 +238,41 @@ def gn_silu(x, weight, bias, groups: int = 32, eps: float = 1e-5, with_silu: boo
                                  WITH_SILU=bool(with_silu), num_warps=4)
     gn_silu.launches += 1
     return y
+
+
+class GNSiLU(torch.autograd.Function):
+    """``_gn_silu``'s custom_vjp: the forward is the kernel; the backward
+    recomputes the plain version from the saved (x, weight, bias) and
+    differentiates it, as the JAX package's vjp differentiates
+    ``_ref_gn_silu`` (there is no backward kernel on either side)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, weight, bias, groups: int, eps: float, with_silu: bool):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.cfg = (groups, eps, with_silu)
+        return _gn_silu_fwd(x, weight, bias, groups, eps, with_silu)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            y = gn_silu_plain(*ins, *ctx.cfg)
+            wrt = [t for t, n in zip(ins, need) if n]
+            grads = iter(torch.autograd.grad(y, wrt, gy))
+        return tuple(next(grads) if n else None for n in need) + (None, None, None)
+
+
+def gn_silu(x, weight, bias, groups: int = 32, eps: float = 1e-5, with_silu: bool = True):
+    """GroupNorm(groups)(+SiLU) over the channel axis of [B, C, *spatial],
+    differentiable in x, weight and bias."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return GNSiLU.apply(x, weight, bias, groups, eps, with_silu)
+    return _gn_silu_fwd(x, weight, bias, groups, eps, with_silu)
 
 
 gn_silu.launches = 0

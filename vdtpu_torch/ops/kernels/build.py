@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` into its own shared library
 with a plain C interface, which the op wrappers bind with ``ctypes``. Nothing
 is compiled when this module is imported: the first call of ``load(name)``
 builds (or finds) the library. Libraries are named by a hash of their
-source and flags, so an edited source never loads a stale build, and land in
-``build/kernels/`` at the root of the checkout, which git ignores.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source never loads a stale build, and land in ``build/kernels/`` at the
+root of the checkout, which git ignores.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 them; ``chip_smoke.py`` calls it so the build is timed as its own phase.
@@ -34,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = {
     "flash_fwd": ("vd_flash_fwd",
-                  [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P]),
+                  [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P]),
+    "flash_bwd": ("vd_flash_bwd", [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _I, _P]),
     "nomax_fwd": ("vd_nomax_fwd",
                   [_P] * 5 + [_L] + [_I] * 5 + [_L] * 12 + [_F, _I, _P]),
     "qconv3": ("vd_qconv3", [_P] * 11 + [_I] * 9 + [_L] * 13 + [_I, _I, _P]),
@@ -60,9 +62,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _nvcc(name: str) -> subprocess.Popen | None:

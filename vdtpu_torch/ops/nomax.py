@@ -15,7 +15,9 @@ same kernel serves the TPU's other two no-max kernels: d % 8 != 0
 it, read in place through strides).
 
 ``flash_attention_nomax`` takes the plain version for CPU tensors only;
-for CUDA tensors it launches the kernel or raises.
+for CUDA tensors it launches the kernel or raises. It is forward-only, as
+the JAX package's is (serving; training keeps the exact flash kernels): it
+raises where autograd would need its gradient.
 """
 from __future__ import annotations
 
@@ -55,6 +57,9 @@ def flash_attention_nomax(q, k, v, shift, scale: float | None = None):
     the calibrated bound on the scaled logits, a float or one per head [H]."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention_nomax is forward-only (int8 serving); train "
+                           "without the int8 policy")
     if q.device.type == "cpu":
         return flash_attention_nomax_plain(q, k, v, shift, scale)
     if q.device.type != "cuda":

@@ -12,6 +12,11 @@ Serving policy: ``enable_int8`` attaches a ``QuantPolicy`` to the
 diffusers' call sites and calibrates them (``ops/quant.py``);
 ``enable_tome`` switches token merging on (``ops/tome.py``). Both are
 state of the system, not of the process.
+
+Training: the constructor freezes the whole net in one dtype;
+``for_training`` turns the diffusers back into a trainable f32 tree for
+``vdtpu_torch.training`` (compute in a lower dtype under autocast). The
+context encoders stay frozen (``ctx_encode`` runs without gradients).
 """
 from __future__ import annotations
 
@@ -58,13 +63,17 @@ class VDSystem:
                 "vae.image.post_quant_conv.")
 
     def __init__(self, cfg_name: str = "vd_four_flow_v1-0", dtype=torch.float32,
-                 device=None):
+                 device=None, use_checkpoint: bool | None = None,
+                 remat_max_channels: int | None = None):
+        """``use_checkpoint`` / ``remat_max_channels``: the diffusers' remat
+        in training (None: each diffuser's config flag); serving ignores them."""
         self.cfg = model_cfg_bank()(cfg_name)
         self.device = resolve_device(device)
         self.dtype = dtype
         args = self.cfg["args"]
         with torch.device(self.device):
-            self.model = VDModel.from_config(self.cfg)
+            self.model = VDModel.from_config(self.cfg, use_checkpoint=use_checkpoint,
+                                             remat_max_channels=remat_max_channels)
             self.net = nn.Module()
             self.net.diffuser = self.model.diffuser
             self.net.ctx = nn.ModuleDict({name: _CtxHolder(build(sub))
@@ -98,6 +107,20 @@ class VDSystem:
         self.net.to(dtype)
         self.dtype = dtype
         return self
+
+    def for_training(self, compute_dtype=torch.bfloat16) -> dict[str, nn.Parameter]:
+        """Make the diffusers (and a learned ``logvar``) trainable: f32
+        parameters with gradients on, ``p_losses`` computing in
+        ``compute_dtype`` under autocast. Returns the parameters by name
+        (``VDModel.named_parameters``), the tree the trainer takes. The
+        text encoder and the VAE keep the system's dtype and stay frozen;
+        to sample from the trained diffusers, ``cast`` the system."""
+        self.model.diffuser.float().train().requires_grad_(True)
+        if self.model.logvar is not None:
+            self.model.logvar.data = self.model.logvar.data.float()
+            self.model.logvar.requires_grad_(True)
+        self.model.dtype = compute_dtype
+        return dict(self.model.named_parameters())
 
     def load_state_dict(self, sd: Mapping[str, Any], strict: bool = True):
         """Load a reference-keyed state dict (torch tensors or numpy arrays)
