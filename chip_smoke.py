@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's text-to-image main path on one CUDA card.
+"""Drive the PyTorch port's main paths (text-to-image, image variation,
+int8 serving, t2i training) on one CUDA card.
 
     python3 chip_smoke.py            # the default phases, on one card
 
@@ -17,10 +18,16 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             inference_t2i at 512^2, n = 2, DDIM-50, CFG 7.5, cold then warm;
             the launch counters are zeroed just before each run and read
             just after it
+  main_i2i  inference_i2i on the same system, exact bf16, on a seeded 512^2
+            image: (a) fid 0, focus 0.5, no colour adjust (50 steps) and
+            (b) fid 0.5, focus 0.3, "Simple" (25 steps: VAE encoder, x0
+            start, focus filter, colour adjust), each cold then warm, with
+            their launch counts; regularize_image on a non-512^2 image
   eps       one full-width UNet eps call on the card (bf16) against the port
             on the CPU in f32, same weights and inputs
   main_int8 the calibrated int8 serving policy on the same system:
-            enable_int8 (calibration, timed); the int8 conv kernel against
+            enable_int8 over vdtpu's four flows (calibration, timed); the
+            int8 conv kernel against
             its plain version at every distinct conv site of one UNet call,
             on that site's own arguments; then the same request cold and
             warm as (a) int8 and (b) int8 + ToMe 0.75, each with its launch
@@ -33,6 +40,11 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             at every distinct site of its call
   eps_int8  one full-width int8 eps call on the card (bf16) against the
             port's int8 plain path on the CPU in f32, same scales
+  main_fused2 QuantPolicy(conv="fused2") on the calibrated system: the
+            whole-ResBlock kernel against its plain version at every
+            distinct fused2 site of one UNet call (the site's own
+            arguments), one eps call against conv="fused", then t2i and i2i
+            (a) requests cold and warm with their launch counts
   train     t2i training at full width: frees the serving system, builds
             vd_four_flow_v1-0 with f32 parameters (bf16 compute, no remat),
             encodes 8 stand-in prompts, holds one micro-batch-2 gradient of
@@ -64,8 +76,8 @@ import sys
 import time
 import zlib
 
-PHASES = ("device", "build", "kernels", "main", "eps", "main_int8", "modes", "eps_int8",
-          "train", "profile")
+PHASES = ("device", "build", "kernels", "main", "main_i2i", "eps", "main_int8", "modes",
+          "eps_int8", "main_fused2", "train", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
@@ -88,6 +100,11 @@ QCONV_SHAPES = [(4, 320, 64, 64, 320, 1, "film"), (4, 4, 64, 64, 320, 1, None),
                 (4, 1280, 16, 16, 1280, 1, "film")]
 GN_SHAPES = [(4, 320, 64, 64), (4, 640, 32, 32), (4, 1280, 16, 16), (4, 2560, 8, 8),
              (2, 128, 512, 512)]
+# whole int8 ResBlock (B, C_in, H, W, C_out): the 8 distinct conv="fused2"
+# sites of the full-width UNet at B = 4 (2 x CFG), the commonest first
+RESBLOCK_SHAPES = [(4, 320, 64, 64, 320), (4, 640, 64, 64, 320), (4, 960, 64, 64, 320),
+                   (4, 320, 32, 32, 640), (4, 640, 32, 32, 640), (4, 1920, 32, 32, 640),
+                   (4, 1280, 32, 32, 640), (4, 960, 32, 32, 640)]
 # |kernel - plain| <= ATOL + RTOL * |plain|: two bf16 ulps at the output's
 # magnitude; both sides read the same bf16 inputs and differ only in the
 # order of f32 sums and where the output is rounded
@@ -106,6 +123,13 @@ EPS_MIN_COS, EPS_MAX_REL_L2 = 0.995, 0.05
 # int8 site of the request is the site check of main_int8 and modes; what
 # shows each mode's routing is its exact launch counts.
 INT8_MAX_REL_L2, INT8_MIN_COS = 0.10, 0.995
+# whole-ResBlock kernel against its plain version, fixed before its first
+# run: both sum the GN statistics in f32 in other orders, so a code flips
+# where y / s lies within f32 rounding of a half-integer (and a flipped mid
+# code moves the GN2 statistics); at most this share of the elements may
+# leave the two-ulp band above, and the relative L2 error stays under 1e-2
+RB_MAX_OUTSIDE, RB_MAX_REL_L2 = 1e-3, 1e-2
+I2I_FID_STEPS = 25   # request (b): fid 0.5 runs half of the 50 steps
 # GN+SiLU+int8 against its plain version: a code may differ by one where
 # y / s lies within f32 rounding of a half-integer (other summation order
 # of the statistics, y / (1 + exp(-y)) against y * sigmoid(y))
@@ -479,6 +503,93 @@ def _qconv_case(spec, gen):
                 bound_by=bound_by, eager=eager, bound_detail=dict(bytes=nbytes, ops=ops))
 
 
+def compare_resblock(out, ref):
+    """(max abs err, relative L2 err, share outside two ulps, within bound)."""
+    import torch
+    a, b = out.float(), ref.float()
+    err = (a - b).abs()
+    outside = float((err > ATOL + RTOL * b.abs()).float().mean())
+    rel = float(err.norm() / b.norm())
+    ok = bool(torch.isfinite(a).all()) and outside <= RB_MAX_OUTSIDE and rel <= RB_MAX_REL_L2
+    return float(err.max()), rel, outside, ok
+
+
+def _resblock_case(spec, gen):
+    """The whole-ResBlock kernel against its plain version, and three
+    yardsticks for the same block: the port's per-site int8 chain
+    (gn_silu_q + qconv3, twice), its conv="fused" chain (gn_stats +
+    qconv3_gn, twice), and cuDNN's bf16 ResBlock (F.group_norm + F.silu +
+    F.conv2d, twice, and the adds). No one PyTorch call computes an int8
+    ResBlock: PyTorch has no CUDA int8 convolution."""
+    import torch
+    import torch.nn.functional as F
+    from vdtpu_torch.ops.gn_silu import gn_silu_q, gn_stats
+    from vdtpu_torch.ops.qconv import qconv3, qconv3_gn, resblock_plain, resblock_q
+    from vdtpu_torch.ops.quant import quantize_weight
+    b, c, h, w, n = spec
+    rnd = lambda *sh: torch.randn(sh, device="cuda", generator=gen)
+    bf = torch.bfloat16
+    x = (rnd(b, c, h, w) * 2 + 0.5).to(bf)
+    w1, w2 = rnd(n, c, 3, 3) * (9 * c) ** -0.5, rnd(n, n, 3, 3) * (9 * n) ** -0.5
+    (w1q, s1w), (w2q, s2w) = (quantize_weight(t.permute(0, 2, 3, 1)) for t in (w1, w2))
+    w1q, w2q = w1q.contiguous(), w2q.contiguous()
+    g1, be1 = rnd(c) * 0.1 + 1.0, rnd(c) * 0.1
+    g2, be2 = rnd(n) * 0.1 + 1.0, rnd(n) * 0.1
+    b1, b2 = (rnd(n) * 0.1).to(bf), (rnd(n) * 0.1).to(bf)
+    sx1, sx2 = torch.tensor(4.0 / 127, device="cuda"), torch.tensor(4.0 / 127, device="cuda")
+    film = (rnd(b, n) * 0.5).to(bf)
+    skip = rnd(b, n, h, w).to(bf) if c != n else None
+    args = (x, g1, be1, w1q, s1w, b1, sx1, film, g2, be2, w2q, s2w, b2, sx2, skip)
+    kern = lambda: resblock_q(*args)
+    plain = lambda: resblock_plain(*args)
+    out = kern()
+    err, rel, outside, ok = compare_resblock(out, plain())
+    ok = ok and torch.equal(out, kern())   # fixed-order sums: deterministic
+    sk = x if skip is None else skip
+
+    def per_site():
+        q1 = gn_silu_q(x, g1, be1, sx1, 32, 1e-5, True)
+        mid = qconv3(q1, w1q, s1w, b1, sx1, 1, film, None, bf)
+        q2 = gn_silu_q(mid, g2, be2, sx2, 32, 1e-5, True)
+        return qconv3(q2, w2q, s2w, b2, sx2, 1, None, sk, bf)
+
+    def fused():
+        mid = qconv3_gn(x, gn_stats(x, 32, 1e-5), g1, be1, sx1, w1q, s1w, b1, True, 1, film)
+        return qconv3_gn(mid, gn_stats(mid, 32, 1e-5), g2, be2, sx2, w2q, s2w, b2, True, 1,
+                         None, sk)
+
+    w1b, w2b = w1.to(bf), w2.to(bf)
+    filmb = film[:, :, None, None]
+
+    def cudnn():
+        hh = F.conv2d(F.silu(F.group_norm(x, 32, g1.to(bf), be1.to(bf), 1e-5)), w1b, b1,
+                      padding=1) + filmb
+        return F.conv2d(F.silu(F.group_norm(hh, 32, g2.to(bf), be2.to(bf), 1e-5)), w2b, b2,
+                        padding=1) + sk
+
+    torch.cuda.synchronize()
+    eager = dict(ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3, warmup=1),
+                 per_site_ms=time_ms(per_site, 20), fused_ms=time_ms(fused, 20),
+                 cudnn_bf16_ms=time_ms(cudnn, 20))
+    timing = "CUDA graph replay"
+    try:
+        ms = time_graph_ms(kern)
+    except RuntimeError as exc:   # stream capture of the cooperative launch refused
+        ms, timing = eager["ms"], f"eager CUDA events (graph capture refused: {exc})"
+    plain_ms = time_graph_ms(plain, 2, 2)
+    per_site_ms, fused_ms, cudnn_ms = (time_graph_ms(f) for f in (per_site, fused, cudnn))
+    ops = 2.0 * b * h * w * 9 * (c * n + n * n)
+    nbytes = 2 * (x.numel() + (0 if skip is None else skip.numel()) + out.numel()) \
+        + w1q.numel() + w2q.numel()
+    bound_ms, bound_by = _bound(nbytes, ops / PEAK_INT8)
+    return dict(shape=list(spec), max_abs_err=err, rel_l2_err=rel, outside_share=outside,
+                ok=ok, ms=ms, timing=timing, plain_ms=plain_ms, library_ms=None,
+                library="none: PyTorch has no CUDA int8 convolution",
+                per_site_chain_ms=per_site_ms, fused_chain_ms=fused_ms,
+                cudnn_bf16_resblock_ms=cudnn_ms, bound_ms=bound_ms, bound_by=bound_by,
+                eager=eager, bound_detail=dict(bytes=nbytes, ops=ops))
+
+
 def phase_kernels(state):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -496,6 +607,8 @@ def phase_kernels(state):
          "vdtpu/ops/pallas/gn_silu.py:155", _gn_q_case, GN_SHAPES),
         ("qconv3", "cuda", "vdtpu_torch/csrc/qconv3.cu",
          "vdtpu/ops/pallas/qconv.py:149", _qconv_case, QCONV_SHAPES),
+        ("resblock_q", "cuda", "vdtpu_torch/csrc/resblock_q.cu",
+         "vdtpu/ops/pallas/qconv.py:235", _resblock_case, RESBLOCK_SHAPES),
     ]
     failed = []
     for name, route, source, replaces, case, shapes in specs:
@@ -506,9 +619,10 @@ def phase_kernels(state):
             extra = {k: v for k, v in r.items() if k not in (
                 "shape", "max_abs_err", "ok", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "eager", "bound_detail", "library")}
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             log(f"kernel {name} {shape}: max_abs_err {r['max_abs_err']:.3e} ok {r['ok']} | "
                 f"device ms (graph) {r['ms']:.4f} plain {r['plain_ms']:.4f} library "
-                f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']}) | "
+                f"{lib} bound {r['bound_ms']:.4f} ({r['bound_by']}) | "
                 f"{json.dumps(extra)} | eager ms {json.dumps(r['eager'])} [{state.get('card')}]")
             if not r["ok"]:
                 failed.append(f"{name}{shape}")
@@ -540,15 +654,16 @@ def derandomize_zeros(module, seed: int, std: float = 0.02):
     return n
 
 
-def _gn_sites(system) -> int:
+def _gn_sites(system, c_type: str = "text"):
     """GroupNorm calls of one request: every GN module of the image
-    diffuser's data blocks and the text diffuser's context blocks runs once
-    per UNet call, every VAE-decoder GN once per decode."""
+    diffuser's data blocks and the ``c_type`` diffuser's context blocks runs
+    once per UNet call, every VAE-decoder GN once per decode (and every
+    VAE-encoder GN once per encode: the third number)."""
     from vdtpu_torch.models.layers import GroupNorm32
     count = lambda mods: sum(isinstance(m, GroupNorm32) for mod in mods for m in mod.modules())
     unet = (count(system.model.diffuser["image"].data_blocks)
-            + count(system.model.diffuser["text"].context_blocks))
-    return unet, count([system.vae["image"].decoder])
+            + count(system.model.diffuser[c_type].context_blocks))
+    return unet, count([system.vae["image"].decoder]), count([system.vae["image"].encoder])
 
 
 def _system(state):
@@ -577,7 +692,7 @@ def phase_main(state):
     system = _system(state)
     vdi = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
                       ddim_steps=STEPS, n_sample_image=2)
-    unet_gn, vae_gn = _gn_sites(system)
+    unet_gn, vae_gn, _ = _gn_sites(system)
     expect = {"flash_fwd": 10 * STEPS, "gn_silu": unet_gn * STEPS + vae_gn}
     prompt = "a red cat sitting on a wooden bench in the sun"
     results = {}
@@ -608,6 +723,74 @@ def phase_main(state):
             state["kernels"][name]["launches"] = n
             state["kernels"][name]["path"] = "main (bf16 exact, warm request)"
     state["main"] = results
+
+
+def _i2i_image(seed: int, h: int = 512, w: int = 512):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand((1, h, w, 3), device="cuda", generator=gen)
+
+
+def _i2i_launches(system, steps: int, with_encoder: bool):
+    """Launches of one exact i2i request, derived from the program: the 10
+    long self-attention sites of the image diffuser's context blocks take
+    the flash kernel per UNet call (the CLIP vision tower's 257 tokens and
+    the VAE's 512-wide heads take the plain path), every GroupNorm of the
+    image data blocks and context blocks, of the VAE decoder and (fid > 0)
+    of the VAE encoder the GN kernel."""
+    unet_gn, dec_gn, enc_gn = _gn_sites(system, "image")
+    return {"flash_fwd": 10 * steps,
+            "gn_silu": unet_gn * steps + dec_gn + (enc_gn if with_encoder else 0)}
+
+
+I2I_REQUESTS = (("a", 0.0, 0.5, None, STEPS), ("b", 0.5, 0.3, "Simple", I2I_FID_STEPS))
+
+
+def phase_main_i2i(state):
+    import torch
+    from vdtpu_torch.ops.flash import flash_attention
+    from vdtpu_torch.ops.gn_silu import gn_silu
+    from vdtpu_torch.serving.api import VDInference, regularize_image
+    system = _system(state)
+    vdi = VDInference(system, output_dim=(512, 512), ddim_steps=STEPS, n_sample_image=2)
+    image = _i2i_image(SEED + 5)
+    odd = _i2i_image(SEED + 6, 600, 451)
+    reg = regularize_image(odd, (512, 512))
+    torch.cuda.synchronize()
+    log(f"main_i2i: regularize_image [1, 600, 451, 3] -> {tuple(reg.shape)}, range "
+        f"[{float(reg.min()):.4f}, {float(reg.max()):.4f}]")
+    if tuple(reg.shape) != (1, 512, 512, 3) or not (0.0 <= float(reg.min())
+                                                    and float(reg.max()) <= 1.0):
+        raise RuntimeError("main_i2i: regularize_image gave a bad result")
+    results = {}
+    for label, fid, fcs, clr, steps in I2I_REQUESTS:
+        expect = _i2i_launches(system, steps, fid != 0)
+        for run in ("cold", "warm"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = gn_silu.launches = 0
+            t = time.perf_counter()
+            img = vdi.inference_i2i(image, fid, fcs, clr, seed=SEED)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            counts = {"flash_fwd": flash_attention.launches, "gn_silu": gn_silu.launches}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            finite = bool(torch.isfinite(img).all())
+            lo, hi = float(img.min()), float(img.max())
+            log(f"main_i2i ({label}) fid {fid} fcs {fcs} clr {clr} {run}: {dt:.3f} s, "
+                f"{2 / dt:.3f} images/s, peak {peak:.2f} GiB, shape {tuple(img.shape)} finite "
+                f"{finite} range [{lo:.4f}, {hi:.4f}], launches {counts} (expected {expect}) "
+                f"[{state.get('card')}]")
+            if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0 and hi <= 1.0):
+                raise RuntimeError(f"main_i2i ({label}) {run}: bad output")
+            if counts != expect:
+                raise RuntimeError(f"main_i2i ({label}) {run}: launch counts {counts} != {expect}")
+            results[f"{label}_{run}"] = dict(seconds=dt, images_per_s=2 / dt, peak_gib=peak,
+                                             launches=counts)
+    for name in ("flash_fwd", "gn_silu"):
+        if name in state["kernels"]:
+            state["kernels"][name]["launches_i2i_a"] = results["a_warm"]["launches"][name]
+    state["main_i2i"] = results
 
 
 def phase_eps(state):
@@ -655,13 +838,13 @@ def _ctx_tokens(unet, latent: int):
     return out
 
 
-def _int8_sites(system):
+def _int8_sites(system, c_type: str = "text"):
     """(calibrated int8 conv sites of the image data blocks, those of them
-    that are ResBlock convs behind a GroupNorm, QDense sites of the text
-    context blocks): each runs once per UNet call."""
+    that are ResBlock convs behind a GroupNorm, QDense sites of the
+    ``c_type`` diffuser's context blocks): each runs once per UNet call."""
     from vdtpu_torch.models.blocks import ResBlock2D
     from vdtpu_torch.ops.quant import QConv, QDense
-    img, txt = system.model.diffuser["image"], system.model.diffuser["text"]
+    img, txt = system.model.diffuser["image"], system.model.diffuser[c_type]
     convs = sum(isinstance(m, QConv) and m.act_scale is not None
                 for m in img.data_blocks.modules())
     gn_convs = sum(conv.act_scale is not None for m in img.data_blocks.modules()
@@ -687,7 +870,7 @@ def _int8_launches(system, tome_ratio: float | None):
             n -= merge_count(n, tome_ratio)
         if n >= 1024:
             by_kv[n] = by_kv.get(n, 0) + STEPS
-    unet_gn, vae_gn = _gn_sites(system)
+    unet_gn, vae_gn, _ = _gn_sites(system)
     return {"flash_fwd": 0, "nomax_fwd": sum(by_kv.values()), "qconv3": convs * STEPS,
             "int_mm": mms * STEPS, "gn_silu": unet_gn * STEPS + vae_gn}, by_kv
 
@@ -696,11 +879,12 @@ def _counters():
     from vdtpu_torch.ops.flash import flash_attention
     from vdtpu_torch.ops.gn_silu import gn_silu, gn_silu_q, gn_stats
     from vdtpu_torch.ops.nomax import flash_attention_nomax
-    from vdtpu_torch.ops.qconv import qconv3, qconv3_gn
+    from vdtpu_torch.ops.qconv import qconv3, qconv3_gn, resblock_q
     from vdtpu_torch.ops.quant import int8_linear
     return {"flash_fwd": flash_attention, "nomax_fwd": flash_attention_nomax,
-            "qconv3": qconv3, "qconv3_gn": qconv3_gn, "int_mm": int8_linear,
-            "gn_silu": gn_silu, "gn_silu_q": gn_silu_q, "gn_stats": gn_stats}
+            "qconv3": qconv3, "qconv3_gn": qconv3_gn, "resblock_q": resblock_q,
+            "int_mm": int8_linear, "gn_silu": gn_silu, "gn_silu_q": gn_silu_q,
+            "gn_stats": gn_stats}
 
 
 def _zero_counters():
@@ -767,13 +951,7 @@ def phase_main_int8(state):
     from vdtpu_torch.ops.qconv import qconv3, qconv3_plain
     from vdtpu_torch.serving.api import VDInference
     system = _system(state)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    system.enable_int8(image_size=512, n=2)
-    torch.cuda.synchronize()
-    calib_s = time.perf_counter() - t
-    log(f"main_int8: enable_int8(image_size=512, n=2) calibration {calib_s:.3f} s "
-        f"[{state.get('card')}]")
+    calib_s = _calibrate(state, system, "main_int8")
     # every int8 conv site of the request (one CFG UNet call at batch 4 on
     # the 64^2 latent) against the plain version, on its own arguments
     calls = []
@@ -812,7 +990,8 @@ def phase_main_int8(state):
                 if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0
                         and hi <= 1.0):
                     raise RuntimeError(f"main_int8 {mode} {run}: bad output")
-                if counts != expect or got["qconv3_gn"] or got["gn_silu_q"] or got["gn_stats"]:
+                if (counts != expect or got["qconv3_gn"] or got["gn_silu_q"] or got["gn_stats"]
+                        or got["resblock_q"]):
                     raise RuntimeError(f"main_int8 {mode} {run}: launch counts {got} != {expect}")
                 if by_kv != expect_kv:
                     raise RuntimeError(f"main_int8 {mode} {run}: no-max launches by kv length "
@@ -826,6 +1005,47 @@ def phase_main_int8(state):
             state["kernels"][name]["launches"] = results["int8_warm"]["launches"][name]
             state["kernels"][name]["path"] = "main_int8 (int8, warm request)"
     state["main_int8"] = results
+
+
+def _calibrate(state, system, label: str) -> float:
+    """enable_int8 over vdtpu's four flows, timed (a no-op, reported as
+    such, when an earlier phase calibrated the system)."""
+    import torch
+    from vdtpu_torch.serving.api import FOUR_FLOWS
+    if "calibration_s" in state:
+        log(f"{label}: calibrated by an earlier phase in {state['calibration_s']:.3f} s")
+        return state["calibration_s"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    system.enable_int8(image_size=512, n=2)
+    torch.cuda.synchronize()
+    state["calibration_s"] = time.perf_counter() - t
+    log(f"{label}: enable_int8(image_size=512, n=2) over the four flows {FOUR_FLOWS}: "
+        f"calibration {state['calibration_s']:.3f} s [{state.get('card')}]")
+    return state["calibration_s"]
+
+
+def _fused2_sites(system, latent: int = 64):
+    """(C_in, C_out, side) of every ResBlock that conv="fused2" runs as one
+    kernel in a UNet call on a latent of side ``latent``, derived from the
+    program: a 2-D ResBlock whose map has at least fused_min_pixels pixels
+    and 8-aligned sizes and whose two convs carry calibrated tables."""
+    from vdtpu_torch.ops.quant import QuantPolicy
+    unet = system.model.diffuser["image"]
+    pol, side, di, out = QuantPolicy(), latent, 0, []
+    for tok in unet.program.layer_order:
+        if tok != "d":
+            continue
+        spec = unet.program.data[di]
+        block = unet.data_blocks[di][0]
+        if (spec.kind == "res" and side * side >= pol.fused_min_pixels and side % 8 == 0
+                and spec.in_ch % 8 == 0 and spec.out_ch % 8 == 0
+                and block.in_layers[2].act_scale is not None
+                and block.out_layers[3].act_scale is not None):
+            out.append((spec.in_ch, spec.out_ch, side))
+        side = side // 2 if spec.kind == "down" else side * 2 if spec.kind == "up" else side
+        di += 1
+    return out
 
 
 def _eps_inputs(system, batch: int):
@@ -952,6 +1172,122 @@ def phase_eps_int8(state):
     state["eps_int8"] = dict(cosine=cos, rel_l2=rel, int8_rel_l2_to_exact=effect)
     if not (math.isfinite(rel) and rel <= INT8_MAX_REL_L2 and cos >= INT8_MIN_COS):
         raise RuntimeError("eps_int8: card result disagrees with the f32 CPU result")
+
+
+def _fused2_launches(system, c_type: str, with_decode: bool = True):
+    """Launches of one 50-step request under conv="fused2", derived from
+    the program: every fused2 ResBlock one whole-ResBlock kernel per UNet
+    call, and its two convs and two GroupNorms nothing else; every other
+    calibrated conv site the int8 conv kernel; every QDense of the
+    ``c_type`` context blocks torch._int_mm; the long self-attentions the
+    no-max kernel; the remaining GroupNorms and the VAE decoder's the GN
+    kernel."""
+    n_f2 = len(_fused2_sites(system))
+    convs, _, mms = _int8_sites(system, c_type)
+    unet_gn, dec_gn, _ = _gn_sites(system, c_type)
+    return {"resblock_q": n_f2 * STEPS, "qconv3": (convs - 2 * n_f2) * STEPS,
+            "qconv3_gn": 0, "gn_stats": 0, "gn_silu_q": 0, "flash_fwd": 0,
+            "nomax_fwd": 10 * STEPS, "int_mm": mms * STEPS,
+            "gn_silu": (unet_gn - 2 * n_f2) * STEPS + (dec_gn if with_decode else 0)}
+
+
+def phase_main_fused2(state):
+    import torch
+    from vdtpu_torch.ops.qconv import resblock_plain, resblock_q
+    from vdtpu_torch.ops.quant import QuantPolicy
+    from vdtpu_torch.serving.api import VDInference
+    system = _system(state)
+    calib_s = _calibrate(state, system, "main_fused2")
+    sites = _fused2_sites(system)
+    log(f"main_fused2: {len(sites)} fused2 ResBlocks per UNet call (C_in, C_out, side): "
+        f"{sites}")
+    results = {"calibration_s": calib_s, "sites": sites}
+    pol = QuantPolicy(conv="fused2")
+    with _policy(system, pol):
+        # the kernel against its plain version at every distinct fused2 site
+        # of one CFG UNet call (batch 4), on the site's own arguments
+        calls = []
+        xs, ts, cs = _eps_inputs(system, 4)
+        with torch.no_grad(), _recording("resblock_q", calls):
+            system.model.apply_model(xs, ts, cs, "image", "text")
+        seen, rows = set(), []
+        for args, kwargs in calls:
+            sig = (tuple(args[0].shape), args[3].shape[0], args[14] is not None)
+            if sig in seen:
+                continue
+            seen.add(sig)
+            err, rel, outside, ok = compare_resblock(resblock_q(*args, **kwargs),
+                                                     resblock_plain(*args, **kwargs))
+            torch.cuda.synchronize()
+            rows.append(dict(site=list(sig), max_abs_err=err, rel_l2_err=rel,
+                             outside_share=outside, ok=ok))
+        del calls
+        bad = [r["site"] for r in rows if not r["ok"]]
+        log(f"  site check resblock_q: {len(rows)} distinct sites, max_abs_err "
+            f"{max(r['max_abs_err'] for r in rows):.3e}, max rel_l2 "
+            f"{max(r['rel_l2_err'] for r in rows):.3e}, max share outside two ulps "
+            f"{max(r['outside_share'] for r in rows):.2e} (limits {RB_MAX_OUTSIDE}, "
+            f"{RB_MAX_REL_L2}), disagreeing {bad} [{state.get('card')}]")
+        if len(rows) != len(set((c, n) for c, n, _ in sites)) or bad:
+            raise RuntimeError(f"main_fused2: site check {rows}")
+        results["site_check"] = rows
+        if "resblock_q" in state["kernels"]:
+            k = state["kernels"]["resblock_q"]
+            k["site_checks"] = rows
+            k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in rows))
+        # one full-width eps call against conv="fused" (the same function)
+        x, t, ctx = _eps_inputs(system, 2)
+        with torch.no_grad():
+            eps = system.model.apply_model(x, t, ctx, "image", "text").float()
+            with _policy(system, QuantPolicy(conv="fused")):
+                ref = system.model.apply_model(x, t, ctx, "image", "text").float()
+        cos, rel = _cosine(eps, ref)
+        log(f"main_fused2: eps [2, 4, 64, 64] against conv=\"fused\": cosine {cos:.6f} rel_l2 "
+            f"{rel:.5f} (limits cos >= {INT8_MIN_COS}, rel_l2 <= {INT8_MAX_REL_L2}) "
+            f"[{state.get('card')}]")
+        results["eps_vs_fused"] = dict(cosine=cos, rel_l2=rel)
+        if not (math.isfinite(rel) and rel <= INT8_MAX_REL_L2 and cos >= INT8_MIN_COS):
+            raise RuntimeError("main_fused2: eps disagrees with conv=fused")
+        vdi = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
+                          ddim_steps=STEPS, n_sample_image=2)
+        image = _i2i_image(SEED + 5)
+        prompt = "a red cat sitting on a wooden bench in the sun"
+        requests = (("t2i", "text", lambda: vdi.inference_t2i(prompt, seed=SEED)),
+                    ("i2i_a", "image", lambda: vdi.inference_i2i(image, 0.0, 0.5, None,
+                                                                  seed=SEED)))
+        for label, c_type, run_request in requests:
+            expect = _fused2_launches(system, c_type)
+            for run in ("cold", "warm"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_counters()
+                t0 = time.perf_counter()
+                img = run_request()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                got = _read_counters()
+                counts = {k: got[k] for k in expect}
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                finite = bool(torch.isfinite(img).all())
+                lo, hi = float(img.min()), float(img.max())
+                log(f"main_fused2 {label} {run}: {dt:.3f} s, {2 / dt:.3f} images/s, peak "
+                    f"{peak:.2f} GiB, shape {tuple(img.shape)} finite {finite} range "
+                    f"[{lo:.4f}, {hi:.4f}], launches {counts} (expected {expect}) "
+                    f"[{state.get('card')}]")
+                if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0
+                        and hi <= 1.0):
+                    raise RuntimeError(f"main_fused2 {label} {run}: bad output")
+                if counts != expect:
+                    raise RuntimeError(f"main_fused2 {label} {run}: launch counts {counts} "
+                                       f"!= {expect}")
+                results[f"{label}_{run}"] = dict(seconds=dt, images_per_s=2 / dt,
+                                                 peak_gib=peak, launches=counts)
+    if "resblock_q" in state["kernels"]:
+        k = state["kernels"]["resblock_q"]
+        k["launches"] = results["t2i_warm"]["launches"]["resblock_q"]
+        k["launches_i2i_a"] = results["i2i_a_warm"]["launches"]["resblock_q"]
+        k["path"] = "main_fused2 (int8 conv=\"fused2\", warm t2i request)"
+    state["main_fused2"] = results
 
 
 def _fingerprint(t):
@@ -1311,7 +1647,7 @@ def main() -> int:
         log(f"all phases: {time.perf_counter() - t_all:.1f} s")
     finally:
         _LOG.close()
-    if {"main", "main_int8", "modes", "train"} <= set(phases):
+    if {"main", "main_int8", "modes", "main_fused2", "train"} <= set(phases):
         missing = [k for k, v in state["kernels"].items() if not v["launches"]]
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: {missing}")

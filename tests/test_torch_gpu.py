@@ -296,7 +296,8 @@ def test_qconv3_kernel_refuses(gen):
 
 
 def test_int_mm_takes_the_transposed_weight(gen):
-    """int8_linear hands torch._int_mm the [N, K] table as a [K, N] view."""
+    """int8_linear hands torch._int_mm the [N, K] table as a [K, N] view;
+    a product of 16 rows or fewer runs on zero-padded rows, exactly."""
     from vdtpu_torch.ops.quant import int8_linear
     xq = torch.randint(-127, 128, (40, 64), device="cuda", generator=gen).to(torch.int8)
     wq = torch.randint(-127, 128, (48, 64), device="cuda", generator=gen).to(torch.int8)
@@ -305,8 +306,24 @@ def test_int_mm_takes_the_transposed_weight(gen):
     out = int8_linear(xq, wq, s, ws, out_dtype=torch.float32)
     ref = int8_linear(xq.cpu(), wq.cpu(), s.cpu(), ws.cpu(), out_dtype=torch.float32)
     torch.testing.assert_close(out.cpu(), ref, atol=0, rtol=0)
-    with pytest.raises(ValueError):
-        int8_linear(xq[:16], wq, s, ws)  # torch._int_mm needs more than 16 rows
+    small = int8_linear(xq[:16], wq, s, ws)  # torch._int_mm itself takes > 16 rows
+    torch.testing.assert_close(small.cpu(), ref[:16], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("rows", [1, 4, 16, 17])
+def test_int_mm_pads_small_products(gen, rows):
+    """The 0-D flows' [2n, F] products: exact against the CPU's int32."""
+    from vdtpu_torch.ops.quant import int8_linear
+    xq = torch.randint(-127, 128, (rows, 320), device="cuda", generator=gen).to(torch.int8)
+    wq = torch.randint(-127, 128, (640, 320), device="cuda", generator=gen).to(torch.int8)
+    ws = torch.rand(640, device="cuda", generator=gen) * 1e-2
+    bias = torch.randn(640, device="cuda", generator=gen)
+    s = torch.tensor(0.07, device="cuda")
+    before = int8_linear.launches
+    out = int8_linear(xq, wq, s, ws, bias)
+    assert int8_linear.launches == before + 1 and out.shape == (rows, 640)
+    ref = int8_linear(xq.cpu(), wq.cpu(), s.cpu(), ws.cpu(), bias.cpu())
+    torch.testing.assert_close(out.cpu(), ref, atol=0, rtol=0)
 
 
 def test_tiny_int8_and_tome_on_the_card(gen):
@@ -490,3 +507,128 @@ def test_tiny_training_on_the_card(gen, tmp_path, monkeypatch):
     assert sa.keys() == sb.keys() and all(torch.equal(sa[i]["nu"], sb[i]["nu"]) for i in sa)
     restored.run([{"x": x, "ctx": ctx}], num_iters=3)
     assert math.isfinite(restored.last_loss)
+
+
+# ---- the whole-ResBlock int8 kernel (conv="fused2") and image variation ----
+
+# The kernel and its plain version sum the GroupNorm statistics in other
+# orders, so a code can flip where y / s lies within f32 rounding of a
+# half-integer, and a flipped mid code moves the GN2 statistics by a last
+# bit: bounded as the chip check bounds it (share of elements outside two
+# output ulps, relative L2)
+RB_MAX_OUTSIDE, RB_MAX_REL_L2 = 1e-3, 1e-2
+
+
+def _resblock_args(gen, b, c, n, h, w, dtype, with_skip):
+    from vdtpu_torch.ops.quant import quantize_weight
+    rnd = lambda *shape: torch.randn(shape, device="cuda", generator=gen)
+    x = (rnd(b, c, h, w) * 2 + 0.5).to(dtype)
+    w1q, s1w = quantize_weight(rnd(n, 3, 3, c))
+    w2q, s2w = quantize_weight(rnd(n, 3, 3, n))
+    return (x, torch.rand(c, device="cuda", generator=gen) + 0.5, rnd(c) * 0.1,
+            w1q.contiguous(), s1w * 0.05, rnd(n) * 0.1, torch.tensor(0.03, device="cuda"),
+            (rnd(b, n) * 0.5).to(dtype), torch.rand(n, device="cuda", generator=gen) + 0.5,
+            rnd(n) * 0.1, w2q.contiguous(), s2w * 0.05, rnd(n) * 0.1,
+            torch.tensor(0.02, device="cuda"), rnd(b, n, h, w).to(dtype) if with_skip else None)
+
+
+def _resblock_close(out, ref, dtype):
+    a, r = out.float(), ref.float()
+    assert bool(torch.isfinite(a).all())
+    band = (1e-2 + 1.6e-2 * r.abs()) if dtype == torch.bfloat16 else (1e-5 + 1e-5 * r.abs())
+    outside = float(((a - r).abs() > band).float().mean())
+    rel = float((a - r).norm() / r.norm())
+    assert outside <= RB_MAX_OUTSIDE and rel <= RB_MAX_REL_L2, (outside, rel)
+
+
+@pytest.mark.parametrize("b,c,n,h,w,with_skip", [
+    (2, 64, 64, 16, 16, False),     # identity skip, the cp.async (C % 64 == 0) path
+    (2, 64, 128, 8, 24, True),      # channel change: a skip tensor
+    (1, 96, 64, 24, 8, True),       # C % 64 != 0: element-wise staging of conv1
+    (2, 32, 32, 32, 32, False),     # the tiny config's 32-channel level
+    (1, 320, 640, 16, 16, True),    # several N tiles, several groups a tile
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resblock_kernel_matches_plain(gen, b, c, n, h, w, with_skip, dtype):
+    from vdtpu_torch.ops.qconv import resblock_plain, resblock_q
+    args = _resblock_args(gen, b, c, n, h, w, dtype, with_skip)
+    before = resblock_q.launches
+    out = resblock_q(*args)
+    assert resblock_q.launches == before + 1 and out.shape == (b, n, h, w)
+    assert out.dtype == dtype
+    _resblock_close(out, resblock_plain(*args), dtype)
+    assert torch.equal(out, resblock_q(*args))   # fixed-order sums: deterministic
+
+
+def test_resblock_flat_takes_the_jax_layout(gen):
+    """resblock_flat: flat [B, H*W, C] in and out, weights [3, 3, C, N]."""
+    from vdtpu_torch.ops.qconv import resblock_flat, resblock_plain
+    b, c, n, h, w = 2, 64, 128, 16, 8
+    (x, g1, be1, w1q, s1w, b1, sx1, film, g2, be2, w2q, s2w, b2, sx2,
+     skip) = _resblock_args(gen, b, c, n, h, w, torch.bfloat16, True)
+    flat = lambda t: t.permute(0, 2, 3, 1).reshape(b, h * w, t.shape[1]).contiguous()
+    out = resblock_flat(flat(x), (g1, be1), w1q.permute(1, 2, 3, 0), s1w, b1, sx1, film,
+                        (g2, be2), w2q.permute(1, 2, 3, 0), s2w, b2, sx2, h, w,
+                        skip=flat(skip))
+    ref = resblock_plain(x, g1, be1, w1q, s1w, b1, sx1, film, g2, be2, w2q, s2w, b2, sx2, skip)
+    _resblock_close(out, flat(ref), torch.bfloat16)
+
+
+def test_resblock_kernel_refuses(gen):
+    from vdtpu_torch.ops.qconv import resblock_q
+    args = list(_resblock_args(gen, 1, 64, 64, 8, 8, torch.bfloat16, False))
+    bad = dict(enumerate(args))
+    bad[3] = args[3].float()                      # weights not int8
+    with pytest.raises(ValueError):
+        resblock_q(*bad.values())
+    bad = dict(enumerate(args))
+    bad[7] = args[7].float()                      # FiLM in another dtype
+    with pytest.raises(ValueError):
+        resblock_q(*bad.values())
+    with pytest.raises(TypeError):
+        resblock_q(args[0].half(), *args[1:7], args[7].half(), *args[8:])
+    args64 = list(_resblock_args(gen, 1, 64, 128, 8, 8, torch.bfloat16, False))
+    with pytest.raises(ValueError):               # identity skip with C != N
+        resblock_q(*args64)
+
+
+def test_tiny_i2i_and_fused2_on_the_card(gen):
+    """The tiny system in bf16 on the card: image variation from noise and
+    from the image's latent (VAE encoder, focus filter, colour adjust);
+    then four-flow int8 calibration and t2i under conv="fused2", whose
+    32-channel 32^2 level takes the whole-ResBlock kernel; its eps call
+    agrees with conv="fused" on the same scales."""
+    from vdtpu_torch.ops.qconv import qconv3_gn, resblock_q
+    from vdtpu_torch.ops.quant import QuantPolicy
+    from vdtpu_torch.serving.api import VDInference, VDSystem
+    cuda_sys = VDSystem("vd_test_tiny", dtype=torch.bfloat16, device="cuda").init_random(0)
+    with torch.no_grad():
+        for p in cuda_sys.net.parameters():
+            if not bool(p.any()):
+                p.copy_(torch.randn(p.shape, device="cuda", generator=gen) * 0.02)
+    tok = lambda texts: torch.arange(16).repeat(len(texts), 1).numpy() + 1
+    vdi = VDInference(cuda_sys, text_tokenizer=tok, output_dim=(64, 64), ddim_steps=4,
+                      latent_downsample=2)
+    image = torch.rand(1, 50, 70, 3, device="cuda", generator=gen)
+    for fid, fcs, clr in ((0.0, 0.5, None), (0.5, 0.3, "Simple")):
+        img = vdi.inference_i2i(image, fid, fcs, clr, seed=0)
+        assert tuple(img.shape) == (2, 64, 64, 3) and bool(torch.isfinite(img).all())
+        assert 0.0 <= float(img.min()) and float(img.max()) <= 1.0
+    cuda_sys.enable_int8(image_size=64, latent_downsample=2, n=2)
+    x = _randn(gen, 2, 4, 32, 32)
+    t = torch.tensor([500, 500], device="cuda")
+    ctx = cuda_sys.ctx_encode(tok(["x", "y"]), "text")
+    eps, counts = {}, {}
+    for conv in ("fused", "fused2"):
+        cuda_sys.set_quant_policy(QuantPolicy(conv=conv))
+        resblock_q.launches = qconv3_gn.launches = 0
+        with torch.no_grad():
+            eps[conv] = cuda_sys.model.apply_model(x, t, ctx, "image", "text").float()
+        counts[conv] = (resblock_q.launches, qconv3_gn.launches)
+    # every ResBlock that "fused" runs as two fused convs is one fused2 launch
+    assert counts["fused"][0] == 0 and counts["fused2"][1] == 0
+    assert counts["fused"][1] == 2 * counts["fused2"][0] > 0, counts
+    a, b = eps["fused2"].flatten().double(), eps["fused"].flatten().double()
+    assert float(a @ b / (a.norm() * b.norm())) > 0.99
+    img = vdi.inference_t2i("x", seed=0)
+    assert bool(torch.isfinite(img).all())

@@ -31,7 +31,9 @@ def _sources():
 _SLICE2 = ("ops/nomax.py", "ops/qconv.py", "ops/quant.py", "ops/tome.py",
            "csrc/nomax_fwd.cu", "csrc/qconv3.cu", "csrc/flash_bwd.cu", "ops/flash.py",
            "training/harness.py", "training/optim.py", "training/ema.py",
-           "training/schedulers.py", "training/checkpoints.py", "utils/logging.py")
+           "training/schedulers.py", "training/checkpoints.py", "utils/logging.py",
+           "csrc/qconv_tile.cuh", "csrc/resblock_q.cu", "ops/resize.py",
+           "models/distributions.py", "serving/postprocess.py")
 
 
 def test_every_module_imports_with_jax_flax_yaml_blocked():
@@ -42,6 +44,8 @@ def test_every_module_imports_with_jax_flax_yaml_blocked():
     assert {"vdtpu_torch.training.harness", "vdtpu_torch.training.optim",
             "vdtpu_torch.training.ema", "vdtpu_torch.training.schedulers",
             "vdtpu_torch.training.checkpoints", "vdtpu_torch.utils.logging"} <= set(modules)
+    assert {"vdtpu_torch.ops.resize", "vdtpu_torch.models.distributions",
+            "vdtpu_torch.serving.postprocess"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         *[f"sys.modules[{name!r}] = None" for name in _BLOCKED],

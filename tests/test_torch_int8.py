@@ -38,13 +38,13 @@ from vdtpu_torch.ops import quant
 from vdtpu_torch.ops.flash import flash_attention
 from vdtpu_torch.ops.gn_silu import gn_silu, gn_silu_q, gn_stats
 from vdtpu_torch.ops.nomax import flash_attention_nomax
-from vdtpu_torch.ops.qconv import qconv3, qconv3_gn
+from vdtpu_torch.ops.qconv import qconv3, qconv3_gn, resblock_q
 from vdtpu_torch.ops.quant import QConv, QuantPolicy, int8_linear
 
 torch.set_num_threads(2)
 
 COUNTERS = (flash_attention, gn_silu, gn_silu_q, gn_stats, flash_attention_nomax, qconv3,
-            qconv3_gn, int8_linear)
+            qconv3_gn, resblock_q, int8_linear)
 
 
 @pytest.fixture(autouse=True)
@@ -80,8 +80,7 @@ def test_quant_primitives_match_jax(clip, monkeypatch):
 
 
 def test_policy_validation_and_site_filter():
-    with pytest.raises(NotImplementedError, match="queue 2, row 11"):
-        QuantPolicy(conv="fused2")
+    assert QuantPolicy(conv="fused2").conv == "fused2"
     for bad in (dict(gn_prologue="1"), dict(conv="fused3"), dict(clip="p99")):
         with pytest.raises(ValueError):
             QuantPolicy(**bad)
@@ -212,6 +211,9 @@ RESBLOCK_MODES = {
                  {"gn_stats": 2, "qconv3": 2}, {"gn_stats": 2}),
     "conv_fused": (QuantPolicy(conv="fused"), {"VDTPU_QCONV": "fused", "VDTPU_QCONV_FORCE": "1"},
                    {"gn_stats": 2, "qconv3_gn": 2}, {"qconv3_flat": 2}),
+    "conv_fused2": (QuantPolicy(conv="fused2"),
+                    {"VDTPU_QCONV": "fused2", "VDTPU_QCONV_FORCE": "1"},
+                    {"resblock_q": 1}, {"resblock_flat": 1}),
 }
 
 
@@ -250,9 +252,11 @@ def test_resblock_int8_matches_jax(mode, monkeypatch):
         functools.partial(jgn.gn_silu_q, interpret=True), seen_jax, "gn_silu_q"))
     monkeypatch.setattr(jgn, "gn_stats", _counting(jgn.gn_stats, seen_jax, "gn_stats"))
     monkeypatch.setattr(jqc, "qconv3_flat", _counting(jqc.qconv3_flat, seen_jax, "qconv3_flat"))
+    monkeypatch.setattr(jqc, "resblock_flat", _counting(jqc.resblock_flat, seen_jax,
+                                                        "resblock_flat"))
     ref = np.asarray(jm.apply({"params": params, "quant": scales}, jnp.asarray(x),
                               jnp.asarray(emb)))
-    for name in ("gn_silu_q", "gn_stats", "qconv3", "qconv3_gn"):
+    for name in ("gn_silu_q", "gn_stats", "qconv3", "qconv3_gn", "resblock_q"):
         monkeypatch.setattr(quant, name, _counting(getattr(quant, name), seen_port, name))
     quant.set_quant_policy(pm, policy)
     quant.load_quant_state(pm, quant_state_from_jax(scales))
@@ -390,6 +394,10 @@ MODES = {
     "gn_stats": (QuantPolicy(gn_prologue="stats"), {"VDTPU_QCONV_GN": "stats"}),
     "conv_fused": (QuantPolicy(conv="fused"), {"VDTPU_QCONV": "fused",
                                                "VDTPU_QCONV_FORCE": "1"}),
+    # the 32-channel level of the tiny UNet (32^2 map) takes the whole-
+    # ResBlock function on both sides
+    "conv_fused2": (QuantPolicy(conv="fused2"), {"VDTPU_QCONV": "fused2",
+                                                 "VDTPU_QCONV_FORCE": "1"}),
 }
 
 
@@ -432,7 +440,7 @@ def test_int8_slice_matches_jax(tiny, mode, monkeypatch):
     z_f, img_f = _port_t2i(psys, xt, u, c)
     psys.load_int8(quant_state_from_jax(jscales), policy)
     seen = {}
-    for name in ("gn_stats", "qconv3", "qconv3_gn", "int8_linear"):
+    for name in ("gn_stats", "qconv3", "qconv3_gn", "resblock_q", "int8_linear"):
         monkeypatch.setattr(quant, name, _counting(getattr(quant, name), seen, name))
     try:
         sites = quant.quant_sites(psys.model.diffuser)
@@ -441,8 +449,9 @@ def test_int8_slice_matches_jax(tiny, mode, monkeypatch):
     finally:
         psys.set_quant_policy(None)
     assert seen["qconv3"] and seen["int8_linear"]
-    assert bool(seen.get("gn_stats")) == (mode != "default")
+    assert bool(seen.get("gn_stats")) == (mode in ("gn_stats", "conv_fused"))
     assert bool(seen.get("qconv3_gn")) == (mode == "conv_fused")
+    assert bool(seen.get("resblock_q")) == (mode == "conv_fused2")
     assert z_p.shape == z_j.shape and np.isfinite(z_p).all()
     effect, port = _rel_l2(z_j, z_f), _rel_l2(z_p, z_j)
     assert 0.005 < effect and port <= 2 * effect and port <= 0.1, (port, effect)
@@ -452,18 +461,47 @@ def test_int8_slice_matches_jax(tiny, mode, monkeypatch):
     assert _rel_l2(img_p, img_j) <= 2 * _rel_l2(img_j, img_f)
 
 
+def _jax_sites(jsys, flows):
+    """The quant-state keys vdtpu's calibration gives ``flows`` (the site
+    set does not depend on the probe values, and the sites of several flows
+    are the union of each flow's)."""
+    rs = np.random.RandomState(13)
+    ctx = {"text": rs.randn(2, 16, 96), "image": rs.randn(2, 17, 96)}
+    shape = {"image": (2, 32, 32, 4), "text": (2, 96)}
+    jquant.set_policy("int8")
+    try:
+        scales = jquant.calibrate(jsys.model, jsys.params["diffuser"], [
+            (jnp.asarray(rs.randn(*shape[x]), jnp.float32), jnp.full((2,), t, jnp.int32),
+             jnp.asarray(ctx[c], jnp.float32), x, c) for x, c in flows for t in TIMESTEPS])
+    finally:
+        jsys.model.quant_scales = None
+        jquant.set_policy(None)
+    return set(quant_state_from_jax(jax.device_get(scales)))
+
+
 def test_enable_int8_api(tiny):
     """Calibration through the serving API: seeded torch probes, every site
-    gets scales, a second call is a no-op, flows the port lacks raise."""
-    _, _, sd, _, _, own = tiny
+    of the calibrated flows gets scales (vdtpu's sites for the same flows),
+    the four flows by default, and a second call is a no-op."""
+    jsys, _, sd, jscales, _, own = tiny
     from vdtpu_torch.serving.api import VDSystem
-    psys = VDSystem("vd_test_tiny", device="cpu")
-    psys.load_state_dict(sd, strict=True)
-    with pytest.raises(NotImplementedError):
-        psys.enable_int8(image_size=64, latent_downsample=2, flows=(("image", "image"),))
-    psys.enable_int8(image_size=64, latent_downsample=2, n=1)
+
+    def calibrated(**kw):
+        psys = VDSystem("vd_test_tiny", device="cpu")
+        psys.load_state_dict(sd, strict=True)
+        return psys.enable_int8(image_size=64, latent_downsample=2, n=1, **kw)
+
+    sites = {("image", "text"): set(quant_state_from_jax(jscales)),
+             ("image", "image"): _jax_sites(jsys, (("image", "image"),))}
+    text_data = _jax_sites(jsys, (("text", "image"), ("text", "text")))
+    for flow, want in sites.items():
+        state = quant.quant_state(calibrated(flows=(flow,)).model.diffuser)
+        assert set(state) == want, flow
+    assert set(own) == sites[("image", "text")]
+    psys = calibrated()
     state = quant.quant_state(psys.model.diffuser)
-    assert sorted(state) == sorted(own)
+    assert set(state) == set.union(*sites.values(), text_data)
+    assert any(k.startswith("text.data_blocks") for k in state)   # the 0-D flows
     first = {k: v.clone() for k, v in state.items()}
     psys.enable_int8(image_size=64, latent_downsample=2, n=1, seed=5)
     assert all(torch.equal(first[k], v)

@@ -1,13 +1,13 @@
 """The text-to-image slice, port against the JAX package, on the tiny config.
 
-One JAX ``VDSystem("vd_test_tiny")`` with the weights of
-``init_random(0, image_size=64)`` for the parts the port builds (no
-Optimus text VAE, no image context encoder: this slice ports neither) exports its
-checkpoint; every all-zero array in it is replaced by seeded normals
-(std 0.02), as ``tests/_reference.py::derandomize_zeros`` does, because a
-zero-initialized output conv makes the UNet output identically zero. The
-result loads into JAX and into the port with ``strict=True``. Then the same
-token ids and the same numpy x_T go through both samplers (f32, 64^2 output,
+One JAX ``VDSystem("vd_test_tiny")`` with the weights of ``init_random(0,
+image_size=64)`` for the parts the port builds (no Optimus text VAE: the
+port does not build it) exports its checkpoint; every all-zero array in it
+is replaced by seeded normals (std 0.02), as
+``tests/_reference.py::derandomize_zeros`` does, because a zero-initialized
+output conv makes the UNet output identically zero. The result loads into
+JAX and into the port with ``strict=True``. Then the same token ids and
+the same numpy x_T go through both samplers (f32, 64^2 output,
 latent_downsample 2, n = 2, 4 DDIM steps, CFG 7.5) and both VAE decoders.
 """
 import jax
@@ -30,15 +30,19 @@ PROMPT = "a red cat"
 
 def _jax_init(jsys, seed: int = 0, image_size: int = 64):
     """``init_random(seed, image_size)`` of the parts the port builds (the
-    diffusers, the image VAE, the text encoder): the same keys, each init
-    under ``jax.jit``, which gives the same arrays as the eager init in
-    about half its time. The image context encoder is left out."""
-    kd, kv, _, kc2, _ = jax.random.split(jax.random.PRNGKey(seed), 5)
+    diffusers, the image VAE, both context encoders): the same keys, each
+    init under ``jax.jit``, which gives the same arrays as the eager init in
+    about half its time."""
+    kd, kv, kc1, kc2, _ = jax.random.split(jax.random.PRNGKey(seed), 5)
     x = jnp.zeros((1, image_size, image_size, 3))
     ids = jnp.zeros((1, jsys.ctx["text"].max_len), jnp.int32)
+    sz = jsys.ctx["image"].image_size
+    px = jnp.zeros((1, sz, sz, 3))
     jsys.params["diffuser"] = jax.jit(jsys.model.init_params)(kd)
     jsys.params["vae"]["image"] = jax.jit(lambda k: jsys.vae["image"].init(k, x))(kv)["params"]
-    jsys.params["ctx"] = {"text": jax.jit(lambda k: jsys.ctx["text"].init(k, ids))(kc2)["params"]}
+    jsys.params["ctx"] = {
+        "image": jax.jit(lambda k: jsys.ctx["image"].init(k, px))(kc1)["params"],
+        "text": jax.jit(lambda k: jsys.ctx["text"].init(k, ids))(kc2)["params"]}
     return jsys
 
 

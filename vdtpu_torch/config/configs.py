@@ -3,10 +3,10 @@
 The JAX package resolves its configs from YAML (``vdtpu/config/configs/``);
 the machine with the card has no YAML parser, so the port carries the
 resolved entries it builds: ``vd_four_flow_v1-0`` (with ``autokl_v1``,
-``clip_text_context_encoder``, ``openai_unet_2d_v1`` and
-``openai_unet_0d_v1_dc``) and ``vd_test_tiny`` with its parts. The text VAE
-(Optimus) and the CLIP vision encoder of those systems are not ported yet,
-so their entries are left out. ``tests/test_torch_config.py`` holds these
+``clip_image_context_encoder``, ``clip_text_context_encoder``,
+``openai_unet_2d_v1`` and ``openai_unet_0d_v1_dc``) and ``vd_test_tiny``
+with its parts. The text VAE (Optimus) of those systems is not ported yet,
+so its entries are left out. ``tests/test_torch_config.py`` holds these
 literals against the resolved JAX bank.
 """
 from __future__ import annotations
@@ -30,6 +30,12 @@ CLIP_TEXT_CONTEXT_ENCODER = {
     "type": "clip_text_context_encoder",
     "name": "clip_text_context_encoder",
     "args": {},  # ViT-L/14 text tower defaults (models/clip.py)
+}
+
+CLIP_IMAGE_CONTEXT_ENCODER = {
+    "type": "clip_image_context_encoder",
+    "name": "clip_image_context_encoder",
+    "args": {},  # ViT-L/14 vision tower defaults (models/clip.py)
 }
 
 OPENAI_UNET_2D_V1 = {
@@ -62,7 +68,8 @@ VD_FOUR_FLOW_V1_0 = {
         "beta_linear_start": 0.00085, "beta_linear_end": 0.012, "timesteps": 1000,
         "use_ema": False,
         "vae_cfg_list": [["image", AUTOKL_V1]],
-        "ctx_cfg_list": [["text", CLIP_TEXT_CONTEXT_ENCODER]],
+        "ctx_cfg_list": [["image", CLIP_IMAGE_CONTEXT_ENCODER],
+                         ["text", CLIP_TEXT_CONTEXT_ENCODER]],
         "diffuser_cfg_list": [["image", OPENAI_UNET_2D_V1], ["text", OPENAI_UNET_0D_V1_DC]],
         "global_layer_ptr": "image",
         "latent_scale_factor": {"image": 0.18215},
@@ -88,6 +95,15 @@ CLIP_TEXT_TINY = {
     "args": {
         "tower": {"hidden": 64, "layers": 2, "heads": 4, "intermediate": 128},
         "vocab_size": 1000, "max_len": 16, "projection_dim": 96,
+    },
+}
+
+CLIP_IMAGE_TINY = {
+    "type": "clip_image_context_encoder",
+    "name": "clip_image_tiny",
+    "args": {
+        "tower": {"hidden": 64, "layers": 2, "heads": 4, "intermediate": 128},
+        "image_size": 56, "patch": 14, "projection_dim": 96,
     },
 }
 
@@ -119,7 +135,7 @@ VD_TEST_TINY = {
         "beta_linear_start": 0.00085, "beta_linear_end": 0.012, "timesteps": 1000,
         "use_ema": False,
         "vae_cfg_list": [["image", AUTOKL_TINY]],
-        "ctx_cfg_list": [["text", CLIP_TEXT_TINY]],
+        "ctx_cfg_list": [["image", CLIP_IMAGE_TINY], ["text", CLIP_TEXT_TINY]],
         "diffuser_cfg_list": [["image", OPENAI_UNET_2D_TINY],
                               ["text", OPENAI_UNET_0D_TINY_DC]],
         "global_layer_ptr": "image",
@@ -128,9 +144,9 @@ VD_TEST_TINY = {
 }
 
 _BANK = {c["name"]: c for c in (
-    VD_FOUR_FLOW_V1_0, AUTOKL_V1, CLIP_TEXT_CONTEXT_ENCODER, OPENAI_UNET_2D_V1,
-    OPENAI_UNET_0D_V1_DC, VD_TEST_TINY, AUTOKL_TINY, CLIP_TEXT_TINY, OPENAI_UNET_2D_TINY,
-    OPENAI_UNET_0D_TINY_DC)}
+    VD_FOUR_FLOW_V1_0, AUTOKL_V1, CLIP_IMAGE_CONTEXT_ENCODER, CLIP_TEXT_CONTEXT_ENCODER,
+    OPENAI_UNET_2D_V1, OPENAI_UNET_0D_V1_DC, VD_TEST_TINY, AUTOKL_TINY, CLIP_IMAGE_TINY,
+    CLIP_TEXT_TINY, OPENAI_UNET_2D_TINY, OPENAI_UNET_0D_TINY_DC)}
 
 
 def model_cfg_bank():

@@ -13,6 +13,7 @@ _TYPES = {
     "openai_unet_0d_next": ("vdtpu_torch.models.unet", "UNet0DNext"),
     "autoencoderkl": ("vdtpu_torch.models.autoencoder", "AutoencoderKL"),
     "clip_text_context_encoder": ("vdtpu_torch.models.clip", "CLIPTextContextEncoder"),
+    "clip_image_context_encoder": ("vdtpu_torch.models.clip", "CLIPImageContextEncoder"),
 }
 
 

@@ -27,27 +27,26 @@
 // once, weights once, bf16 output once) take less: 5.2 + 0.9 + 10.5 MB,
 // 0.005 ms. The tensor cores set the pace.
 //
-// What the design does about it: an implicit GEMM (M = output pixels,
-// N = output channels, K = tap x C) on mma.sync m16n8k32 s8 x s8 -> s32,
-// 128 x 64 output tiles over 8 warps, 64-deep K tiles double-buffered in
-// shared memory with cp.async when C % 64 == 0 (each K tile is then one
-// tap: a row of 64 contiguous channels, i.e. the one-row halo of the tap
-// read straight from device memory), element-wise staging otherwise. The
-// im2col matrix never exists in device memory. mma.sync reaches a fraction
-// of the int8 peak; wgmma/TMA and a persistent schedule are later work.
+// What the design does about it: an implicit GEMM (M = output pixels, N =
+// output channels, K = tap x C) on mma.sync m16n8k32 s8 x s8 -> s32, 128 x
+// 64 output tiles over 8 warps (the tile of qconv_tile.cuh), 64-deep K
+// tiles double-buffered in shared memory with cp.async when C % 64 == 0
+// (each K tile is then one tap: a row of 64 contiguous channels, i.e. the
+// one-row halo of the tap read straight from device memory), element-wise
+// staging otherwise. The im2col matrix never exists in device memory.
+// mma.sync reaches a fraction of the int8 peak; wgmma/TMA and a persistent
+// schedule are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "qconv_tile.cuh"
+
 namespace {
 
-constexpr int kBM = 128;     // output pixels per block
-constexpr int kBN = 64;      // output channels per block
-constexpr int kBK = 64;      // K (tap x channel) per tile
-constexpr int kLD = kBK + 16;  // bytes per shared-memory row: conflict-free fragments
-constexpr int kThreads = 256;
+using namespace vdq;
 
 struct Params {
   const void* x;
@@ -69,31 +68,6 @@ struct Params {
   long long sob, soh, sow, soc;
   long long film_sb;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// D = A(16x32, row) * B(32x8, col) + D, s8 operands, exact s32 accumulators.
-__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // One output row m = (b, yo, xo) of the implicit GEMM.
 struct Row {
@@ -190,24 +164,6 @@ __device__ __forceinline__ void load_a(const Params& p, int8_t* sA, int m0, int 
   }
 }
 
-// Stage B tile rows (output channels) [n0, n0 + 64) x K [k0, k0 + 64).
-__device__ __forceinline__ void load_b(const Params& p, int8_t* sB, int n0, int k0) {
-  const int K = 9 * p.C;
-  if (p.vec_b) {
-    // C % 64 == 0: rows of 9C bytes are 64-byte aligned
-    const int r = threadIdx.x >> 2, ch = threadIdx.x & 3;
-    const bool ok = n0 + r < p.N;
-    const int8_t* src = ok ? p.w + (long long)(n0 + r) * K + k0 + ch * 16 : p.w;
-    cp_async16(sB + r * kLD + ch * 16, src, ok ? 16 : 0);
-    return;
-  }
-  for (int idx = threadIdx.x; idx < kBN * kBK; idx += kThreads) {
-    const int r = idx / kBK, kk = idx - r * kBK;
-    const int k = k0 + kk;
-    sB[r * kLD + kk] = (n0 + r < p.N && k < K) ? p.w[(long long)(n0 + r) * K + k] : int8_t(0);
-  }
-}
-
 template <typename T, int IN_KIND>
 __global__ void __launch_bounds__(kThreads) qconv3_kernel(const Params p) {
   __shared__ __align__(16) int8_t sA[2][kBM * kLD];
@@ -222,14 +178,12 @@ __global__ void __launch_bounds__(kThreads) qconv3_kernel(const Params p) {
   const bool async = p.vec_a || p.vec_b;
 
   int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+  zero_acc(acc);
 
-  const int nkt = (9 * p.C + kBK - 1) / kBK;
+  const int K = 9 * p.C;
+  const int nkt = (K + kBK - 1) / kBK;
   load_a<T, IN_KIND>(p, sA[0], m0, 0, sx);
-  load_b(p, sB[0], n0, 0);
+  load_b(p.w, p.N, K, p.vec_b, sB[0], n0, 0);
   if (async) cp_async_commit();
   for (int kt = 0; kt < nkt; ++kt) {
     const int cur = kt & 1;
@@ -237,31 +191,10 @@ __global__ void __launch_bounds__(kThreads) qconv3_kernel(const Params p) {
     __syncthreads();
     if (kt + 1 < nkt) {  // the other buffer was last read before the barrier
       load_a<T, IN_KIND>(p, sA[cur ^ 1], m0, (kt + 1) * kBK, sx);
-      load_b(p, sB[cur ^ 1], n0, (kt + 1) * kBK);
+      load_b(p.w, p.N, K, p.vec_b, sB[cur ^ 1], n0, (kt + 1) * kBK);
       if (async) cp_async_commit();
     }
-    const int8_t* A = sA[cur];
-    const int8_t* Bt = sB[cur];
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int8_t* ar = A + (wm * 32 + mt * 16 + g) * kLD + ks + 4 * t;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(ar);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(ar + 8 * kLD);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(ar + 16);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(ar + 8 * kLD + 16);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int8_t* br = Bt + (wn * 32 + nt * 8 + g) * kLD + ks + 4 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(br);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(br + 16);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_s8(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
+    mma_k_tile(sA[cur], sB[cur], acc);
   }
 
   // epilogue: acc * (s_x * s_w[n]) + bias[n] (+ film[b, n]) (+ res), in f32

@@ -8,6 +8,10 @@ a flax path joined with "." plus the leaf renamed (kernel/scale/embedding
 that the reference stores as 1x1 convs get [O, I, 1, 1].
 
 Input leaves are numpy arrays, e.g. ``jax.device_get(system.params[...])``.
+The same rules convert every tree the port builds: the diffusers, both
+CLIP context encoders (``ctx.image``: the patch-embedding conv, the class
+and position embeddings, HF's LayerNorm names) and the whole image VAE
+(``encoder``, ``quant_conv``, ``decoder``, ``post_quant_conv``).
 ``quant_state_from_jax`` converts the int8 serving policy's calibrated
 scales and weight tables the same way.
 """

@@ -10,8 +10,11 @@ Under an int8 policy (``ops/quant.py``) the ResBlock's FiLM and residual
 adds ride its convs' f32 epilogues, and the policy picks how each GN+SiLU
 meets its conv's quantize (``_gn_conv``), or runs GN+SiLU+quantize inside
 the conv kernel (``conv="fused"``, sites of at least ``fused_min_pixels``
-with 8-aligned sizes). The FiLM projection stays in the compute dtype, as
-in the JAX package.
+with 8-aligned sizes), or runs the whole block in one kernel
+(``conv="fused2"``, at such a site whose two convs have calibrated tables
+and run int8; else as under "fused", as vdtpu's ``_fused_flat`` falls
+back). The FiLM projection and the 1x1 skip conv stay in the compute
+dtype, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vdtpu_torch.models.layers import Conv1x1Linear, GroupNorm32, apply_add, conv3, dense
+from vdtpu_torch.ops import quant
 
 
 class ResBlock2D(nn.Module):
@@ -44,7 +48,13 @@ class ResBlock2D(nn.Module):
             h = self.out_layers[3](self.out_layers[0](h, silu=True))
             return self.skip_connection(x) + h
         skip = self.skip_connection(x)
-        if pol.conv == "fused" and self._fused_eligible(x, pol):
+        if pol.conv in ("fused", "fused2") and self._fused_eligible(x, pol):
+            conv1, conv2 = self.in_layers[2], self.out_layers[3]
+            if pol.conv == "fused2" and quant.fused2_ready(conv1, conv2, x.shape[1],
+                                                           x.shape[2] * x.shape[3]):
+                return quant.resblock_int8(x, self.in_layers[0], conv1, e[:, :, 0, 0],
+                                           self.out_layers[0], conv2,
+                                           None if skip is x else skip)
             h = self.in_layers[2](x, gn=self.in_layers[0], add=e, fused=True)
             return self.out_layers[3](h, gn=self.out_layers[0], add=skip, fused=True)
         h = self._gn_conv(x, self.in_layers[0], self.in_layers[2], e, pol)

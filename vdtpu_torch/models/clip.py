@@ -1,19 +1,28 @@
-"""CLIP ViT-L/14 text context encoder (``vdtpu/models/clip.py``).
+"""CLIP ViT-L/14 context encoders, text and vision (``vdtpu/models/clip.py``).
 
-HF ``CLIPModel`` state-dict names under ``text_model.*`` plus
-``text_projection``. VD's text context is the projected token states
-divided by the norm of the projected EOT-pooled state (EOT = argmax of the
-ids, the CLIP convention).
+HF ``CLIPModel`` state-dict names: ``text_model.*`` plus
+``text_projection``; ``vision_model.*`` (``embeddings.patch_embedding``
+without bias, ``embeddings.class_embedding``,
+``embeddings.position_embedding``, HF's ``pre_layrnorm`` spelling,
+``post_layernorm``) plus ``visual_projection``. VD's text context is the
+projected token states divided by the norm of the projected EOT-pooled
+state (EOT = argmax of the ids, the CLIP convention); its image context is
+the post-LayerNorm, projected tokens divided by the norm of the projected
+CLS token. ``preprocess_images`` is CLIPProcessor's bicubic shortest-side
+resize, centre crop and mean/std normalization. The masked image variant
+(``vision_token_mask``) is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
 from vdtpu_torch.models.layers import LayerNorm, dense
 from vdtpu_torch.ops.attention import scaled_dot_product_attention
+from vdtpu_torch.ops.resize import resize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,9 +34,15 @@ class CLIPTowerConfig:
 
 
 TEXT_L14 = CLIPTowerConfig(hidden=768, layers=12, heads=12, intermediate=3072)
+VISION_L14 = CLIPTowerConfig(hidden=1024, layers=24, heads=16, intermediate=4096)
 PROJECTION_DIM = 768
 VOCAB_SIZE = 49408
 MAX_TEXT_LEN = 77
+IMAGE_SIZE = 224
+PATCH = 14
+
+CLIP_PIXEL_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_PIXEL_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 
 def quick_gelu(x):
@@ -128,3 +143,71 @@ class CLIPTextContextEncoder(nn.Module):
         pooled = hidden[torch.arange(hidden.shape[0], device=hidden.device), eot]
         norm = self.text_projection(pooled).float().norm(dim=-1, keepdim=True)
         return z / norm[:, None, :].to(z.dtype)
+
+
+class _VisionEmbeddings(nn.Module):
+    def __init__(self, hidden: int, image_size: int, patch: int):
+        super().__init__()
+        self.patch_embedding = nn.Conv2d(3, hidden, patch, stride=patch, bias=False)
+        self.class_embedding = nn.Parameter(torch.empty(hidden))
+        self.class_embedding.init_std = 0.02  # flax normal(0.02)
+        self.position_embedding = nn.Embedding((image_size // patch) ** 2 + 1, hidden)
+
+    def forward(self, pixels):
+        """pixels [B, H, W, 3] (normalized) -> [B, 1 + P, hidden]."""
+        x = self.patch_embedding(pixels.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+        cls = self.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1)
+        return x + self.position_embedding.weight[None, :x.shape[1]]
+
+
+class CLIPVisionTower(nn.Module):
+    """Patch + class + position embeddings, pre-LayerNorm, the encoder
+    layers; returns the hidden states before ``post_layernorm`` (which the
+    tower holds, under HF's name, and the context encoder applies)."""
+
+    def __init__(self, cfg: CLIPTowerConfig = VISION_L14, image_size: int = IMAGE_SIZE,
+                 patch: int = PATCH):
+        super().__init__()
+        self.embeddings = _VisionEmbeddings(cfg.hidden, image_size, patch)
+        self.pre_layrnorm = LayerNorm(cfg.hidden, eps=1e-5)
+        self.encoder = _Encoder(cfg)
+        self.post_layernorm = LayerNorm(cfg.hidden, eps=1e-5)
+
+    def forward(self, pixels):
+        x = self.pre_layrnorm(self.embeddings(pixels))
+        for layer in self.encoder.layers:
+            x = layer(x)
+        return x
+
+
+class CLIPImageContextEncoder(nn.Module):
+    """Normalized pixels [B, S, S, 3] -> context [B, 1 + P, projection_dim]."""
+
+    def __init__(self, tower=VISION_L14, image_size: int = IMAGE_SIZE, patch: int = PATCH,
+                 projection_dim: int = PROJECTION_DIM):
+        super().__init__()
+        tower = tower if isinstance(tower, CLIPTowerConfig) else CLIPTowerConfig(**tower)
+        self.image_size, self.patch = image_size, patch
+        self.vision_model = CLIPVisionTower(tower, image_size, patch)
+        self.visual_projection = dense(tower.hidden, projection_dim, bias=False, quant=False)
+
+    def forward(self, pixels):
+        hidden = self.vision_model(pixels)
+        z = self.visual_projection(self.vision_model.post_layernorm(hidden))
+        norm = z[:, 0:1].float().norm(dim=-1, keepdim=True)
+        return z / norm.to(z.dtype)
+
+
+def preprocess_images(images, size: int = IMAGE_SIZE):
+    """[B, H, W, 3] in [0, 1] -> CLIP-normalized f32 [B, size, size, 3]:
+    bicubic resize of the shortest side to ``size``, centre crop, mean/std."""
+    x = torch.as_tensor(images).float()
+    _, h, w, _ = x.shape
+    scale = size / min(h, w)
+    nh, nw = round(h * scale), round(w * scale)
+    x = resize(x, (nh, nw))
+    top, left = (nh - size) // 2, (nw - size) // 2
+    x = x[:, top:top + size, left:left + size, :]
+    mean, std = (torch.as_tensor(a, device=x.device) for a in (CLIP_PIXEL_MEAN, CLIP_PIXEL_STD))
+    return (x - mean) / std

@@ -120,7 +120,8 @@ class Downsample2D(nn.Module):
 def init_random(module: nn.Module, generator: torch.Generator) -> None:
     """The port's seeded init: lecun-normal weights (std 1/sqrt(fan_in), as
     flax's default kernel init), N(0, 1) embeddings, zero biases, unit norm
-    scales, and zeros where the reference zero-initializes."""
+    scales, zeros where the reference zero-initializes, and N(0, init_std)
+    where a parameter names its own (CLIP's class embedding)."""
     for mod in module.modules():
         for name, p in mod.named_parameters(recurse=False):
             if getattr(p, "zero_init", False):
@@ -129,6 +130,8 @@ def init_random(module: nn.Module, generator: torch.Generator) -> None:
                 p.copy_(torch.randn(p.shape, generator=generator, device=p.device))
             elif isinstance(mod, (GroupNorm32, nn.LayerNorm)):
                 p.fill_(1.0 if name == "weight" else 0.0)
+            elif getattr(p, "init_std", None) is not None:
+                p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * p.init_std)
             elif name == "bias":
                 p.zero_()
             else:

@@ -16,6 +16,16 @@ header has the bound and the design.
 - ``qconv3_flat``: the JAX signature, flat [B, H*W, C] in and out, weights
   [3, 3, C, N].
 
+The whole-ResBlock kernel (``conv="fused2"``) is ``csrc/resblock_q.cu``,
+counterpart of ``resblock_flat``'s ``_resblock_kernel``: GN1 statistics,
+GN1+SiLU+quantize, conv1 + bias + FiLM, the mid rounded to the output
+dtype, GN2 statistics, GN2+SiLU+quantize, conv2 + bias + skip, in one
+cooperative launch.
+- ``resblock_q``: NCHW in and out (the port's layout), weights
+  [N, 3, 3, C] and [N, 3, 3, N];
+- ``resblock_plain``: its function in plain PyTorch;
+- ``resblock_flat``: the JAX signature, flat [B, H*W, C] in and out.
+
 Weights are int8 [N, 3, 3, C] (channels last), scales f32 [N]. The
 epilogue is f32: acc * (s_x * s_w[n]) + bias[n] (+ FiLM [B, N]) (+ full
 residual), then the output dtype. Padding is 1 and the stride 1 or 2.
@@ -31,7 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from vdtpu_torch.ops.gn_silu import gn_apply, gn_stats
+from vdtpu_torch.ops.gn_silu import gn_apply, gn_stats, gn_stats_plain
 
 
 def _epilogue(acc, s_x, w_scale, bias, add_vec, add_full, out_dtype):
@@ -199,3 +209,131 @@ def qconv3_flat(x, gn_scale, gn_bias, s_act, wq, s_w, bias, h: int, w: int, grou
     y = qconv3_gn(x_nchw, stats, gn_scale, gn_bias, s_act, w_oc, s_w.reshape(n), bias,
                   with_silu, 1, add_vec, res)
     return y.permute(0, 2, 3, 1).reshape(b, m, n)
+
+
+def resblock_plain(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, s2w, b2, sx2,
+                   skip=None, groups: int = 32, eps: float = 1e-5):
+    """The whole-ResBlock kernel's function in plain PyTorch: x [B, C, H, W]
+    (any strides), film [B, N], skip [B, N, H, W] or None (identity, C ==
+    N). The mid is rounded to x's dtype where ``ref_resblock_flat`` rounds
+    it; statistics are E[x^2] - E[x]^2 in f32, clipped at 0."""
+    q1 = gn_quantize_plain(x, gn_stats_plain(x, groups, eps), gn1_w, gn1_b, sx1)
+    mid = qconv3_plain(q1, w1q, s1w, b1, sx1, 1, film, None, x.dtype)
+    q2 = gn_quantize_plain(mid, gn_stats_plain(mid, groups, eps), gn2_w, gn2_b, sx2)
+    return qconv3_plain(q2, w2q, s2w, b2, sx2, 1, None, x if skip is None else skip, x.dtype)
+
+
+def _pixel_strides(name, t4):
+    """(batch, pixel, channel) strides of a logical [B, C, H, W] view whose
+    pixels share one stride (NCHW, or flat [B, H*W, C] permuted)."""
+    sb, sc, sh, sw = t4.stride()
+    if sh != t4.shape[3] * sw and t4.shape[2] > 1:
+        raise ValueError(f"resblock_q: {name} needs one pixel stride (NCHW or flat NHWC), "
+                         f"got strides {t4.stride()}")
+    return sb, sw, sc
+
+
+def _resblock_launch(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, s2w, b2, sx2,
+                     skip, groups, eps, out):
+    from vdtpu_torch.ops.kernels.build import load
+    b, c, h, w = x.shape
+    n = w1q.shape[0]
+    dev = x.device
+    dtype = {torch.bfloat16: 0, torch.float32: 1}.get(x.dtype)
+    if dtype is None:
+        raise TypeError(f"resblock_q takes bf16 or f32 activations, not {x.dtype}")
+    for name, t, shape in (("w1q", w1q, (n, 3, 3, c)), ("w2q", w2q, (n, 3, 3, n))):
+        if (t.dtype != torch.int8 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"resblock_q: {name} must be contiguous 16-byte aligned int8 "
+                             f"{list(shape)}, got {t.dtype} {tuple(t.shape)}")
+    if c % groups or n % groups:
+        raise ValueError(f"resblock_q: {c} and {n} channels must divide into {groups} groups")
+    if skip is None and c != n:
+        raise ValueError("resblock_q: an identity skip needs C == N")
+    if skip is not None and (tuple(skip.shape) != (b, n, h, w) or skip.dtype != x.dtype):
+        raise ValueError(f"resblock_q: skip must be [{b}, {n}, {h}, {w}] {x.dtype}")
+    if tuple(film.shape) != (b, n) or film.dtype != x.dtype or film.stride(1) != 1:
+        raise ValueError(f"resblock_q: film must be [{b}, {n}] {x.dtype}, unit-stride channels")
+    for name, s_x in (("sx1", sx1), ("sx2", sx2)):
+        if not (torch.is_tensor(s_x) and s_x.numel() == 1 and s_x.dtype == torch.float32):
+            raise ValueError(f"resblock_q: {name} must be a one-element f32 tensor")
+    f32 = lambda t, k: t.float().contiguous() if t is not None else torch.zeros(k, device=dev)
+    vecs = [f32(t, k) for t, k in ((s1w, n), (b1, n), (gn1_w, c), (gn1_b, c), (s2w, n),
+                                   (b2, n), (gn2_w, n), (gn2_b, n))]
+    if any(v.shape != (k,) for v, k in zip(vecs, (n, n, c, c, n, n, n, n))):
+        raise ValueError("resblock_q: scales, biases and GroupNorm affines must be 1-D")
+    tensors = [x, w1q, w2q, sx1, sx2, film, out, *vecs] + ([skip] if skip is not None else [])
+    if any(t.device != dev for t in tensors):
+        raise ValueError("resblock_q: every tensor must be on the input's device")
+    hw = h * w
+    splits = -(-hw // 256)  # GN statistics items per (sample, group): csrc kPChunk
+    mid = torch.empty((b, hw, n), dtype=x.dtype, device=dev)
+    s8 = torch.empty((b * hw * max(c, n),), dtype=torch.int8, device=dev)
+    part = torch.empty((b * groups * splits * 2,), dtype=torch.float32, device=dev)
+    stats = torch.empty((4 * b * groups,), dtype=torch.float32, device=dev)
+    sk = x if skip is None else skip
+    strides = (*_pixel_strides("x", x), *_pixel_strides("skip", sk), *_pixel_strides("out", out),
+               film.stride(0))
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    s1w_, b1_, g1w_, g1b_, s2w_, b2_, g2w_, g2b_ = vecs
+    lib = load("resblock_q")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vd_resblock_q(
+            x.data_ptr(), ptr(skip), out.data_ptr(), w1q.data_ptr(), s1w_.data_ptr(),
+            b1_.data_ptr(), g1w_.data_ptr(), g1b_.data_ptr(), sx1.data_ptr(), w2q.data_ptr(),
+            s2w_.data_ptr(), b2_.data_ptr(), g2w_.data_ptr(), g2b_.data_ptr(), sx2.data_ptr(),
+            film.data_ptr(), mid.data_ptr(), s8.data_ptr(), part.data_ptr(), stats.data_ptr(),
+            b, h, w, c, n, groups, float(eps), *strides, dtype, stream)
+    if rc != 0:
+        raise RuntimeError(f"resblock_q launch failed: cudaError {rc} (a cooperative launch "
+                           f"needs every block resident)")
+
+
+def resblock_q(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, s2w, b2, sx2,
+               skip=None, groups: int = 32, eps: float = 1e-5):
+    """Whole int8 ResBlock: x [B, C, H, W] in the compute dtype -> [B, N, H, W]
+    in x's dtype. w1q int8 [N, 3, 3, C], w2q int8 [N, 3, 3, N] with f32
+    scales s1w, s2w [N]; b1, b2 [N]; sx1, sx2 the calibrated activation
+    scales (one-element f32); film [B, N]; skip [B, N, H, W] or None."""
+    if x.device.type == "cpu":
+        return resblock_plain(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, s2w,
+                              b2, sx2, skip, groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"resblock_q: no kernel for device {x.device}")
+    if x.dim() != 4:
+        raise TypeError(f"resblock_q takes [B, C, H, W], got {tuple(x.shape)}")
+    b, _, h, w = x.shape
+    out = torch.empty((b, w1q.shape[0], h, w), dtype=x.dtype, device=x.device)
+    _resblock_launch(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, s2w, b2, sx2,
+                     skip, groups, eps, out)
+    resblock_q.launches += 1
+    return out
+
+
+resblock_q.launches = 0
+
+
+def resblock_flat(x, gn1, w1q, s1w, b1, sx1, film, gn2, w2q, s2w, b2, sx2, h: int, w: int,
+                  skip=None, groups: int = 32, eps: float = 1e-5):
+    """``vdtpu/ops/pallas/qconv.py::resblock_flat``'s signature: flat
+    [B, H*W, C] in, [B, H*W, N] out; gn1/gn2 (scale, bias); weights int8
+    [3, 3, C, N] and [3, 3, N, N]; skip flat [B, H*W, N] or None."""
+    b, m, c = x.shape
+    if m != h * w:
+        raise ValueError(f"resblock_flat: {m} rows are not {h} x {w}")
+    n = w1q.shape[-1]
+    nchw = lambda t: t.reshape(b, h, w, t.shape[-1]).permute(0, 3, 1, 2)
+    as_f32 = lambda s: torch.as_tensor(s, dtype=torch.float32, device=x.device).reshape(())
+    args = (gn1[0], gn1[1], w1q.permute(3, 0, 1, 2).contiguous(), s1w.reshape(n), b1,
+            as_f32(sx1), film.reshape(b, n), gn2[0], gn2[1],
+            w2q.permute(3, 0, 1, 2).contiguous(), s2w.reshape(n), b2, as_f32(sx2),
+            None if skip is None else nchw(skip))
+    if x.device.type == "cpu":
+        y = resblock_plain(nchw(x), *args, groups, eps)
+        return y.permute(0, 2, 3, 1).reshape(b, m, n)
+    out = torch.empty((b, m, n), dtype=x.dtype, device=x.device)
+    _resblock_launch(nchw(x), *args, groups, eps, nchw(out))
+    resblock_q.launches += 1
+    return out

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vdtpu_torch.ops.gn_silu import gn_apply, gn_silu_q, gn_stats
-from vdtpu_torch.ops.qconv import qconv3, qconv3_gn
+from vdtpu_torch.ops.qconv import qconv3, qconv3_gn, resblock_q
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +45,13 @@ class QuantPolicy:
       "plain" (GN+SiLU kernel, then quantize), "fused" (the GN+SiLU+int8
       kernel), "stats" (the GN statistics kernel, the apply and quantize in
       plain ops). ``VDTPU_QCONV_GN`` = 0 / 1 / stats.
-    conv: "per_site" or "fused" (ResBlock convs run GN+SiLU+quantize inside
-      the conv kernel; ``VDTPU_QCONV=fused``). "fused2" (both convs of a
-      ResBlock in one kernel) is not ported.
+    conv: "per_site", "fused" (ResBlock convs run GN+SiLU+quantize inside
+      the conv kernel; ``VDTPU_QCONV=fused``) or "fused2" (a ResBlock's
+      GN1+SiLU+quantize, conv1, FiLM, GN2+SiLU+quantize, conv2 and skip add
+      in one kernel, ``ops/qconv.py::resblock_q``; ``VDTPU_QCONV=fused2``).
+      fused2 takes a site that "fused" takes and whose two convs both have
+      calibrated tables and run int8; every other ResBlock of a fused2
+      policy runs as under "fused".
     min_pixels: conv sites whose input has fewer pixels run in the compute
       dtype with the same parameters (``VDTPU_INT8_MIN_PIXELS``).
     fused_min_pixels: the smallest map ``conv="fused"`` takes
@@ -70,12 +74,8 @@ class QuantPolicy:
     def __post_init__(self):
         if self.gn_prologue not in ("plain", "fused", "stats"):
             raise ValueError(f"gn_prologue must be plain, fused or stats: {self.gn_prologue!r}")
-        if self.conv == "fused2":
-            raise NotImplementedError("conv='fused2' (the whole-ResBlock int8 kernel, "
-                                      "qconv.py::resblock_flat) is not ported yet: ROADMAP "
-                                      "queue 2, row 11")
-        if self.conv not in ("per_site", "fused"):
-            raise ValueError(f"conv must be per_site or fused: {self.conv!r}")
+        if self.conv not in ("per_site", "fused", "fused2"):
+            raise ValueError(f"conv must be per_site, fused or fused2: {self.conv!r}")
         if self.clip is not None:
             num = (self.clip[5:] if self.clip.startswith("sigma")
                    else self.clip[1:] if self.clip.startswith("q") else "")
@@ -144,8 +144,10 @@ def int8_linear(xq, w_q, s_x, w_scale, bias=None, add=None, out_dtype=torch.floa
 
     xq int8 [..., K]; w_q int8 [N, K]; s_x f32 scalar; w_scale f32 [N].
     The product is exact: int32 on the CPU, ``torch._int_mm`` (s8 x s8 ->
-    s32, cuBLAS) on CUDA, whose shape rules (rows > 16, K and N multiples
-    of 8) are checked here and refused, never worked around."""
+    s32, cuBLAS) on CUDA. ``torch._int_mm`` takes more than 16 rows only:
+    a product of fewer rows (a 0-D flow's [B, F] input) runs on its rows
+    zero-padded (``pad_rows``) and sliced back, which is exact (a zero row
+    adds nothing). K and N must be multiples of 8, else it raises."""
     k, n = xq.shape[-1], w_q.shape[0]
     x2 = xq.reshape(-1, k)
     if xq.device.type == "cpu":
@@ -153,10 +155,11 @@ def int8_linear(xq, w_q, s_x, w_scale, bias=None, add=None, out_dtype=torch.floa
     elif xq.device.type == "cuda":
         if xq.dtype != torch.int8 or w_q.dtype != torch.int8:
             raise TypeError(f"int8_linear takes int8 operands, got {xq.dtype}/{w_q.dtype}")
-        if not (x2.shape[0] > 16 and k % 8 == 0 and n % 8 == 0):
-            raise ValueError(f"int8_linear: torch._int_mm needs rows > 16 and K, N multiples "
-                             f"of 8; got [{x2.shape[0]}, {k}] x [{k}, {n}]")
-        acc = torch._int_mm(x2.contiguous(), w_q.t())
+        if not (k % 8 == 0 and n % 8 == 0):
+            raise ValueError(f"int8_linear: torch._int_mm needs K, N multiples of 8; got "
+                             f"[{x2.shape[0]}, {k}] x [{k}, {n}]")
+        m = x2.shape[0]
+        acc = torch._int_mm(pad_rows(x2.contiguous()), w_q.t())[:m]
         int8_linear.launches += 1
     else:
         raise ValueError(f"int8_linear: no path for device {xq.device}")
@@ -170,6 +173,15 @@ def int8_linear(xq, w_q, s_x, w_scale, bias=None, add=None, out_dtype=torch.floa
 
 
 int8_linear.launches = 0
+
+
+def pad_rows(x2):
+    """x2 [m, K] as ``torch._int_mm`` takes it: unchanged for m > 16, else
+    with zero rows appended up to 24 (the next multiple of 8 above 16)."""
+    m = x2.shape[0]
+    if m > 16:
+        return x2
+    return torch.cat([x2, x2.new_zeros((24 - m, x2.shape[1]))])
 
 
 class QuantState:
@@ -317,6 +329,28 @@ class QConv(QuantState, nn.Conv2d):
             xq, s_x = self.quantize_input(hx)
             xq = xq.permute(0, 2, 3, 1).contiguous()
         return qconv3(xq, w_q, w_s, self.bias, s_x, stride, add_vec, add_full, x.dtype)
+
+
+def fused2_ready(conv1: QConv, conv2: QConv, cin: int, pixels: int) -> bool:
+    """Both convs of a ResBlock run int8 from calibrated tables, so the
+    whole-ResBlock kernel may take it (vdtpu's ``has_tables()`` on both;
+    a calibration pass always runs the per-conv path)."""
+    return (pixels >= conv1.policy.min_pixels
+            and all(c.calib is None and c.act_scale is not None for c in (conv1, conv2))
+            and conv1.int8_active(cin) and conv2.int8_active(conv2.in_channels))
+
+
+def resblock_int8(x, gn1, conv1, film, gn2, conv2, skip):
+    """A ResBlock's two int8 convs with their GroupNorm+SiLU prologues, the
+    FiLM vector [B, N] and the skip (None: identity) in one
+    ``resblock_q`` call; x NCHW, result NCHW in x's dtype."""
+    if (gn1.groups, gn1.eps) != (gn2.groups, gn2.eps):
+        raise ValueError("resblock_int8: the two GroupNorms differ in groups or eps")
+    w1q, s1w = conv1.tables()
+    w2q, s2w = conv2.tables()
+    return resblock_q(x.contiguous(), gn1.weight, gn1.bias, w1q, s1w, conv1.bias,
+                      conv1.act_scale, film, gn2.weight, gn2.bias, w2q, s2w, conv2.bias,
+                      conv2.act_scale, skip, gn1.groups, gn1.eps)
 
 
 def fused_proj(owner: QuantState, x, denses, suffix: str = ""):

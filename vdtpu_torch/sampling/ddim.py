@@ -8,8 +8,10 @@ explicit ``torch.Generator`` or, for comparisons with the JAX package, a
 pre-drawn ``noise_table``.
 
 ``DDIMSampler.sample`` takes and returns NHWC latents, as the JAX API does;
-the model runs NCHW in between. The x0 (img2img) mode, encoder reuse,
-DPM-Solver++ and the cfg interval are later slices.
+the model runs NCHW in between. The start is x_T as given, pure noise, or
+(img2img) x0 noised to the k-th lowest timestep with only the k lowest
+steps left to run. Encoder reuse, DPM-Solver++ and the cfg interval are
+later slices.
 """
 from __future__ import annotations
 
@@ -41,6 +43,14 @@ class DDIMTables:
         return cls(timesteps=np.ascontiguousarray(ts[::-1].astype(np.int32)),
                    alphas=rev(al), alphas_prev=rev(alp), sigmas=rev(sig),
                    sqrt_one_minus_alphas=rev(np.sqrt(1.0 - np.asarray(al, np.float64))))
+
+    def tail(self, k: int) -> "DDIMTables":
+        """The k lowest-timestep rows (the trailing k: rows run t descending)."""
+        cut = lambda a: a[len(a) - k:]
+        return dataclasses.replace(
+            self, timesteps=cut(self.timesteps), alphas=cut(self.alphas),
+            alphas_prev=cut(self.alphas_prev), sigmas=cut(self.sigmas),
+            sqrt_one_minus_alphas=cut(self.sqrt_one_minus_alphas))
 
     def on_device(self, dtype, device) -> torch.Tensor:
         """[S, 4] rows of (alpha, alpha_prev, sigma, sqrt(1 - alpha)) in dtype."""
@@ -107,14 +117,28 @@ class DDIMSampler:
     def __init__(self, model):
         self.model = model
 
+    def x0_init(self, generator, shape, x_info, tables: DDIMTables, dtype, device):
+        """img2img start (``vdtpu/sampling/ddim.py::_x_init``): x0 [n, h, w, c]
+        q-sampled at the k-th ascending timestep, k = x0_forward_timesteps,
+        with ``x_info["noise"]`` or the generator's normals; returns (x_t
+        NHWC, the tables cut to their k lowest rows)."""
+        k = int(x_info["x0_forward_timesteps"])
+        t0 = int(tables.timesteps[::-1][k])
+        x0 = torch.as_tensor(x_info["x0"]).to(device=device, dtype=dtype)
+        if x_info.get("noise") is not None:
+            noise = torch.as_tensor(x_info["noise"]).to(device=device, dtype=dtype)
+        else:
+            noise = torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
+        t = torch.full((x0.shape[0],), t0, dtype=torch.long, device=device)
+        return self.model.schedule.q_sample(x0, t, noise).to(dtype), tables.tail(k)
+
     def sample(self, generator, steps: int, shape, x_info, c_info, eta: float = 0.0,
                temperature: float = 1.0, noise_dropout: float = 0.0, dtype=torch.float32,
                noise_table=None, device=None):
-        """Single-context sampling with CFG. ``shape`` and ``x_info['xt']`` are
-        NHWC ([n, h, w, c]); the result is NHWC. ``noise_table`` is NHWC
-        [S, n, h, w, c] (the JAX package's layout)."""
-        if x_info.get("x0") is not None:
-            raise NotImplementedError("x0 (img2img) sampling is a later slice")
+        """Single-context sampling with CFG. ``shape``, ``x_info['xt']`` and
+        ``x_info['x0']`` are NHWC ([n, h, w, c]); the result is NHWC.
+        ``noise_table`` is NHWC [S, n, h, w, c] (the JAX package's layout),
+        one row per step that runs."""
         x_type, c_type = x_info["type"], c_info["type"]
         scale = float(c_info.get("unconditional_guidance_scale", 1.0))
         cond = torch.as_tensor(c_info["conditioning"]).to(device=device, dtype=dtype)
@@ -122,15 +146,17 @@ class DDIMSampler:
         if uncond is not None:
             uncond = torch.as_tensor(uncond).to(device=device, dtype=dtype)
         device = cond.device
+        tables = DDIMTables.create(self.model.schedule, steps, eta)
         if x_info.get("xt") is not None:
             x = torch.as_tensor(x_info["xt"]).to(device=device, dtype=dtype)
+        elif x_info.get("x0") is not None:
+            x, tables = self.x0_init(generator, shape, x_info, tables, dtype, device)
         else:
             x = torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
         x = x.permute(0, 3, 1, 2).contiguous()
         if noise_table is not None:
             noise_table = torch.as_tensor(noise_table).to(device=device, dtype=dtype)
             noise_table = noise_table.permute(0, 1, 4, 2, 3)
-        tables = DDIMTables.create(self.model.schedule, steps, eta)
         apply = lambda xx, tt, cc: self.model.apply_model(xx, tt, cc, x_type, c_type)
         eps = cfg_eps_fn(apply, cond, uncond, scale)
         x = ddim_loop(eps, x, tables, generator, temperature, noise_dropout, noise_table)

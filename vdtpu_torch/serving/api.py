@@ -1,17 +1,18 @@
 """Serving API (``vdtpu/serving/api.py``): ``VDSystem`` builds and owns the
-modules of a VD config, ``VDInference`` runs the flows. This slice serves
-text-to-image.
+modules of a VD config, ``VDInference`` runs the flows. The port serves
+text-to-image and image variation (``inference_i2i``).
 
 ``VDSystem`` builds ``diffuser.*`` (every diffuser of the config, so every
-``diffuser.*`` key of a checkpoint loads), ``ctx.text`` and the
-``vae.image`` decoder; its ``net`` module carries the reference's state-dict
-keys. It runs on CUDA unless the caller passes ``device="cpu"``, and raises
-when CUDA is absent and the CPU was not asked for.
+``diffuser.*`` key of a checkpoint loads), ``ctx.image`` and ``ctx.text``
+(the CLIP context encoders) and the ``vae.image`` KL autoencoder (encoder
+and decoder); its ``net`` module carries the reference's state-dict keys. It
+runs on CUDA unless the caller passes ``device="cpu"``, and raises when CUDA
+is absent and the CPU was not asked for.
 
 Serving policy: ``enable_int8`` attaches a ``QuantPolicy`` to the
-diffusers' call sites and calibrates them (``ops/quant.py``);
-``enable_tome`` switches token merging on (``ops/tome.py``). Both are
-state of the system, not of the process.
+diffusers' call sites and calibrates them over vdtpu's four flows
+(``ops/quant.py``); ``enable_tome`` switches token merging on
+(``ops/tome.py``). Both are state of the system, not of the process.
 
 Training: the constructor freezes the whole net in one dtype;
 ``for_training`` turns the diffusers back into a trainable f32 tree for
@@ -29,12 +30,29 @@ from torch import nn
 from vdtpu_torch.config.configs import model_cfg_bank
 from vdtpu_torch.config.registry import build
 from vdtpu_torch.interop.from_jax import system_state_dict_from_jax
+from vdtpu_torch.models.clip import preprocess_images
 from vdtpu_torch.models.layers import init_random
 from vdtpu_torch.models.vd import VDModel
 from vdtpu_torch.ops.quant import (
     QuantPolicy, calibrate, load_quant_state, quant_state, set_quant_policy)
+from vdtpu_torch.ops.resize import resize
 from vdtpu_torch.ops.tome import ToMeSpec
 from vdtpu_torch.sampling.ddim import DDIMSampler
+from vdtpu_torch.serving.postprocess import AdjustRank, color_adjust_simple
+
+# (x_type, c_type) of vdtpu's four flows, the default of ``enable_int8``
+FOUR_FLOWS = (("image", "text"), ("image", "image"), ("text", "image"), ("text", "text"))
+
+
+def regularize_image(x, hw):
+    """Bicubic-resize an NHWC float batch to ``hw`` = (H, W) as the JAX
+    package does (``jax.image.resize``, antialiased), clamped to [0, 1]. A
+    batch already at ``hw`` is returned as it is. (vdtpu's bilinear option
+    serves the masked image context, which is not ported.)"""
+    x = torch.as_tensor(x)
+    if tuple(x.shape[1:3]) == (int(hw[0]), int(hw[1])):
+        return x
+    return resize(x, hw).clamp(0.0, 1.0)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,8 +77,8 @@ class VDSystem:
     """Every module and weight of one VD config (this slice's parts)."""
 
     # state-dict prefixes the port builds; load_state_dict ignores the rest
-    PREFIXES = ("diffuser.", "ctx.text.model.", "vae.image.decoder.",
-                "vae.image.post_quant_conv.")
+    PREFIXES = ("diffuser.", "ctx.image.model.", "ctx.text.model.", "vae.image.encoder.",
+                "vae.image.quant_conv.", "vae.image.decoder.", "vae.image.post_quant_conv.")
 
     def __init__(self, cfg_name: str = "vd_four_flow_v1-0", dtype=torch.float32,
                  device=None, use_checkpoint: bool | None = None,
@@ -77,8 +95,7 @@ class VDSystem:
             self.net = nn.Module()
             self.net.diffuser = self.model.diffuser
             self.net.ctx = nn.ModuleDict({name: _CtxHolder(build(sub))
-                                          for name, sub in args["ctx_cfg_list"]
-                                          if name == "text"})
+                                          for name, sub in args["ctx_cfg_list"]})
             self.net.vae = nn.ModuleDict({name: build(sub)
                                           for name, sub in args["vae_cfg_list"]
                                           if name == "image"})
@@ -145,32 +162,66 @@ class VDSystem:
 
     @torch.no_grad()
     def enable_int8(self, image_size: int = 512, latent_downsample: int = 8, n: int = 2,
-                    timesteps=(0, 250, 500, 750, 999), seed: int = 0,
-                    flows=(("image", "text"),), policy: QuantPolicy = QuantPolicy()):
+                    timesteps=(0, 250, 500, 750, 999), seed: int = 0, flows=FOUR_FLOWS,
+                    policy: QuantPolicy = QuantPolicy()):
         """Calibrated int8 serving (``vdtpu/serving/api.py::enable_int8``):
         attach ``policy`` and record every site's activation scale and every
         attention's logit bound over (noise, t, context) probes spanning the
-        timestep range, 2n samples each; the statistics merge by max across
-        probes and flows. Probes come from a ``torch.Generator`` seeded with
-        ``seed``, the context from this system's text encoder on random ids.
-        A second call is a no-op."""
+        timestep range, 2n samples each, for each flow of ``flows`` (all
+        four by default); the statistics merge by max across probes and
+        flows. The draws come from a ``torch.Generator`` seeded with
+        ``seed``: random ids for the text encoder, uniform pixels for the
+        image encoder, one normal latent per (data type, timestep), as the
+        JAX package draws them. A second call is a no-op."""
         if self.quant_policy is not None and quant_state(self.model.diffuser):
             return self
-        for x_type, c_type in flows:
-            if (x_type, c_type) != ("image", "text"):
-                raise NotImplementedError(f"flow ({x_type}, {c_type}): its context encoder or "
-                                          f"data diffuser is a later slice of the port")
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        enc = self.ctx["text"]
-        vocab = enc.text_model.embeddings.token_embedding.num_embeddings
-        ids = torch.randint(0, vocab, (2 * n, enc.max_len), generator=gen, device=self.device)
-        ctx = self.ctx_encode(ids.cpu().numpy(), "text").to(self.dtype)
-        in_ch = self.model.diffuser["image"].program.data[0].in_ch
-        s = image_size // latent_downsample
-        probes = [(torch.randn((2 * n, in_ch, s, s), generator=gen, device=self.device,
-                               dtype=self.dtype),
-                   torch.full((2 * n,), t, device=self.device), ctx, "image", "text")
-                  for t in timesteps]
+        c_types = {c for _, c in flows}
+        ids = pixels = None
+        if "text" in c_types:
+            enc = self.ctx["text"]
+            vocab = enc.text_model.embeddings.token_embedding.num_embeddings
+            ids = torch.randint(0, vocab, (2 * n, enc.max_len), generator=gen,
+                                device=self.device)
+        if "image" in c_types:
+            sz = self.ctx["image"].image_size
+            pixels = torch.rand((2 * n, sz, sz, 3), generator=gen, device=self.device)
+        noise = {x_type: [torch.randn(self._probe_shape(x_type, n, image_size,
+                                                        latent_downsample),
+                                      generator=gen, device=self.device)
+                          for _ in timesteps]
+                 for x_type in dict.fromkeys(x for x, _ in flows)}
+        return self.calibrate_flows(ids, pixels, noise, flows, timesteps, policy)
+
+    def _probe_shape(self, x_type: str, n: int, image_size: int, latent_downsample: int):
+        """NHWC latent [2n, s, s, C] of a 2-D diffuser, [2n, F] of a 0-D one."""
+        a = dict(self.cfg["args"]["diffuser_cfg_list"])[x_type]["args"]
+        if "in_channels" in a:
+            s = image_size // latent_downsample
+            return (2 * n, s, s, a["in_channels"])
+        return (2 * n, a["input_channels"])
+
+    @torch.no_grad()
+    def calibrate_flows(self, ids, pixels, noise, flows=FOUR_FLOWS,
+                        timesteps=(0, 250, 500, 750, 999),
+                        policy: QuantPolicy = QuantPolicy()) -> "VDSystem":
+        """Calibrate on given draws: ``ids`` [2n, L] for the text context,
+        ``pixels`` NHWC [2n, S, S, 3] in [0, 1] for the image context,
+        ``noise[x_type][i]`` the latent probe (NHWC, or [2n, F]) at
+        ``timesteps[i]``. Contexts come from this system's encoders."""
+        ctxs = {}
+        if ids is not None:
+            ctxs["text"] = self.ctx_encode(ids, "text").to(self.dtype)
+        if pixels is not None:
+            ctxs["image"] = self.ctx_encode(pixels, "image").to(self.dtype)
+        probes = []
+        for x_type, c_type in flows:
+            for t, x in zip(timesteps, noise[x_type]):
+                x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+                if x.dim() == 4:
+                    x = x.permute(0, 3, 1, 2).contiguous()
+                probes.append((x, torch.full((x.shape[0],), int(t), device=self.device),
+                               ctxs[c_type], x_type, c_type))
         return self.calibrate(probes, policy)
 
     def calibrate(self, probes, policy: QuantPolicy = QuantPolicy()) -> "VDSystem":
@@ -205,10 +256,26 @@ class VDSystem:
 
     @torch.no_grad()
     def ctx_encode(self, x, which: str = "text"):
+        """Token ids [B, L] -> text context; NHWC images in [0, 1] -> image
+        context, always through ``preprocess_images`` (resize and crop where
+        needed, the CLIP mean/std always)."""
+        if which == "image":
+            enc = self.ctx["image"]
+            px = preprocess_images(torch.as_tensor(x).to(self.device), enc.image_size)
+            return enc(px.to(self.dtype))
         if which != "text":
-            raise NotImplementedError(f"{which!r} context encoding is a later slice")
-        ids = torch.as_tensor(np.asarray(x), dtype=torch.long, device=self.device)
-        return self.ctx["text"](ids)
+            raise ValueError(f"no context encoder {which!r}")
+        ids = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x), dtype=torch.long)
+        return self.ctx["text"](ids.to(device=self.device, dtype=torch.long))
+
+    @torch.no_grad()
+    def vae_encode(self, x, which: str = "image"):
+        """NHWC image in [0, 1] -> NHWC scaled latent (the posterior's mode)."""
+        if which != "image":
+            raise NotImplementedError(f"{which!r} encoding is a later slice")
+        x = torch.as_tensor(x).to(self.device).permute(0, 3, 1, 2).contiguous()
+        z = self.vae["image"].encode(x)
+        return self.model.scale_latent(z, which).permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def vae_decode(self, z, which: str = "image"):
@@ -221,7 +288,8 @@ class VDSystem:
 
 
 class VDInference:
-    """Flow-level API (``vdtpu.serving.api.VDInference``); text-to-image."""
+    """Flow-level API (``vdtpu.serving.api.VDInference``): text-to-image and
+    image variation."""
 
     def __init__(self, system: VDSystem,
                  text_tokenizer: Callable[[Sequence[str]], np.ndarray] | None = None,
@@ -235,14 +303,26 @@ class VDInference:
         self.ddim_eta = ddim_eta
         self.n_sample_image = n_sample_image
         self.scale_textto = 7.5
+        self.scale_imgto = 7.5
         self.image_latent_dim = image_latent_dim
         self.latent_downsample = latent_downsample
+        self.adjust_rank_f = AdjustRank(max_drop_rank=(1, 5), q=20)
 
     def _encode_text(self, texts: Sequence[str]):
         if self.tokenizer is None:
             raise RuntimeError("no CLIP tokenizer configured; construct VDInference "
                                "with text_tokenizer")
         return self.sys.ctx_encode(np.asarray(self.tokenizer(list(texts))), "text")
+
+    def _focus_filter(self, ci, fcs_lvl: float):
+        """AdjustRank on the local tokens; the global CLS token is kept (the
+        JAX package's ``disentanglement_noglobal``, always on)."""
+        return torch.cat([ci[:, 0:1], self.adjust_rank_f(ci[:, 1:], fcs_lvl)], dim=1)
+
+    def _regularize(self, image):
+        """Input regularization to output_dim (bicubic, as the reference)."""
+        x = torch.as_tensor(image).to(device=self.sys.device, dtype=torch.float32)
+        return regularize_image(x, self.output_dim)
 
     def _image_shape(self, n: int):
         h, w = self.output_dim
@@ -262,3 +342,35 @@ class VDInference:
              "unconditional_guidance_scale": self.scale_textto},
             eta=self.ddim_eta, dtype=self.sys.dtype, device=self.sys.device)
         return self.sys.vae_decode(x, "image")
+
+    @torch.no_grad()
+    def inference_i2i(self, image, fid_lvl: float, fcs_lvl: float, clr_adj: str | None,
+                      seed: int):
+        """Image variation: image [1, H, W, 3] in [0, 1], any H, W, resized to
+        output_dim first (so fid_lvl 1 returns the resized image, n times).
+        fid_lvl: the share of the DDIM steps skipped by starting from the
+        image's own latent (0: from noise); fcs_lvl: the focus filter's
+        level (0.5: off); clr_adj "Simple" matches the outputs' colour
+        statistics to the input's. Returns [n, H, W, 3] in [0, 1]."""
+        n = self.n_sample_image
+        cx = self._regularize(image)
+        if fid_lvl == 1:
+            return cx.repeat(n, 1, 1, 1)
+        ci = self.sys.ctx_encode(cx, "image")
+        c = self._focus_filter(ci, fcs_lvl).repeat(n, 1, 1)
+        u = torch.zeros_like(c)
+        gen = torch.Generator(device=self.sys.device).manual_seed(seed)
+        x_info = {"type": "image"}
+        if fid_lvl != 0:
+            x0 = self.sys.vae_encode(cx, "image").repeat(n, 1, 1, 1)
+            x_info = {"type": "image", "x0": x0,
+                      "x0_forward_timesteps": int(self.ddim_steps * (1 - fid_lvl))}
+        x = self.sys.sampler.sample(
+            gen, self.ddim_steps, self._image_shape(n), x_info,
+            {"type": "image", "conditioning": c, "unconditional_conditioning": u,
+             "unconditional_guidance_scale": self.scale_imgto},
+            eta=self.ddim_eta, dtype=self.sys.dtype, device=self.sys.device)
+        out = self.sys.vae_decode(x, "image")
+        if clr_adj == "Simple":
+            out = color_adjust_simple(out, cx)
+        return out
