@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (text-to-image, image variation,
-int8 serving, t2i training) on one CUDA card.
+image-to-text and text-to-text, int8 serving, the Mosaic probes, t2i
+training) on one CUDA card.
 
     python3 chip_smoke.py            # the default phases, on one card
 
@@ -23,6 +24,17 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             (b) fid 0.5, focus 0.3, "Simple" (25 steps: VAE encoder, x0
             start, focus filter, colour adjust), each cold then warm, with
             their launch counts; regularize_image on a non-512^2 image
+  main_text inference_i2t on the seeded 512^2 image of main_i2i and
+            inference_t2t on a prompt, exact bf16, n = 4, DDIM-50, CFG 7.5,
+            then the 29-step GPT-2 decode of the Optimus text VAE, each cold
+            then warm with its launch counts; every decoded row is checked
+            (BOS first, EOS by the last step, ids inside the vocabulary);
+            one full-width text-diffuser eps call per context type (at the
+            requests' batch 8) and the first decode step's logits against
+            f32 on the CPU; the GN kernel against its plain version, with
+            and without SiLU, at every distinct GroupNorm site of those two
+            calls, on the site's own arguments; the bf16 and f32 decodes on
+            shared Gumbel draws, rows that agree counted
   eps       one full-width UNet eps call on the card (bf16) against the port
             on the CPU in f32, same weights and inputs
   main_int8 the calibrated int8 serving policy on the same system:
@@ -45,6 +57,10 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             distinct fused2 site of one UNet call (the site's own
             arguments), one eps call against conv="fused", then t2i and i2i
             (a) requests cold and warm with their launch counts
+  probes    the port's counterpart of scripts/mosaic_probe.py, through its
+            entry point vdtpu_torch.probes.main(): the s8 matmul, shifted
+            slice-add and scratch slice-write kernels at the script's shapes,
+            each exact against its plain version and the script's check
   train     t2i training at full width: frees the serving system, builds
             vd_four_flow_v1-0 with f32 parameters (bf16 compute, no remat),
             encodes 8 stand-in prompts, holds one micro-batch-2 gradient of
@@ -76,8 +92,8 @@ import sys
 import time
 import zlib
 
-PHASES = ("device", "build", "kernels", "main", "main_i2i", "eps", "main_int8", "modes",
-          "eps_int8", "main_fused2", "train", "profile")
+PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "eps", "main_int8",
+          "modes", "eps_int8", "main_fused2", "probes", "train", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
@@ -88,6 +104,8 @@ PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
 PEAK_EXP = 16 * 132 * 1.98e9
+# int32 adds outside the tensor cores: 64 lanes per SM per clock
+PEAK_INT32 = 64 * 132 * 1.98e9
 
 FLASH_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
 # no-max attention: int8 exact (4096 and 1024 tokens) and the ToMe 0.75
@@ -130,6 +148,16 @@ INT8_MAX_REL_L2, INT8_MIN_COS = 0.10, 0.995
 # leave the two-ulp band above, and the relative L2 error stays under 1e-2
 RB_MAX_OUTSIDE, RB_MAX_REL_L2 = 1e-3, 1e-2
 I2I_FID_STEPS = 25   # request (b): fid 0.5 runs half of the 50 steps
+# the Mosaic probes' shapes (scripts/mosaic_probe.py): s8 [M, K] x [K, N],
+# the shifted slice-add's i32 [M, C], the scratch write's bf16 [M, C]
+PROBE_MM_SHAPES = [(4096, 2880, 128)]
+PROBE_SHIFT_SHAPES = [(1056, 320)]
+PROBE_SCRATCH_SHAPES = [(512, 320)]
+# text flows: the first GPT-2 decode step's logits, bf16 on the card
+# against f32 on the CPU on the same latent (fixed before the first run);
+# the text-diffuser eps call takes EPS_MIN_COS and EPS_MAX_REL_L2
+LOGITS_MIN_COS = 0.995
+TEXT_PROMPT = "a red cat"
 # GN+SiLU+int8 against its plain version: a code may differ by one where
 # y / s lies within f32 rounding of a half-integer (other summation order
 # of the statistics, y / (1 + exp(-y)) against y * sigmoid(y))
@@ -153,6 +181,8 @@ SEED = 0      # weights, noise and inputs are made from it
 STEPS = 50    # DDIM steps of the main-path request
 
 _LOG = None
+# vdtpu_torch.utils.timing.time_graph_ms, bound in main() once the port imports
+time_graph_ms = None
 
 
 def log(*parts):
@@ -176,34 +206,6 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def time_graph_ms(fn, reps: int = 10, replays: int = 5) -> float:
-    """Device time of one call: ``reps`` calls captured in a CUDA graph,
-    replayed ``replays`` times between CUDA events, so host launch costs
-    (Python, Triton's launcher) drop out."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    del graph
-    return start.elapsed_time(end) / (replays * reps)
 
 
 def compare(out, ref):
@@ -243,6 +245,7 @@ def phase_build(state):
     import torch
     from vdtpu_torch.ops.gn_silu import gn_silu, gn_silu_q, gn_stats
     from vdtpu_torch.ops.kernels import build
+    from vdtpu_torch.ops.probes import probe_scratch, probe_shift
     t0 = time.perf_counter()
     build.build_all()
     t_nvcc = time.perf_counter() - t0
@@ -257,6 +260,8 @@ def phase_build(state):
         gn_silu(x, w, w, 32, 1e-5, silu)
     gn_silu_q(x, w, w, torch.ones((), device="cuda"), 32, 1e-5, True)
     gn_stats(x, 32, 1e-5)
+    probe_shift(torch.zeros((4, 4), dtype=torch.int32, device="cuda"))
+    probe_scratch(torch.zeros((4, 4), dtype=torch.bfloat16, device="cuda"))
     torch.cuda.synchronize()
     state["build_s"] = time.perf_counter() - t0
     log(f"build: nvcc {t_nvcc:.2f} s, with triton {state['build_s']:.2f} s")
@@ -590,6 +595,81 @@ def _resblock_case(spec, gen):
                 eager=eager, bound_detail=dict(bytes=nbytes, ops=ops))
 
 
+def _exact_case(kern, plain, lib, nbytes, t_ops, shape, library):
+    """A kernel whose result must equal its plain version bit for bit."""
+    import torch
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((out.double() - ref.double()).abs().max())
+    ok = bool(torch.equal(out, ref))
+    eager = dict(ms=time_ms(kern, 50), plain_ms=time_ms(plain, 5, warmup=1))
+    ms, plain_ms = time_graph_ms(kern), time_graph_ms(plain, 2, 2)
+    lib_ms = None
+    if lib is not None:
+        eager["library_ms"] = time_ms(lib, 50)
+        lib_ms = time_graph_ms(lib)
+    bound_ms, bound_by = _bound(nbytes, t_ops)
+    return dict(shape=list(shape), max_abs_err=err, ok=ok, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library=library, bound_ms=bound_ms, bound_by=bound_by,
+                eager=eager, bound_detail=dict(bytes=nbytes, ops_seconds=t_ops))
+
+
+def _probe_s8mm_case(shape, gen):
+    """Row 12: random s8 operands (and the script's ones) against the plain
+    product; torch._int_mm on the same operands (B column-major, as it
+    takes it) is the yardstick, the script's Pallas-against-XLA comparison."""
+    import torch
+    from vdtpu_torch.ops.probes import probe_s8mm, probe_s8mm_plain
+    m, k, n = shape
+    a = torch.randint(-128, 128, (m, k), device="cuda", generator=gen).to(torch.int8)
+    b = torch.randint(-128, 128, (k, n), device="cuda", generator=gen).to(torch.int8)
+    ones_a, ones_b = torch.ones_like(a), torch.ones_like(b)
+    ones_ok = bool((probe_s8mm(ones_a, ones_b) == k).all())
+    b_cm = b.t().contiguous().t()
+    r = _exact_case(lambda: probe_s8mm(a, b), lambda: probe_s8mm_plain(a, b),
+                    lambda: torch._int_mm(a, b_cm), m * k + k * n + 4 * m * n,
+                    2.0 * m * n * k / PEAK_INT8, shape,
+                    "torch._int_mm (B column-major)")
+    r["ok"] = r["ok"] and ones_ok
+    r["script_ones_ok"] = ones_ok
+    return r
+
+
+def _probe_shift_case(shape, gen):
+    """Row 13: seeded int32 data (sums stay inside int32) and the script's
+    arange % 7; no one PyTorch call computes the four shifted adds."""
+    import torch
+    from vdtpu_torch.ops.probes import probe_shift, probe_shift_plain
+    m, c = shape
+    x = torch.randint(-(1 << 20), 1 << 20, (m, c), device="cuda", generator=gen,
+                      dtype=torch.int32)
+    xs = (torch.arange(m * c, device="cuda", dtype=torch.int32) % 7).reshape(m, c)
+    script_ok = bool(torch.equal(probe_shift(xs), probe_shift_plain(xs)))
+    r = _exact_case(lambda: probe_shift(x), lambda: probe_shift_plain(x), None,
+                    2 * 4 * m * c, 3.0 * m * c / PEAK_INT32, shape,
+                    "none: no single PyTorch call")
+    r["ok"] = r["ok"] and script_ok
+    r["script_data_ok"] = script_ok
+    return r
+
+
+def _probe_scratch_case(shape, gen):
+    """Row 14: bf16 values inside [-127, 127] (the range where the cast is
+    a plain truncation) and the script's arange % 5."""
+    import torch
+    from vdtpu_torch.ops.probes import probe_scratch, probe_scratch_plain
+    m, c = shape
+    x = ((torch.rand((m, c), device="cuda", generator=gen) * 2 - 1) * 127).to(torch.bfloat16)
+    xs = (torch.arange(m * c, device="cuda", dtype=torch.int32) % 5).reshape(m, c)
+    xs = xs.to(torch.bfloat16)
+    script_ok = bool(torch.equal(probe_scratch(xs), probe_scratch_plain(xs)))
+    r = _exact_case(lambda: probe_scratch(x), lambda: probe_scratch_plain(x), None,
+                    3 * m * c, 0.0, shape, "none: no single PyTorch call")
+    r["ok"] = r["ok"] and script_ok
+    r["script_data_ok"] = script_ok
+    return r
+
+
 def phase_kernels(state):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -609,6 +689,12 @@ def phase_kernels(state):
          "vdtpu/ops/pallas/qconv.py:149", _qconv_case, QCONV_SHAPES),
         ("resblock_q", "cuda", "vdtpu_torch/csrc/resblock_q.cu",
          "vdtpu/ops/pallas/qconv.py:235", _resblock_case, RESBLOCK_SHAPES),
+        ("probe_s8mm", "cuda", "vdtpu_torch/csrc/probe_s8mm.cu",
+         "scripts/mosaic_probe.py:35", _probe_s8mm_case, PROBE_MM_SHAPES),
+        ("probe_shift", "triton", "vdtpu_torch/ops/probes.py",
+         "scripts/mosaic_probe.py:81", _probe_shift_case, PROBE_SHIFT_SHAPES),
+        ("probe_scratch", "triton", "vdtpu_torch/ops/probes.py",
+         "scripts/mosaic_probe.py:110", _probe_scratch_case, PROBE_SCRATCH_SHAPES),
     ]
     failed = []
     for name, route, source, replaces, case, shapes in specs:
@@ -793,9 +879,230 @@ def phase_main_i2i(state):
     state["main_i2i"] = results
 
 
-def phase_eps(state):
+def _text_launches(system, c_type: str):
+    """Launches of one exact text-flow request, derived from the program:
+    every GroupNorm of the text diffuser's data blocks and of the
+    ``c_type`` diffuser's context blocks runs the GN kernel once per UNet
+    call (x STEPS); nothing takes the flash kernel (the 0-D context blocks
+    attend over 4 tokens, CLIP's vision tower over 257, BERT and GPT-2 over
+    at most 77 and 31), and the text VAE has LayerNorms only."""
+    from vdtpu_torch.models.layers import GroupNorm32
+    d = system.model.diffuser
+    n = sum(isinstance(m, GroupNorm32)
+            for mod in (d["text"].data_blocks, d[c_type].context_blocks) for m in mod.modules())
+    return {"flash_fwd": 0, "gn_silu": n * STEPS}
+
+
+@contextlib.contextmanager
+def _recording_decode(vae, calls: list):
+    """Record (latent, token ids, seconds) of every ``decode_ids`` call of
+    the text VAE; the seconds run between two synchronizes."""
+    import torch
+    inner = vae.decode_ids
+
+    def record(z, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ids = inner(z, *args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((z.detach().clone(), ids.clone(), time.perf_counter() - t))
+        return ids
+
+    vae.decode_ids = record
+    try:
+        yield
+    finally:
+        del vae.decode_ids
+
+
+def _check_rows(ids, vae, vocab: int) -> bool:
+    """BOS first, an EOS by the last step and EOS after it, ids in the vocabulary."""
+    import torch
+    eos = ids == vae.eos_id
+    after = torch.cumsum(eos.int(), dim=1) > 0
+    return (bool((ids[:, 0] == vae.bos_id).all()) and bool(eos.any(dim=1).all())
+            and bool((eos | ~after).all()) and bool(((ids >= 0) & (ids < vocab)).all()))
+
+
+def _cpu_f32(module, build_fn):
+    """An f32 CPU copy of ``module``: ``build_fn()`` builds its twin on the
+    meta device, which then takes the weights."""
+    import torch
+    with torch.device("meta"):
+        cpu = build_fn()
+    cpu.to_empty(device="cpu")
+    cpu.load_state_dict({k: v.float().cpu() for k, v in module.state_dict().items()})
+    return cpu.eval()
+
+
+def _cpu_model(system):
+    """A VDModel whose diffusers are an f32 CPU copy of the system's."""
     import torch
     from vdtpu_torch.models.vd import VDModel
+    with torch.device("meta"):
+        model = VDModel.from_config(system.cfg)
+    model.diffuser = _cpu_f32(system.model.diffuser, lambda: model.diffuser)
+    return model
+
+
+@contextlib.contextmanager
+def _recording_gn(calls: list):
+    """Record the arguments of every GroupNorm32 call to the GN(+SiLU)
+    wrapper (the input cloned), calling through."""
+    from vdtpu_torch.models import layers
+    inner = layers.gn_silu
+
+    def record(x, weight, bias, groups, eps, silu):
+        calls.append((x.clone(), weight, bias, groups, eps))
+        return inner(x, weight, bias, groups, eps, silu)
+
+    layers.gn_silu = record
+    try:
+        yield
+    finally:
+        layers.gn_silu = inner
+
+
+def _gn_site_check(state, label: str, calls):
+    """The GN(+SiLU) kernel against its plain version, with and without
+    SiLU, at each distinct recorded site (input shape, groups, eps) on that
+    site's own input and affine parameters, within the two-ulp band."""
+    import torch
+    from vdtpu_torch.ops.gn_silu import gn_silu, gn_silu_plain
+    seen, rows = set(), []
+    for x, w, b, groups, eps in calls:
+        sig = (tuple(x.shape), groups, eps)
+        if sig in seen:
+            continue
+        seen.add(sig)
+        for silu in (True, False):
+            err, rel, ok = compare(gn_silu(x, w, b, groups, eps, silu),
+                                   gn_silu_plain(x, w, b, groups, eps, silu))
+            rows.append(dict(site=[list(sig[0]), groups, eps, silu], max_abs_err=err,
+                             rel_l2_err=rel, ok=ok))
+    torch.cuda.synchronize()
+    bad = [r["site"] for r in rows if not r["ok"]]
+    log(f"  site check gn_silu ({label}): {len(seen)} distinct sites of {len(calls)} calls, "
+        f"{sorted(seen)}, with and without SiLU: "
+        f"max_abs_err {max(r['max_abs_err'] for r in rows):.3e}, max rel_l2 "
+        f"{max(r['rel_l2_err'] for r in rows):.3e}, disagreeing {bad} [{state.get('card')}]")
+    if bad:
+        raise RuntimeError(f"gn_silu disagrees with its plain version at {label} sites {bad}")
+    if "gn_silu" in state["kernels"]:
+        k = state["kernels"]["gn_silu"]
+        k.setdefault("site_checks", {})[label] = rows
+        k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in rows))
+    return rows
+
+
+def phase_main_text(state):
+    import torch
+    from vdtpu_torch.config.registry import build
+    from vdtpu_torch.ops.flash import flash_attention
+    from vdtpu_torch.ops.gn_silu import gn_silu
+    from vdtpu_torch.serving.api import VDInference
+    system = _system(state)
+    vae = system.vae["text"]
+    vocab = vae.decoder.transformer.wte.num_embeddings
+    dim = dict(system.cfg["args"]["diffuser_cfg_list"])["text"]["args"]["input_channels"]
+    vdi = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
+                      ddim_steps=STEPS, n_sample_text=4, text_latent_dim=dim)
+    image = _i2i_image(SEED + 5)
+    requests = (("i2t", "image", lambda: vdi.inference_i2t(image, seed=SEED)),
+                ("t2t", "text", lambda: vdi.inference_t2t(TEXT_PROMPT, seed=SEED)))
+    results = {}
+    for label, c_type, run_request in requests:
+        expect = _text_launches(system, c_type)
+        for run in ("cold", "warm"):
+            calls = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = gn_silu.launches = 0
+            with _recording_decode(vae, calls):
+                t = time.perf_counter()
+                texts = run_request()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+            counts = {"flash_fwd": flash_attention.launches, "gn_silu": gn_silu.launches}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            (z, ids, decode_s), = calls
+            z_ok = tuple(z.shape) == (4, dim) and bool(torch.isfinite(z).all())
+            rows_ok = tuple(ids.shape) == (4, 30) and _check_rows(ids, vae, vocab)
+            log(f"main_text {label} {run}: {dt:.3f} s (GPT-2 decode {decode_s:.3f} s), peak "
+                f"{peak:.2f} GiB, latent "
+                f"{tuple(z.shape)} finite {z_ok}, ids {tuple(ids.shape)} well-formed {rows_ok}, "
+                f"launches {counts} (expected {expect}), texts {texts} [{state.get('card')}]")
+            if not (z_ok and rows_ok and len(texts) == 4):
+                raise RuntimeError(f"main_text {label} {run}: bad output")
+            if counts != expect:
+                raise RuntimeError(f"main_text {label} {run}: launch counts {counts} != {expect}")
+            results[f"{label}_{run}"] = dict(seconds=dt, decode_s=decode_s, peak_gib=peak,
+                                             launches=counts, texts=texts)
+        state.setdefault("text_latents", {})[label] = z
+
+    # one full-width text-diffuser eps call per context type at the
+    # requests' UNet batch (n_sample_text x CFG), its GN kernel calls
+    # recorded for the site check, and the first decode step's logits,
+    # bf16 on the card against f32 on the CPU
+    t0 = time.perf_counter()
+    n = 2 * 4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn(n, dim, device="cuda", generator=gen).to(system.dtype)
+    tt = torch.full((n,), 500, device="cuda")
+    ctxs = {"text": system.ctx_encode(stand_in_tokenizer([TEXT_PROMPT] * n), "text"),
+            "image": system.ctx_encode(image, "image").repeat(n, 1, 1)}
+    cpu_model = _cpu_model(system)
+    eps_gates, gn_calls = {}, []
+    with torch.no_grad():
+        for c_type, ctx in ctxs.items():
+            with _recording_gn(gn_calls):
+                eps_gpu = system.model.apply_model(x, tt, ctx, "text", c_type).float().cpu()
+            eps_cpu = cpu_model.apply_model(x.float().cpu(), tt.cpu(), ctx.float().cpu(),
+                                            "text", c_type)
+            eps_gates[c_type] = _cosine(eps_gpu, eps_cpu)
+    del cpu_model
+    gn_rows = _gn_site_check(state, "main_text", gn_calls)
+    dec_cfg = dict(system.cfg["args"]["vae_cfg_list"])["text"]["args"]["decoder"]
+    cpu_dec = _cpu_f32(vae.decoder, lambda: build(dec_cfg))
+    z = state["text_latents"]["t2t"]
+    bos = torch.full((4, 1), vae.bos_id, dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        logits_gpu = vae.decoder(bos, z)[:, 0].float().cpu()
+        logits_cpu = cpu_dec(bos.cpu(), z.float().cpu())[:, 0]
+        logit_cos, logit_rel = _cosine(logits_gpu, logits_cpu)
+        # the bf16 and f32 decodes on one Gumbel table: argmax flips between
+        # the dtypes are expected, so agreeing rows are counted, not gated
+        g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+        table = -torch.log(-torch.log(torch.rand((29, 4, vocab), device="cuda", generator=g)
+                                      .clamp_min(torch.finfo(torch.float32).tiny)))
+        ids_gpu = vae.decode_ids(z, gumbel_table=table).cpu()
+        ids_cpu = cpu_dec.generate(z.float().cpu(), gumbel_table=table.cpu(),
+                                   eos_token=vae.eos_id, bos_token=vae.bos_id)
+    rows_agree = int((ids_gpu == ids_cpu).all(dim=1).sum())
+    dt = time.perf_counter() - t0
+    eps_txt = ", ".join(f"c_type {c}: cosine {cos:.6f} rel_l2 {rel:.5f}"
+                        for c, (cos, rel) in eps_gates.items())
+    log(f"main_text: text-diffuser eps [{n}, {dim}] card bf16 vs cpu f32: {eps_txt} (limits cos >= "
+        f"{EPS_MIN_COS}, rel_l2 <= {EPS_MAX_REL_L2}); first decode step logits [4, {vocab}]: "
+        f"cosine {logit_cos:.6f} rel_l2 {logit_rel:.5f} (limit cos >= {LOGITS_MIN_COS}); "
+        f"decoded rows equal bf16 vs f32 on shared Gumbel draws: {rows_agree} of 4 (not "
+        f"gated); cpu {dt:.1f} s [{state.get('card')}]")
+    results.update(eps=eps_gates, logits=dict(cosine=logit_cos, rel_l2=logit_rel),
+                   rows_agree_bf16_f32=rows_agree, gn_sites=gn_rows)
+    state["main_text"] = results
+    bad = [c for c, (cos, rel) in eps_gates.items()
+           if not (math.isfinite(cos) and cos >= EPS_MIN_COS and rel <= EPS_MAX_REL_L2)]
+    if bad or not (math.isfinite(logit_cos) and logit_cos >= LOGITS_MIN_COS):
+        raise RuntimeError(f"main_text: card disagrees with f32 on the CPU (eps {eps_gates}, "
+                           f"logits cosine {logit_cos})")
+    if "gn_silu" in state["kernels"]:
+        for label in ("i2t", "t2t"):
+            state["kernels"]["gn_silu"][f"launches_{label}"] = \
+                results[f"{label}_warm"]["launches"]["gn_silu"]
+
+
+def phase_eps(state):
+    import torch
     system = _system(state)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     x = torch.randn(1, 4, 64, 64, device="cuda", generator=gen).to(torch.bfloat16)
@@ -804,11 +1111,7 @@ def phase_eps(state):
     with torch.no_grad():
         eps_gpu = system.model.apply_model(x, t, ctx, "image", "text").float().cpu()
     t0 = time.perf_counter()
-    with torch.device("meta"):
-        cpu_model = VDModel.from_config(system.cfg)
-    cpu_model.diffuser.to_empty(device="cpu")
-    cpu_model.diffuser.load_state_dict(
-        {k: v.float().cpu() for k, v in system.model.diffuser.state_dict().items()})
+    cpu_model = _cpu_model(system)
     with torch.no_grad():
         eps_cpu = cpu_model.apply_model(x.float().cpu(), t.cpu(), ctx.float().cpu(),
                                         "image", "text")
@@ -1143,7 +1446,6 @@ def phase_modes(state):
 
 def phase_eps_int8(state):
     import torch
-    from vdtpu_torch.models.vd import VDModel
     from vdtpu_torch.ops.quant import load_quant_state, quant_state, set_quant_policy
     system = state.get("system")
     if system is None or system.quant_policy is None:
@@ -1152,11 +1454,7 @@ def phase_eps_int8(state):
     eps_gpu, effect = _int8_eps(system, x, t, ctx)
     eps_gpu = eps_gpu.cpu()
     t0 = time.perf_counter()
-    with torch.device("meta"):
-        cpu_model = VDModel.from_config(system.cfg)
-    cpu_model.diffuser.to_empty(device="cpu")
-    cpu_model.diffuser.load_state_dict(
-        {k: v.float().cpu() for k, v in system.model.diffuser.state_dict().items()})
+    cpu_model = _cpu_model(system)
     set_quant_policy(cpu_model.diffuser, system.quant_policy)
     load_quant_state(cpu_model.diffuser,
                      {k: v.cpu() for k, v in quant_state(system.model.diffuser).items()})
@@ -1288,6 +1586,31 @@ def phase_main_fused2(state):
         k["launches_i2i_a"] = results["i2i_a_warm"]["launches"]["resblock_q"]
         k["path"] = "main_fused2 (int8 conv=\"fused2\", warm t2i request)"
     state["main_fused2"] = results
+
+
+def phase_probes(state):
+    """The probes' entry point, ``vdtpu_torch.probes.main()``: every probe
+    exact against its plain version and the script's check (main raises
+    otherwise), each kernel launched exactly LAUNCHES_PER_PROBE times."""
+    from vdtpu_torch import probes
+    from vdtpu_torch.ops.probes import probe_s8mm, probe_scratch, probe_shift
+    counters = {"probe_s8mm": probe_s8mm, "probe_shift": probe_shift,
+                "probe_scratch": probe_scratch}
+    for fn in counters.values():
+        fn.launches = 0
+    results = probes.main()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    expect = {k: probes.LAUNCHES_PER_PROBE for k in counters}
+    log(f"probes: {[(r['probe'], r['ok']) for r in results]}, launches {counts} "
+        f"(expected {expect}) [{state.get('card')}]")
+    if counts != expect or not all(r["ok"] for r in results):
+        raise RuntimeError(f"probes: launch counts {counts} != {expect} or a probe failed")
+    for name, r in zip(counters, results):
+        if name in state["kernels"]:
+            k = state["kernels"][name]
+            k["launches"] = counts[name]
+            k["path"] = "probes (python -m vdtpu_torch.probes: check + timing)"
+    state["probes"] = results
 
 
 def _fingerprint(t):
@@ -1632,7 +1955,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's main path runs on the card",
               file=sys.stderr)
         return 2
-    import vdtpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    # the port's device timer (this import fails outside a checkout of the repo)
+    global time_graph_ms
+    from vdtpu_torch.utils.timing import time_graph_ms
     os.makedirs("chiprun_out", exist_ok=True)
     _LOG = open(os.path.join("chiprun_out", "chip_smoke.log"), "w")
     state = {"kernels": {}}
@@ -1647,7 +1972,7 @@ def main() -> int:
         log(f"all phases: {time.perf_counter() - t_all:.1f} s")
     finally:
         _LOG.close()
-    if {"main", "main_int8", "modes", "main_fused2", "train"} <= set(phases):
+    if {"main", "main_int8", "modes", "main_fused2", "probes", "train"} <= set(phases):
         missing = [k for k, v in state["kernels"].items() if not v["launches"]]
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: {missing}")

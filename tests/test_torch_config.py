@@ -31,6 +31,13 @@ def test_literals_match_bank(name):
         [n for n, _ in ref["args"]["diffuser_cfg_list"]]
 
 
+@pytest.mark.parametrize("name", ["optimus_v1", "optimus_bert_encoder", "optimus_gpt2_decoder",
+                                  "optimus_tiny"])
+def test_text_vae_literals_match_bank(name):
+    ours, ref = model_cfg_bank()(name), jax_bank()(name)
+    assert (ours["type"], ours["args"]) == (ref["type"], ref["args"])
+
+
 @pytest.mark.parametrize("name", ["vd_four_flow_v1-0", "vd_test_tiny"])
 def test_every_component_type_builds(name):
     cfg = model_cfg_bank()(name)
@@ -48,4 +55,4 @@ def test_bank_returns_copies_and_rejects_unknown():
     a["args"]["timesteps"] = 1
     assert bank("vd_test_tiny")["args"]["timesteps"] == 1000
     with pytest.raises(KeyError):
-        bank("optimus_v1")
+        bank("openai_unet_2d_v1_g")   # in the JAX bank, not built by the port

@@ -632,3 +632,84 @@ def test_tiny_i2i_and_fused2_on_the_card(gen):
     assert float(a @ b / (a.norm() * b.norm())) > 0.99
     img = vdi.inference_t2i("x", seed=0)
     assert bool(torch.isfinite(img).all())
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (4096, 2880, 128),    # the probe's product
+    (300, 288, 72),       # ragged M, K not a multiple of 64, N below a tile
+    (17, 16, 24),         # N % 16 != 0: element-wise B staging
+    (513, 1040, 200),
+])
+def test_probe_s8mm_kernel_matches_plain(gen, m, k, n):
+    from vdtpu_torch.ops.probes import probe_s8mm, probe_s8mm_plain
+    a = torch.randint(-128, 128, (m, k), device="cuda", generator=gen).to(torch.int8)
+    b = torch.randint(-128, 128, (k, n), device="cuda", generator=gen).to(torch.int8)
+    before = probe_s8mm.launches
+    out = probe_s8mm(a, b)
+    assert probe_s8mm.launches == before + 1 and out.dtype == torch.int32
+    assert torch.equal(out, probe_s8mm_plain(a, b))
+    ones = torch.ones_like(a), torch.ones_like(b)
+    assert bool((probe_s8mm(*ones) == k).all())
+
+
+def test_probe_s8mm_refuses(gen):
+    from vdtpu_torch.ops.probes import probe_s8mm
+    a = torch.zeros((32, 40), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):                 # K % 16 != 0
+        probe_s8mm(a, torch.zeros((40, 16), dtype=torch.int8, device="cuda"))
+    with pytest.raises(TypeError):
+        probe_s8mm(a.float(), torch.zeros((40, 16), device="cuda"))
+    with pytest.raises(ValueError):                 # the shapes do not chain
+        probe_s8mm(torch.zeros((32, 48), dtype=torch.int8, device="cuda"),
+                   torch.zeros((32, 16), dtype=torch.int8, device="cuda"))
+
+
+@pytest.mark.parametrize("m,c", [(1056, 320), (67, 5), (200, 129)])
+def test_probe_shift_kernel_matches_plain(gen, m, c):
+    from vdtpu_torch.ops.probes import probe_shift, probe_shift_plain
+    x = torch.randint(-(1 << 20), 1 << 20, (m, c), device="cuda", generator=gen,
+                      dtype=torch.int32)
+    before = probe_shift.launches
+    out = probe_shift(x)
+    assert probe_shift.launches == before + 1
+    assert torch.equal(out, probe_shift_plain(x))
+
+
+@pytest.mark.parametrize("m,c", [(512, 320), (3, 7), (100, 130)])
+def test_probe_scratch_kernel_matches_plain(gen, m, c):
+    """Values inside [-127, 127] (truncation toward zero) and the edges of
+    the range."""
+    from vdtpu_torch.ops.probes import probe_scratch, probe_scratch_plain
+    x = ((torch.rand((m, c), device="cuda", generator=gen) * 2 - 1) * 127).to(torch.bfloat16)
+    x.view(-1)[:4] = torch.tensor([42.5, -32.25, 127.0, -128.0], device="cuda")[:x.numel()]
+    before = probe_scratch.launches
+    out = probe_scratch(x)
+    assert probe_scratch.launches == before + 1 and out.dtype == torch.int8
+    assert torch.equal(out, probe_scratch_plain(x))
+
+
+def test_tiny_text_flows_on_the_card(gen):
+    """The tiny system in bf16 on the card: i2t and t2t end to end, every
+    decoded row BOS first with ids inside the vocabulary, and the first
+    decode step's logits against the f32 CPU copy."""
+    from vdtpu_torch.serving.api import VDInference, VDSystem
+    cuda_sys = VDSystem("vd_test_tiny", dtype=torch.bfloat16, device="cuda").init_random(0)
+    tok = lambda texts: torch.arange(16).repeat(len(texts), 1).numpy() + 1
+    vdi = VDInference(cuda_sys, text_tokenizer=tok, output_dim=(64, 64), ddim_steps=4,
+                      latent_downsample=2, text_latent_dim=96)
+    image = torch.rand(1, 50, 70, 3, device="cuda", generator=gen)
+    for texts in (vdi.inference_i2t(image, seed=0), vdi.inference_t2t("x", seed=0)):
+        assert len(texts) == 4   # ids joined by spaces, cut before EOS (599)
+        assert all(0 <= int(t) < 599 for s in texts for t in s.split())
+    vae = cuda_sys.vae["text"]
+    z = torch.randn(3, 96, device="cuda", generator=gen)
+    ids = vae.decode_ids(z, torch.Generator(device="cuda").manual_seed(1))
+    assert tuple(ids.shape) == (3, 30) and bool((ids[:, 0] == vae.bos_id).all())
+    assert bool((ids[:, -1] == vae.eos_id).all()) and int(ids.max()) < 600
+    cpu_sys = VDSystem("vd_test_tiny", device="cpu")
+    cpu_sys.load_state_dict({k: v.float().cpu() for k, v in cuda_sys.net.state_dict().items()})
+    bos = torch.full((3, 1), vae.bos_id, dtype=torch.long)
+    with torch.no_grad():
+        a = vae.decoder(bos.cuda(), z)[:, 0].double().cpu().flatten()
+        b = cpu_sys.vae["text"].decoder(bos, z.cpu())[:, 0].double().flatten()
+    assert float(a @ b / (a.norm() * b.norm())) > 0.995

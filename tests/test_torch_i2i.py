@@ -37,21 +37,23 @@ torch.set_num_threads(2)
 
 def tiny_systems_from_port(seed: int = 0, image_size: int = 64):
     """(JAX system, port system on the CPU, the shared state dict) of
-    ``vd_test_tiny`` without the Optimus text VAE, from the port's init."""
+    ``vd_test_tiny``, every part (the Optimus text VAE included), from the
+    port's init."""
     psys = VDSystem("vd_test_tiny", device="cpu").init_random(seed)
     rs = np.random.RandomState(seed)
     sd = {k: (v.numpy().copy() if v.any() else rs.normal(0, 0.02, tuple(v.shape)))
           for k, v in sorted(psys.net.state_dict().items())}
     sd = {k: np.asarray(v, np.float32) for k, v in sd.items()}
     psys.load_state_dict(sd, strict=True)
-    jsys = JVDSystem("vd_test_tiny", with_text_vae=False)
+    jsys = JVDSystem("vd_test_tiny")
     key = jax.random.PRNGKey(0)
     zeros = lambda *shape, dt=jnp.float32: jnp.zeros(shape, dt)
     sz = jsys.ctx["image"].image_size
     shapes = lambda init, *args: jax.eval_shape(lambda: init(key, *args)["params"])
     jsys.params = {
         "diffuser": jax.eval_shape(jsys.model.init_params, key),
-        "vae": {"image": shapes(jsys.vae["image"].init, zeros(1, image_size, image_size, 3))},
+        "vae": {"image": shapes(jsys.vae["image"].init, zeros(1, image_size, image_size, 3)),
+                "text": jax.eval_shape(jsys.vae["text"].init_params, key)},
         "ctx": {"image": shapes(jsys.ctx["image"].init, zeros(1, sz, sz, 3)),
                 "text": shapes(jsys.ctx["text"].init,
                                zeros(1, jsys.ctx["text"].max_len, dt=jnp.int32))}}

@@ -33,7 +33,9 @@ _SLICE2 = ("ops/nomax.py", "ops/qconv.py", "ops/quant.py", "ops/tome.py",
            "training/harness.py", "training/optim.py", "training/ema.py",
            "training/schedulers.py", "training/checkpoints.py", "utils/logging.py",
            "csrc/qconv_tile.cuh", "csrc/resblock_q.cu", "ops/resize.py",
-           "models/distributions.py", "serving/postprocess.py")
+           "models/distributions.py", "serving/postprocess.py", "models/optimus.py",
+           "data/tokenizers.py", "ops/probes.py", "probes.py", "csrc/probe_s8mm.cu",
+           "utils/timing.py")
 
 
 def test_every_module_imports_with_jax_flax_yaml_blocked():
@@ -46,6 +48,9 @@ def test_every_module_imports_with_jax_flax_yaml_blocked():
             "vdtpu_torch.training.checkpoints", "vdtpu_torch.utils.logging"} <= set(modules)
     assert {"vdtpu_torch.ops.resize", "vdtpu_torch.models.distributions",
             "vdtpu_torch.serving.postprocess"} <= set(modules)
+    assert {"vdtpu_torch.models.optimus", "vdtpu_torch.data.tokenizers",
+            "vdtpu_torch.ops.probes", "vdtpu_torch.probes",
+            "vdtpu_torch.utils.timing"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         *[f"sys.modules[{name!r}] = None" for name in _BLOCKED],

@@ -1,8 +1,8 @@
 """The text-to-image slice, port against the JAX package, on the tiny config.
 
 One JAX ``VDSystem("vd_test_tiny")`` with the weights of ``init_random(0,
-image_size=64)`` for the parts the port builds (no Optimus text VAE: the
-port does not build it) exports its checkpoint; every all-zero array in it
+image_size=64)`` for the parts the port builds (every part since the
+Optimus text VAE was ported) exports its checkpoint; every all-zero array in it
 is replaced by seeded normals (std 0.02), as
 ``tests/_reference.py::derandomize_zeros`` does, because a zero-initialized
 output conv makes the UNet output identically zero. The result loads into
@@ -30,16 +30,17 @@ PROMPT = "a red cat"
 
 def _jax_init(jsys, seed: int = 0, image_size: int = 64):
     """``init_random(seed, image_size)`` of the parts the port builds (the
-    diffusers, the image VAE, both context encoders): the same keys, each
-    init under ``jax.jit``, which gives the same arrays as the eager init in
-    about half its time."""
-    kd, kv, kc1, kc2, _ = jax.random.split(jax.random.PRNGKey(seed), 5)
+    diffusers, the image and text VAEs, both context encoders): the same
+    keys, each init under ``jax.jit``, which gives the same arrays as the
+    eager init in about half its time."""
+    kd, kv, kc1, kc2, kt = jax.random.split(jax.random.PRNGKey(seed), 5)
     x = jnp.zeros((1, image_size, image_size, 3))
     ids = jnp.zeros((1, jsys.ctx["text"].max_len), jnp.int32)
     sz = jsys.ctx["image"].image_size
     px = jnp.zeros((1, sz, sz, 3))
     jsys.params["diffuser"] = jax.jit(jsys.model.init_params)(kd)
     jsys.params["vae"]["image"] = jax.jit(lambda k: jsys.vae["image"].init(k, x))(kv)["params"]
+    jsys.params["vae"]["text"] = jax.jit(jsys.vae["text"].init_params)(kt)
     jsys.params["ctx"] = {
         "image": jax.jit(lambda k: jsys.ctx["image"].init(k, px))(kc1)["params"],
         "text": jax.jit(lambda k: jsys.ctx["text"].init(k, ids))(kc2)["params"]}
@@ -50,7 +51,7 @@ def build_tiny_systems():
     """(JAX system, port system on the CPU, the shared checkpoint): the
     tiny config's JAX init, its all-zero arrays replaced by seeded
     normals, loaded into both with strict=True."""
-    jsys = _jax_init(JVDSystem("vd_test_tiny", with_text_vae=False))
+    jsys = _jax_init(JVDSystem("vd_test_tiny"))
     sd = jsys.export_torch_checkpoint()
     rs = np.random.RandomState(0)
     sd = {k: (rs.normal(0, 0.02, np.shape(sd[k])).astype(np.float32)

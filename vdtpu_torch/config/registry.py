@@ -1,4 +1,5 @@
-"""Component registry of the port: config ``type`` name -> module class.
+"""Component registry of the port: config ``type`` name -> module class
+(or factory function).
 
 The port's own table (the JAX package's maps to flax classes). Classes are
 imported when first looked up, so importing the registry builds nothing.
@@ -14,6 +15,11 @@ _TYPES = {
     "autoencoderkl": ("vdtpu_torch.models.autoencoder", "AutoencoderKL"),
     "clip_text_context_encoder": ("vdtpu_torch.models.clip", "CLIPTextContextEncoder"),
     "clip_image_context_encoder": ("vdtpu_torch.models.clip", "CLIPImageContextEncoder"),
+    "optimus_vae_next": ("vdtpu_torch.models.optimus", "build_optimus"),
+    "optimus_bert_connector": ("vdtpu_torch.models.optimus", "OptimusBertConnector"),
+    "optimus_gpt2_connector": ("vdtpu_torch.models.optimus", "OptimusGPT2Connector"),
+    "optimus_bert_tokenizer": ("vdtpu_torch.models.optimus", "build_bert_tokenizer"),
+    "optimus_gpt2_tokenizer": ("vdtpu_torch.models.optimus", "build_gpt2_tokenizer"),
 }
 
 

@@ -10,8 +10,9 @@ that the reference stores as 1x1 convs get [O, I, 1, 1].
 Input leaves are numpy arrays, e.g. ``jax.device_get(system.params[...])``.
 The same rules convert every tree the port builds: the diffusers, both
 CLIP context encoders (``ctx.image``: the patch-embedding conv, the class
-and position embeddings, HF's LayerNorm names) and the whole image VAE
-(``encoder``, ``quant_conv``, ``decoder``, ``post_quant_conv``).
+and position embeddings, HF's LayerNorm names), the whole image VAE
+(``encoder``, ``quant_conv``, ``decoder``, ``post_quant_conv``) and the
+Optimus text VAE (BERT and GPT-2 towers).
 ``quant_state_from_jax`` converts the int8 serving policy's calibrated
 scales and weight tables the same way.
 """
@@ -62,15 +63,25 @@ def state_dict_from_jax(tree: Mapping[str, Any], prefix: str = "") -> dict[str, 
     return sd
 
 
+# GPT-2's Conv1D projections: weight [in, out] in the reference, which is
+# the flax kernel as it is (the dense rule above transposes it)
+GPT2_CONV1D = (".attn.c_attn.weight", ".attn.c_proj.weight", ".mlp.c_fc.weight",
+               ".mlp.c_proj.weight")
+
+
 def system_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
     """A JAX ``VDSystem.params`` tree ({"diffuser", "vae", "ctx"}) -> the flat
     reference checkpoint, key for key what ``VDSystem.export_torch_checkpoint``
-    writes. The Optimus text VAE is not ported, so a ``vae.text`` tree is
-    refused rather than converted."""
-    if "text" in params.get("vae", {}):
-        raise NotImplementedError("the Optimus text VAE is not ported; drop params['vae']['text']")
+    writes; the Optimus text VAE's ``{"encoder", "decoder"}`` trees go under
+    ``vae.text.encoder.`` / ``vae.text.decoder.``, its Conv1D kernels
+    untransposed."""
     sd = state_dict_from_jax(params["diffuser"], "diffuser.")
     for name, p in params.get("vae", {}).items():
+        if name == "text":
+            for tower in ("encoder", "decoder"):
+                part = state_dict_from_jax(p[tower], f"vae.text.{tower}.")
+                sd.update({k: (v.T if k.endswith(GPT2_CONV1D) else v) for k, v in part.items()})
+            continue
         sd.update(state_dict_from_jax(p, f"vae.{name}."))
     for name, p in params.get("ctx", {}).items():
         sd.update(state_dict_from_jax(p, f"ctx.{name}.model."))

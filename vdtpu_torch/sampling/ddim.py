@@ -7,8 +7,9 @@ loop adds no host-device synchronization. Classifier-free guidance is one
 explicit ``torch.Generator`` or, for comparisons with the JAX package, a
 pre-drawn ``noise_table``.
 
-``DDIMSampler.sample`` takes and returns NHWC latents, as the JAX API does;
-the model runs NCHW in between. The start is x_T as given, pure noise, or
+``DDIMSampler.sample`` takes and returns NHWC image latents, as the JAX API
+does, and the model runs NCHW in between; text latents are [n, F] on both
+sides. The start is x_T as given, pure noise, or
 (img2img) x0 noised to the k-th lowest timestep with only the k lowest
 steps left to run. Encoder reuse, DPM-Solver++ and the cfg interval are
 later slices.
@@ -136,9 +137,10 @@ class DDIMSampler:
                temperature: float = 1.0, noise_dropout: float = 0.0, dtype=torch.float32,
                noise_table=None, device=None):
         """Single-context sampling with CFG. ``shape``, ``x_info['xt']`` and
-        ``x_info['x0']`` are NHWC ([n, h, w, c]); the result is NHWC.
-        ``noise_table`` is NHWC [S, n, h, w, c] (the JAX package's layout),
-        one row per step that runs."""
+        ``x_info['x0']`` are NHWC ([n, h, w, c]) for a 2-D diffuser and [n, F]
+        for a 0-D one (the text latent); the result has the same layout.
+        ``noise_table`` is [S, *shape] (the JAX package's layout), one row
+        per step that runs."""
         x_type, c_type = x_info["type"], c_info["type"]
         scale = float(c_info.get("unconditional_guidance_scale", 1.0))
         cond = torch.as_tensor(c_info["conditioning"]).to(device=device, dtype=dtype)
@@ -153,11 +155,14 @@ class DDIMSampler:
             x, tables = self.x0_init(generator, shape, x_info, tables, dtype, device)
         else:
             x = torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
-        x = x.permute(0, 3, 1, 2).contiguous()
+        image = x.dim() == 4
+        if image:
+            x = x.permute(0, 3, 1, 2).contiguous()
         if noise_table is not None:
             noise_table = torch.as_tensor(noise_table).to(device=device, dtype=dtype)
-            noise_table = noise_table.permute(0, 1, 4, 2, 3)
+            if image:
+                noise_table = noise_table.permute(0, 1, 4, 2, 3)
         apply = lambda xx, tt, cc: self.model.apply_model(xx, tt, cc, x_type, c_type)
         eps = cfg_eps_fn(apply, cond, uncond, scale)
         x = ddim_loop(eps, x, tables, generator, temperature, noise_dropout, noise_table)
-        return x.permute(0, 2, 3, 1)
+        return x.permute(0, 2, 3, 1) if image else x

@@ -1,11 +1,13 @@
 """Serving API (``vdtpu/serving/api.py``): ``VDSystem`` builds and owns the
 modules of a VD config, ``VDInference`` runs the flows. The port serves
-text-to-image and image variation (``inference_i2i``).
+text-to-image, image variation (``inference_i2i``), image-to-text
+(``inference_i2t``) and text-to-text (``inference_t2t``).
 
 ``VDSystem`` builds ``diffuser.*`` (every diffuser of the config, so every
 ``diffuser.*`` key of a checkpoint loads), ``ctx.image`` and ``ctx.text``
-(the CLIP context encoders) and the ``vae.image`` KL autoencoder (encoder
-and decoder); its ``net`` module carries the reference's state-dict keys. It
+(the CLIP context encoders), the ``vae.image`` KL autoencoder (encoder and
+decoder) and the ``vae.text`` Optimus VAE (BERT encoder, GPT-2 decoder);
+its ``net`` module carries the reference's state-dict keys. It
 runs on CUDA unless the caller passes ``device="cpu"``, and raises when CUDA
 is absent and the CPU was not asked for.
 
@@ -38,7 +40,8 @@ from vdtpu_torch.ops.quant import (
 from vdtpu_torch.ops.resize import resize
 from vdtpu_torch.ops.tome import ToMeSpec
 from vdtpu_torch.sampling.ddim import DDIMSampler
-from vdtpu_torch.serving.postprocess import AdjustRank, color_adjust_simple
+from vdtpu_torch.serving.postprocess import (
+    AdjustRank, color_adjust_simple, remove_duplicate_word)
 
 # (x_type, c_type) of vdtpu's four flows, the default of ``enable_int8``
 FOUR_FLOWS = (("image", "text"), ("image", "image"), ("text", "image"), ("text", "text"))
@@ -78,7 +81,8 @@ class VDSystem:
 
     # state-dict prefixes the port builds; load_state_dict ignores the rest
     PREFIXES = ("diffuser.", "ctx.image.model.", "ctx.text.model.", "vae.image.encoder.",
-                "vae.image.quant_conv.", "vae.image.decoder.", "vae.image.post_quant_conv.")
+                "vae.image.quant_conv.", "vae.image.decoder.", "vae.image.post_quant_conv.",
+                "vae.text.encoder.", "vae.text.decoder.")
 
     def __init__(self, cfg_name: str = "vd_four_flow_v1-0", dtype=torch.float32,
                  device=None, use_checkpoint: bool | None = None,
@@ -97,8 +101,7 @@ class VDSystem:
             self.net.ctx = nn.ModuleDict({name: _CtxHolder(build(sub))
                                           for name, sub in args["ctx_cfg_list"]})
             self.net.vae = nn.ModuleDict({name: build(sub)
-                                          for name, sub in args["vae_cfg_list"]
-                                          if name == "image"})
+                                          for name, sub in args["vae_cfg_list"]})
         self.net.eval().requires_grad_(False)
         self.net.to(dtype)
         self.sampler = DDIMSampler(self.model)
@@ -270,42 +273,53 @@ class VDSystem:
 
     @torch.no_grad()
     def vae_encode(self, x, which: str = "image"):
-        """NHWC image in [0, 1] -> NHWC scaled latent (the posterior's mode)."""
+        """NHWC image in [0, 1] -> NHWC scaled latent (the posterior's mode);
+        texts -> [n, 768] text latents (the posterior's mean; needs the BERT
+        tokenizer)."""
+        if which == "text":
+            return self.model.scale_latent(self.vae["text"].encode(x), which)
         if which != "image":
-            raise NotImplementedError(f"{which!r} encoding is a later slice")
+            raise ValueError(f"no VAE {which!r}")
         x = torch.as_tensor(x).to(self.device).permute(0, 3, 1, 2).contiguous()
         z = self.vae["image"].encode(x)
         return self.model.scale_latent(z, which).permute(0, 2, 3, 1)
 
     @torch.no_grad()
-    def vae_decode(self, z, which: str = "image"):
-        """NHWC latent (scaled) -> NHWC image in [0, 1]."""
-        if which != "image":
-            raise NotImplementedError(f"{which!r} decoding is a later slice")
+    def vae_decode(self, z, which: str = "image", **text_kw):
+        """NHWC latent (scaled) -> NHWC image in [0, 1]; a text latent
+        [n, 768] -> n texts (``text_kw``: ``generator``, ``temperature``,
+        ``gumbel_table`` of ``OptimusVAE.decode``)."""
         z = torch.as_tensor(z).to(device=self.device, dtype=self.dtype)
-        z = self.model.unscale_latent(z, which).permute(0, 3, 1, 2)
-        return self.vae["image"].decode(z.contiguous()).permute(0, 2, 3, 1)
+        z = self.model.unscale_latent(z, which)
+        if which == "text":
+            return self.vae["text"].decode(z, **text_kw)
+        if which != "image":
+            raise ValueError(f"no VAE {which!r}")
+        return self.vae["image"].decode(z.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1)
 
 
 class VDInference:
-    """Flow-level API (``vdtpu.serving.api.VDInference``): text-to-image and
-    image variation."""
+    """Flow-level API (``vdtpu.serving.api.VDInference``): text-to-image,
+    image variation, image-to-text and text-to-text."""
 
     def __init__(self, system: VDSystem,
                  text_tokenizer: Callable[[Sequence[str]], np.ndarray] | None = None,
                  output_dim=(512, 512), ddim_steps: int = 50, ddim_eta: float = 0.0,
-                 n_sample_image: int = 2, image_latent_dim: int = 4,
-                 latent_downsample: int = 8):
+                 n_sample_image: int = 2, n_sample_text: int = 4, image_latent_dim: int = 4,
+                 text_latent_dim: int = 768, latent_downsample: int = 8):
         self.sys = system
         self.tokenizer = text_tokenizer
         self.output_dim = tuple(output_dim)
         self.ddim_steps = ddim_steps
         self.ddim_eta = ddim_eta
         self.n_sample_image = n_sample_image
+        self.n_sample_text = n_sample_text
         self.scale_textto = 7.5
         self.scale_imgto = 7.5
         self.image_latent_dim = image_latent_dim
+        self.text_latent_dim = text_latent_dim
         self.latent_downsample = latent_downsample
+        self.text_temperature = 1.0
         self.adjust_rank_f = AdjustRank(max_drop_rank=(1, 5), q=20)
 
     def _encode_text(self, texts: Sequence[str]):
@@ -374,3 +388,40 @@ class VDInference:
         if clr_adj == "Simple":
             out = color_adjust_simple(out, cx)
         return out
+
+    def _decode_texts(self, x, generator) -> list[str]:
+        texts = self.sys.vae_decode(x, "text", generator=generator,
+                                    temperature=self.text_temperature)
+        return [remove_duplicate_word(t) for t in texts]
+
+    def _sample_text(self, gen, c, u, c_type: str, scale: float):
+        return self.sys.sampler.sample(
+            gen, self.ddim_steps, (self.n_sample_text, self.text_latent_dim), {"type": "text"},
+            {"type": c_type, "conditioning": c, "unconditional_conditioning": u,
+             "unconditional_guidance_scale": scale},
+            eta=self.ddim_eta, dtype=self.sys.dtype, device=self.sys.device)
+
+    @torch.no_grad()
+    def inference_i2t(self, image, seed: int) -> list[str]:
+        """n_sample_text captions of image [1, H, W, 3] in [0, 1] (resized to
+        output_dim first); the unconditional context is the CLIP vision
+        embedding of a black image. One generator seeded with ``seed``
+        draws the DDIM start and then the decode's Gumbel noise."""
+        n = self.n_sample_text
+        cx = self._regularize(image)
+        c = self.sys.ctx_encode(cx, "image").repeat(n, 1, 1)
+        u = self.sys.ctx_encode(torch.zeros_like(cx), "image").repeat(n, 1, 1)
+        gen = torch.Generator(device=self.sys.device).manual_seed(seed)
+        x = self._sample_text(gen, c, u, "image", self.scale_imgto)
+        return self._decode_texts(x, gen)
+
+    @torch.no_grad()
+    def inference_t2t(self, text: str, seed: int) -> list[str]:
+        """n_sample_text texts from a prompt; the unconditional context is
+        the CLIP text embedding of ""."""
+        n = self.n_sample_text
+        u = self._encode_text([""]).repeat(n, 1, 1)
+        c = self._encode_text([text]).repeat(n, 1, 1)
+        gen = torch.Generator(device=self.sys.device).manual_seed(seed)
+        x = self._sample_text(gen, c, u, "text", self.scale_textto)
+        return self._decode_texts(x, gen)

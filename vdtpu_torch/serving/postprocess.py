@@ -5,8 +5,8 @@ focus filter over CLIP vision tokens and the simple colour adjust.
 reference draws a randomized ``torch.pca_lowrank``). Singular vectors are
 defined up to sign, and the sign differs between libraries, but each
 rank's term u * s * v^T does not, so the result is the JAX package's up to
-f32 rounding. ``remove_duplicate_word`` belongs to the text flows and is
-not ported yet.
+f32 rounding. ``remove_duplicate_word`` cleans the text flows' sampled
+captions.
 """
 from __future__ import annotations
 
@@ -84,3 +84,53 @@ def color_adjust_simple(imout, ref_image):
     ref_mean, ref_std = stats(ref_image)
     out_mean, out_std = stats(imout)
     return ((imout - out_mean) / out_std * ref_std + ref_mean).clamp(0.0, 1.0)
+
+
+def remove_duplicate_word(tx: str) -> str:
+    """Iteratively collapse repeated n-gram runs in a sampled caption: words
+    first, then runs of 2, 3, ... words, with leading brackets and trailing
+    punctuation split off as their own items (``<puncnext>`` markers) and
+    glued back at the end."""
+    if tx == "":
+        return tx
+
+    def split_and_puncsplit(text: str) -> list[str]:
+        out = []
+        for word in text.split(" "):
+            pre, post = [], []
+            while word and word[0] in "([{":
+                pre += [word[0], "<puncnext>"]
+                word = word[1:]
+            while word and word[-1] in "?!.,:;}])":
+                post = ["<puncnext>", word[-1]] + post
+                word = word[:-1]
+            out += pre + ([word] if word else []) + post
+        return out
+
+    def remove_duplicates(items: list[str], length: int) -> list[str]:
+        changed = True
+        while changed:
+            changed = False
+            for i in range(len(items) - length):
+                if items[i] == items[i + length]:
+                    del items[i + 1:i + 1 + length]
+                    changed = True
+                    break
+        return items
+
+    items = split_and_puncsplit(tx)
+    length = 1
+    while len(items) > 1:
+        items = remove_duplicates(items, length)
+        if len(items) > 1:
+            # each unit grows by its right neighbour's length-th word
+            items = [items[i] + " " + _last_word(items[i + 1], length)
+                     for i in range(len(items) - 1)]
+            length += 1
+    out = items[0] if items else ""
+    return out.replace(" <puncnext> ", "")
+
+
+def _last_word(s: str, length: int) -> str:
+    parts = s.split(" ")
+    return parts[length - 1] if parts else s
