@@ -44,12 +44,15 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             on that site's own arguments; then the same request cold and
             warm as (a) int8 and (b) int8 + ToMe 0.75, each with its launch
             counts of the no-max (also by kv length: ToMe's merged sites),
-            int8 conv and torch._int_mm paths
+            int8 conv and torch._int_mm paths, and the int8 conv's launches
+            by tile-plan path (halo or general) against qconv3_plan's
   modes     one full-width int8 eps call in each opt-in policy mode
             (gn_prologue "fused" and "stats", conv "fused") against the
             default mode's, with each mode's launch counts derived from the
             program, and the fused-prologue conv against its plain version
-            at every distinct site of its call
+            at every distinct site of its call; then one t2i request under
+            the default int8 policy, one under conv "fused" and the default
+            again, each cold then warm (recorded beside each other)
   eps_int8  one full-width int8 eps call on the card (bf16) against the
             port's int8 plain path on the CPU in f32, same scales
   main_fused2 QuantPolicy(conv="fused2") on the calibrated system: the
@@ -112,10 +115,11 @@ FLASH_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
 # site (4096 tokens merged to 1024 at d_head 40)
 NOMAX_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 40), (4, 1024, 8, 80)]
 # int8 3x3 conv: (B, C_in, H, W, C_out, stride, add); the first is the
-# commonest site (64^2 ResBlock conv with its FiLM vector)
+# commonest site (64^2 ResBlock conv with its FiLM vector); 64^2, 32^2 and
+# 16^2 maps are the int8 sites' three sizes
 QCONV_SHAPES = [(4, 320, 64, 64, 320, 1, "film"), (4, 4, 64, 64, 320, 1, None),
                 (4, 960, 64, 64, 320, 1, "res"), (4, 320, 64, 64, 320, 2, None),
-                (4, 1280, 16, 16, 1280, 1, "film")]
+                (4, 1280, 16, 16, 1280, 1, "film"), (4, 640, 32, 32, 640, 1, "film")]
 GN_SHAPES = [(4, 320, 64, 64), (4, 640, 32, 32), (4, 1280, 16, 16), (4, 2560, 8, 8),
              (2, 128, 512, 512)]
 # whole int8 ResBlock (B, C_in, H, W, C_out): the 8 distinct conv="fused2"
@@ -454,8 +458,11 @@ def _qconv_case(spec, gen):
     import torch
     import torch.nn.functional as F
     from vdtpu_torch.ops.gn_silu import gn_stats
-    from vdtpu_torch.ops.qconv import qconv3, qconv3_gn, qconv3_gn_plain, qconv3_plain
+    from vdtpu_torch.ops.qconv import (qconv3, qconv3_gn, qconv3_gn_plain, qconv3_plain,
+                                       qconv3_plan)
     b, c, h, w, n, stride, add = spec
+    plan = qconv3_plan(b, h, w, c, n, stride)
+    gn_plan = qconv3_plan(b, h, w, c, n, stride, True, True, 2)   # bf16 NCHW input
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     rnd = lambda *sh: torch.randn(sh, device="cuda", generator=gen)
     x = (rnd(b, c, h, w) * 2 + 0.5).to(torch.bfloat16)
@@ -501,7 +508,10 @@ def _qconv_case(spec, gen):
     nbytes = xq.numel() + wq.numel() + out_bytes
     bound_ms, bound_by = _bound(nbytes, ops / PEAK_INT8)
     gn_bound_ms, _ = _bound(nbytes + x.numel(), ops / PEAK_INT8)
-    return dict(shape=list(spec), max_abs_err=max(err, err_gn), rel_l2_err=max(rel, rel_gn),
+    return dict(shape=list(spec), path=plan.path, n_tile=plan.bn, rows=plan.rows,
+                tile_pixels=plan.bm, grid=list(plan.grid), smem_bytes=plan.smem_bytes,
+                gn_n_tile=gn_plan.bn, gn_grid=list(gn_plan.grid), gn_rows_staged=gn_plan.raw,
+                max_abs_err=max(err, err_gn), rel_l2_err=max(rel, rel_gn),
                 ok=ok and ok_gn, ms=ms, gn_ms=gn_ms, plain_ms=plain_ms, gn_plain_ms=gn_plain_ms,
                 library_ms=lib_ms, library="F.conv2d bf16 channels_last (cuDNN)",
                 int_mm_ms=int_mm_ms, bound_ms=bound_ms, gn_bound_ms=gn_bound_ms,
@@ -1193,7 +1203,23 @@ def _counters():
 def _zero_counters():
     for fn in _counters().values():
         fn.launches = 0
+        for path in getattr(fn, "launches_by_path", {}):
+            fn.launches_by_path[path] = 0
     _counters()["nomax_fwd"].launches_by_kv.clear()
+
+
+def _plan_paths(calls, label: str) -> dict:
+    """Launches by qconv3_plan path of one UNet call's recorded int8 conv
+    calls (the site check's recording)."""
+    from vdtpu_torch.ops.qconv import qconv3_plan
+    paths = {"halo": 0, "general": 0}
+    for args, _ in calls:
+        if label == "qconv3":   # xq [B, H, W, C], wq [N, 3, 3, C], ..., stride
+            (b, h, w, c), n, stride = args[0].shape, args[1].shape[0], args[5]
+        else:                   # x [B, C, H, W], ..., wq, ..., stride at 9
+            (b, c, h, w), n, stride = args[0].shape, args[5].shape[0], args[9]
+        paths[qconv3_plan(b, h, w, c, n, stride, label == "qconv3_gn").path] += 1
+    return paths
 
 
 def _read_counters():
@@ -1262,6 +1288,8 @@ def phase_main_int8(state):
     with torch.no_grad(), _recording("qconv3", calls):
         system.model.apply_model(xs, ts, cs, "image", "text")
     _site_check(state, "qconv3", calls, qconv3, qconv3_plain)
+    # the request's UNet calls run the same sites at batch 2 x CFG = 4
+    expect_paths = {k: v * STEPS for k, v in _plan_paths(calls, "qconv3").items()}
     del calls
     torch.cuda.empty_cache()
     vdi = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
@@ -1282,6 +1310,7 @@ def phase_main_int8(state):
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t
                 got, by_kv = _read_counters(), dict(by_kv_now)
+                paths = dict(qconv3.launches_by_path)
                 counts = {k: got[k] for k in expect}
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 finite = bool(torch.isfinite(img).all())
@@ -1289,7 +1318,8 @@ def phase_main_int8(state):
                 log(f"main_int8 {mode} {run}: {dt:.3f} s, {2 / dt:.3f} images/s, peak "
                     f"{peak:.2f} GiB, shape {tuple(img.shape)} finite {finite} range "
                     f"[{lo:.4f}, {hi:.4f}], launches {counts} (expected {expect}), no-max by "
-                    f"kv length {by_kv} (expected {expect_kv}) [{state.get('card')}]")
+                    f"kv length {by_kv} (expected {expect_kv}), int8 conv by path {paths} "
+                    f"(expected {expect_paths}) [{state.get('card')}]")
                 if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0
                         and hi <= 1.0):
                     raise RuntimeError(f"main_int8 {mode} {run}: bad output")
@@ -1299,14 +1329,20 @@ def phase_main_int8(state):
                 if by_kv != expect_kv:
                     raise RuntimeError(f"main_int8 {mode} {run}: no-max launches by kv length "
                                        f"{by_kv} != {expect_kv}")
+                if paths != expect_paths:
+                    raise RuntimeError(f"main_int8 {mode} {run}: int8 conv launches by path "
+                                       f"{paths} != {expect_paths}")
                 results[f"{mode}_{run}"] = dict(seconds=dt, images_per_s=2 / dt, peak_gib=peak,
-                                                launches=counts, nomax_by_kv=by_kv)
+                                                launches=counts, nomax_by_kv=by_kv,
+                                                qconv3_by_path=paths)
     finally:
         system.enable_tome(0)
     for name in ("nomax_fwd", "qconv3"):
         if name in state["kernels"]:
             state["kernels"][name]["launches"] = results["int8_warm"]["launches"][name]
             state["kernels"][name]["path"] = "main_int8 (int8, warm request)"
+    if "qconv3" in state["kernels"]:
+        state["kernels"]["qconv3"]["launches_by_path"] = results["int8_warm"]["qconv3_by_path"]
     state["main_int8"] = results
 
 
@@ -1433,7 +1469,11 @@ def phase_modes(state):
         if not routed:
             raise RuntimeError(f"modes {mode}: launch counts {got} do not match the policy")
     _site_check(state, "qconv3_gn", calls, qconv3_gn, qconv3_gn_plain)
+    fused_paths = _plan_paths(calls, "qconv3_gn")
+    log(f"modes conv=fused: qconv3_gn by path {fused_paths} in one eps call")
+    results["conv=fused"]["qconv3_gn_by_path"] = fused_paths
     del calls
+    results["requests"] = _fused_request(state, system)
     if "gn_silu_q" in state["kernels"]:
         k2 = state["kernels"]["gn_silu_q"]
         k2["launches"] = totals["gn_silu_q"] + totals["gn_stats"]
@@ -1442,6 +1482,38 @@ def phase_modes(state):
         k2["path"] = "modes (one eps call per opt-in mode)"
         state["kernels"]["qconv3"]["launches_gn_prologue"] = totals["qconv3_gn"]
     state["modes"] = results
+
+
+def _fused_request(state, system):
+    """One t2i request under the default int8 policy and one under
+    conv="fused" (the GN prologue inside the conv kernel), each cold then
+    warm, in this call: recorded, not gated, beside each other."""
+    import torch
+    from vdtpu_torch.ops.quant import QuantPolicy
+    from vdtpu_torch.serving.api import VDInference
+    vdi = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
+                      ddim_steps=STEPS, n_sample_image=2)
+    prompt = "a red cat sitting on a wooden bench in the sun"
+    out = {}
+    for mode, pol in (("default", system.quant_policy), ("conv=fused", QuantPolicy(conv="fused")),
+                      ("default again", system.quant_policy)):
+        with _policy(system, pol):
+            for run in ("cold", "warm"):
+                torch.cuda.synchronize()
+                _zero_counters()
+                t = time.perf_counter()
+                img = vdi.inference_t2i(prompt, seed=SEED)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                got = _read_counters()
+                finite = bool(torch.isfinite(img).all())
+                log(f"modes request {mode} {run}: {dt:.3f} s, finite {finite}, int8 conv "
+                    f"{got['qconv3']} (fused prologue {got['qconv3_gn']}) [{state.get('card')}]")
+                if not finite:
+                    raise RuntimeError(f"modes request {mode} {run}: non-finite output")
+                out[f"{mode} {run}"] = dict(seconds=dt, qconv3=got["qconv3"],
+                                            qconv3_gn=got["qconv3_gn"])
+    return out
 
 
 def phase_eps_int8(state):
@@ -1919,6 +1991,9 @@ def _profile_mode(state, system, label):
         kinds[_kernel_kind(e.key)] = kinds.get(_kernel_kind(e.key), 0.0) + _dev_t(e)
     for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
         log(f"  kind {kind}: {us / iters / 1e3:.3f} ms/step ({us / iters / 1e3 / busy:.3f})")
+    qconv = sum(_dev_t(e) for e in rows if "qconv3" in e.key) / iters / 1e3
+    log(f"profile {label}: device busy {busy:.3f} ms/step, of it the int8 conv (qconv3) "
+        f"{qconv:.3f} ms ({qconv / busy:.3f}) [{state.get('card')}]")
     for e in sorted(rows, key=_dev_t, reverse=True)[:12]:
         log(f"  top {_dev_t(e) / iters / 1e3:.3f} ms/step x{e.count // iters} {e.key[:90]}")
     state.setdefault("profile", {})[label] = dict(wall_ms=1e3 * wall, busy_ms=busy,

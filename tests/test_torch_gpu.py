@@ -240,48 +240,74 @@ def _qconv_args(gen, b, c, h, w, n, dtype=torch.bfloat16):
 QC_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=8e-3), torch.float32: dict(atol=1e-5, rtol=1e-5)}
 
 
+def _path_launches(fn, plan, call):
+    """Run call(); assert it launched once, on the path qconv3_plan chose."""
+    before, by_path = fn.launches, dict(fn.launches_by_path)
+    out = call()
+    assert fn.launches == before + 1
+    assert fn.launches_by_path[plan.path] == by_path[plan.path] + 1
+    return out
+
+
 @pytest.mark.parametrize("b,c,h,w,n,stride", [
-    (2, 4, 16, 16, 64, 1),      # conv_in: C_in = 4 (element-wise staging)
+    (2, 4, 16, 16, 64, 1),      # conv_in: C_in = 4 (the general path)
     (2, 64, 16, 16, 4, 1),      # the output conv: C_out = 4
     (2, 128, 16, 16, 128, 2),   # Downsample2D
     (1, 64, 12, 20, 72, 1),     # non-square map, N not a multiple of the tile
-    (2, 40, 9, 7, 24, 2),
+    (2, 40, 9, 7, 24, 2),       # C % 32 != 0: the general path
+    (2, 64, 9, 7, 40, 1),       # odd H and W on the halo path
+    (1, 96, 13, 11, 160, 2),    # odd, stride 2, 32-channel halo chunks
+    (1, 1280, 16, 16, 1280, 1),  # 16^2 map at C = N = 1280: 8 rows a tile
+    (1, 320, 64, 64, 320, 2),   # Downsample2D at 64^2 -> 32^2
+    (4, 64, 64, 80, 160, 1),    # N = 160 on 160-channel blocks; Wo = 80, one row a tile
+    (4, 96, 40, 80, 160, 1),    # the same with 32-channel halo chunks
+    (4, 64, 64, 64, 640, 1),    # 256-pixel tiles (4 rows of 64)
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_qconv3_kernel_matches_plain(gen, b, c, h, w, n, stride, dtype):
-    from vdtpu_torch.ops.qconv import qconv3, qconv3_plain
+    from vdtpu_torch.ops.qconv import qconv3, qconv3_plain, qconv3_plan
     xq, wq, w_scale, bias, s_x = _qconv_args(gen, b, c, h, w, n, dtype)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     film = _randn(gen, b, n, dtype=dtype)
     res = _randn(gen, b, n, ho, wo, dtype=dtype)
+    plan = qconv3_plan(b, h, w, c, n, stride)
+    assert plan.path == ("general" if c % 32 else "halo")
     for add_vec, add_full in ((None, None), (film, None), (None, res), (film, res)):
-        before = qconv3.launches
-        out = qconv3(xq, wq, w_scale, bias, s_x, stride, add_vec, add_full, dtype)
-        assert qconv3.launches == before + 1 and out.shape == (b, n, ho, wo)
+        out = _path_launches(qconv3, plan, lambda: qconv3(xq, wq, w_scale, bias, s_x, stride,
+                                                          add_vec, add_full, dtype))
+        assert out.shape == (b, n, ho, wo)
         ref = qconv3_plain(xq, wq, w_scale, bias, s_x, stride, add_vec, add_full, dtype)
         torch.testing.assert_close(out.float(), ref.float(), **QC_TOL[dtype])
 
 
 @pytest.mark.parametrize("b,c,h,w,n,stride", [
-    (2, 64, 16, 16, 64, 1), (1, 96, 10, 14, 40, 1), (2, 64, 16, 16, 64, 2)])
-def test_qconv3_gn_kernel_matches_plain(gen, b, c, h, w, n, stride):
+    (2, 64, 16, 16, 64, 1), (1, 96, 10, 14, 40, 1), (2, 64, 16, 16, 64, 2),
+    (2, 4, 16, 16, 64, 1),      # C = 4: the general path
+    (2, 64, 9, 7, 4, 1),        # odd H and W, N = 4
+    (1, 96, 13, 11, 160, 2),
+    (1, 1280, 16, 16, 1280, 1),
+    (1, 320, 64, 64, 320, 2),
+    (4, 64, 64, 80, 160, 1),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qconv3_gn_kernel_matches_plain(gen, b, c, h, w, n, stride, dtype):
     """The fused GN prologue, with a GN bias large enough that
     quantize(GN(0)) is far from 0: the image edge must stay 0 after
     quantization, as the plain version's zero padding of the codes has it."""
     from vdtpu_torch.ops.gn_silu import gn_stats
-    from vdtpu_torch.ops.qconv import qconv3_gn, qconv3_gn_plain
+    from vdtpu_torch.ops.qconv import qconv3_gn, qconv3_gn_plain, qconv3_plan
     _, wq, w_scale, bias, s_x = _qconv_args(gen, b, c, h, w, n)
-    x = (_randn(gen, b, c, h, w, dtype=torch.float32) * 2 + 0.5).to(torch.bfloat16)
+    x = (_randn(gen, b, c, h, w, dtype=torch.float32) * 2 + 0.5).to(dtype)
     gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
     beta = torch.full((c,), 2.0, device="cuda")
-    st = gn_stats(x, 32, 1e-5)
-    res = _randn(gen, b, n, (h - 1) // stride + 1, (w - 1) // stride + 1)
-    film = _randn(gen, b, n)
-    before = qconv3_gn.launches
-    out = qconv3_gn(x, st, gamma, beta, s_x, wq, w_scale, bias, True, stride, film, res)
-    assert qconv3_gn.launches == before + 1
+    st = gn_stats(x, 32 if c % 32 == 0 else c, 1e-5)
+    res = _randn(gen, b, n, (h - 1) // stride + 1, (w - 1) // stride + 1, dtype=dtype)
+    film = _randn(gen, b, n, dtype=dtype)
+    plan = qconv3_plan(b, h, w, c, n, stride, gn=True)
+    out = _path_launches(qconv3_gn, plan, lambda: qconv3_gn(
+        x, st, gamma, beta, s_x, wq, w_scale, bias, True, stride, film, res))
     ref = qconv3_gn_plain(x, st, gamma, beta, s_x, wq, w_scale, bias, True, stride, film, res)
-    torch.testing.assert_close(out.float(), ref.float(), **QC_TOL[torch.bfloat16])
+    torch.testing.assert_close(out.float(), ref.float(), **QC_TOL[dtype])
 
 
 def test_qconv3_kernel_refuses(gen):

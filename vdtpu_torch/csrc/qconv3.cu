@@ -15,59 +15,52 @@
 //     statistics (mean, rstd), to which the prologue applies
 //     y = (x - mean) * rstd * gamma + beta, SiLU, and the static-scale
 //     quantize q = clip(rint(y / s_x), -127, 127) (division, round half to
-//     even, as vdtpu/ops/quant.py::_quantize_act) while staging a tile;
+//     even, as vdtpu/ops/quant.py::_quantize_act) while staging the input;
 //     padding stays 0 after quantization, never quantize(GN(0)).
-// Any C and N: K = 9 * C is padded to the MMA depth in shared memory only.
 // Every tensor is addressed through strides, so NCHW and NHWC (the flat
 // [B, H*W, C] layout of the TPU kernel) both work.
 //
-// Bound on this card: at [4, 320, 64, 64] -> 320 the work is
-// 2 * 4 * 4096 * 320 * 320 * 9 = 30.2 G int8 operations, about 0.015 ms at
-// 1,979 TOP/s; the 960 -> 320 decoder sites 0.046 ms. The bytes (s8 input
-// once, weights once, bf16 output once) take less: 5.2 + 0.9 + 10.5 MB,
-// 0.005 ms. The tensor cores set the pace.
+// Bound on this card (1,979 TOP/s int8, 3.35 TB/s): the tensor cores at
+// every int8 site of the full-width UNet except conv_in. At B = 4:
+// 64^2 320 -> 320, 2 * 16384 * 320 * 2880 = 30.2 G operations, 0.0153 ms
+// (640 -> 320 0.0305, 960 -> 320 0.0458); 32^2 640 -> 640 0.0153; 16^2
+// 1280 -> 1280 0.0153; the stride-2 convs a quarter of their stride-1 work.
+// The bytes (s8 input once, weights once, bf16 output once) take 0.005 ms
+// at 64^2 320 -> 320; conv_in (C = 4) is bound by its 10.5 MB output,
+// 0.0031 ms.
 //
-// What the design does about it: an implicit GEMM (M = output pixels, N =
-// output channels, K = tap x C) on mma.sync m16n8k32 s8 x s8 -> s32, 128 x
-// 64 output tiles over 8 warps (the tile of qconv_tile.cuh), 64-deep K
-// tiles double-buffered in shared memory with cp.async when C % 64 == 0
-// (each K tile is then one tap: a row of 64 contiguous channels, i.e. the
-// one-row halo of the tap read straight from device memory), element-wise
-// staging otherwise. The im2col matrix never exists in device memory.
-// mma.sync reaches a fraction of the int8 peak; wgmma/TMA and a persistent
-// schedule are later work.
+// What the design does about it. Two paths, chosen by
+// vdtpu_torch/ops/qconv.py::qconv3_plan and counted apart by the wrapper:
+// - halo (qconv_sm90.cuh), every site with C % 32 == 0 and Wo <= 128 (all
+//   but conv_in): a block takes whole output rows of one image (128 or 256
+//   pixels); per chunk of 64 (or 32) input channels it stages the input
+//   halo once in shared memory, s8 by cp.async or through the GN prologue
+//   evaluated once per halo element, and runs all 9 taps against it by
+//   address shifts, on wgmma with A from registers (ldmatrix) and B from a
+//   4-stage weight ring. The s8 input takes 160 output channels a block
+//   (256-pixel tiles where they fill the card; where even 128-pixel tiles
+//   leave half the card idle, two CTAs split the channel chunks and add
+//   their exact sums through distributed shared memory); the GN prologue
+//   takes 320, so each halo element is quantized once, with the weights
+//   multicast by TMA to a cluster of two.
+// - general (below), every other site (conv_in, odd channel counts, strided
+//   channels): an implicit GEMM over 64-deep K tiles gathered per tap, the
+//   128 x 64 tile of qconv_tile.cuh on mma.sync, double-buffered.
+// The im2col matrix never exists in device memory. Both steps of the
+// redesign landed: the halo (step A) and the wgmma main loop (step B).
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): PERF.md row 10.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "qconv_tile.cuh"
+#include "qconv_sm90.cuh"
 
 namespace {
 
 using namespace vdq;
-
-struct Params {
-  const void* x;
-  const int8_t* w;       // [N, 9, C]
-  const float* w_scale;  // [N]
-  const float* bias;     // [N]
-  const float* s_x;      // scalar
-  const float* stats;    // [B, 2, C] (mean, rstd), in_kind 1
-  const float* gamma;    // [C]
-  const float* beta;     // [C]
-  const void* film;      // [B, N] or null
-  const void* res;       // or null
-  void* out;
-  int B, H, W, C, N, stride, Ho, Wo, with_silu;
-  int vec_a;  // s8 input, C % 64 == 0, channels contiguous, 16-byte rows
-  int vec_b;  // C % 64 == 0 and a 16-byte aligned weight
-  long long sxb, sxh, sxw, sxc;
-  long long srb, srh, srw, src;
-  long long sob, soh, sow, soc;
-  long long film_sb;
-};
+using Params = QConvParams;
 
 // One output row m = (b, yo, xo) of the implicit GEMM.
 struct Row {
@@ -87,18 +80,6 @@ __device__ __forceinline__ Row decode(const Params& p, int m) {
   r.y0 = yo * p.stride - 1;
   r.x0 = xo * p.stride - 1;
   return r;
-}
-
-// GroupNorm(+SiLU) and quantize one element of the input (in_kind 1).
-template <typename T>
-__device__ __forceinline__ int gn_quant(const Params& p, float sx, int b, int c, T xv) {
-  const float mean = p.stats[(long long)b * 2 * p.C + c];
-  const float rstd = p.stats[(long long)b * 2 * p.C + p.C + c];
-  float y = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(to_f(xv), mean), rstd), p.gamma[c]),
-                      p.beta[c]);
-  if (p.with_silu) y = __fmul_rn(y, __frcp_rn(__fadd_rn(1.f, expf(-y))));
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(y, sx)), -127.f), 127.f);
-  return int(q);
 }
 
 // Stage A tile rows [m0, m0 + 128) x K [k0, k0 + 64) into shared memory.
@@ -165,7 +146,7 @@ __device__ __forceinline__ void load_a(const Params& p, int8_t* sA, int m0, int 
 }
 
 template <typename T, int IN_KIND>
-__global__ void __launch_bounds__(kThreads) qconv3_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads) qconv3_general_kernel(const Params p) {
   __shared__ __align__(16) int8_t sA[2][kBM * kLD];
   __shared__ __align__(16) int8_t sB[2][kBN * kLD];
 
@@ -226,19 +207,176 @@ __global__ void __launch_bounds__(kThreads) qconv3_kernel(const Params p) {
     }
 }
 
+
 template <typename T, int IN_KIND>
-int launch(const Params& p, cudaStream_t stream) {
+int launch_general(const Params& p, cudaStream_t stream) {
   const long long m = (long long)p.B * p.Ho * p.Wo;
   const dim3 grid(unsigned((m + kBM - 1) / kBM), unsigned((p.N + kBN - 1) / kBN));
-  qconv3_kernel<T, IN_KIND><<<grid, kThreads, 0, stream>>>(p);
+  qconv3_general_kernel<T, IN_KIND><<<grid, kThreads, 0, stream>>>(p);
   return int(cudaGetLastError());
+}
+
+// dynamic shared memory above 48 KB needs the opt-in, once per kernel
+template <typename K>
+int allow_smem(K kernel, int smem, int& smem_set) {
+  if (smem > smem_set) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return int(rc);
+    smem_set = smem;
+  }
+  return 0;
+}
+
+template <typename T, int KC, int BN, int BM>
+int launch_halo(const Params& p, int smem, cudaStream_t stream) {
+  const int need = halo_smem_bytes<KC, BN, BM>(p.halo_h * p.halo_w);
+  const int reduce = p.splitk == 2 ? BM * BN * 4 : 0;  // the second CTA's s32 sums
+  if (smem != (need > reduce ? need : reduce) || p.rows * p.Wo > BM ||
+      (p.splitk == 2 && p.C / KC < 2))
+    return int(cudaErrorInvalidValue);
+  auto kernel = qconv3_halo_kernel<T, KC, BN, BM>;
+  static int smem_set = 0;
+  if (const int rc = allow_smem(kernel, smem, smem_set)) return rc;
+  const dim3 grid(unsigned(p.B * p.tiles), unsigned((p.N + BN - 1) / BN), unsigned(p.splitk));
+  if (p.splitk == 1) {
+    kernel<<<grid, 2 * BM, smem, stream>>>(p);
+    return int(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(2 * BM);
+  cfg.dynamicSmemBytes = size_t(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 2;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (rc != cudaSuccess) return int(rc);
+  return int(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The weights [N, 9 * C] as a 2-D tensor map (K bytes, output channels); a
+// box is KC bytes x `rows` channels, laid out with the KC-byte swizzle.
+int weight_map(CUtensorMap* map, const int8_t* w, int N, int C, int rows, int kc) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (rc != cudaSuccess || q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return int(rc != cudaSuccess ? rc : cudaErrorSymbolNotFound);
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {cuuint64_t(9 * C), cuuint64_t(N)};
+  const cuuint64_t strides[1] = {cuuint64_t(9 * C)};
+  const cuuint32_t box[2] = {cuuint32_t(kc), cuuint32_t(rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            kc == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+template <typename T, int KC, int BN>
+int launch_halo_gn(Params p, int smem, cudaStream_t stream) {
+  const int raw_bytes = p.raw ? KC * p.halo_h * p.W * int(sizeof(T)) : 0;
+  if (smem != gn_smem_bytes<KC, BN>(p.halo_h * p.halo_w, raw_bytes) || p.rows * p.Wo > 128)
+    return int(cudaErrorInvalidValue);
+  auto kernel = qconv3_halo_gn_kernel<T, KC, BN>;
+  // the producer warpgroups' setmaxnreg.dec must free what the consumers'
+  // .inc takes: a kernel compiled to fewer registers would wait forever
+  static int regs = -1;
+  if (regs < 0) {
+    cudaFuncAttributes attr;
+    const cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+    if (rc != cudaSuccess) return int(rc);
+    regs = attr.numRegs;
+  }
+  if (regs * (kHaloThreads + kProducerThreads) <
+      kConsumerRegs * kHaloThreads + kProducerRegs * kProducerThreads)
+    return int(cudaErrorInvalidConfiguration);
+  static int smem_set = 0;
+  if (const int rc = allow_smem(kernel, smem, smem_set)) return rc;
+  constexpr int SUB = BN < 160 ? BN : 160;
+  CUtensorMap map;
+  if (const int rc = weight_map(&map, p.w, p.N, p.C, SUB, KC)) return rc;
+  const unsigned gx = unsigned(p.B * p.tiles);
+  p.cluster = (BN == 320 && gx % 2 == 0) ? 2 : 1;  // pairs of tiles share the weights
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(gx, unsigned((p.N + BN - 1) / BN));
+  cfg.blockDim = dim3(kHaloThreads + kProducerThreads);
+  cfg.dynamicSmemBytes = size_t(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(p.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, p, map);
+  if (rc != cudaSuccess) return int(rc);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int KC>
+int dispatch_s8(const Params& p, int bn, int bm, int smem, cudaStream_t stream) {
+  if (bm == 128 && bn == 64) return launch_halo<T, KC, 64, 128>(p, smem, stream);
+  if (bm == 128 && bn == 160) return launch_halo<T, KC, 160, 128>(p, smem, stream);
+  if constexpr (KC == 64) {  // 256-pixel tiles: the weights streamed half as often
+    if (bm == 256 && bn == 160) return launch_halo<T, KC, 160, 256>(p, smem, stream);
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+template <typename T, int KC>
+int dispatch_gn(const Params& p, int bn, int smem, cudaStream_t stream) {
+  if (bn == 64) return launch_halo_gn<T, KC, 64>(p, smem, stream);
+  if (bn == 160) return launch_halo_gn<T, KC, 160>(p, smem, stream);
+  if (bn == 320) return launch_halo_gn<T, KC, 320>(p, smem, stream);  // the prologue once
+  return int(cudaErrorInvalidValue);
+}
+
+template <typename T, int IN_KIND>
+int dispatch(const Params& p, int path, int kc, int bn, int bm, int smem, cudaStream_t stream) {
+  if (path == 0) return launch_general<T, IN_KIND>(p, stream);
+  if ((IN_KIND == 1 && (bm != 128 || p.splitk != 1)) || (IN_KIND == 0 && path == 2) ||
+      (p.splitk != 1 && p.splitk != 2))
+    return int(cudaErrorInvalidValue);
+  if (kc == 64) {
+    return IN_KIND == 0 ? dispatch_s8<T, 64>(p, bn, bm, smem, stream)
+                        : dispatch_gn<T, 64>(p, bn, smem, stream);
+  }
+  if (kc == 32) {
+    return IN_KIND == 0 ? dispatch_s8<T, 32>(p, bn, bm, smem, stream)
+                        : dispatch_gn<T, 32>(p, bn, smem, stream);
+  }
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // in_kind: 0 s8 input codes, 1 GroupNorm prologue on an input of the output
 // dtype; out_kind: 0 bf16, 1 f32 (film and res share the output dtype).
-// Returns a cudaError_t code; 0 means the launch was accepted.
+// path 0 general, 1 halo with `rows` output rows a tile of at most `bm`
+// pixels, `kc` input channels a staged halo, `bn` output channels a block,
+// the channel chunks split over `splitk` CTAs (s8 input) and `smem` bytes of
+// dynamic shared memory, 2 the same with the GN prologue's input rows staged
+// by cp.async (qconv3_plan). Returns a cudaError_t code; 0 means the
+// launch was accepted.
 extern "C" int vd_qconv3(const void* x, const void* w, const void* w_scale, const void* bias,
                          const void* s_x, const void* stats, const void* gamma, const void* beta,
                          const void* film, const void* res, void* out, int B, int H, int W, int C,
@@ -246,7 +384,8 @@ extern "C" int vd_qconv3(const void* x, const void* w, const void* w_scale, cons
                          long long sxw, long long sxc, long long srb, long long srh,
                          long long srw, long long src, long long sob, long long soh,
                          long long sow, long long soc, long long film_sb, int in_kind,
-                         int out_kind, void* stream) {
+                         int out_kind, int path, int rows, int kc, int bn, int bm, int splitk,
+                         int smem, void* stream) {
   Params p;
   p.x = x;
   p.w = static_cast<const int8_t*>(w);
@@ -265,14 +404,28 @@ extern "C" int vd_qconv3(const void* x, const void* w, const void* w_scale, cons
   p.with_silu = with_silu;
   p.vec_a = vec_a;
   p.vec_b = vec_b;
+  p.rows = rows;
+  p.tiles = rows > 0 ? (p.Ho + rows - 1) / rows : 0;
+  p.halo_h = (rows - 1) * stride + 3;
+  p.halo_w = (p.Wo - 1) * stride + 3;
+  p.halo_we = (p.halo_w + 1) / 2;
+  p.hp_magic = div_magic(unsigned(p.halo_h * p.halo_w));
+  p.hw_magic = div_magic(unsigned(p.halo_w));
+  p.cluster = 1;
+  p.splitk = splitk;
+  p.raw = path == 2;
   p.sxb = sxb; p.sxh = sxh; p.sxw = sxw; p.sxc = sxc;
   p.srb = srb; p.srh = srh; p.srw = srw; p.src = src;
   p.sob = sob; p.soh = soh; p.sow = sow; p.soc = soc;
   p.film_sb = film_sb;
+  if (path >= 1 && (rows < 1 || C % kc != 0 ||
+                    p.halo_h * p.halo_w * (kc / 4) >= (1 << 16))) {
+    return int(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_kind == 0 && out_kind == 0) return launch<__nv_bfloat16, 0>(p, st);
-  if (in_kind == 0 && out_kind == 1) return launch<float, 0>(p, st);
-  if (in_kind == 1 && out_kind == 0) return launch<__nv_bfloat16, 1>(p, st);
-  if (in_kind == 1 && out_kind == 1) return launch<float, 1>(p, st);
+  if (in_kind == 0 && out_kind == 0) return dispatch<__nv_bfloat16, 0>(p, path, kc, bn, bm, smem, st);
+  if (in_kind == 0 && out_kind == 1) return dispatch<float, 0>(p, path, kc, bn, bm, smem, st);
+  if (in_kind == 1 && out_kind == 0) return dispatch<__nv_bfloat16, 1>(p, path, kc, bn, bm, smem, st);
+  if (in_kind == 1 && out_kind == 1) return dispatch<float, 1>(p, path, kc, bn, bm, smem, st);
   return int(cudaErrorInvalidValue);
 }

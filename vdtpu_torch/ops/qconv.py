@@ -4,8 +4,12 @@ Counterpart of ``vdtpu/ops/pallas/qconv.py::qconv3_flat`` (its ``_kernel``:
 GN+SiLU+quantize, the nine-tap s8 conv, dequant, bias, FiLM, residual) and
 of the s8 x s8 -> s32 ``lax.conv_general_dilated`` inside
 ``vdtpu/ops/quant.py::QConv``, which every int8 conv site needs: PyTorch
-has no int8 convolution on CUDA. The kernel is ``csrc/qconv3.cu``; its
-header has the bound and the design.
+has no int8 convolution on CUDA. The kernel is ``csrc/qconv3.cu`` with
+its halo path in ``csrc/qconv_sm90.cuh``; their headers have the bound and
+the design. ``qconv3_plan`` is the launch geometry in plain Python (path,
+tile rows, channel chunk, output channels a block, grid, shared memory),
+which the wrapper hands to the kernel and the CPU tests check; each wrapper
+counts its launches by path in ``launches_by_path``.
 
 - ``qconv3``: s8 channels-last input [B, H, W, C] (the per-site path, after
   a quantize), NCHW output.
@@ -37,6 +41,8 @@ at most 9 x 2560 taps stays far below 2^53, so it is exact (and CUDA has
 no integer convolution).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +87,94 @@ def qconv3_gn_plain(x, stats, gamma, beta, s_x, wq, w_scale, bias, with_silu: bo
     return qconv3_plain(xq, wq, w_scale, bias, s_x, stride, add_vec, add_full, x.dtype)
 
 
+# the card's geometry (H100 SXM) and the kernel's constants (csrc/qconv3.cu,
+# csrc/qconv_sm90.cuh, csrc/qconv_tile.cuh)
+MAX_SMEM_BYTES = 232_448     # dynamic shared memory a block may opt into
+HALO_TILE_PIXELS = 128       # a tile's output pixels (whole rows), or 256 (below)
+HALO_STAGES = 4              # kStages: the weight ring
+EPILOGUE_CHANNELS = 32       # kEpiCh: f32 output rows the epilogue stages at a time
+GENERAL_SMEM_BYTES = 2 * (128 + 64) * (64 + 16)   # the general path's static tiles
+WIDE_TILE_MIN_BLOCKS = 128   # 256-pixel tiles where they still fill a wave of 132 SMs
+NUM_SMS = 132
+SM_SMEM_BYTES = 233_472      # shared memory an SM holds for its blocks (228 KB)
+
+
+@dataclasses.dataclass(frozen=True)
+class QConvPlan:
+    """Geometry of one int8 conv launch: ``path`` "halo" (whole output rows
+    of one image a block, the input halo staged once per channel chunk) or
+    "general" (K tiles gathered per tap); ``rows`` output rows a tile of at
+    most ``bm`` pixels, ``kc`` input channels a staged halo, ``bn`` output
+    channels a block, ``grid`` (x, y) blocks, ``smem_bytes`` shared memory
+    a block, the halo's ``halo_h`` x ``halo_w`` pixels (0 on the general
+    path), ``raw``: the GN prologue's input rows staged in shared memory,
+    and ``splitk``: CTAs sharing a tile's channel chunks (grid z)."""
+    path: str
+    rows: int
+    kc: int
+    bn: int
+    grid: tuple[int, int]
+    smem_bytes: int
+    halo_h: int = 0
+    halo_w: int = 0
+    bm: int = HALO_TILE_PIXELS
+    raw: bool = False
+    splitk: int = 1
+
+
+def qconv3_plan(b: int, h: int, w: int, c: int, n: int, stride: int, gn: bool = False,
+                aligned: bool = True, raw_elt: int = 0) -> QConvPlan:
+    """The kernel's tile plan for input [b, c, h, w] -> n channels; ``gn``:
+    the GroupNorm prologue (``qconv3_gn``).
+
+    The halo path takes C % 32 == 0 and Wo <= 128 (``aligned``: s8 input
+    and weights 16-byte aligned with unit channel stride, GN statistics and
+    affine 16-byte aligned). A tile is rows = min(bm // Wo, Ho) whole output
+    rows; the halo ((rows - 1) * stride + 3) x ((Wo - 1) * stride + 3)
+    pixels of kc = 64 channels (32 when C % 64 != 0) is double-buffered. A
+    block takes bn = 160 output channels when N % 160 == 0, else 64; with the
+    GN prologue 320 when N % 320 == 0, so the prologue runs once per halo
+    element, not once per N tile. Tiles are bm = 128 pixels, or 256 for the
+    s8 input at kc = 64, bn = 160 where that still gives
+    WIDE_TILE_MIN_BLOCKS blocks (each streams the weights once for twice
+    the pixels). ``raw_elt``: bytes of a GN input element when its rows
+    (pixel stride 1, 16-byte aligned) may be staged in shared memory, two
+    chunks' worth, where they fit. The s8 input splits the channel chunks
+    over two CTAs when twice the grid still fits one wave of resident
+    blocks (the small maps). Everything else takes the general path."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    general = QConvPlan("general", 0, 64, 64, (-(-b * ho * wo // 128), -(-n // 64)),
+                        GENERAL_SMEM_BYTES)
+    if not aligned or c % 32 or wo > HALO_TILE_PIXELS:
+        return general
+    kc = 64 if c % 64 == 0 else 32
+    bn = 320 if gn and n % 320 == 0 else 160 if n % 160 == 0 else 64
+    bm = HALO_TILE_PIXELS
+    wide_tiles = b * -(-ho // min(2 * bm // wo, ho))
+    if not gn and kc == 64 and bn == 160 and wide_tiles * (n // bn) >= WIDE_TILE_MIN_BLOCKS:
+        bm = 2 * HALO_TILE_PIXELS
+    rows = min(bm // wo, ho)
+    halo_h, halo_w = (rows - 1) * stride + 3, (wo - 1) * stride + 3
+    halo_bytes = 2 * halo_h * halo_w * (kc + 16)
+    if gn:   # the weight ring from a 1024-byte boundary, then its 2 x 4 mbarriers
+        halo_bytes = -(-halo_bytes // 1024) * 1024 + 2 * HALO_STAGES * 8
+    smem = max(halo_bytes + HALO_STAGES * bn * kc, EPILOGUE_CHANNELS * (bm + 4) * 4)
+    if smem > MAX_SMEM_BYTES or halo_h * halo_w * kc // 4 >= 1 << 16:
+        return general
+    raw_bytes = 2 * kc * halo_h * w * raw_elt
+    raw = (gn and raw_elt > 0 and w * raw_elt % 16 == 0
+           and halo_bytes + HALO_STAGES * bn * kc + raw_bytes <= MAX_SMEM_BYTES)
+    if raw:
+        smem = max(halo_bytes + HALO_STAGES * bn * kc + raw_bytes, smem)
+    grid = (b * -(-ho // rows), -(-n // bn))
+    splitk = 1
+    split_smem = max(smem, bm * bn * 4)   # the second CTA's s32 sums, handed over
+    per_sm = min(1 if bm > 128 else 2, SM_SMEM_BYTES // (split_smem + 1024))
+    if not gn and c // kc >= 2 and 2 * grid[0] * grid[1] <= NUM_SMS * per_sm:
+        splitk, smem = 2, split_smem
+    return QConvPlan("halo", rows, kc, bn, grid, smem, halo_h, halo_w, bm, raw, splitk)
+
+
 def _launch(x4, in_kind, wq, w_scale, bias, s_x, stride, add_vec, res4, out4,
             stats=None, gamma=None, beta=None, with_silu=True):
     """One kernel launch on logical NHWC views (any strides) of the input,
@@ -122,9 +216,19 @@ def _launch(x4, in_kind, wq, w_scale, bias, s_x, stride, add_vec, res4, out4,
         tensors += [stats, gamma, beta]
     if any(t.device != dev for t in tensors):
         raise ValueError("qconv3: every tensor must be on the input's device")
-    vec_a = int(in_kind == 0 and c % 64 == 0 and x4.stride(3) == 1
-                and x4.data_ptr() % 16 == 0 and all(s % 16 == 0 for s in x4.stride()[:3]))
+    aligned_x = (x4.stride(3) == 1 and x4.data_ptr() % 16 == 0
+                 and all(s % 16 == 0 for s in x4.stride()[:3]))
+    vec_a = int(in_kind == 0 and c % 64 == 0 and aligned_x)
     vec_b = int(c % 64 == 0 and wq.data_ptr() % 16 == 0)
+    # the halo path reads s8 input and weights 16 bytes at a time, and the GN
+    # statistics and affine as float4
+    aligned = wq.data_ptr() % 16 == 0 and (
+        aligned_x if in_kind == 0 else all(t.data_ptr() % 16 == 0 for t in (stats, gamma, beta)))
+    # the GN input's rows go to shared memory 16 bytes at a time
+    elt = x4.element_size()
+    rows_aligned = (in_kind == 1 and x4.stride(2) == 1 and x4.data_ptr() % 16 == 0
+                    and all(s * elt % 16 == 0 for s in (x4.stride(0), x4.stride(1), x4.stride(3))))
+    plan = qconv3_plan(b, h, w, c, n, stride, in_kind == 1, aligned, elt if rows_aligned else 0)
     ptr = lambda t: 0 if t is None else t.data_ptr()
     rs = res4.stride() if res4 is not None else (0, 0, 0, 0)
     lib = load("qconv3")
@@ -135,9 +239,11 @@ def _launch(x4, in_kind, wq, w_scale, bias, s_x, stride, add_vec, res4, out4,
             ptr(stats), ptr(gamma), ptr(beta), ptr(add_vec), ptr(res4), out4.data_ptr(),
             b, h, w, c, n, stride, int(bool(with_silu)), vec_a, vec_b, *x4.stride(), *rs,
             *out4.stride(), add_vec.stride(0) if add_vec is not None else 0, in_kind,
-            out_kind, stream)
+            out_kind, 0 if plan.path == "general" else 2 if plan.raw else 1, plan.rows,
+            plan.kc, plan.bn, plan.bm, plan.splitk, plan.smem_bytes, stream)
     if rc != 0:
-        raise RuntimeError(f"qconv3 launch failed: cudaError {rc}")
+        raise RuntimeError(f"qconv3 launch failed: cudaError {rc} ({plan})")
+    return plan.path
 
 
 def _nhwc(t):
@@ -159,12 +265,14 @@ def qconv3(xq, wq, w_scale, bias, s_x, stride: int = 1, add_vec=None, add_full=N
     n = wq.shape[0]
     out = torch.empty((b, n, (h - 1) // stride + 1, (w - 1) // stride + 1), dtype=out_dtype,
                       device=xq.device)
-    _launch(xq, 0, wq, w_scale, bias, s_x, stride, add_vec, _nhwc(add_full), _nhwc(out))
+    path = _launch(xq, 0, wq, w_scale, bias, s_x, stride, add_vec, _nhwc(add_full), _nhwc(out))
     qconv3.launches += 1
+    qconv3.launches_by_path[path] += 1
     return out
 
 
 qconv3.launches = 0
+qconv3.launches_by_path = {"halo": 0, "general": 0}   # qconv3_plan's path -> launches
 
 
 def qconv3_gn(x, stats, gamma, beta, s_x, wq, w_scale, bias, with_silu: bool = True,
@@ -183,13 +291,15 @@ def qconv3_gn(x, stats, gamma, beta, s_x, wq, w_scale, bias, with_silu: bool = T
     n = wq.shape[0]
     out = torch.empty((b, n, (h - 1) // stride + 1, (w - 1) // stride + 1), dtype=x.dtype,
                       device=x.device)
-    _launch(_nhwc(x), 1, wq, w_scale, bias, s_x, stride, add_vec, _nhwc(add_full), _nhwc(out),
-            stats, gamma, beta, with_silu)
+    path = _launch(_nhwc(x), 1, wq, w_scale, bias, s_x, stride, add_vec, _nhwc(add_full),
+                   _nhwc(out), stats, gamma, beta, with_silu)
     qconv3_gn.launches += 1
+    qconv3_gn.launches_by_path[path] += 1
     return out
 
 
 qconv3_gn.launches = 0
+qconv3_gn.launches_by_path = {"halo": 0, "general": 0}
 
 
 def qconv3_flat(x, gn_scale, gn_bias, s_act, wq, s_w, bias, h: int, w: int, groups: int = 32,
