@@ -413,6 +413,8 @@ def _bwd_close(out, ref):
     (2, 128, 128, 2, 128),     # widest head the backward takes
     (1, 64, 65, 1, 72),
     (2, 1024, 77, 8, 40),      # a cross-attention shape, ragged kv
+    (2, 4096, 4096, 2, 40),    # the 64^2 sites' length: 32 key blocks add into each dQ row
+    (1, 1000, 1000, 2, 80),    # ragged last key block and query tile at d 80
 ])
 def test_flash_bwd_kernel_matches_plain(gen, b, n, m, h, d):
     from vdtpu_torch.ops.flash import flash_attention_bwd, flash_attention_bwd_plain
@@ -450,6 +452,41 @@ def test_flash_autograd_on_strided_views(gen):
                                                                          before[1] + 1)
     ref = torch.autograd.grad(flash_attention_plain(*qkv.unbind(dim=2)), qkv, do)[0]
     _bwd_close(g.unbind(dim=2), ref.unbind(dim=2))
+
+
+def test_flash_bwd_on_strided_views_twice(gen):
+    """The backward kernel on views of packed projections ([B, N, 3, H, D]
+    q/k/v, dO a view of a wider tensor), run twice: each run within the
+    plain version's tolerance; dK and dV bit-equal across runs (each block
+    owns its keys), dQ within the same bf16 tolerance of the other run (its
+    f32 partials are added in device memory in no fixed order)."""
+    from vdtpu_torch.ops.flash import flash_attention_bwd, flash_attention_bwd_plain
+    b, n, h, d = 2, 777, 4, 40
+    qkv = _randn(gen, b, n, 3, h, d)
+    q, k, v = qkv.unbind(dim=2)
+    do = _randn(gen, b, n, h, 2 * d)[..., :d]
+    assert not q.is_contiguous() and not do.is_contiguous()
+    o, lse = flash_attention_plain(q, k, v, with_lse=True)
+    first = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)
+    second = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, d ** -0.5)
+    _bwd_close(first, ref)
+    _bwd_close(second, ref)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    _bwd_close(second[:1], first[:1])
+
+
+def test_flash_bwd_takes_an_offset_lse(gen):
+    """An lse view that does not start on 16 bytes (the wgmma kernel reads
+    lse by TMA) takes the other kernel, within the same tolerance."""
+    from vdtpu_torch.ops.flash import flash_attention_bwd, flash_attention_bwd_plain
+    b, n, h, d = 1, 300, 2, 40
+    q, k, v, do = (_randn(gen, b, n, h, d) for _ in range(4))
+    o, lse = flash_attention_plain(q, k, v, with_lse=True)
+    lse_off = torch.empty(lse.numel() + 1, device="cuda")[1:].view_as(lse).copy_(lse)
+    assert lse_off.data_ptr() % 16 != 0 and lse_off.is_contiguous()
+    out = flash_attention_bwd(q, k, v, o, lse_off, do, d ** -0.5)
+    _bwd_close(out, flash_attention_bwd_plain(q, k, v, o, lse, do, d ** -0.5))
 
 
 def test_flash_bwd_refuses(gen):
@@ -663,8 +700,11 @@ def test_tiny_i2i_and_fused2_on_the_card(gen):
 @pytest.mark.parametrize("m,k,n", [
     (4096, 2880, 128),    # the probe's product
     (300, 288, 72),       # ragged M, K not a multiple of 64, N below a tile
-    (17, 16, 24),         # N % 16 != 0: element-wise B staging
+    (17, 16, 24),         # N % 16 != 0: B read from memory, not a tensor map
     (513, 1040, 200),
+    (4096, 2880, 256),    # two column tiles
+    (257, 4112, 32),      # K % 32 == 16: the last rank's last step half past K
+    (300, 1056, 72),      # 33 k32 steps over the ranks: a remainder
 ])
 def test_probe_s8mm_kernel_matches_plain(gen, m, k, n):
     from vdtpu_torch.ops.probes import probe_s8mm, probe_s8mm_plain
@@ -678,11 +718,38 @@ def test_probe_s8mm_kernel_matches_plain(gen, m, k, n):
     assert bool((probe_s8mm(*ones) == k).all())
 
 
+@pytest.mark.parametrize("m,k,n", [(300, 1056, 72), (257, 4112, 32), (4096, 2880, 128)])
+def test_probe_s8mm_every_split_matches_plain(gen, m, k, n):
+    """The kernel at each cluster split of K (1 to 4 CTAs, remainders
+    included), bit-equal to the plain version; the planner takes one."""
+    from vdtpu_torch.ops.kernels.build import load
+    from vdtpu_torch.ops.probes import S8MM_MAX_SPLIT, probe_s8mm_plain
+    a = torch.randint(-128, 128, (m, k), device="cuda", generator=gen).to(torch.int8)
+    b = torch.randint(-128, 128, (k, n), device="cuda", generator=gen).to(torch.int8)
+    ref = probe_s8mm_plain(a, b)
+    lib = load("probe_s8mm")
+    for split in range(1, S8MM_MAX_SPLIT + 1):
+        c = torch.empty((m, n), dtype=torch.int32, device="cuda")
+        assert lib.vd_probe_s8mm(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, split,
+                                 torch.cuda.current_stream().cuda_stream) == 0
+        assert torch.equal(c, ref), split
+    c = torch.empty((m, n), dtype=torch.int32, device="cuda")   # a split past the steps
+    assert lib.vd_probe_s8mm(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, 16, 4,
+                             torch.cuda.current_stream().cuda_stream) != 0
+
+
 def test_probe_s8mm_refuses(gen):
-    from vdtpu_torch.ops.probes import probe_s8mm
+    from vdtpu_torch.ops.probes import MAX_K, probe_s8mm
     a = torch.zeros((32, 40), dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError):                 # K % 16 != 0
         probe_s8mm(a, torch.zeros((40, 16), dtype=torch.int8, device="cuda"))
+    deep = MAX_K // 16 * 16 + 16
+    with pytest.raises(ValueError):                 # K past MAX_K: s32 could overflow
+        probe_s8mm(torch.zeros((4, deep), dtype=torch.int8, device="cuda"),
+                   torch.zeros((deep, 16), dtype=torch.int8, device="cuda"))
+    with pytest.raises(ValueError):                 # operands on two devices
+        probe_s8mm(torch.zeros((32, 48), dtype=torch.int8, device="cuda"),
+                   torch.zeros((48, 16), dtype=torch.int8))
     with pytest.raises(TypeError):
         probe_s8mm(a.float(), torch.zeros((40, 16), device="cuda"))
     with pytest.raises(ValueError):                 # the shapes do not chain

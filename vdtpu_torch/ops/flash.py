@@ -10,10 +10,13 @@ kernels' numerics:
   the probabilities are cast to the input dtype before the product with v;
   with ``with_lse`` it also returns lse = max + log(sum) per row, f32
   [B, H, N], the residual of the backward;
-- backward (``_bwd_impl``, kernels ``csrc/flash_bwd.cu``): delta =
+- backward (``_bwd_impl``, kernel ``csrc/flash_bwd.cu``): delta =
   rowsum(dO * O) in f32, p = exp(q.k^T * scale - lse) in f32 (q unscaled),
   dV = p^T.dO with p cast to the input dtype, dS = p * (dO.v^T - delta) *
-  scale cast to the input dtype, dQ = dS.k, dK = dS^T.q.
+  scale cast to the input dtype, dQ = dS.k, dK = dS^T.q. The kernel takes
+  one pass over key blocks and adds dQ's f32 partials in device memory
+  (``flash_attention_bwd_blocked_plain`` is that order of work in plain
+  PyTorch, for the tests).
 
 ``flash_attention`` is differentiable: where autograd needs its gradient it
 runs ``FlashAttention`` (forward with lse, saving q, k, v, o and lse;
@@ -31,7 +34,9 @@ from __future__ import annotations
 import torch
 
 MAX_HEAD_DIM = 256
-MAX_BWD_HEAD_DIM = 128  # the backward kernels' widest head
+MAX_BWD_HEAD_DIM = 128  # the backward kernel's widest head
+BWD_KEYS, BWD_QUERIES = 128, 64  # csrc/flash_bwd.cu: keys a block owns, queries a tile
+LOG2E = 1.4426950408889634
 
 
 def flash_attention_plain(q, k, v, scale: float | None = None, with_lse: bool = False):
@@ -70,6 +75,42 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float | None = None):
         dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
         dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_attention_bwd_blocked_plain(q, k, v, o, lse, do, scale: float | None = None):
+    """``flash_attention_bwd_plain``'s function in the backward kernel's order
+    of work, for the tests: for each block of BWD_KEYS keys, one pass over
+    tiles of BWD_QUERIES queries computing s and dP once, p = exp2(s *
+    (scale log2 e) - lse log2 e) in f32 (keys past M masked), dV and dK of
+    the block accumulated in f32 over the tiles from p and dS rounded to
+    the input dtype, and dQ summed in f32 over the key blocks' partials."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dt = q.dtype
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    with torch.autocast(q.device.type, enabled=False):
+        f = lambda t: t.float().transpose(1, 2)                       # [B, H, rows, D]
+        qf, kf, vf, dof = f(q), f(k), f(v), f(do)
+        delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)  # [B, H, N]
+        scale_log2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
+        lse2 = lse.float() * torch.tensor(LOG2E, dtype=torch.float32)
+        dq = torch.zeros(b, h, n, d)
+        dk, dv = torch.zeros(b, h, m, d), torch.zeros(b, h, m, d)
+        rnd = lambda t: t.to(dt).float()
+        for k0 in range(0, m, BWD_KEYS):
+            kb, vb = kf[:, :, k0:k0 + BWD_KEYS], vf[:, :, k0:k0 + BWD_KEYS]
+            for q0 in range(0, n, BWD_QUERIES):
+                qs = slice(q0, q0 + BWD_QUERIES)
+                s = qf[:, :, qs] @ kb.transpose(-1, -2)               # [B, H, q, keys]
+                p = torch.exp2(s * scale_log2 - lse2[:, :, qs, None])
+                dp = dof[:, :, qs] @ vb.transpose(-1, -2)
+                ds = p * (dp - delta[:, :, qs, None]) * scale
+                dv[:, :, k0:k0 + BWD_KEYS] += rnd(p).transpose(-1, -2) @ dof[:, :, qs]
+                dk[:, :, k0:k0 + BWD_KEYS] += rnd(ds).transpose(-1, -2) @ qf[:, :, qs]
+                dq[:, :, qs] += rnd(ds) @ kb
+    back = lambda t: t.transpose(1, 2).to(dt)
+    return back(dq), back(dk), back(dv)
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -127,10 +168,12 @@ def flash_attention_fwd(q, k, v, scale: float, with_lse: bool = False):
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
-    """(dq, dk, dv): the backward kernels (dQ over query blocks, then dK/dV
-    over key blocks; one launch of each), or their plain version for CPU
-    tensors. delta = rowsum(dO * O) is one plain elementwise pass here, as
-    the JAX package computes it outside Pallas."""
+    """(dq, dk, dv): the backward kernel (one pass over key blocks; its f32
+    dQ workspace zeroed here and converted to bf16 by a second small kernel),
+    or its plain version for CPU tensors. delta = rowsum(dO * O) is one plain
+    elementwise pass here, as the JAX package computes it outside Pallas.
+    dQ's f32 partials are added in device memory in no fixed order, so its
+    last bits may differ from run to run."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
     _check("flash_attention_bwd", q, k, v, MAX_BWD_HEAD_DIM)
@@ -144,19 +187,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
         raise ValueError("flash_attention_bwd: lse must be contiguous f32 [B, H, N]")
     from vdtpu_torch.ops.kernels.build import load
     lib = load("flash_bwd")
-    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    delta = (do.float() * o).sum(dim=-1).transpose(1, 2).contiguous()  # o promoted exactly
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    vec = int(d % 8 == 0 and all(_aligned(t) for t in (q, k, v, do)))
+    n_pad = -(-n // BWD_QUERIES) * BWD_QUERIES
+    dq_acc = torch.zeros((b * h, n_pad, -(-d // 16) * 16), dtype=torch.float32, device=q.device)
+    # aligned rows (and a 16-byte aligned lse, which the wgmma kernel reads
+    # by TMA) take cp.async or TMA; anything else the element-wise loads
+    vec = int(d % 8 == 0 and all(_aligned(t) for t in (q, k, v, do)) and lse.data_ptr() % 16 == 0)
     st = lambda t: (t.stride(0), t.stride(1), t.stride(2))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.vd_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, k.shape[1],
-            h, d, *st(q), *st(k), *st(v), *st(do), *st(dq), *st(dk), *st(dv), float(scale),
-            vec, stream)
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
+            b, n, k.shape[1], h, d, n_pad, *st(q), *st(k), *st(v), *st(do), *st(dq), *st(dk),
+            *st(dv), float(scale), vec, stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd launch failed: cudaError {rc}")
     flash_attention_bwd.launches += 1

@@ -36,7 +36,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SOURCES = {
     "flash_fwd": ("vd_flash_fwd",
                   [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P]),
-    "flash_bwd": ("vd_flash_bwd", [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _I, _P]),
+    "flash_bwd": ("vd_flash_bwd", [_P] * 10 + [_I] * 6 + [_L] * 21 + [_F, _I, _P]),
     "nomax_fwd": ("vd_nomax_fwd",
                   [_P] * 5 + [_L] + [_I] * 5 + [_L] * 12 + [_F, _I, _P]),
     "qconv3": ("vd_qconv3", [_P] * 11 + [_I] * 9 + [_L] * 13 + [_I] * 9 + [_P]),

@@ -2,7 +2,8 @@
 table), each a hand-written Hopper kernel beside its plain version.
 
 - ``probe_s8mm`` (row 12, ``mm_kernel``): s8 [M, K] x s8 [K, N] -> s32,
-  exact; CUDA C++ on int8 ``mma.sync`` (``csrc/probe_s8mm.cu``).
+  exact; CUDA C++ on wgmma with A by TMA and K split over a cluster
+  (``csrc/probe_s8mm.cu``, geometry ``s8mm_plan``).
 - ``probe_shift`` (row 13, ``shift_kernel``): i32 [M, C] -> i32 [M, C],
   out[r] = sum of x[r + o] over o in (-66, -1, 1, 66) with 0 <= r + o < M
   (the TPU kernel's ``acc[lo:hi] += x[lo + o:hi + o]``), int32 wrap-around
@@ -27,6 +28,8 @@ launches.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 SHIFT_OFFSETS = (-66, -1, 1, 66)
@@ -34,11 +37,68 @@ SCRATCH_ROW_OFFSET = 1   # out[r] = cast(x[r - 1]): written at +2, read from +1
 _BM, _BC = 32, 64        # rows x columns per Triton program
 MAX_K = ((1 << 31) - 1) // (128 * 128)   # |sum| <= K * 128 * 128 fits s32
 
+# csrc/probe_s8mm.cu's geometry: a CTA takes S8MM_TILE_M rows of A against
+# S8MM_TILE_N columns of C, K in k32 steps split over a cluster of `split`
+# CTAs (1 to S8MM_MAX_SPLIT), a ring stage S8MM_STAGE_K bytes of K
+S8MM_TILE_M = S8MM_TILE_N = 128
+S8MM_STAGE_K = 64
+S8MM_MAX_SPLIT = 4
+# clusters of 1, 2, 3, 4 of the kernel's CTAs one NVIDIA H100 80GB HBM3 holds
+# at once (cudaOccupancyMaxActiveClusters, one CTA an SM): only 30 clusters
+# of 4 fit its GPCs. The wrapper asks the card it runs on.
+H100_CLUSTERS = (132, 66, 39, 30)
+
+
+@dataclasses.dataclass(frozen=True)
+class S8mmPlan:
+    grid: tuple[int, int, int]        # (row tiles, column tiles, split)
+    split: int                        # CTAs of a cluster splitting K
+    steps: tuple[tuple[int, int], ...]  # per cluster rank: k32 steps [first, end)
+    tma_b: bool                       # B staged by TMA (N % 16 == 0), else read from memory
+
+    def stages(self, rank: int) -> list[tuple[int, int]]:
+        """The ring stages of one rank: (first k byte, k32 steps it runs)."""
+        lo, hi = self.steps[rank]
+        return [(32 * s, min(2, hi - s)) for s in range(lo, hi, 2)]
+
+
+def s8mm_plan(m: int, n: int, k: int, clusters=H100_CLUSTERS) -> S8mmPlan:
+    """The kernel's launch for s8 [m, k] x [k, n] on a card holding
+    ``clusters[s - 1]`` clusters of s CTAs at once: the split with the
+    fewest k32 steps a rank times waves of clusters (the smaller split on a
+    tie), each rank of a split keeping at least one whole stage (two steps);
+    rank r takes steps [r * nk // split, (r + 1) * nk // split), nk =
+    ceil(k / 32)."""
+    tiles_m, tiles_n = -(-m // S8MM_TILE_M), -(-n // S8MM_TILE_N)
+    nk = -(-k // 32)
+
+    def cost(split):
+        return -(-tiles_m * tiles_n // clusters[split - 1]) * -(-nk // split)
+
+    split = min((s for s in range(1, S8MM_MAX_SPLIT + 1) if s == 1 or nk >= 2 * s),
+                key=lambda s: (cost(s), s))
+    steps = tuple((r * nk // split, (r + 1) * nk // split) for r in range(split))
+    return S8mmPlan((tiles_m, tiles_n, split), split, steps, n % 16 == 0)
+
 
 def probe_s8mm_plain(a, b):
     """s8 [M, K] x s8 [K, N] -> s32 [M, N] in f64 (exact while every partial
     sum stays below 2^53; the wrapper bounds K so that it stays in s32)."""
     return (a.double() @ b.double()).to(torch.int32)
+
+
+_card_clusters: dict[int, tuple[int, ...]] = {}
+
+
+def _clusters(lib, device) -> tuple[int, ...]:
+    """The card's cluster capacity for splits 1..S8MM_MAX_SPLIT, asked once."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _card_clusters:
+        caps = tuple(lib.vd_probe_s8mm_clusters(s) for s in range(1, S8MM_MAX_SPLIT + 1))
+        if min(caps) <= 0:
+            raise RuntimeError(f"probe_s8mm: cluster occupancy query failed: {caps}")
+        _card_clusters[idx] = caps
+    return _card_clusters[idx]
 
 
 def probe_shift_plain(x):
@@ -86,8 +146,9 @@ def probe_s8mm(a, b):
     c = torch.empty((m, n), dtype=torch.int32, device=a.device)
     lib = load("probe_s8mm")
     with torch.cuda.device(a.device):
-        rc = lib.vd_probe_s8mm(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                               int(n % 16 == 0), torch.cuda.current_stream().cuda_stream)
+        split = s8mm_plan(m, n, k, _clusters(lib, a.device)).split
+        rc = lib.vd_probe_s8mm(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, split,
+                               torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"probe_s8mm launch failed: cudaError {rc}")
     probe_s8mm.launches += 1
