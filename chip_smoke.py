@@ -14,7 +14,10 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             bound (bytes or operations over the card's peak). "ms" is device
             time (calls captured in a CUDA graph, replayed between CUDA
             events); the "eager" times are the same calls launched one by
-            one, host launch costs included
+            one, host launch costs included. The attention forwards are
+            held on both of their kernels (the wgmma one at the main
+            paths' shapes, the mma.sync one at ``*_MMA_SHAPES``), each
+            launch's path asserted
   main      vd_four_flow_v1-0 at full width in bf16, seeded random weights,
             inference_t2i at 512^2, n = 2, DDIM-50, CFG 7.5, cold then warm;
             the launch counters are zeroed just before each run and read
@@ -114,6 +117,13 @@ FLASH_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
 # no-max attention: int8 exact (4096 and 1024 tokens) and the ToMe 0.75
 # site (4096 tokens merged to 1024 at d_head 40)
 NOMAX_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 40), (4, 1024, 8, 80)]
+# shapes that take the two forwards' mma.sync kernels, which no main-path
+# site reaches (heads over 80, d % 8 != 0 and unaligned views go there):
+# (B, N, H, D, elements q, k and v start into their buffers); element loads
+# at an offset of one and at d 36 (the TPU's _nomax_kernel case), 16-byte
+# cp.async loads at d 96
+FLASH_MMA_SHAPES = [(4, 1024, 8, 40, 1), (4, 1024, 8, 96, 0)]
+NOMAX_MMA_SHAPES = [(4, 1024, 8, 36, 0), (4, 1024, 8, 96, 0)]
 # int8 3x3 conv: (B, C_in, H, W, C_out, stride, add); the first is the
 # commonest site (64^2 ResBlock conv with its FiLM vector); 64^2, 32^2 and
 # 16^2 maps are the int8 sites' three sizes
@@ -131,6 +141,12 @@ RESBLOCK_SHAPES = [(4, 320, 64, 64, 320), (4, 640, 64, 64, 320), (4, 960, 64, 64
 # magnitude; both sides read the same bf16 inputs and differ only in the
 # order of f32 sums and where the output is rounded
 ATOL, RTOL = 1e-2, 1.6e-2
+# relative L2 error of an attention forward against its plain version: the
+# sound kernels read 2.4e-3 (flash, whose p is rounded against a running
+# max) and 2.0e-4 (no-max) at [4, 4096, 8, 40]; leaving out one 128-key
+# tile of 4096 moves the output by about sqrt(128 / 4096) = 0.18 of its
+# norm, which the elementwise band above lets through where |out| ~ 0.03
+ATTN_MAX_REL_L2 = 1e-2
 # eps call, bf16 on the card vs f32 on the CPU through the full-width UNet
 EPS_MIN_COS, EPS_MAX_REL_L2 = 0.995, 0.05
 # Two int8 runs that round some activation at another point (bf16 against
@@ -258,6 +274,16 @@ def phase_build(state):
         spills = sum(int(m) > 0 for m in re.findall(r"(\d+) bytes spill stores", text))
         log(f"  nvcc {name}: {len(regs)} kernels, registers {min(regs, default=0)}-"
             f"{max(regs, default=0)}, {spills} with spills")
+        # ptxas -v of the setmaxnreg kernels, whose launch needs an exact count
+        wg = []
+        for fn, n in re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
+                                text, re.S):
+            base = re.search(r"\d+([a-z_]+_wg_kernel)", fn)
+            if base:
+                args = re.findall(r"Li(\d+)E", fn) + re.findall(r"ModeE(\d)", fn)
+                wg.append(f"{base.group(1)}<{','.join(args)}>:{n}")
+        if wg:
+            log(f"  nvcc {name} registers: {' '.join(wg)}")
     x = torch.randn(2, 64, 4, 4, device="cuda", dtype=torch.bfloat16)
     w = torch.ones(64, device="cuda", dtype=torch.bfloat16)
     for silu in (True, False):  # compile the Triton specializations
@@ -273,32 +299,43 @@ def phase_build(state):
 
 def _attention_case(shape, gen, nomax: bool = False):
     """The flash kernel, or the no-max kernel with the true per-head max
-    logit as its shift, against its plain version and SDPA."""
+    logit as its shift, against its plain version and SDPA; on the path
+    ``attn_fwd_plan`` gives, which must be the wgmma kernel's at the main
+    path's shapes and the mma.sync kernel's at ``*_MMA_SHAPES``."""
     import torch
     import torch.nn.functional as F
-    from vdtpu_torch.ops.flash import flash_attention, flash_attention_plain
+    from vdtpu_torch.ops.flash import _plan_for, flash_attention, flash_attention_plain
     from vdtpu_torch.ops.nomax import flash_attention_nomax, flash_attention_nomax_plain
-    b, n, h, d = shape
-    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
-               for _ in range(3))
+    b, n, h, d, offset = (*shape, 0)[:5]
+    want = "mma" if shape in FLASH_MMA_SHAPES + NOMAX_MMA_SHAPES else "wgmma"
+    size = b * n * h * d
+    q, k, v = (torch.randn(size + offset, device="cuda", generator=gen).to(torch.bfloat16)
+               [offset:].view(b, n, h, d) for _ in range(3))
     if nomax:
         shift = _true_shift(q, k, d ** -0.5)
+        fn = flash_attention_nomax
         kern = lambda: flash_attention_nomax(q, k, v, shift)
         plain = lambda: flash_attention_nomax_plain(q, k, v, shift)
     else:
+        fn = flash_attention
         kern = lambda: flash_attention(q, k, v)
         plain = lambda: flash_attention_plain(q, k, v)
+    before = dict(fn.launches_by_path)
     out, ref = kern(), plain()
     torch.cuda.synchronize()
+    took = [p for p, c in fn.launches_by_path.items() if c != before[p]]
+    path = _plan_for(q, k, v).path
     err, rel, ok = compare(out, ref)
-    extra = {}
+    ok = ok and rel <= ATTN_MAX_REL_L2 and took == [path] and path == want
+    extra = {"path": path, "offset": offset}
     if not nomax:  # the lse output (training's forward) and its time
         from vdtpu_torch.ops.flash import flash_attention_fwd
         kern_lse = lambda: flash_attention_fwd(q, k, v, d ** -0.5, with_lse=True)
         (out_l, lse), (_, lse_ref) = kern_lse(), flash_attention_plain(q, k, v, with_lse=True)
         lse_err = float((lse - lse_ref).abs().max())
-        ok = ok and compare(out_l, ref)[2] and lse_err <= LSE_ATOL
-        extra = dict(lse_max_abs_err=lse_err, ms_with_lse=time_graph_ms(kern_lse))
+        _, rel_l, ok_l = compare(out_l, ref)
+        ok = ok and ok_l and rel_l <= ATTN_MAX_REL_L2 and lse_err <= LSE_ATOL
+        extra.update(lse_max_abs_err=lse_err, ms_with_lse=time_graph_ms(kern_lse))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)
     eager = dict(ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3, warmup=1),
@@ -307,7 +344,7 @@ def _attention_case(shape, gen, nomax: bool = False):
     nbytes = 4 * q.numel() * q.element_size()
     flops, exps = 4.0 * b * h * n * n * d, float(b * h * n * n)
     bound_ms, bound_by = _bound(nbytes, max(flops / PEAK_BF16, exps / PEAK_EXP))
-    return dict(shape=list(shape), max_abs_err=err, rel_l2_err=rel, ok=ok, ms=ms,
+    return dict(shape=[b, n, h, d], max_abs_err=err, rel_l2_err=rel, ok=ok, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, library="F.scaled_dot_product_attention",
                 bound_ms=bound_ms, bound_by=bound_by, eager=eager,
                 bound_detail=dict(bytes=nbytes, flops=flops, exps=exps), **extra)
@@ -690,14 +727,14 @@ def phase_kernels(state):
     gen = torch.Generator(device="cuda").manual_seed(0)
     specs = [
         ("flash_fwd", "cuda", "vdtpu_torch/csrc/flash_fwd.cu",
-         "vdtpu/ops/pallas/flash.py:40", _attention_case, FLASH_SHAPES),
+         "vdtpu/ops/pallas/flash.py:40", _attention_case, FLASH_SHAPES + FLASH_MMA_SHAPES),
         ("flash_bwd", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
          "vdtpu/ops/pallas/flash.py:444", _flash_bwd_case, FLASH_SHAPES),
         ("gn_silu", "triton", "vdtpu_torch/ops/gn_silu.py",
          "vdtpu/ops/pallas/gn_silu.py:45", _gn_case, GN_SHAPES),
         ("nomax_fwd", "cuda", "vdtpu_torch/csrc/nomax_fwd.cu",
          "vdtpu/ops/pallas/flash.py:223", functools.partial(_attention_case, nomax=True),
-         NOMAX_SHAPES),
+         NOMAX_SHAPES + NOMAX_MMA_SHAPES),
         ("gn_silu_q", "triton", "vdtpu_torch/ops/gn_silu.py",
          "vdtpu/ops/pallas/gn_silu.py:155", _gn_q_case, GN_SHAPES),
         ("qconv3", "cuda", "vdtpu_torch/csrc/qconv3.cu",
@@ -800,29 +837,34 @@ def phase_main(state):
     for run in ("cold", "warm"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0
-        gn_silu.launches = 0
+        _zero_counters()
         t = time.perf_counter()
         img = vdi.inference_t2i(prompt, seed=SEED)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         counts = {"flash_fwd": flash_attention.launches, "gn_silu": gn_silu.launches}
+        paths = _wgmma_only(f"main {run}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         finite = bool(torch.isfinite(img).all())
         lo, hi = float(img.min()), float(img.max())
         shape_ok = tuple(img.shape) == (2, 512, 512, 3)
         log(f"main {run}: {dt:.3f} s, {2 / dt:.3f} images/s, peak {peak:.2f} GiB, "
             f"shape {tuple(img.shape)} finite {finite} range [{lo:.4f}, {hi:.4f}], "
-            f"launches {counts} (expected {expect}) [{state.get('card')}]")
+            f"launches {counts} (expected {expect}), attention by path {paths} "
+            f"[{state.get('card')}]")
         if not (finite and shape_ok and lo >= 0.0 and hi <= 1.0):
             raise RuntimeError(f"main {run}: bad output")
         if counts != expect:
             raise RuntimeError(f"main {run}: launch counts {counts} != {expect}")
-        results[run] = dict(seconds=dt, images_per_s=2 / dt, peak_gib=peak, launches=counts)
+        results[run] = dict(seconds=dt, images_per_s=2 / dt, peak_gib=peak, launches=counts,
+                            attention_by_path=paths)
     for name, n in results["warm"]["launches"].items():
         if name in state["kernels"]:
             state["kernels"][name]["launches"] = n
             state["kernels"][name]["path"] = "main (bf16 exact, warm request)"
+    if "flash_fwd" in state["kernels"]:
+        state["kernels"]["flash_fwd"]["launches_by_path"] = \
+            results["warm"]["attention_by_path"]["flash_fwd"]
     state["main"] = results
 
 
@@ -869,19 +911,20 @@ def phase_main_i2i(state):
         for run in ("cold", "warm"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            flash_attention.launches = gn_silu.launches = 0
+            _zero_counters()
             t = time.perf_counter()
             img = vdi.inference_i2i(image, fid, fcs, clr, seed=SEED)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
             counts = {"flash_fwd": flash_attention.launches, "gn_silu": gn_silu.launches}
+            paths = _wgmma_only(f"main_i2i ({label}) {run}")
             peak = torch.cuda.max_memory_allocated() / 2**30
             finite = bool(torch.isfinite(img).all())
             lo, hi = float(img.min()), float(img.max())
             log(f"main_i2i ({label}) fid {fid} fcs {fcs} clr {clr} {run}: {dt:.3f} s, "
                 f"{2 / dt:.3f} images/s, peak {peak:.2f} GiB, shape {tuple(img.shape)} finite "
-                f"{finite} range [{lo:.4f}, {hi:.4f}], launches {counts} (expected {expect}) "
-                f"[{state.get('card')}]")
+                f"{finite} range [{lo:.4f}, {hi:.4f}], launches {counts} (expected {expect}), "
+                f"attention by path {paths} [{state.get('card')}]")
             if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0 and hi <= 1.0):
                 raise RuntimeError(f"main_i2i ({label}) {run}: bad output")
             if counts != expect:
@@ -1205,8 +1248,10 @@ def _counters():
             "gn_stats": gn_stats}
 
 
-def _zero_counters():
-    for fn in _counters().values():
+def _zero_counters(*extra):
+    """Zero the launch counts (and counts by path and kv length) of every
+    wrapper in ``_counters`` and of ``extra``."""
+    for fn in (*_counters().values(), *extra):
         fn.launches = 0
         for path in getattr(fn, "launches_by_path", {}):
             fn.launches_by_path[path] = 0
@@ -1229,6 +1274,19 @@ def _plan_paths(calls, label: str) -> dict:
 
 def _read_counters():
     return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _wgmma_only(label: str) -> dict:
+    """Launches by ``attn_fwd_plan`` path of the two attention forwards since
+    their counters were zeroed; raises unless every one took the wgmma
+    kernel (the main paths' heads of 40 and 80 on aligned projections)."""
+    c = _counters()
+    paths = {name: dict(c[name].launches_by_path) for name in ("flash_fwd", "nomax_fwd")}
+    for name, by in paths.items():
+        if by["mma"] or by["wgmma"] != c[name].launches:
+            raise RuntimeError(f"{label}: {name} launches by path {by} of {c[name].launches}; "
+                               "every main-path launch must take the wgmma kernel")
+    return paths
 
 
 @contextlib.contextmanager
@@ -1316,6 +1374,7 @@ def phase_main_int8(state):
                 dt = time.perf_counter() - t
                 got, by_kv = _read_counters(), dict(by_kv_now)
                 paths = dict(qconv3.launches_by_path)
+                attn_paths = _wgmma_only(f"main_int8 {mode} {run}")
                 counts = {k: got[k] for k in expect}
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 finite = bool(torch.isfinite(img).all())
@@ -1324,7 +1383,8 @@ def phase_main_int8(state):
                     f"{peak:.2f} GiB, shape {tuple(img.shape)} finite {finite} range "
                     f"[{lo:.4f}, {hi:.4f}], launches {counts} (expected {expect}), no-max by "
                     f"kv length {by_kv} (expected {expect_kv}), int8 conv by path {paths} "
-                    f"(expected {expect_paths}) [{state.get('card')}]")
+                    f"(expected {expect_paths}), attention by path {attn_paths} "
+                    f"[{state.get('card')}]")
                 if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0
                         and hi <= 1.0):
                     raise RuntimeError(f"main_int8 {mode} {run}: bad output")
@@ -1339,7 +1399,8 @@ def phase_main_int8(state):
                                        f"{paths} != {expect_paths}")
                 results[f"{mode}_{run}"] = dict(seconds=dt, images_per_s=2 / dt, peak_gib=peak,
                                                 launches=counts, nomax_by_kv=by_kv,
-                                                qconv3_by_path=paths)
+                                                qconv3_by_path=paths,
+                                                attention_by_path=attn_paths)
     finally:
         system.enable_tome(0)
     for name in ("nomax_fwd", "qconv3"):
@@ -1348,6 +1409,9 @@ def phase_main_int8(state):
             state["kernels"][name]["path"] = "main_int8 (int8, warm request)"
     if "qconv3" in state["kernels"]:
         state["kernels"]["qconv3"]["launches_by_path"] = results["int8_warm"]["qconv3_by_path"]
+    if "nomax_fwd" in state["kernels"]:
+        state["kernels"]["nomax_fwd"]["launches_by_path"] = \
+            results["int8_warm"]["attention_by_path"]["nomax_fwd"]
     state["main_int8"] = results
 
 
@@ -1452,6 +1516,7 @@ def phase_modes(state):
             eps = system.model.apply_model(x, t, ctx, "image", "text").float()
             torch.cuda.synchronize()
             got = _read_counters()
+            _wgmma_only(f"modes {mode}")
         cos, rel = _cosine(eps, base)
         # routing: every calibrated conv site runs int8 (per site or fused),
         # every ResBlock conv behind a GroupNorm takes the mode's prologue,
@@ -1641,14 +1706,15 @@ def phase_main_fused2(state):
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
                 got = _read_counters()
+                attn_paths = _wgmma_only(f"main_fused2 {label} {run}")
                 counts = {k: got[k] for k in expect}
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 finite = bool(torch.isfinite(img).all())
                 lo, hi = float(img.min()), float(img.max())
                 log(f"main_fused2 {label} {run}: {dt:.3f} s, {2 / dt:.3f} images/s, peak "
                     f"{peak:.2f} GiB, shape {tuple(img.shape)} finite {finite} range "
-                    f"[{lo:.4f}, {hi:.4f}], launches {counts} (expected {expect}) "
-                    f"[{state.get('card')}]")
+                    f"[{lo:.4f}, {hi:.4f}], launches {counts} (expected {expect}), attention by "
+                    f"path {attn_paths} [{state.get('card')}]")
                 if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0
                         and hi <= 1.0):
                     raise RuntimeError(f"main_fused2 {label} {run}: bad output")
@@ -1730,8 +1796,7 @@ def _train_grads(loss_fn, params, x, ctx, t, noise):
     import torch
     for p in params.values():
         p.grad = None
-    for c in _train_counters().values():
-        c.launches = 0
+    _zero_counters(*_train_counters().values())
     loss, _ = loss_fn(x, ctx, t, noise)
     loss.backward()
     torch.cuda.synchronize()
@@ -1780,6 +1845,7 @@ def phase_train(state):
     noise = torch.randn(2, 4, 64, 64, device="cuda", generator=gen)
     args = (x[:2], ctx[:2], t_mb, noise)
     g_kern, loss_k, counts_k = _train_grads(loss_fn, params, *args)
+    _wgmma_only("train gradient check")
     with _plain_kernels():
         g_plain, loss_p, counts_p = _train_grads(loss_fn, params, *args)
     if set(g_kern) != set(g_plain):
@@ -1821,17 +1887,18 @@ def phase_train(state):
     steps = []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
-        for c in _train_counters().values():
-            c.launches = 0
+        _zero_counters(*_train_counters().values())
         t = time.perf_counter()
         trainer.run(batches, num_iters=i + 1, seed=SEED)
         loss = trainer.last_loss  # waits for the step
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         counts = {k: c.launches for k, c in _train_counters().items()}
-        steps.append(dict(seconds=dt, loss=loss, launches=counts))
+        paths = _wgmma_only(f"train step {i + 1}")["flash_fwd"]
+        steps.append(dict(seconds=dt, loss=loss, launches=counts, flash_fwd_by_path=paths))
         log(f"train step {i + 1}: {dt:.3f} s, {TRAIN_BATCH / dt:.3f} images/s, loss "
-            f"{loss:.6f}, launches {counts} (expected {expect}) [{state.get('card')}]")
+            f"{loss:.6f}, launches {counts} (expected {expect}), flash forward by path "
+            f"{paths} [{state.get('card')}]")
         if not math.isfinite(loss):
             raise RuntimeError(f"train step {i + 1}: loss {loss}")
         if counts != expect:
@@ -1915,6 +1982,8 @@ def _kernel_kind(name: str) -> str:
     n = name.lower()
     if "flash_bwd" in n:
         return "flash bwd (hand)"
+    if "attn_fwd_wg" in n:   # csrc/attn_fwd_sm90.cuh: Mode 2 is NoMax
+        return "nomax (hand)" if "mode)2" in n or "modee2" in n else "flash (hand)"
     if "flash_fwd" in n:
         return "flash (hand)"
     if "nomax_fwd" in n:

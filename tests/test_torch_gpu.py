@@ -22,6 +22,15 @@ pytestmark = pytest.mark.gpu
 # two bf16 ulps at the output's magnitude (both sides read the same bf16
 # inputs; they differ in f32 summation order and in where they round)
 ATOL, RTOL = 1e-2, 1.6e-2
+# relative L2 error of the no-max forward against its plain version: sound
+# kernels read about 2e-4 at [4, 4096, 8, 40]; leaving out one 128-key tile
+# of 4096 reads about 0.18, which the band above lets through where the
+# output is ~0.03
+ATTN_MAX_REL_L2 = 1e-2
+
+
+def _rel_l2(out, ref):
+    return float((out.float() - ref.float()).norm() / ref.float().norm())
 
 
 @pytest.fixture
@@ -35,18 +44,36 @@ def _randn(gen, *shape, dtype=torch.bfloat16):
     return torch.randn(shape, device="cuda", generator=gen).to(dtype)
 
 
+def _expect_path(d):
+    """attn_fwd_plan's path for contiguous (16-byte aligned) q, k, v."""
+    return "wgmma" if d % 8 == 0 and d <= 80 else "mma"
+
+
+def _one_launch(fn, path, call):
+    """call() launches fn's kernel once, on ``path``; returns its result."""
+    before, by_path = fn.launches, dict(fn.launches_by_path)
+    out = call()
+    assert fn.launches == before + 1
+    assert fn.launches_by_path[path] == by_path[path] + 1, (path, fn.launches_by_path)
+    return out
+
+
 @pytest.mark.parametrize("b,n,m,h,d", [
     (2, 100, 300, 3, 8),
     (1, 257, 1023, 2, 36),     # d % 8 != 0: the unaligned (scalar-load) path
     (2, 128, 128, 2, 256),     # widest head the kernel takes
     (1, 64, 65, 1, 72),
     (2, 1024, 77, 8, 40),      # a cross-attention shape, ragged kv
+    (4, 4096, 4096, 8, 40),    # the main path's 64^2 sites
+    (4, 1024, 1024, 8, 80),    # the 32^2 sites
+    (4, 1024, 1024, 8, 40),    # the 64^2 sites under ToMe 0.75 (queries merged too)
+    (2, 2100, 300, 2, 40),     # 192-row blocks, the last one ragged
+    (1, 1000, 1000, 2, 80),    # ragged last query block and key tile on wgmma
+    (1, 300, 129, 2, 96),      # a head over 80: mma.sync
 ])
 def test_flash_kernel_matches_plain(gen, b, n, m, h, d):
     q, k, v = _randn(gen, b, n, h, d), _randn(gen, b, m, h, d), _randn(gen, b, m, h, d)
-    before = flash_attention.launches
-    out = flash_attention(q, k, v)
-    assert flash_attention.launches == before + 1
+    out = _one_launch(flash_attention, _expect_path(d), lambda: flash_attention(q, k, v))
     torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v).float(),
                                atol=ATOL, rtol=RTOL)
 
@@ -57,12 +84,20 @@ def test_flash_kernel_reads_strided_views(gen):
     b, n, h, d = 2, 300, 4, 40
     qkv = _randn(gen, b, n, 3, h, d)
     q, k, v = qkv.unbind(dim=2)
-    torch.testing.assert_close(flash_attention(q, k, v).float(),
-                               flash_attention_plain(q, k, v).float(), atol=ATOL, rtol=RTOL)
+    out = _one_launch(flash_attention, "wgmma", lambda: flash_attention(q, k, v))
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v).float(), atol=ATOL,
+                               rtol=RTOL)
     flat = _randn(gen, b * n * h * d + 1)
     qm = flat[1:].view(b, n, h, d)
-    torch.testing.assert_close(flash_attention(qm, k, v).float(),
-                               flash_attention_plain(qm, k, v).float(), atol=ATOL, rtol=RTOL)
+    out = _one_launch(flash_attention, "mma", lambda: flash_attention(qm, k, v))
+    torch.testing.assert_close(out.float(), flash_attention_plain(qm, k, v).float(), atol=ATOL,
+                               rtol=RTOL)
+    # q, k, v as [B, N, H, D] views of packed [B, N, H*D] projections
+    pk = _randn(gen, b, n, 3 * h * d)
+    q, k, v = (t.view(b, n, h, d) for t in pk.split(h * d, dim=-1))
+    out = _one_launch(flash_attention, "wgmma", lambda: flash_attention(q, k, v))
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v).float(), atol=ATOL,
+                               rtol=RTOL)
 
 
 def test_flash_kernel_refuses(gen):
@@ -72,6 +107,37 @@ def test_flash_kernel_refuses(gen):
     q = _randn(gen, 1, 64, 1, 264)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("source", ["flash_fwd", "nomax_fwd"])
+def test_attn_fwd_refuses_a_plan_it_does_not_mirror(gen, source):
+    """The C entry points recompute the plan (vdattn::plan_code) and refuse
+    a call whose plan code is not theirs, with cudaErrorInvalidValue and no
+    launch: the wgmma code on a view one element in, the mma.sync codes on
+    an aligned d 40 call."""
+    from vdtpu_torch.ops.flash import _plan_for
+    from vdtpu_torch.ops.kernels.build import load
+    b, n, h, d = 1, 256, 2, 40
+    flat = _randn(gen, b * n * h * d + 8)
+    aligned, shifted = flat[:-8].view(b, n, h, d), flat[1:-7].view(b, n, h, d)
+    wg_code = _plan_for(aligned, aligned, aligned).code
+    assert _plan_for(aligned, aligned, aligned).path == "wgmma"
+    assert _plan_for(shifted, aligned, aligned).path == "mma"
+    out = torch.zeros(b, n, h, d, device="cuda", dtype=torch.bfloat16)
+    shift = torch.zeros(h, device="cuda")
+    lib = load(source)
+    for q, code in ((shifted, wg_code), (aligned, 0), (aligned, 1)):
+        st = [x for t in (q, aligned, aligned, out) for x in t.stride()[:3]]
+        head = [q.data_ptr(), aligned.data_ptr(), aligned.data_ptr(), out.data_ptr()]
+        if source == "flash_fwd":
+            rc = lib.vd_flash_fwd(*head, None, b, n, n, h, d, *st, d ** -0.5, code,
+                                  torch.cuda.current_stream().cuda_stream)
+        else:
+            rc = lib.vd_nomax_fwd(*head, shift.data_ptr(), 0, b, n, n, h, d, *st, d ** -0.5,
+                                  code, torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, (code, rc)   # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    assert not bool(out.any())
 
 
 @pytest.mark.parametrize("shape,groups", [((2, 96, 7, 9), 32), ((3, 320, 33, 17), 32),
@@ -141,20 +207,25 @@ def _nomax_args(gen, b, n, m, h, d):
     (1, 257, 1023, 2, 36),     # d % 8 != 0 (the TPU's _nomax_kernel case), ragged kv
     (2, 128, 77, 2, 80),       # kv shorter than one tile
     (1, 64, 65, 1, 160),
+    (4, 4096, 4096, 8, 40),    # the int8 path's 64^2 sites
+    (4, 1024, 1024, 8, 80),    # its 32^2 sites
+    (4, 1024, 1024, 8, 40),    # the 64^2 sites under ToMe 0.75 (queries merged too)
+    (2, 2100, 300, 2, 40),     # 192-row blocks, the last one ragged
+    (1, 1000, 1000, 2, 80),    # ragged last query block and key tile on wgmma
 ])
 def test_nomax_kernel_matches_plain(gen, b, n, m, h, d):
     from vdtpu_torch.ops.nomax import flash_attention_nomax, flash_attention_nomax_plain
     q, k, v, shift = _nomax_args(gen, b, n, m, h, d)
-    before = flash_attention_nomax.launches
-    out = flash_attention_nomax(q, k, v, shift)
-    assert flash_attention_nomax.launches == before + 1
-    torch.testing.assert_close(out.float(), flash_attention_nomax_plain(q, k, v, shift).float(),
-                               atol=ATOL, rtol=RTOL)
+    out = _one_launch(flash_attention_nomax, _expect_path(d),
+                      lambda: flash_attention_nomax(q, k, v, shift))
+    ref = flash_attention_nomax_plain(q, k, v, shift)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+    assert _rel_l2(out, ref) <= ATTN_MAX_REL_L2
     # a float shift (one bound for every head) is the same function
     hi = float(shift.max())
-    torch.testing.assert_close(flash_attention_nomax(q, k, v, hi).float(),
-                               flash_attention_nomax_plain(q, k, v, hi).float(),
-                               atol=ATOL, rtol=RTOL)
+    out, ref = flash_attention_nomax(q, k, v, hi), flash_attention_nomax_plain(q, k, v, hi)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+    assert _rel_l2(out, ref) <= ATTN_MAX_REL_L2
 
 
 def test_nomax_kernel_reads_packed_views(gen):
@@ -165,8 +236,19 @@ def test_nomax_kernel_reads_packed_views(gen):
     qkv = _randn(gen, b, n, 3 * h * d)
     q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
     shift = torch.full((h,), 6.0, device="cuda")
-    torch.testing.assert_close(flash_attention_nomax(q, k, v, shift).float(),
-                               flash_attention_nomax_plain(q, k, v, shift).float(),
+    out = _one_launch(flash_attention_nomax, "wgmma",
+                      lambda: flash_attention_nomax(q, k, v, shift))
+    torch.testing.assert_close(out.float(), flash_attention_nomax_plain(q, k, v, shift).float(),
+                               atol=ATOL, rtol=RTOL)
+    q, k, v = _randn(gen, b, n, 3, h, d).unbind(dim=2)
+    out = _one_launch(flash_attention_nomax, "wgmma",
+                      lambda: flash_attention_nomax(q, k, v, shift))
+    torch.testing.assert_close(out.float(), flash_attention_nomax_plain(q, k, v, shift).float(),
+                               atol=ATOL, rtol=RTOL)
+    qm = _randn(gen, b * n * h * d + 1)[1:].view(b, n, h, d)
+    out = _one_launch(flash_attention_nomax, "mma",
+                      lambda: flash_attention_nomax(qm, k, v, shift))
+    torch.testing.assert_close(out.float(), flash_attention_nomax_plain(qm, k, v, shift).float(),
                                atol=ATOL, rtol=RTOL)
 
 
@@ -430,11 +512,27 @@ def test_flash_bwd_kernel_matches_plain(gen, b, n, m, h, d):
 def test_flash_lse_kernel_matches_plain(gen):
     from vdtpu_torch.ops.flash import flash_attention_fwd
     q, k, v = _randn(gen, 2, 300, 3, 40), _randn(gen, 2, 200, 3, 40), _randn(gen, 2, 200, 3, 40)
-    out, lse = flash_attention_fwd(q, k, v, 40 ** -0.5, with_lse=True)
+    out, lse = _one_launch(flash_attention, "wgmma",
+                           lambda: flash_attention_fwd(q, k, v, 40 ** -0.5, with_lse=True))
     ref, lse_ref = flash_attention_plain(q, k, v, with_lse=True)
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
     assert flash_attention_fwd(q, k, v, 40 ** -0.5)[1] is None
+
+
+@pytest.mark.parametrize("b,n,m,h,d", [
+    (4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80),   # training's forward sites
+    (1, 1000, 1000, 2, 80), (2, 130, 77, 2, 8),       # ragged rows and keys
+    (1, 257, 300, 2, 36), (1, 200, 300, 1, 128),      # the mma.sync kernel
+])
+def test_flash_lse_on_both_paths(gen, b, n, m, h, d):
+    from vdtpu_torch.ops.flash import flash_attention_fwd
+    q, k, v = _randn(gen, b, n, h, d), _randn(gen, b, m, h, d), _randn(gen, b, m, h, d)
+    out, lse = _one_launch(flash_attention, _expect_path(d),
+                           lambda: flash_attention_fwd(q, k, v, d ** -0.5, with_lse=True))
+    ref, lse_ref = flash_attention_plain(q, k, v, with_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
 
 
 def test_flash_autograd_on_strided_views(gen):

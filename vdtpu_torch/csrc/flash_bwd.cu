@@ -397,42 +397,16 @@ struct Maps {
   CUtensorMap q, dout, k, v, lse, delta;
 };
 
-// A wgmma descriptor (no swizzle): start, LBO and SBO in bytes. K-major:
-// LBO steps 8 elements along K, SBO 8 rows along M / N. MN-major (the
-// transpose bit): SBO steps 8 elements along M / N, LBO 8 rows along K.
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  const uint32_t a = smem_u32(p);
-  return uint64_t((a & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) | (uint64_t(sbo >> 4) << 32);
-}
+using vdw::desc;
+using vdw::fence_async_smem;
+using vdw::keep;
+using vdw::wg_commit;
+using vdw::wg_fence;
 __device__ __forceinline__ void stsm_x4_t(const __nv_bfloat16* p, const uint32_t (&r)[4]) {
   asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n" ::"r"(
                    smem_u32(p)),
                "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
                : "memory");
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving a wgmma operand's accesses across the
-// asynchronous product that reads or writes it
-template <int N>
-__device__ __forceinline__ void keep(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
-}
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 constexpr int kRowBox = kQT + 4;  // lse / delta elements a tile's box holds
 constexpr int kRowSlot = 96;      // f32 a slot of them takes: 384 bytes, 128-byte aligned
@@ -588,7 +562,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                          desc(DOt + 2 * kk * kQT * 8, kQPlane, 128), kk);
     }
     wg_commit();
-    wg_wait0();
+    vdw::wg_wait<0>();
     keep(s);
     keep(dp);
 
@@ -642,7 +616,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       stsm_x4_t(ds_wg + ds64_at(16 * kc + 8 * (mi >> 1) + (lane & 7), 16 * wl + 8 * (mi & 1)),
                 as[kc]);
     }
-    wg_wait0();
+    vdw::wg_wait<0>();
     keep(ap);
     keep(as);
     keep(dv);
@@ -661,7 +635,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       vdw::Wgmma<DP>::ss_tb(dq, desc(ds_wg + 2 * kk * 64, 128, 8 * 128),
                             desc(kw + 16 * kk * 8, 128, kKPlane), kk);
     wg_commit();
-    wg_wait0();
+    vdw::wg_wait<0>();
     keep(dq);
     float* stg = stage_wg + (i & 1) * kQT * DP;
 #pragma unroll
@@ -683,23 +657,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
 // the wgmma kernel's tensor maps; a cudaError_t code
 inline int make_maps(Maps* m, const Params& p) {
-  const cuuint64_t qd[4] = {cuuint64_t(p.D), cuuint64_t(p.H), cuuint64_t(p.N), cuuint64_t(p.B)};
-  const cuuint64_t kd[4] = {cuuint64_t(p.D), cuuint64_t(p.H), cuuint64_t(p.M), cuuint64_t(p.B)};
-  const cuuint64_t qs[3] = {cuuint64_t(p.sqh * 2), cuuint64_t(p.sqn * 2), cuuint64_t(p.sqb * 2)};
-  const cuuint64_t os[3] = {cuuint64_t(p.sdoh * 2), cuuint64_t(p.sdon * 2),
-                            cuuint64_t(p.sdob * 2)};
-  const cuuint64_t ks[3] = {cuuint64_t(p.skh * 2), cuuint64_t(p.skn * 2), cuuint64_t(p.skb * 2)};
-  const cuuint64_t vs[3] = {cuuint64_t(p.svh * 2), cuuint64_t(p.svn * 2), cuuint64_t(p.svb * 2)};
-  const cuuint32_t qbox[4] = {8, 1, kQT, 1}, kbox[4] = {8, 1, kKeys, 1};
   const cuuint64_t rows[1] = {cuuint64_t(p.B) * p.H * p.N}, no_strides[1] = {0};
   const cuuint32_t rbox[1] = {kRowBox};
-  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const auto f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const auto none = CU_TENSOR_MAP_SWIZZLE_NONE;
   int rc;
-  if ((rc = vdt::encode_map(&m->q, bf, 4, p.q, qd, qs, qbox, none))) return rc;
-  if ((rc = vdt::encode_map(&m->dout, bf, 4, p.dout, qd, os, qbox, none))) return rc;
-  if ((rc = vdt::encode_map(&m->k, bf, 4, p.k, kd, ks, kbox, none))) return rc;
-  if ((rc = vdt::encode_map(&m->v, bf, 4, p.v, kd, vs, kbox, none))) return rc;
+  if ((rc = vdt::encode_rows_map(&m->q, p.q, p.B, p.N, p.H, p.D, p.sqb, p.sqn, p.sqh, kQT)))
+    return rc;
+  if ((rc = vdt::encode_rows_map(&m->dout, p.dout, p.B, p.N, p.H, p.D, p.sdob, p.sdon, p.sdoh,
+                                 kQT)))
+    return rc;
+  if ((rc = vdt::encode_rows_map(&m->k, p.k, p.B, p.M, p.H, p.D, p.skb, p.skn, p.skh, kKeys)))
+    return rc;
+  if ((rc = vdt::encode_rows_map(&m->v, p.v, p.B, p.M, p.H, p.D, p.svb, p.svn, p.svh, kKeys)))
+    return rc;
   if ((rc = vdt::encode_map(&m->lse, f32, 1, p.lse, rows, no_strides, rbox, none))) return rc;
   return vdt::encode_map(&m->delta, f32, 1, p.delta, rows, no_strides, rbox, none);
 }

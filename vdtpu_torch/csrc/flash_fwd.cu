@@ -11,24 +11,25 @@
 // Bound on this card: at the main-path shape (B*H = 32, 4096 queries and
 // keys, d_head 40) the work is 32 * 4096^2 = 537 M exponentials (about
 // 0.13 ms at 16 per SM per clock on 132 SMs at 1.98 GHz), about 86 GFLOP of
-// bf16 tensor-core products (103 with d padded to 48; about 0.09 ms at
+// bf16 tensor-core products (103 with d padded to 48; about 0.10 ms at
 // 989 TFLOP/s) and about 42 MB of device memory traffic (about 0.013 ms at
 // 3.35 TB/s). The exponentials set the pace, then the tensor cores; memory
 // is far below both.
 //
-// What the design does about it:
-// - the [N, M] score matrix never leaves registers: each warp owns 16 query
-//   rows, holds its 16 x 64 score tile in mma.sync accumulators and turns
-//   it into the bf16 A operand of the P.V product in registers;
-// - one exponential per score (exp2 with log2(e) folded in) plus one per
-//   row per tile for the rescale, and no second pass over the scores;
-// - q, k and v are read in place from [B, N, H, D] through strides, so the
-//   caller's projections need no fold copies; d is padded to a multiple of
-//   16 in shared memory only (40 -> 48), never in device memory;
-// - K/V tiles are double-buffered with cp.async so the next tile's loads
-//   overlap the current tile's math.
-// The tensor-core product uses mma.sync m16n8k16; wgmma/TMA and a
-// warp-specialised pipeline are left for a later change.
+// Two kernels; the caller's plan (vdtpu_torch/ops/flash.py::attn_fwd_plan,
+// mirrored by vdattn::plan_code) picks one from shape and alignment alone:
+// - heads up to 80 with d % 8 == 0 and 16-byte aligned rows (every site of
+//   the main path): attn_fwd_wg_kernel in csrc/attn_fwd_sm90.cuh, Mode Flash
+//   or FlashLse: wgmma and TMA, a producer warpgroup, two or three consumer
+//   warpgroups overlapping one's exponentials with another's products;
+// - every other head and layout: flash_fwd_kernel below, mma.sync m16n8k16
+//   from 4 warps of 16 query rows, K/V tiles double-buffered by cp.async
+//   (16-byte chunks where rows are aligned, element loads otherwise), d
+//   padded to a multiple of 16 in shared memory only. Its [N, M] scores
+//   never leave registers either: each warp's 16 x 64 score tile becomes
+//   the bf16 A operand of P.V in registers.
+// q, k and v are read in place from [B, N, H, D] through strides, so the
+// caller's projections need no fold copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,6 +37,7 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "attn_fwd_sm90.cuh"
 
 namespace {
 
@@ -223,12 +225,33 @@ int launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// Returns a cudaError_t code; 0 means the launch was accepted.
+// Returns a cudaError_t code; 0 means the launch was accepted. plan: the
+// caller's AttnFwdPlan.code, which must be the one vdattn::plan_code gives
+// these arguments (cudaErrorInvalidValue otherwise).
 extern "C" int vd_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int B, int N, int M, int H, int D, long long sqb, long long sqn,
                             long long sqh, long long skb, long long skn, long long skh,
                             long long svb, long long svn, long long svh, long long sob,
-                            long long son, long long soh, float scale, int vec, void* stream) {
+                            long long son, long long soh, float scale, int plan, void* stream) {
+  const long long strides[9] = {sqb, sqn, sqh, skb, skn, skh, svb, svn, svh};
+  if (plan != vdattn::plan_code(D, N, q, k, v, strides)) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vdattn::is_wg(plan)) {
+    vdattn::Args a = {};
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.k = static_cast<const __nv_bfloat16*>(k);
+    a.v = static_cast<const __nv_bfloat16*>(v);
+    a.o = static_cast<__nv_bfloat16*>(o);
+    a.lse = static_cast<float*>(lse);
+    a.B = B; a.N = N; a.M = M; a.H = H; a.D = D;
+    a.sqb = sqb; a.sqn = sqn; a.sqh = sqh;
+    a.skb = skb; a.skn = skn; a.skh = skh;
+    a.svb = svb; a.svn = svn; a.svh = svh;
+    a.sob = sob; a.son = son; a.soh = soh;
+    a.qscale = scale;
+    return lse != nullptr ? vdattn::dispatch_wg<vdattn::Mode::FlashLse>(a, st)
+                          : vdattn::dispatch_wg<vdattn::Mode::Flash>(a, st);
+  }
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -241,8 +264,7 @@ extern "C" int vd_flash_fwd(const void* q, const void* k, const void* v, void* o
   p.svb = svb; p.svn = svn; p.svh = svh;
   p.sob = sob; p.son = son; p.soh = soh;
   p.scale = scale;
-  p.vec = vec;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  p.vec = plan;
   switch ((D + 15) / 16) {
     case 1: return launch<16>(p, st);
     case 2: return launch<32>(p, st);

@@ -5,9 +5,8 @@
 // the int8 serving policy's attention at the long self-attention sites.
 // It also covers _nomax_kernel (row 2: d % 8 != 0, the shift carried by an
 // extra K lane) and _nomax_packed_kernel (row 4: the native [B, N, H*D]
-// layout): d is padded in shared memory for any d, and q, k, v are read in
-// place through their strides, so [B, N, H, D] views of [B, N, H*D]
-// projections are the packed layout.
+// layout): q, k, v are read in place through their strides, so [B, N, H, D]
+// views of [B, N, H*D] projections are the packed layout.
 //
 // Function: per (b, h) a calibrated upper bound M = shift[b * shift_sb + h]
 // on the scaled logits replaces the running maximum:
@@ -22,11 +21,17 @@
 // device memory traffic (0.013 ms). At the token-merged [4, 1024, 8, 40]
 // site: 33.6 M exponentials, about 0.008 ms. The exponentials set the pace.
 //
-// What the design does about it: one exp2f per score and nothing else per
-// score (no row max, no per-tile rescale of the accumulators, the row sums
-// reduced across the quad once at the end); scores never leave mma.sync
-// accumulators, which become the bf16 A operand of P.V in registers; K/V
-// tiles double-buffered with cp.async. wgmma/TMA are left for later.
+// Two kernels, picked by the caller's plan (vdtpu_torch/ops/flash.py::
+// attn_fwd_plan, mirrored by vdattn::plan_code) from shape and alignment:
+// - heads up to 80 with d % 8 == 0 and 16-byte aligned rows (every site of
+//   the int8 path): attn_fwd_wg_kernel in csrc/attn_fwd_sm90.cuh, Mode
+//   NoMax: wgmma and TMA, a producer warpgroup, two or three consumer
+//   warpgroups;
+// - every other head and layout (d % 8 != 0, heads over 80, unaligned
+//   views): nomax_fwd_kernel below, mma.sync from 4 warps of 16 query rows,
+//   one exp2f per score, the row sums reduced across the quad once at the
+//   end, K/V tiles double-buffered by cp.async (or element loads), d padded
+//   in shared memory only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,6 +39,7 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "attn_fwd_sm90.cuh"
 
 namespace {
 
@@ -196,13 +202,34 @@ int launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// Returns a cudaError_t code; 0 means the launch was accepted.
+// Returns a cudaError_t code; 0 means the launch was accepted. plan: the
+// caller's AttnFwdPlan.code, which must be the one vdattn::plan_code gives
+// these arguments (cudaErrorInvalidValue otherwise).
 extern "C" int vd_nomax_fwd(const void* q, const void* k, const void* v, void* o,
                             const void* shift, long long shift_sb, int B, int N, int M, int H,
                             int D, long long sqb, long long sqn, long long sqh, long long skb,
                             long long skn, long long skh, long long svb, long long svn,
                             long long svh, long long sob, long long son, long long soh,
-                            float qscale, int vec, void* stream) {
+                            float qscale, int plan, void* stream) {
+  const long long strides[9] = {sqb, sqn, sqh, skb, skn, skh, svb, svn, svh};
+  if (plan != vdattn::plan_code(D, N, q, k, v, strides)) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vdattn::is_wg(plan)) {
+    vdattn::Args a = {};
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.k = static_cast<const __nv_bfloat16*>(k);
+    a.v = static_cast<const __nv_bfloat16*>(v);
+    a.o = static_cast<__nv_bfloat16*>(o);
+    a.shift = static_cast<const float*>(shift);
+    a.shift_sb = shift_sb;
+    a.B = B; a.N = N; a.M = M; a.H = H; a.D = D;
+    a.sqb = sqb; a.sqn = sqn; a.sqh = sqh;
+    a.skb = skb; a.skn = skn; a.skh = skh;
+    a.svb = svb; a.svn = svn; a.svh = svh;
+    a.sob = sob; a.son = son; a.soh = soh;
+    a.qscale = qscale;
+    return vdattn::dispatch_wg<vdattn::Mode::NoMax>(a, st);
+  }
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -216,8 +243,7 @@ extern "C" int vd_nomax_fwd(const void* q, const void* k, const void* v, void* o
   p.svb = svb; p.svn = svn; p.svh = svh;
   p.sob = sob; p.son = son; p.soh = soh;
   p.qscale = qscale;
-  p.vec = vec;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  p.vec = plan;
   switch ((D + 15) / 16) {
     case 1: return launch<16>(p, st);
     case 2: return launch<32>(p, st);

@@ -1,7 +1,8 @@
 // TMA for the kernels that take their tiles by tensor map (probe_s8mm.cu,
-// flash_bwd.cu): the host-side encoder, found through the runtime's driver
-// entry point (no link against libcuda), and the device-side mbarrier and
-// bulk-tensor copy instructions they use.
+// flash_bwd.cu, attn_fwd_sm90.cuh): the host-side encoder, found through the
+// runtime's driver entry point (no link against libcuda), the attention
+// kernels' map of a strided [B, rows, H, D] tensor, and the device-side
+// mbarrier and bulk-tensor copy instructions they use.
 #pragma once
 
 #include <cuda.h>
@@ -36,6 +37,24 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, cons
                             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+// A bf16 [B, rows, H, D] tensor read in place through its element strides
+// (batch, row, head; the last axis contiguous) as a 4-D map (D, H, rows, B)
+// with boxes of box_cols columns x box_rows rows, zero past D and past the
+// last row. By default one 16-byte column chunk a box, so a tile lands as
+// ceil(D / 8) planes of box_rows x 16 bytes: wgmma's K-major layout without
+// swizzle (LBO = one plane), and with the transpose bit its MN-major one.
+// Boxes of 64 columns (128 bytes a row) take the 128-byte swizzle, which
+// wgmma reads through a descriptor of the same swizzle. A cudaError_t code.
+inline int encode_rows_map(CUtensorMap* map, const void* ptr, int B, int rows, int H, int D,
+                           long long sb, long long srow, long long sh, int box_rows,
+                           int box_cols = 8,
+                           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(rows), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(sh * 2), cuuint64_t(srow * 2), cuuint64_t(sb * 2)};
+  const cuuint32_t box[4] = {cuuint32_t(box_cols), 1, cuuint32_t(box_rows), 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box, swizzle);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

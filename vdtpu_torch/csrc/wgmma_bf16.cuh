@@ -4,7 +4,9 @@
 // MN-major (ss_tb, rs_tb: the transpose bit, N contiguous). D holds N / 2
 // f32 a thread in the m16n8 accumulator order of each warp's 16 rows. acc =
 // 0 overwrites D (the first k step of a product), 1 adds to it. Written out
-// for the widths the attention backward uses.
+// for the widths the attention kernels use (n128: ss only, the forward's
+// S = Q.K^T over a 128-key tile). At the end: the shared-memory descriptor
+// and the fences, commits and waits around the asynchronous products.
 #pragma once
 
 #include <stdint.h>
@@ -276,5 +278,67 @@ struct Wgmma<80> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
   }
 };
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+// A descriptor of a shared-memory operand: start, LBO and SBO in bytes, and
+// the swizzle (kSwizzleNone, or kSwizzle128 on a 1024-byte aligned tile of
+// 128-byte rows). Without swizzle, K-major: LBO steps 8 elements along K,
+// SBO 8 rows along M / N; MN-major (the transpose bit): SBO steps 8
+// elements along M / N, LBO 8 rows along K. 128-byte swizzle, K-major: SBO
+// steps 8 rows, LBO unused (a k16 step advances the start 32 bytes);
+// MN-major: LBO steps 64 elements along M / N, SBO 8 rows along K.
+constexpr uint64_t kSwizzleNone = 0, kSwizzle128 = 1;
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo,
+                                         uint64_t swizzle = kSwizzleNone) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return uint64_t((a & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(sbo >> 4) << 32) | (swizzle << 62);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warp's products are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving a wgmma operand's accesses across the
+// asynchronous product that reads or writes it
+template <int N>
+__device__ __forceinline__ void keep(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
+}
+// shared memory written by threads, next read by wgmma or a bulk copy (the
+// async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 }  // namespace vdw

@@ -9,7 +9,11 @@ kernels' numerics:
   folded into q in the input dtype, logits and the softmax sums are f32,
   the probabilities are cast to the input dtype before the product with v;
   with ``with_lse`` it also returns lse = max + log(sum) per row, f32
-  [B, H, N], the residual of the backward;
+  [B, H, N], the residual of the backward. ``attn_fwd_plan`` decides, from
+  shape, dtype and alignment alone, which of its two kernels a call takes
+  (the wgmma/TMA kernel of ``csrc/attn_fwd_sm90.cuh`` or the mma.sync one);
+  ``flash_attention_fwd_blocked_plain`` is the wgmma kernel's order of
+  work in plain PyTorch, for the tests;
 - backward (``_bwd_impl``, kernel ``csrc/flash_bwd.cu``): delta =
   rowsum(dO * O) in f32, p = exp(q.k^T * scale - lse) in f32 (q unscaled),
   dV = p^T.dO with p cast to the input dtype, dS = p * (dO.v^T - delta) *
@@ -31,12 +35,101 @@ autocast region.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 MAX_HEAD_DIM = 256
 MAX_BWD_HEAD_DIM = 128  # the backward kernel's widest head
 BWD_KEYS, BWD_QUERIES = 128, 64  # csrc/flash_bwd.cu: keys a block owns, queries a tile
 LOG2E = 1.4426950408889634
+
+# csrc/attn_fwd_sm90.cuh's geometry (the forward's wgmma kernel): consumer
+# warpgroups of ATTN_WG_ROWS query rows (``_consumers``) and a producer
+# warpgroup, ATTN_BK-key K/V tiles in a ring of up to ATTN_MAX_STAGES, heads
+# up to ATTN_WG_MAX_D with d % 8 == 0; Q, K and V land as boxes of
+# ATTN_BOX_COLS columns (128 bytes a row, 128-byte swizzle); the mma.sync
+# kernels of csrc/flash_fwd.cu and csrc/nomax_fwd.cu take 64 query rows a
+# block
+ATTN_WG_ROWS, ATTN_BK, ATTN_MAX_STAGES = 64, 128, 4
+ATTN_WG_MAX_D = 80
+ATTN_BOX_COLS = 64
+MAX_SMEM = 232448           # bytes of shared memory a block may take on an H100
+
+
+def _consumers(dp: int, n: int) -> int:
+    """Consumer warpgroups a block (``vdattn::consumers``): three (192 query
+    rows) for heads padded to 64 or less over 2048 queries or more, whose
+    accumulators fit 160 registers; else two (at 1024 queries 192-row blocks
+    leave a third of the last block empty and a second wave half full)."""
+    return 3 if dp <= 64 and n >= 2048 else 2
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnFwdPlan:
+    """The launch of one attention forward (flash or no-max): ``path``
+    "wgmma" (``attn_fwd_wg_kernel``) or "mma" (the mma.sync kernels, with
+    16-byte cp.async loads where ``vec``). The C entry points recompute
+    every field ``code`` carries and refuse a call whose code differs."""
+    path: str
+    dp: int                     # head padded to a multiple of 16 in shared memory
+    block_q: int                # query rows a block
+    block_k: int                # wgmma: keys a K/V tile
+    stages: int                 # wgmma: K/V tiles in shared memory
+    smem_bytes: int | None      # wgmma: dynamic shared memory of a block
+    grid: tuple[int, int]       # (query blocks, B * H)
+    vec: bool
+
+    @property
+    def code(self) -> int:
+        """The int the C entry points take (``vdattn::plan_code``): 0 / 1 the
+        mma.sync kernel without / with cp.async, else 2 | stages << 4 |
+        block_k / 64 << 8 | block_q / 64 << 12 | smem_bytes / 8 << 16."""
+        if self.path == "mma":
+            return int(self.vec)
+        return (2 | self.stages << 4 | (self.block_k // 64) << 8 | (self.block_q // 64) << 12
+                | (self.smem_bytes // 8) << 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _wg_geometry(dp: int, nc: int) -> tuple[int, int]:
+    """(stages, shared-memory bytes) of the wgmma kernel (``vdattn::Geo``):
+    1024 bytes to align its base, Q, the deepest K/V ring that fits, and
+    the mbarriers (Q, full and empty a stage)."""
+    row = -(-dp // ATTN_BOX_COLS) * ATTN_BOX_COLS * 2          # bytes of a tile's row
+    smem = lambda s: 1024 + ATTN_WG_ROWS * nc * row + s * 2 * ATTN_BK * row + 8 * (1 + 2 * s)
+    stages = max(s for s in range(2, ATTN_MAX_STAGES + 1) if smem(s) <= MAX_SMEM)
+    return stages, smem(stages)
+
+
+def _rows_aligned(ptrs, strides) -> bool:
+    """16-byte aligned data pointers and (batch, row, head) element strides:
+    every row of every head starts on 16 bytes (cp.async's 16-byte chunks,
+    TMA's box starts)."""
+    return not any(p % 16 for p in ptrs) and not any(s % 8 for trio in strides for s in trio)
+
+
+def attn_fwd_plan(b: int, n: int, m: int, h: int, d: int, strides, ptrs) -> AttnFwdPlan:
+    """Which forward kernel a bf16 call on q [b, n, h, d], k and v [b, m, h,
+    d] takes, and its geometry. ``strides``: (batch, row, head) element
+    strides of q, k and v; ``ptrs``: their data pointers. The wgmma kernel
+    takes d <= 80 with d % 8 == 0 and aligned rows (its tiles come by TMA);
+    everything else takes the mma.sync kernel."""
+    dp = -(-d // 16) * 16
+    vec = d % 8 == 0 and _rows_aligned(ptrs, strides)
+    if vec and d <= ATTN_WG_MAX_D:
+        block_q = ATTN_WG_ROWS * _consumers(dp, n)
+        stages, smem = _wg_geometry(dp, block_q // ATTN_WG_ROWS)
+        return AttnFwdPlan("wgmma", dp, block_q, ATTN_BK, stages, smem,
+                           (-(-n // block_q), b * h), True)
+    return AttnFwdPlan("mma", dp, 64, 64, 2, None, (-(-n // 64), b * h), vec)
+
+
+def _plan_for(q, k, v) -> AttnFwdPlan:
+    b, n, h, d = q.shape
+    return attn_fwd_plan(b, n, k.shape[1], h, d, tuple(t.stride()[:3] for t in (q, k, v)),
+                         tuple(t.data_ptr() for t in (q, k, v)))
 
 
 def flash_attention_plain(q, k, v, scale: float | None = None, with_lse: bool = False):
@@ -56,6 +149,39 @@ def flash_attention_plain(q, k, v, scale: float | None = None, with_lse: bool = 
         o = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), v.float())
         out = (o / l.transpose(1, 2)[..., None]).to(q.dtype)
     return (out, m[..., 0] + torch.log(l)) if with_lse else out
+
+
+def flash_attention_fwd_blocked_plain(q, k, v, scale: float | None = None,
+                                      with_lse: bool = False, block_k: int = ATTN_BK):
+    """``flash_attention_plain``'s function in the wgmma kernel's order of
+    work, for the tests: over tiles of ``block_k`` keys, a running row max
+    m (keys past M masked), p = exp2(s log2 e - m log2 e) in f32, l and the
+    f32 accumulator rescaled by exp2((m_old - m) log2 e), p rounded to the
+    input dtype for the product with v; out = acc / l, lse = m + log(l)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dt = q.dtype
+    b, n, h, d = q.shape
+    m_len = k.shape[1]
+    with torch.autocast(q.device.type, enabled=False):
+        f = lambda t: t.float().transpose(1, 2)                      # [B, H, rows, D]
+        qs = f((q.float() * scale).to(dt))
+        kf, vf = f(k), f(v)
+        log2e = torch.tensor(LOG2E, dtype=torch.float32)
+        m_run = torch.full((b, h, n), -torch.inf)
+        l_run = torch.zeros(b, h, n)
+        acc = torch.zeros(b, h, n, d)
+        for k0 in range(0, m_len, block_k):
+            s = qs @ kf[:, :, k0:k0 + block_k].transpose(-1, -2)      # [B, H, N, keys]
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            ms = m_new * log2e
+            p = torch.exp2(s * log2e - ms[..., None])
+            alpha = torch.exp2(m_run * log2e - ms)
+            l_run = l_run * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + p.to(dt).float() @ vf[:, :, k0:k0 + block_k]
+            m_run = m_new
+        out = (acc / l_run[..., None]).transpose(1, 2).to(dt)
+    return (out, m_run + torch.log(l_run)) if with_lse else out
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float | None = None):
@@ -114,8 +240,9 @@ def flash_attention_bwd_blocked_plain(q, k, v, o, lse, do, scale: float | None =
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """16-byte rows: the kernels' cp.async path needs every row start aligned."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+    """16-byte rows: the backward's cp.async and TMA paths need every row
+    start aligned."""
+    return _rows_aligned((t.data_ptr(),), (t.stride()[:3],))
 
 
 def _check(name: str, q, k, v, max_d: int):
@@ -140,8 +267,8 @@ def _check(name: str, q, k, v, max_d: int):
 
 
 def flash_attention_fwd(q, k, v, scale: float, with_lse: bool = False):
-    """(out, lse or None): the forward kernel, or its plain version for CPU
-    tensors."""
+    """(out, lse or None): the forward kernel ``attn_fwd_plan`` picks, or the
+    plain version for CPU tensors."""
     if q.device.type == "cpu":
         res = flash_attention_plain(q, k, v, scale, with_lse)
         return res if with_lse else (res, None)
@@ -149,10 +276,10 @@ def flash_attention_fwd(q, k, v, scale: float, with_lse: bool = False):
     from vdtpu_torch.ops.kernels.build import load
     lib = load("flash_fwd")
     b, n, h, d = q.shape
+    plan = _plan_for(q, k, v)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    vec = int(d % 8 == 0 and all(_aligned(t) for t in (q, k, v)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.vd_flash_fwd(
@@ -160,10 +287,11 @@ def flash_attention_fwd(q, k, v, scale: float, with_lse: bool = False):
             lse.data_ptr() if with_lse else None, b, n, k.shape[1], h, d,
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
-            out.stride(2), float(scale), vec, stream)
+            out.stride(2), float(scale), plan.code, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError {rc}")
+        raise RuntimeError(f"flash_fwd launch failed ({plan.path} path): cudaError {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_by_path[plan.path] += 1
     return out, lse
 
 
@@ -244,3 +372,4 @@ def flash_attention(q, k, v, scale: float | None = None):
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_path = {"wgmma": 0, "mma": 0}   # attn_fwd_plan's path -> launches

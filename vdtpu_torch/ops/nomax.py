@@ -4,12 +4,15 @@ plain version.
 Counterpart of ``vdtpu/ops/pallas/flash.py::flash_attention_nomax``: the
 int8 serving policy's attention, where a calibration pass recorded an upper
 bound M on each head's scaled logits (``CrossAttention.attn_shift``), so
-the softmax needs no running maximum. The kernel (``csrc/nomax_fwd.cu``)
-follows the slim TPU kernel (``_nomax_slim_kernel``): q~ = q * scale *
+the softmax needs no running maximum. The kernels (``csrc/nomax_fwd.cu``)
+follow the slim TPU kernel (``_nomax_slim_kernel``): q~ = q * scale *
 log2(e) rounded to the input dtype, p = exp2(q~ . k^T - M * log2(e)) in
 f32, bf16(p) . v accumulated in f32, the f32 row sum of p as the
 denominator, clamped at 1e-30; keys past the kv length get p = 0. The
-same kernel serves the TPU's other two no-max kernels: d % 8 != 0
+flash forward's plan (``ops/flash.py::attn_fwd_plan``) picks the kernel:
+the wgmma/TMA kernel (``csrc/attn_fwd_sm90.cuh``, mode NoMax) for heads up
+to 80 with d % 8 == 0 and 16-byte aligned rows, the mma.sync kernel for
+the rest. They serve the TPU's other two no-max kernels too: d % 8 != 0
 (``_nomax_kernel``, padded in shared memory here) and the native
 [B, N, H*D] layout (``_nomax_packed_kernel``: pass [B, N, H, D] views of
 it, read in place through strides).
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from vdtpu_torch.ops.flash import MAX_HEAD_DIM, _aligned
+from vdtpu_torch.ops.flash import MAX_HEAD_DIM, _plan_for
 
 LOG2E = 1.4426950408889634
 
@@ -84,21 +87,23 @@ def flash_attention_nomax(q, k, v, shift, scale: float | None = None):
     from vdtpu_torch.ops.kernels.build import load
     lib = load("nomax_fwd")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    vec = int(d % 8 == 0 and all(_aligned(t) for t in (q, k, v)))
+    plan = _plan_for(q, k, v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.vd_nomax_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), shift_h.data_ptr(), 0,
             b, n, m, h, d, q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
             k.stride(2), v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
-            out.stride(2), float(scale * LOG2E), vec, stream)
+            out.stride(2), float(scale * LOG2E), plan.code, stream)
     if rc != 0:
-        raise RuntimeError(f"nomax_fwd launch failed: cudaError {rc}")
+        raise RuntimeError(f"nomax_fwd launch failed ({plan.path} path): cudaError {rc}")
     flash_attention_nomax.launches += 1
+    flash_attention_nomax.launches_by_path[plan.path] += 1
     by_kv = flash_attention_nomax.launches_by_kv
     by_kv[m] = by_kv.get(m, 0) + 1
     return out
 
 
 flash_attention_nomax.launches = 0
+flash_attention_nomax.launches_by_path = {"wgmma": 0, "mma": 0}   # attn_fwd_plan's path
 flash_attention_nomax.launches_by_kv = {}   # kv length -> launches (ToMe shortens it)

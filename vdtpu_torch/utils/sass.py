@@ -2,13 +2,12 @@
 instructions one iteration of each kernel's hottest loop issues, and how
 many that is per unit of work (a score, for the attention kernels).
 
-    python -m vdtpu_torch.utils.sass flash_bwd     # on the machine with nvcc
+    python -m vdtpu_torch.utils.sass flash_fwd nomax_fwd flash_bwd   # where nvcc is
 
 It builds (or finds) ``build/kernels/lib<name>-*.so`` through
 ``vdtpu_torch.ops.kernels.build``, disassembles it with the toolkit's
-``cuobjdump -sass``, and for every kernel takes the loop (a backward branch)
-with the most tensor-core instructions in its body, the innermost such loop
-when several tie (an enclosing loop repeats the same products). Each
+``cuobjdump -sass``, and for every kernel takes the innermost loop (a
+backward branch) with a tensor-core instruction in its body. Each
 instruction is counted once, as written; a predicated instruction counts
 whether or not it runs.
 """
@@ -25,9 +24,12 @@ _FUNC_RE = re.compile(r"^\s*Function\s*:\s*(\S+)")
 _INSTR_RE = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?);")
 _BRA_RE = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
 # units of work one thread does in one iteration of a kernel's main loop,
-# by a substring of the mangled name: every flash backward kernel has each
-# warp compute a 16 x 64 score tile an iteration
-WORK_PER_ITER = {"flash_bwd": 16 * 64 // 32}
+# by a substring of the kernel's mangled name (or else of the library's):
+# every flash backward kernel has each warp compute a 16 x 64 score tile an
+# iteration, the forwards' mma.sync kernels a 16 x 64 tile, the forwards'
+# wgmma kernel (csrc/attn_fwd_sm90.cuh) a 16 x 128 tile
+WORK_PER_ITER = {"attn_fwd_wg_kernel": 16 * 128 // 32, "flash_fwd_kernel": 16 * 64 // 32,
+                 "nomax_fwd_kernel": 16 * 64 // 32, "flash_bwd": 16 * 64 // 32}
 _CLASSES = (("mma", ("HMMA", "IMMA", "HGMMA", "IGMMA")), ("exp", ("MUFU",)),
             ("fp32", ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "FSETP")),
             ("pack", ("F2FP",)), ("shared", ("LDS", "LDSM", "STS")),
@@ -63,19 +65,19 @@ def _opcode(text: str) -> str:
 
 
 def main_loop(instrs: list[tuple[int, str]]) -> list[str]:
-    """The body of the innermost loop with the most tensor-core instructions."""
+    """The body of the innermost loop (the fewest instructions) that holds a
+    tensor-core instruction. A backward branch from a retry block the
+    compiler placed out of line (an mbarrier wait's) spans most of the
+    kernel and holds every product, so "the most products" would pick it."""
     best: list[str] = []
-    best_key = (-1, 0)
     for i, (addr, text) in enumerate(instrs):
         m = _BRA_RE.search(text)
         if not m or int(m.group(1), 16) >= addr:
             continue
         target = int(m.group(1), 16)
         body = [t for a, t in instrs[: i + 1] if a >= target]
-        mmas = sum(_opcode(t) in _CLASSES[0][1] for t in body)
-        key = (mmas, -len(body))
-        if key > best_key:
-            best, best_key = body, key
+        if any(_opcode(t) in _CLASSES[0][1] for t in body) and (not best or len(body) < len(best)):
+            best = body
     return best
 
 
@@ -87,11 +89,11 @@ def loop_counts(name: str) -> dict[str, dict]:
     sass = subprocess.run([_cuobjdump(), "-sass", _lib_path(name)], capture_output=True,
                           text=True, check=True).stdout
     out = {}
-    work = next((w for k, w in WORK_PER_ITER.items() if k in name), None)
     for fn, instrs in parse(sass).items():
         body = main_loop(instrs)
         if not body:
             continue
+        work = next((w for k, w in WORK_PER_ITER.items() if k in fn or k in name), None)
         ops = collections.Counter(_opcode(t) for t in body)
         classes = {c: sum(ops[o] for o in names) for c, names in _CLASSES}
         classes["other"] = len(body) - sum(classes.values())
