@@ -62,7 +62,8 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             whole-ResBlock kernel against its plain version at every
             distinct fused2 site of one UNet call (the site's own
             arguments), one eps call against conv="fused", then t2i and i2i
-            (a) requests cold and warm with their launch counts
+            (a) requests cold and warm with their launch counts (the
+            whole-ResBlock kernel's also by resblock_plan route)
   probes    the port's counterpart of scripts/mosaic_probe.py, through its
             entry point vdtpu_torch.probes.main(): the s8 matmul, shifted
             slice-add and scratch slice-write kernels at the script's shapes,
@@ -76,8 +77,10 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             experiment's groups, EMA 0.9999), each with its launch counts;
             one more step under torch.profiler
   profile   (not run by default) the warm request split into its stages,
-            and one CFG UNet step under torch.profiler: device busy and
-            idle share, kernel time by kind and the top kernels
+            and one CFG UNet step under torch.profiler (exact, int8, int8 +
+            ToMe and int8 conv="fused2"): device busy and idle share,
+            kernel time by kind, the int8 conv's and the whole-ResBlock
+            kernel's device ms, and the top kernels
 
 It prints the card line and a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. ``--phases`` runs a subset (development
@@ -579,9 +582,12 @@ def _resblock_case(spec, gen):
     import torch
     import torch.nn.functional as F
     from vdtpu_torch.ops.gn_silu import gn_silu_q, gn_stats
-    from vdtpu_torch.ops.qconv import qconv3, qconv3_gn, resblock_plain, resblock_q
+    from vdtpu_torch.ops.qconv import (qconv3, qconv3_gn, resblock_plain, resblock_plan,
+                                       resblock_q)
     from vdtpu_torch.ops.quant import quantize_weight
     b, c, h, w, n = spec
+    plan = resblock_plan(b, h, w, c, n, sms=torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
     rnd = lambda *sh: torch.randn(sh, device="cuda", generator=gen)
     bf = torch.bfloat16
     x = (rnd(b, c, h, w) * 2 + 0.5).to(bf)
@@ -597,8 +603,11 @@ def _resblock_case(spec, gen):
     args = (x, g1, be1, w1q, s1w, b1, sx1, film, g2, be2, w2q, s2w, b2, sx2, skip)
     kern = lambda: resblock_q(*args)
     plain = lambda: resblock_plain(*args)
+    by_path = dict(resblock_q.launches_by_path)
     out = kern()
+    took = [k for k, v in resblock_q.launches_by_path.items() if v != by_path[k]]
     err, rel, outside, ok = compare_resblock(out, plain())
+    ok = ok and took == [plan.route]
     ok = ok and torch.equal(out, kern())   # fixed-order sums: deterministic
     sk = x if skip is None else skip
 
@@ -637,8 +646,12 @@ def _resblock_case(spec, gen):
     nbytes = 2 * (x.numel() + (0 if skip is None else skip.numel()) + out.numel()) \
         + w1q.numel() + w2q.numel()
     bound_ms, bound_by = _bound(nbytes, ops / PEAK_INT8)
-    return dict(shape=list(spec), max_abs_err=err, rel_l2_err=rel, outside_share=outside,
-                ok=ok, ms=ms, timing=timing, plain_ms=plain_ms, library_ms=None,
+    return dict(shape=list(spec), route=plan.route, tile_pixels=plan.bm, n_tile=plan.bn,
+                rows=plan.rows, grid=plan.grid, conv_tiles=plan.conv_tiles,
+                wave_fill=round(plan.fill, 4), barriers=plan.barriers,
+                smem_bytes=plan.smem_bytes, max_abs_err=err, rel_l2_err=rel,
+                outside_share=outside, ok=ok, ms=ms, timing=timing, plain_ms=plain_ms,
+                library_ms=None,
                 library="none: PyTorch has no CUDA int8 convolution",
                 per_site_chain_ms=per_site_ms, fused_chain_ms=fused_ms,
                 cudnn_bf16_resblock_ms=cudnn_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1633,12 +1646,17 @@ def _fused2_launches(system, c_type: str, with_decode: bool = True):
 
 def phase_main_fused2(state):
     import torch
-    from vdtpu_torch.ops.qconv import resblock_plain, resblock_q
+    from vdtpu_torch.ops.qconv import resblock_plain, resblock_plan, resblock_q
     from vdtpu_torch.ops.quant import QuantPolicy
     from vdtpu_torch.serving.api import VDInference
     system = _system(state)
     calib_s = _calibrate(state, system, "main_fused2")
     sites = _fused2_sites(system)
+    # launches by resblock_plan route of a request (UNet batch 4: 2 images x CFG)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    expect_paths = {"halo": 0, "general": 0}
+    for c, n, side in sites:
+        expect_paths[resblock_plan(4, side, side, c, n, sms=sms).route] += STEPS
     log(f"main_fused2: {len(sites)} fused2 ResBlocks per UNet call (C_in, C_out, side): "
         f"{sites}")
     results = {"calibration_s": calib_s, "sites": sites}
@@ -1708,24 +1726,29 @@ def phase_main_fused2(state):
                 got = _read_counters()
                 attn_paths = _wgmma_only(f"main_fused2 {label} {run}")
                 counts = {k: got[k] for k in expect}
+                rb_paths = dict(resblock_q.launches_by_path)
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 finite = bool(torch.isfinite(img).all())
                 lo, hi = float(img.min()), float(img.max())
                 log(f"main_fused2 {label} {run}: {dt:.3f} s, {2 / dt:.3f} images/s, peak "
                     f"{peak:.2f} GiB, shape {tuple(img.shape)} finite {finite} range "
-                    f"[{lo:.4f}, {hi:.4f}], launches {counts} (expected {expect}), attention by "
-                    f"path {attn_paths} [{state.get('card')}]")
+                    f"[{lo:.4f}, {hi:.4f}], launches {counts} (expected {expect}), resblock_q "
+                    f"by route {rb_paths} (expected {expect_paths}), attention by path "
+                    f"{attn_paths} [{state.get('card')}]")
                 if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0
                         and hi <= 1.0):
                     raise RuntimeError(f"main_fused2 {label} {run}: bad output")
-                if counts != expect:
+                if counts != expect or rb_paths != expect_paths:
                     raise RuntimeError(f"main_fused2 {label} {run}: launch counts {counts} "
-                                       f"!= {expect}")
+                                       f"!= {expect} or resblock_q routes {rb_paths} != "
+                                       f"{expect_paths}")
                 results[f"{label}_{run}"] = dict(seconds=dt, images_per_s=2 / dt,
-                                                 peak_gib=peak, launches=counts)
+                                                 peak_gib=peak, launches=counts,
+                                                 resblock_q_by_route=rb_paths)
     if "resblock_q" in state["kernels"]:
         k = state["kernels"]["resblock_q"]
         k["launches"] = results["t2i_warm"]["launches"]["resblock_q"]
+        k["launches_by_path"] = results["t2i_warm"]["resblock_q_by_route"]
         k["launches_i2i_a"] = results["i2i_a_warm"]["launches"]["resblock_q"]
         k["path"] = "main_fused2 (int8 conv=\"fused2\", warm t2i request)"
     state["main_fused2"] = results
@@ -1990,6 +2013,8 @@ def _kernel_kind(name: str) -> str:
         return "nomax (hand)"
     if "qconv3" in n:
         return "int8 conv (hand)"
+    if "resblock_kernel" in n:
+        return "int8 ResBlock (hand)"
     if "gn_stats" in n or "gn_apply" in n or "gn_finalize" in n:
         return "gn_silu (hand)"
     if "nchwtonhwc" in n or "nhwctonchw" in n:
@@ -2066,16 +2091,20 @@ def _profile_mode(state, system, label):
     for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
         log(f"  kind {kind}: {us / iters / 1e3:.3f} ms/step ({us / iters / 1e3 / busy:.3f})")
     qconv = sum(_dev_t(e) for e in rows if "qconv3" in e.key) / iters / 1e3
+    rb = sum(_dev_t(e) for e in rows if "resblock_kernel" in e.key) / iters / 1e3
     log(f"profile {label}: device busy {busy:.3f} ms/step, of it the int8 conv (qconv3) "
-        f"{qconv:.3f} ms ({qconv / busy:.3f}) [{state.get('card')}]")
+        f"{qconv:.3f} ms ({qconv / busy:.3f}), the whole int8 ResBlock (resblock_q) "
+        f"{rb:.3f} ms ({rb / busy:.3f}) [{state.get('card')}]")
     for e in sorted(rows, key=_dev_t, reverse=True)[:12]:
         log(f"  top {_dev_t(e) / iters / 1e3:.3f} ms/step x{e.count // iters} {e.key[:90]}")
     state.setdefault("profile", {})[label] = dict(wall_ms=1e3 * wall, busy_ms=busy,
-                                                  kinds=kinds)
+                                                  kinds=kinds, resblock_q_ms=rb)
 
 
 def phase_profile(state):
-    """Profile the exact path, and int8 and int8 + ToMe once calibrated."""
+    """Profile the exact path, and int8, int8 + ToMe and int8 conv="fused2"
+    once calibrated."""
+    from vdtpu_torch.ops.quant import QuantPolicy
     system = _system(state)
     policy = system.quant_policy
     with _policy(system, None):
@@ -2088,6 +2117,8 @@ def phase_profile(state):
         _profile_mode(state, system, "int8_tome")
     finally:
         system.enable_tome(0)
+    with _policy(system, QuantPolicy(conv="fused2")):
+        _profile_mode(state, system, "fused2")
 
 
 def main() -> int:

@@ -694,6 +694,12 @@ def _resblock_args(gen, b, c, n, h, w, dtype, with_skip):
 
 
 def _resblock_close(out, ref, dtype):
+    """At most RB_MAX_OUTSIDE of the elements outside the band (two bf16 ulps
+    in bf16, 1e-5 in f32) and relative L2 within RB_MAX_REL_L2. Pass bf16's
+    band for f32 at the UNet's full widths: there millions of codes are
+    quantized, and some lie within f32 rounding of a half-integer, so a
+    last-bit difference in the GN statistics (the sums' order) flips a few
+    of them and moves every output they feed by far more than 1e-5."""
     a, r = out.float(), ref.float()
     assert bool(torch.isfinite(a).all())
     band = (1e-2 + 1.6e-2 * r.abs()) if dtype == torch.bfloat16 else (1e-5 + 1e-5 * r.abs())
@@ -703,22 +709,53 @@ def _resblock_close(out, ref, dtype):
 
 
 @pytest.mark.parametrize("b,c,n,h,w,with_skip", [
-    (2, 64, 64, 16, 16, False),     # identity skip, the cp.async (C % 64 == 0) path
-    (2, 64, 128, 8, 24, True),      # channel change: a skip tensor
-    (1, 96, 64, 24, 8, True),       # C % 64 != 0: element-wise staging of conv1
-    (2, 32, 32, 32, 32, False),     # the tiny config's 32-channel level
+    (2, 64, 64, 16, 16, False),     # identity skip, 64-channel halo chunks
+    (2, 64, 128, 8, 24, True),      # channel change: a skip tensor; 5-row tiles, ragged 3
+    (1, 96, 64, 24, 8, True),       # C % 64 != 0: 32-channel chunks; 16-row tiles, ragged 8
+    (2, 32, 32, 32, 32, False),     # the tiny config's 32-channel level: the general route
     (1, 320, 640, 16, 16, True),    # several N tiles, several groups a tile
+    (2, 32, 64, 32, 32, True),      # C != N at 32-channel chunks
+    (1, 64, 64, 10, 16, False),     # 8-row tiles, the last one 2 rows
+    # the 8 distinct conv="fused2" sites of the full-width UNet (chip_smoke.py)
+    (4, 320, 320, 64, 64, False), (4, 640, 320, 64, 64, True), (4, 960, 320, 64, 64, True),
+    (4, 320, 640, 32, 32, True), (4, 640, 640, 32, 32, False), (4, 1920, 640, 32, 32, True),
+    (4, 1280, 640, 32, 32, True), (4, 960, 640, 32, 32, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_resblock_kernel_matches_plain(gen, b, c, n, h, w, with_skip, dtype):
-    from vdtpu_torch.ops.qconv import resblock_plain, resblock_q
+    from vdtpu_torch.ops.qconv import resblock_plain, resblock_plan, resblock_q
     args = _resblock_args(gen, b, c, n, h, w, dtype, with_skip)
-    before = resblock_q.launches
+    route = resblock_plan(b, h, w, c, n, sms=torch.cuda.get_device_properties(0)
+                          .multi_processor_count).route
+    before, by_route = resblock_q.launches, resblock_q.launches_by_path[route]
     out = resblock_q(*args)
     assert resblock_q.launches == before + 1 and out.shape == (b, n, h, w)
+    assert resblock_q.launches_by_path[route] == by_route + 1
+    assert route == ("general" if c % 32 or n % 64 else "halo")
     assert out.dtype == dtype
-    _resblock_close(out, resblock_plain(*args), dtype)
+    full_width = b * c * h * w >= 4 * 320 * 32 * 32
+    _resblock_close(out, resblock_plain(*args), torch.bfloat16 if full_width else dtype)
     assert torch.equal(out, resblock_q(*args))   # fixed-order sums: deterministic
+
+
+@pytest.mark.parametrize("field,delta", [("grid", 1), ("smem_bytes", 16), ("rows", -1),
+                                         ("bn", 16), ("gn2_slots", 1), ("kc", -32),
+                                         ("bm", 128)])
+def test_resblock_kernel_refuses_a_plan_it_does_not_mirror(gen, monkeypatch, field, delta):
+    """The launch derives the plan's geometry again and refuses a mismatch
+    (cudaErrorInvalidValue), never running a tile map it did not check."""
+    import dataclasses
+    from vdtpu_torch.ops import qconv
+    args = _resblock_args(gen, 2, 64, 64, 16, 16, torch.bfloat16, False)
+    real = qconv.resblock_plan
+    plan = real(2, 16, 16, 64, 64)
+    assert plan.route == "halo"
+    bad = dataclasses.replace(plan, **{field: getattr(plan, field) + delta})
+    monkeypatch.setattr(qconv, "resblock_plan", lambda *a, **k: bad)
+    before = qconv.resblock_q.launches
+    with pytest.raises(RuntimeError, match="cudaError 1 "):
+        qconv.resblock_q(*args)
+    assert qconv.resblock_q.launches == before
 
 
 def test_resblock_flat_takes_the_jax_layout(gen):

@@ -40,7 +40,7 @@ SOURCES = {
     "nomax_fwd": ("vd_nomax_fwd",
                   [_P] * 5 + [_L] + [_I] * 5 + [_L] * 12 + [_F, _I, _P]),
     "qconv3": ("vd_qconv3", [_P] * 11 + [_I] * 9 + [_L] * 13 + [_I] * 9 + [_P]),
-    "resblock_q": ("vd_resblock_q", [_P] * 20 + [_I] * 6 + [_F] + [_L] * 10 + [_I, _P]),
+    "resblock_q": ("vd_resblock_q", [_P] * 20 + [_I] * 6 + [_F] + [_L] * 10 + [_I] * 9 + [_P]),
     "probe_s8mm": ("vd_probe_s8mm", [_P] * 3 + [_I] * 4 + [_P]),
 }
 

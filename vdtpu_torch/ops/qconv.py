@@ -22,12 +22,17 @@ counts its launches by path in ``launches_by_path``.
 
 The whole-ResBlock kernel (``conv="fused2"``) is ``csrc/resblock_q.cu``,
 counterpart of ``resblock_flat``'s ``_resblock_kernel``: GN1 statistics,
-GN1+SiLU+quantize, conv1 + bias + FiLM, the mid rounded to the output
-dtype, GN2 statistics, GN2+SiLU+quantize, conv2 + bias + skip, in one
-cooperative launch.
+GN1+SiLU+quantize, conv1 + bias + FiLM with the mid rounded to the output
+dtype and the GN2 statistics summed in its epilogue, GN2+SiLU+quantize,
+conv2 + bias + skip, in one cooperative launch whose convs run row 10's
+halo main loop. ``resblock_plan`` is its geometry (route, tile rows and
+pixels, output channels a tile, grid, shared memory, statistics slots),
+which the kernel derives again and refuses on a mismatch.
 - ``resblock_q``: NCHW in and out (the port's layout), weights
   [N, 3, 3, C] and [N, 3, 3, N];
 - ``resblock_plain``: its function in plain PyTorch;
+- ``resblock_blocked_plain``: the same in the kernel's order of work (the
+  statistics from its slots), for the tests;
 - ``resblock_flat``: the JAX signature, flat [B, H*W, C] in and out.
 
 Weights are int8 [N, 3, 3, C] (channels last), scales f32 [N]. The
@@ -333,6 +338,178 @@ def resblock_plain(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, 
     return qconv3_plain(q2, w2q, s2w, b2, sx2, 1, None, x if skip is None else skip, x.dtype)
 
 
+# the whole-ResBlock kernel's constants (csrc/resblock_q.cu)
+RB_TILES = ((256, 160), (256, 80), (128, 160), (128, 80), (128, 64))   # (bm, bn), preferred first
+RB_MIN_FILL = 0.9            # conv tiles over the slots of the waves they take
+RB_PHASE_SMEM = 128 * 68 + 4 * 64 * 4 + 64 * 8 + 16 * 8   # kPhaseSmem: the other phases' scratch
+RB_MAX_GROUPS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class ResBlockPlan:
+    """Geometry of one whole-ResBlock launch. ``route`` "halo" (both convs
+    on row 10's halo main loop, GN2 statistics from conv1's epilogue) or
+    "general" (the mma.sync implicit GEMM, GN2 statistics a pass over the
+    mid). A conv tile is ``rows`` whole output rows of one sample, at most
+    ``bm`` pixels (the block has 2 * bm threads), against ``bn`` output
+    channels; ``kc`` input channels a staged halo chunk; ``split`` CTAs
+    share a tile's channel chunks (1). ``phases`` and ``items`` are the
+    launch's phases and the work items of each (the quantize phases group
+    their 64-channel x 128-pixel tiles of x and 64-pixel steps of the mid
+    into runs that cover the grid, at run time); ``grid`` = ``per_sm``
+    blocks an SM x the card's SMs; ``gn1_slots`` / ``gn2_slots`` partial
+    sums a GroupNorm group (GN2: one per row tile on the halo route)."""
+    route: str
+    rows: int
+    bm: int
+    kc: int
+    bn: int
+    split: int
+    phases: tuple[str, ...]
+    items: tuple[int, ...]
+    smem_bytes: int
+    per_sm: int
+    grid: int
+    gn1_slots: int
+    gn2_slots: int
+    halo_h: int = 0
+    halo_w: int = 0
+
+    @property
+    def barriers(self) -> int:
+        return len(self.phases) - 1
+
+    @property
+    def conv_tiles(self) -> int:
+        return self.items[self.phases.index("conv1")]
+
+    @property
+    def fill(self) -> float:
+        """Share of the grid's slots the conv tiles fill over the waves they take."""
+        waves = -(-self.conv_tiles // self.grid)
+        return self.conv_tiles / (waves * self.grid)
+
+
+def _rb_pass(bn: int) -> int:
+    """Output channels the two convs' epilogues stage at a time (csrc P)."""
+    return 80 if bn == 160 else bn
+
+
+def resblock_plan(b: int, h: int, w: int, c: int, n: int, groups: int = 32,
+                  sms: int = NUM_SMS) -> ResBlockPlan:
+    """The whole-ResBlock kernel's plan for x [b, c, h, w] -> n channels.
+
+    The halo route takes C % 32 == 0 and N % 32 == 0: kc = 64 input
+    channels a halo chunk where both C and N divide by 64, else 32. Of the
+    (bm, bn) pairs of ``RB_TILES`` it takes the first whose conv tiles fill
+    at least ``RB_MIN_FILL`` of the grid's slots over their waves (else the
+    fullest), among those with: w <= bm (rows = min(bm // w, h) whole rows
+    a tile), bm = 256 only at kc = 64, N % bn == 0 and every GroupNorm
+    group of N inside one epilogue pass (so inside one N tile), shared
+    memory within the card's. The grid is min(2 at bm 128, 1 at 256,
+    what shared memory allows) blocks an SM x ``sms``. Everything else
+    takes the general route (128 x 64 tiles, 256 threads)."""
+    hw = h * w
+    cpg = n // groups
+    s1 = 1   # GN1 (and the general route's GN2): one slot, one item, a group
+    stat_items, quant_x = b * groups, b * -(-hw // 128) * -(-c // 64)
+    quant_mid = b * -(-hw // 64)
+    per_sm_of = lambda cap, smem: min(cap, SM_SMEM_BYTES // (smem + 1024))
+    best = None
+    if c % 32 == 0 and n % 32 == 0 and groups <= RB_MAX_GROUPS:
+        kc = 64 if c % 64 == 0 and n % 64 == 0 else 32
+        for bm, bn in RB_TILES:
+            if (bm == 256 and kc != 64) or w > bm or n % bn or _rb_pass(bn) % cpg:
+                continue
+            rows = min(bm // w, h)
+            halo_h, halo_w = rows + 2, w + 2
+            smem = max(2 * halo_h * halo_w * (kc + 16) + HALO_STAGES * bn * kc,
+                       _rb_pass(bn) * (bm + 4) * 4, bm * (_rb_pass(bn) + 1) * 4,
+                       RB_PHASE_SMEM)
+            per_sm = per_sm_of(2 if bm == 128 else 1, smem)
+            if smem > MAX_SMEM_BYTES or per_sm < 1 or halo_h * halo_w * kc // 4 >= 1 << 16:
+                continue
+            s2 = -(-h // rows)
+            tiles = b * s2 * (n // bn)
+            plan = ResBlockPlan("halo", rows, bm, kc, bn, 1,
+                                ("gn1_partials", "quantize_x", "conv1", "quantize_mid", "conv2"),
+                                (stat_items, quant_x, tiles, quant_mid, tiles), smem, per_sm,
+                                per_sm * sms, s1, s2, halo_h, halo_w)
+            if plan.fill >= RB_MIN_FILL:
+                return plan
+            if best is None or plan.fill > best.fill:
+                best = plan
+    if best is not None:
+        return best
+    smem = max(GENERAL_SMEM_BYTES, RB_PHASE_SMEM)
+    per_sm = per_sm_of(2, smem)
+    tiles = b * -(-hw // 128) * -(-n // 64)
+    return ResBlockPlan("general", 0, 128, 64, 64, 1,
+                        ("gn1_partials", "quantize_x", "conv1", "gn2_partials", "quantize_mid",
+                         "conv2"),
+                        (stat_items, quant_x, tiles, stat_items, quant_mid, tiles), smem, per_sm,
+                        per_sm * sms, s1, s1)
+
+
+def _slot_stats(slots, count: float, cpg: int, eps: float):
+    """[B, G, S, 2] partial sums -> [B, 2, C] (mean, rstd) as the kernel's
+    group_stats finishes them: the slots summed, then f32 E[v^2] - E[v]^2
+    clipped at 0."""
+    tot = slots.sum(dim=2)
+    a, q = tot[..., 0].float(), tot[..., 1].float()
+    mean = a / count
+    var = (q / count - mean * mean).clamp_min(0.0)
+    rstd = 1.0 / torch.sqrt(var + eps)
+    return torch.stack([mean, rstd], dim=1).repeat_interleave(cpg, dim=2)
+
+
+def _group_slots(v, groups: int):
+    """GN partial sums of v [B, C, H, W], one slot a (sample, group)."""
+    b, c = v.shape[:2]
+    vg = v.double().reshape(b, groups, -1)
+    return torch.stack([vg.sum(2), (vg * vg).sum(2)], -1)[:, :, None]
+
+
+def resblock_blocked_plain(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, s2w, b2,
+                           sx2, skip=None, groups: int = 32, eps: float = 1e-5,
+                           plan: ResBlockPlan | None = None):
+    """``resblock_plain`` in the kernel's order of work (tests only): GN1
+    statistics from one slot a group; on the halo route the GN2
+    statistics from the partial sums that each conv1 tile (row tile x N
+    tile) writes for each GroupNorm group of its channels, over the mid as
+    rounded to x's dtype; on the general route from one slot a group of
+    the mid. Slots are summed in f64 (the kernel's f32 sums differ in
+    their last bits; the card tests hold those); every slot is written
+    exactly once."""
+    b, c, h, w = x.shape
+    n = w1q.shape[0]
+    plan = plan or resblock_plan(b, h, w, c, n, groups)
+    hw, cpg1, cpg2 = h * w, c // groups, n // groups
+    st1 = _slot_stats(_group_slots(x, groups), float(hw * cpg1), cpg1, eps)
+    q1 = gn_quantize_plain(x, st1, gn1_w, gn1_b, sx1)
+    mid = qconv3_plain(q1, w1q, s1w, b1, sx1, 1, film, None, x.dtype)
+    if plan.route == "halo":
+        m = mid.double()
+        slots = torch.full((b, groups, plan.gn2_slots, 2), float("nan"), dtype=torch.float64)
+        for mt in range(plan.gn2_slots):            # conv1's row tiles of each sample
+            rows = slice(mt * plan.rows, min((mt + 1) * plan.rows, h))
+            for nt in range(n // plan.bn):          # its N tiles
+                for gl in range(plan.bn // cpg2):   # the groups of the tile's channels
+                    grp = nt * plan.bn // cpg2 + gl
+                    if not torch.isnan(slots[:, grp, mt]).all():
+                        raise AssertionError(f"slot ({grp}, {mt}) written twice")
+                    blk = m[:, grp * cpg2:(grp + 1) * cpg2, rows, :]
+                    slots[:, grp, mt, 0] = blk.sum((1, 2, 3))
+                    slots[:, grp, mt, 1] = (blk * blk).sum((1, 2, 3))
+        if torch.isnan(slots).any():
+            raise AssertionError("a GN2 slot was never written")
+    else:
+        slots = _group_slots(mid, groups)
+    st2 = _slot_stats(slots, float(hw * cpg2), cpg2, eps)
+    q2 = gn_quantize_plain(mid, st2, gn2_w, gn2_b, sx2)
+    return qconv3_plain(q2, w2q, s2w, b2, sx2, 1, None, x if skip is None else skip, x.dtype)
+
+
 def _pixel_strides(name, t4):
     """(batch, pixel, channel) strides of a logical [B, C, H, W] view whose
     pixels share one stride (NCHW, or flat [B, H*W, C] permuted)."""
@@ -341,6 +518,9 @@ def _pixel_strides(name, t4):
         raise ValueError(f"resblock_q: {name} needs one pixel stride (NCHW or flat NHWC), "
                          f"got strides {t4.stride()}")
     return sb, sw, sc
+
+
+_SMS: dict[int, int] = {}   # device index -> SMs
 
 
 def _resblock_launch(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, s2w, b2, sx2,
@@ -357,8 +537,9 @@ def _resblock_launch(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q
                 or t.data_ptr() % 16):
             raise ValueError(f"resblock_q: {name} must be contiguous 16-byte aligned int8 "
                              f"{list(shape)}, got {t.dtype} {tuple(t.shape)}")
-    if c % groups or n % groups:
-        raise ValueError(f"resblock_q: {c} and {n} channels must divide into {groups} groups")
+    if c % groups or n % groups or groups > RB_MAX_GROUPS:
+        raise ValueError(f"resblock_q: {c} and {n} channels must divide into {groups} groups "
+                         f"(at most {RB_MAX_GROUPS})")
     if skip is None and c != n:
         raise ValueError("resblock_q: an identity skip needs C == N")
     if skip is not None and (tuple(skip.shape) != (b, n, h, w) or skip.dtype != x.dtype):
@@ -376,12 +557,15 @@ def _resblock_launch(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q
     tensors = [x, w1q, w2q, sx1, sx2, film, out, *vecs] + ([skip] if skip is not None else [])
     if any(t.device != dev for t in tensors):
         raise ValueError("resblock_q: every tensor must be on the input's device")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    plan = resblock_plan(b, h, w, c, n, groups, _SMS[index])
     hw = h * w
-    splits = -(-hw // 256)  # GN statistics items per (sample, group): csrc kPChunk
     mid = torch.empty((b, hw, n), dtype=x.dtype, device=dev)
     s8 = torch.empty((b * hw * max(c, n),), dtype=torch.int8, device=dev)
-    part = torch.empty((b * groups * splits * 2,), dtype=torch.float32, device=dev)
-    stats = torch.empty((4 * b * groups,), dtype=torch.float32, device=dev)
+    part1 = torch.empty((b * groups * plan.gn1_slots * 2,), dtype=torch.float32, device=dev)
+    part2 = torch.empty((b * groups * plan.gn2_slots * 2,), dtype=torch.float32, device=dev)
     sk = x if skip is None else skip
     strides = (*_pixel_strides("x", x), *_pixel_strides("skip", sk), *_pixel_strides("out", out),
                film.stride(0))
@@ -394,11 +578,15 @@ def _resblock_launch(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q
             x.data_ptr(), ptr(skip), out.data_ptr(), w1q.data_ptr(), s1w_.data_ptr(),
             b1_.data_ptr(), g1w_.data_ptr(), g1b_.data_ptr(), sx1.data_ptr(), w2q.data_ptr(),
             s2w_.data_ptr(), b2_.data_ptr(), g2w_.data_ptr(), g2b_.data_ptr(), sx2.data_ptr(),
-            film.data_ptr(), mid.data_ptr(), s8.data_ptr(), part.data_ptr(), stats.data_ptr(),
-            b, h, w, c, n, groups, float(eps), *strides, dtype, stream)
+            film.data_ptr(), mid.data_ptr(), s8.data_ptr(), part1.data_ptr(), part2.data_ptr(),
+            b, h, w, c, n, groups, float(eps), *strides, dtype,
+            1 if plan.route == "halo" else 0, plan.rows, plan.kc, plan.bn, plan.bm,
+            plan.smem_bytes, plan.grid, plan.gn2_slots, stream)
     if rc != 0:
-        raise RuntimeError(f"resblock_q launch failed: cudaError {rc} (a cooperative launch "
-                           f"needs every block resident)")
+        raise RuntimeError(f"resblock_q launch failed: cudaError {rc} ({plan}; a cooperative "
+                           f"launch needs every block resident)")
+    resblock_q.launches += 1
+    resblock_q.launches_by_path[plan.route] += 1
 
 
 def resblock_q(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, s2w, b2, sx2,
@@ -418,11 +606,11 @@ def resblock_q(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, s2w,
     out = torch.empty((b, w1q.shape[0], h, w), dtype=x.dtype, device=x.device)
     _resblock_launch(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, s2w, b2, sx2,
                      skip, groups, eps, out)
-    resblock_q.launches += 1
     return out
 
 
 resblock_q.launches = 0
+resblock_q.launches_by_path = {"halo": 0, "general": 0}   # resblock_plan's route -> launches
 
 
 def resblock_flat(x, gn1, w1q, s1w, b1, sx1, film, gn2, w2q, s2w, b2, sx2, h: int, w: int,
@@ -445,5 +633,4 @@ def resblock_flat(x, gn1, w1q, s1w, b1, sx1, film, gn2, w2q, s2w, b2, sx2, h: in
         return y.permute(0, 2, 3, 1).reshape(b, m, n)
     out = torch.empty((b, m, n), dtype=x.dtype, device=x.device)
     _resblock_launch(nchw(x), *args, groups, eps, nchw(out))
-    resblock_q.launches += 1
     return out

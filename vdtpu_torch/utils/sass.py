@@ -3,13 +3,16 @@ instructions one iteration of each kernel's hottest loop issues, and how
 many that is per unit of work (a score, for the attention kernels).
 
     python -m vdtpu_torch.utils.sass flash_fwd nomax_fwd flash_bwd   # where nvcc is
+    python -m vdtpu_torch.utils.sass resblock_q qconv3
 
 It builds (or finds) ``build/kernels/lib<name>-*.so`` through
 ``vdtpu_torch.ops.kernels.build``, disassembles it with the toolkit's
 ``cuobjdump -sass``, and for every kernel takes the innermost loop (a
-backward branch) with a tensor-core instruction in its body. Each
-instruction is counted once, as written; a predicated instruction counts
-whether or not it runs.
+backward branch) with a tensor-core instruction in its body, a wgmma one
+where the kernel has one (the whole-ResBlock kernel also holds the general
+route's mma.sync loop). Each instruction is counted once, as written; a
+predicated instruction counts whether or not it runs. Each row says how
+many wgmma and mma.sync instructions the loop holds.
 """
 from __future__ import annotations
 
@@ -30,6 +33,12 @@ _BRA_RE = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
 # wgmma kernel (csrc/attn_fwd_sm90.cuh) a 16 x 128 tile
 WORK_PER_ITER = {"attn_fwd_wg_kernel": 16 * 128 // 32, "flash_fwd_kernel": 16 * 64 // 32,
                  "nomax_fwd_kernel": 16 * 64 // 32, "flash_bwd": 16 * 64 // 32}
+# the int8 convs' halo main loop (csrc/qconv_sm90.cuh::halo_tile_s8, in the
+# s8 conv kernel and the whole-ResBlock kernel, templates <T, KC, BN, BM>):
+# an iteration is one (chunk, tap) step, KC / 32 x BN / 8 products of 64
+# pixels x 8 channels x 32 input channels for each warpgroup
+HALO_LOOP_KERNELS = ("qconv3_halo_kernel", "resblock_kernel")
+_WGMMA, _MMA_SYNC = ("HGMMA", "IGMMA"), ("HMMA", "IMMA")
 _CLASSES = (("mma", ("HMMA", "IMMA", "HGMMA", "IGMMA")), ("exp", ("MUFU",)),
             ("fp32", ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "FSETP")),
             ("pack", ("F2FP",)), ("shared", ("LDS", "LDSM", "STS")),
@@ -69,16 +78,25 @@ def main_loop(instrs: list[tuple[int, str]]) -> list[str]:
     tensor-core instruction. A backward branch from a retry block the
     compiler placed out of line (an mbarrier wait's) spans most of the
     kernel and holds every product, so "the most products" would pick it."""
-    best: list[str] = []
+    loops = []
     for i, (addr, text) in enumerate(instrs):
         m = _BRA_RE.search(text)
         if not m or int(m.group(1), 16) >= addr:
             continue
         target = int(m.group(1), 16)
         body = [t for a, t in instrs[: i + 1] if a >= target]
-        if any(_opcode(t) in _CLASSES[0][1] for t in body) and (not best or len(body) < len(best)):
-            best = body
-    return best
+        if any(_opcode(t) in _CLASSES[0][1] for t in body):
+            loops.append(body)
+    wgmma = [b for b in loops if any(_opcode(t) in _WGMMA for t in b)]
+    return min(wgmma or loops, key=len, default=[])
+
+
+def _work(fn: str, lib: str) -> int | None:
+    """Units of work a thread's warp does in one main-loop iteration."""
+    if any(k in fn for k in HALO_LOOP_KERNELS):
+        kc, bn = (int(v) for v in re.findall(r"Li(\d+)E", fn)[:2])
+        return (kc // 32) * (bn // 8)
+    return next((w for k, w in WORK_PER_ITER.items() if k in fn or k in lib), None)
 
 
 def loop_counts(name: str) -> dict[str, dict]:
@@ -93,11 +111,12 @@ def loop_counts(name: str) -> dict[str, dict]:
         body = main_loop(instrs)
         if not body:
             continue
-        work = next((w for k, w in WORK_PER_ITER.items() if k in fn or k in name), None)
+        work = _work(fn, name)
         ops = collections.Counter(_opcode(t) for t in body)
         classes = {c: sum(ops[o] for o in names) for c, names in _CLASSES}
         classes["other"] = len(body) - sum(classes.values())
-        row = dict(loop_instructions=len(body), by_class=classes,
+        row = dict(loop_instructions=len(body), wgmma=sum(ops[o] for o in _WGMMA),
+                   mma_sync=sum(ops[o] for o in _MMA_SYNC), by_class=classes,
                    opcodes=dict(ops.most_common()))
         if work:
             row["per_unit"] = len(body) / work
