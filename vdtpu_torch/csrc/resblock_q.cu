@@ -113,9 +113,9 @@ struct Params {
   const float* be2;
   void* mid;           // [B, H*W, N] of T
   int8_t* s8;          // [B, H*W, max(C, N)]
-  float* part1;        // [B * G][S1][2]
+  float* part1;        // [B * G][2]: one slot a group
   float* part2;        // [B * G][S2][2]
-  int B, H, W, C, N, G, S1, S2, route;
+  int B, H, W, C, N, G, S2, route;
   float eps;
   long long sxb, sxp, sxc;
 };
@@ -241,7 +241,7 @@ __device__ __noinline__ void quantize_x(const Params& p) {
   // the parameters this phase reads, once (through the reference the
   // compiler could not keep them across the stores below)
   const T* v = static_cast<const T*>(p.x);
-  const int HW = p.H * p.W, C = p.C, G = p.G, S1 = p.S1, cpg = C / G;
+  const int HW = p.H * p.W, C = p.C, G = p.G, cpg = C / G;
   const long long sxb = p.sxb, sxp = p.sxp, sxc = p.sxc;
   const float* part1 = p.part1;
   const float* g1 = p.g1;
@@ -279,7 +279,7 @@ __device__ __noinline__ void quantize_x(const Params& p) {
     if (bc != cur) {
       const int g_lo = c0 / cpg, ng = (c0 + nc - 1) / cpg - g_lo + 1;
       __syncthreads();  // every read of gst and chan is done
-      if (tid < ng) gst[tid] = group_stats(part1, b * G + g_lo + tid, S1, count, eps);
+      if (tid < ng) gst[tid] = group_stats(part1, b * G + g_lo + tid, 1, count, eps);
       __syncthreads();
       if (tid < nc) {
         const int c = c0 + tid;
@@ -660,7 +660,7 @@ __global__ void __launch_bounds__(2 * BM, BM == 128 ? 2 : 1)
       grid.sync();
       gn_partials<T, NT>(mid, (long long)HW * p.N, p.N, 1, p.B, p.N, HW, p.G, p.part2);
       grid.sync();
-      quantize_mid<T, NT>(p, p.part2, p.S1);
+      quantize_mid<T, NT>(p, p.part2, 1);
       grid.sync();
       conv_general<T, true>(p, smem);
       return;
@@ -795,7 +795,6 @@ extern "C" int vd_resblock_q(const void* x, const void* skip, void* out, const v
                              int dtype, int route, int rows, int kc, int bn, int bm, int smem,
                              int grid, int s2, void* stream) {
   const int HW = H * W;
-  const int s1 = 1;  // GN1 (and the general route's GN2): one slot a group
   if (B < 1 || HW < 1 || G < 1 || G > kMaxGroups || C % G != 0 || N % G != 0 ||
       (skip == nullptr && C != N))
     return int(cudaErrorInvalidValue);
@@ -809,7 +808,7 @@ extern "C" int vd_resblock_q(const void* x, const void* skip, void* out, const v
                     (rows + 2) * (W + 2) * (kc / 4) < (1 << 16) &&
                     smem == plan_smem(kHalo, kc, bn, bm, (rows + 2) * (W + 2));
     if (!ok) return int(cudaErrorInvalidValue);
-  } else if (route != kGeneral || bm != 128 || s2 != s1 ||
+  } else if (route != kGeneral || bm != 128 || s2 != 1 ||  // one GN2 slot a group
              smem != plan_smem(kGeneral, 0, 0, 128, 0)) {
     return int(cudaErrorInvalidValue);
   }
@@ -835,7 +834,7 @@ extern "C" int vd_resblock_q(const void* x, const void* skip, void* out, const v
   p.part1 = static_cast<float*>(part1);
   p.part2 = static_cast<float*>(part2);
   p.B = B; p.H = H; p.W = W; p.C = C; p.N = N; p.G = G;
-  p.S1 = s1; p.S2 = s2; p.route = route;
+  p.S2 = s2; p.route = route;
   p.eps = eps;
   p.sxb = sxb; p.sxp = sxp; p.sxc = sxc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

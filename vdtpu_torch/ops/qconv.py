@@ -357,8 +357,9 @@ class ResBlockPlan:
     launch's phases and the work items of each (the quantize phases group
     their 64-channel x 128-pixel tiles of x and 64-pixel steps of the mid
     into runs that cover the grid, at run time); ``grid`` = ``per_sm``
-    blocks an SM x the card's SMs; ``gn1_slots`` / ``gn2_slots`` partial
-    sums a GroupNorm group (GN2: one per row tile on the halo route)."""
+    blocks an SM x the card's SMs; ``gn2_slots`` partial sums a GroupNorm
+    group of the mid (one per row tile on the halo route; GN1's, and GN2's
+    on the general route, are one a group)."""
     route: str
     rows: int
     bm: int
@@ -370,7 +371,6 @@ class ResBlockPlan:
     smem_bytes: int
     per_sm: int
     grid: int
-    gn1_slots: int
     gn2_slots: int
     halo_h: int = 0
     halo_w: int = 0
@@ -411,8 +411,7 @@ def resblock_plan(b: int, h: int, w: int, c: int, n: int, groups: int = 32,
     takes the general route (128 x 64 tiles, 256 threads)."""
     hw = h * w
     cpg = n // groups
-    s1 = 1   # GN1 (and the general route's GN2): one slot, one item, a group
-    stat_items, quant_x = b * groups, b * -(-hw // 128) * -(-c // 64)
+    stat_items, quant_x = b * groups, b * -(-hw // 128) * -(-c // 64)   # one GN1 item a group
     quant_mid = b * -(-hw // 64)
     per_sm_of = lambda cap, smem: min(cap, SM_SMEM_BYTES // (smem + 1024))
     best = None
@@ -434,7 +433,7 @@ def resblock_plan(b: int, h: int, w: int, c: int, n: int, groups: int = 32,
             plan = ResBlockPlan("halo", rows, bm, kc, bn, 1,
                                 ("gn1_partials", "quantize_x", "conv1", "quantize_mid", "conv2"),
                                 (stat_items, quant_x, tiles, quant_mid, tiles), smem, per_sm,
-                                per_sm * sms, s1, s2, halo_h, halo_w)
+                                per_sm * sms, s2, halo_h, halo_w)
             if plan.fill >= RB_MIN_FILL:
                 return plan
             if best is None or plan.fill > best.fill:
@@ -448,7 +447,7 @@ def resblock_plan(b: int, h: int, w: int, c: int, n: int, groups: int = 32,
                         ("gn1_partials", "quantize_x", "conv1", "gn2_partials", "quantize_mid",
                          "conv2"),
                         (stat_items, quant_x, tiles, stat_items, quant_mid, tiles), smem, per_sm,
-                        per_sm * sms, s1, s1)
+                        per_sm * sms, 1)
 
 
 def _slot_stats(slots, count: float, cpg: int, eps: float):
@@ -564,7 +563,7 @@ def _resblock_launch(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q
     hw = h * w
     mid = torch.empty((b, hw, n), dtype=x.dtype, device=dev)
     s8 = torch.empty((b * hw * max(c, n),), dtype=torch.int8, device=dev)
-    part1 = torch.empty((b * groups * plan.gn1_slots * 2,), dtype=torch.float32, device=dev)
+    part1 = torch.empty((b * groups * 2,), dtype=torch.float32, device=dev)
     part2 = torch.empty((b * groups * plan.gn2_slots * 2,), dtype=torch.float32, device=dev)
     sk = x if skip is None else skip
     strides = (*_pixel_strides("x", x), *_pixel_strides("skip", sk), *_pixel_strides("out", out),
