@@ -60,20 +60,24 @@
 // reading the parameters in place: __grid_constant__), so their registers
 // do not crowd the conv main loop's 80 accumulators a thread (with them
 // inlined, ptxas spilled inside the BN = 160 loop). The tile geometry
-// comes from
-// vdtpu_torch/ops/qconv.py::resblock_plan (rows, 128- or 256-pixel tiles,
-// 160, 80 or 64 output channels a tile, chosen so the conv tiles fill a
-// wave of the grid at the UNet's sites), which the launch checks against
-// its own derivation and refuses on a mismatch. A shape the halo loop does
-// not take (C or N % 32 != 0, W > 256, shared memory) runs the general
+// comes from vdtpu_torch/ops/qconv.py::resblock_plan (rows, 128- or
+// 256-pixel tiles, 160, 80 or 64 output channels a tile holding whole
+// GroupNorm groups, chosen so the conv tiles fill a wave of the grid at
+// the UNet's sites), which the launch checks against its own derivation
+// and refuses on a mismatch. A shape the halo loop does not take (C or N
+// % 32 != 0, no such N tile, W > 256, shared memory) runs the general
 // route in the same launch: the mma.sync implicit GEMM of qconv_tile.cuh
 // for both convs and a statistics pass over the mid (five barriers).
+// Measured against the first version (PERF.md row 11): 0.4713 -> 0.1865 ms
+// at [4, 320, 64, 64] -> 320, still 1.19x the port's per-site int8 chain
+// there (the conv phases trail row 10's own kernel); under that chain at
+// the 32^2 sites.
 // Every sum runs in a fixed order (no float atomics), so the result is
 // deterministic. Data that other blocks wrote earlier in the launch
 // (partials, the mid, the codes) is read through L2 (ld.global.cg or
 // cp.async.cg), never from a block's own L1. Scratch comes from the
 // wrapper. The launch is refused, never replaced, if the grid cannot be
-// resident. Measured (chip_smoke.py, NVIDIA H100 80GB HBM3): PERF.md row 11.
+// resident. Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3.
 
 #include <algorithm>
 #include <cooperative_groups.h>
