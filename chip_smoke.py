@@ -16,7 +16,9 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             events); the "eager" times are the same calls launched one by
             one, host launch costs included. The attention forwards are
             held on both of their kernels (the wgmma one at the main
-            paths' shapes, the mma.sync one at ``*_MMA_SHAPES``), each
+            paths' shapes, the mma.sync one at ``*_MMA_SHAPES``), the
+            whole-ResBlock kernel on both of its routes (halo at the
+            UNet's sites, general at ``RESBLOCK_GENERAL_SHAPES``), each
             launch's path asserted
   main      vd_four_flow_v1-0 at full width in bf16, seeded random weights,
             inference_t2i at 512^2, n = 2, DDIM-50, CFG 7.5, cold then warm;
@@ -140,6 +142,10 @@ GN_SHAPES = [(4, 320, 64, 64), (4, 640, 32, 32), (4, 1280, 16, 16), (4, 2560, 8,
 RESBLOCK_SHAPES = [(4, 320, 64, 64, 320), (4, 640, 64, 64, 320), (4, 960, 64, 64, 320),
                    (4, 320, 32, 32, 640), (4, 640, 32, 32, 640), (4, 1920, 32, 32, 640),
                    (4, 1280, 32, 32, 640), (4, 960, 32, 32, 640)]
+# a ResBlock that takes the kernel's general route (the mma.sync implicit
+# GEMM, GN2 statistics a pass over the mid), which no UNet site reaches:
+# 96 output channels, which no halo N tile divides, at the 64^2 map
+RESBLOCK_GENERAL_SHAPES = [(4, 320, 64, 64, 96)]
 # |kernel - plain| <= ATOL + RTOL * |plain|: two bf16 ulps at the output's
 # magnitude; both sides read the same bf16 inputs and differ only in the
 # order of f32 sums and where the output is rounded
@@ -578,16 +584,18 @@ def _resblock_case(spec, gen):
     (gn_silu_q + qconv3, twice), its conv="fused" chain (gn_stats +
     qconv3_gn, twice), and cuDNN's bf16 ResBlock (F.group_norm + F.silu +
     F.conv2d, twice, and the adds). No one PyTorch call computes an int8
-    ResBlock: PyTorch has no CUDA int8 convolution."""
+    ResBlock: PyTorch has no CUDA int8 convolution. The launch must take
+    the route ``resblock_plan`` gives, which must be the halo route at the
+    UNet's sites and the general route at ``RESBLOCK_GENERAL_SHAPES``."""
     import torch
     import torch.nn.functional as F
     from vdtpu_torch.ops.gn_silu import gn_silu_q, gn_stats
     from vdtpu_torch.ops.qconv import (qconv3, qconv3_gn, resblock_plain, resblock_plan,
-                                       resblock_q)
+                                       resblock_q, sm_count)
     from vdtpu_torch.ops.quant import quantize_weight
     b, c, h, w, n = spec
-    plan = resblock_plan(b, h, w, c, n, sms=torch.cuda.get_device_properties(0)
-                         .multi_processor_count)
+    plan = resblock_plan(b, h, w, c, n, sms=sm_count(0))
+    want = "general" if spec in RESBLOCK_GENERAL_SHAPES else "halo"
     rnd = lambda *sh: torch.randn(sh, device="cuda", generator=gen)
     bf = torch.bfloat16
     x = (rnd(b, c, h, w) * 2 + 0.5).to(bf)
@@ -605,9 +613,9 @@ def _resblock_case(spec, gen):
     plain = lambda: resblock_plain(*args)
     by_path = dict(resblock_q.launches_by_path)
     out = kern()
-    took = [k for k, v in resblock_q.launches_by_path.items() if v != by_path[k]]
+    took = {k: v - by_path[k] for k, v in resblock_q.launches_by_path.items() if v != by_path[k]}
     err, rel, outside, ok = compare_resblock(out, plain())
-    ok = ok and took == [plan.route]
+    ok = ok and plan.route == want and took == {want: 1}
     ok = ok and torch.equal(out, kern())   # fixed-order sums: deterministic
     sk = x if skip is None else skip
 
@@ -753,7 +761,8 @@ def phase_kernels(state):
         ("qconv3", "cuda", "vdtpu_torch/csrc/qconv3.cu",
          "vdtpu/ops/pallas/qconv.py:149", _qconv_case, QCONV_SHAPES),
         ("resblock_q", "cuda", "vdtpu_torch/csrc/resblock_q.cu",
-         "vdtpu/ops/pallas/qconv.py:235", _resblock_case, RESBLOCK_SHAPES),
+         "vdtpu/ops/pallas/qconv.py:235", _resblock_case,
+         RESBLOCK_SHAPES + RESBLOCK_GENERAL_SHAPES),
         ("probe_s8mm", "cuda", "vdtpu_torch/csrc/probe_s8mm.cu",
          "scripts/mosaic_probe.py:35", _probe_s8mm_case, PROBE_MM_SHAPES),
         ("probe_shift", "triton", "vdtpu_torch/ops/probes.py",
@@ -1646,17 +1655,16 @@ def _fused2_launches(system, c_type: str, with_decode: bool = True):
 
 def phase_main_fused2(state):
     import torch
-    from vdtpu_torch.ops.qconv import resblock_plain, resblock_plan, resblock_q
+    from vdtpu_torch.ops.qconv import resblock_plain, resblock_plan, resblock_q, sm_count
     from vdtpu_torch.ops.quant import QuantPolicy
     from vdtpu_torch.serving.api import VDInference
     system = _system(state)
     calib_s = _calibrate(state, system, "main_fused2")
     sites = _fused2_sites(system)
     # launches by resblock_plan route of a request (UNet batch 4: 2 images x CFG)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     expect_paths = {"halo": 0, "general": 0}
     for c, n, side in sites:
-        expect_paths[resblock_plan(4, side, side, c, n, sms=sms).route] += STEPS
+        expect_paths[resblock_plan(4, side, side, c, n, sms=sm_count(0)).route] += STEPS
     log(f"main_fused2: {len(sites)} fused2 ResBlocks per UNet call (C_in, C_out, side): "
         f"{sites}")
     results = {"calibration_s": calib_s, "sites": sites}

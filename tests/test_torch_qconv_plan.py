@@ -89,6 +89,13 @@ def test_plan_n_tiles():
     assert qconv3_plan(2, 9, 7, 64, 72, 1).bn == 64
 
 
+def test_plan_split_counts_the_card_sms():
+    """The split of the channel chunks is decided on the card's SMs, the
+    count the whole-ResBlock plan takes too (``sm_count``)."""
+    assert qconv3_plan(4, 16, 16, 1280, 1280, 1, sms=132).splitk == 2
+    assert qconv3_plan(4, 16, 16, 1280, 1280, 1, sms=32).splitk == 1   # 128 CTAs: a wave over
+
+
 def test_plan_general_cases():
     assert qconv3_plan(2, 16, 16, 4, 64, 1).path == "general"     # C % 32 != 0
     assert qconv3_plan(2, 9, 7, 40, 24, 2).path == "general"

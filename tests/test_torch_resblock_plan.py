@@ -13,8 +13,8 @@ import torch
 
 from test_torch_fused2 import _resblock_inputs, _to
 from vdtpu.ops.pallas import qconv as jqc
-from vdtpu_torch.ops.qconv import (MAX_SMEM_BYTES, RB_MIN_FILL, _rb_pass, resblock_blocked_plain,
-                                   resblock_plain, resblock_plan)
+from vdtpu_torch.ops.qconv import (HALO_STAGES, MAX_SMEM_BYTES, RB_MIN_FILL, _rb_pass,
+                                   resblock_blocked_plain, resblock_plain, resblock_plan)
 
 torch.set_num_threads(2)
 
@@ -29,24 +29,28 @@ FULL_WIDTH_SITES = [(4, 320, 64, 64, 320), (4, 640, 64, 64, 320), (4, 960, 64, 6
 # general route (N % 32 != 0 for the halo's N tiles, C % 32 != 0)
 TINY_SITES = [(2, 64, 16, 16, 64), (2, 64, 8, 24, 128), (1, 96, 24, 8, 64),
               (2, 32, 32, 32, 64), (1, 320, 16, 16, 640)]
-GENERAL_SITES = [(2, 32, 32, 32, 32), (1, 4, 8, 8, 32)]
+GENERAL_SITES = [(2, 32, 32, 32, 32), (1, 4, 8, 8, 32), (4, 320, 64, 64, 96)]
 
 
 def _check_halo_plan(b, c, h, w, n, plan):
     groups = 32
     cpg = n // groups
-    assert plan.route == "halo" and plan.split == 1
+    assert plan.route == "halo"
     assert plan.barriers == 4 and plan.phases[2] == "conv1" and plan.phases[-1] == "conv2"
     assert c % plan.kc == 0 and n % plan.kc == 0 and n % plan.bn == 0
     assert plan.rows == min(plan.bm // w, h) and plan.rows * w <= plan.bm
-    assert plan.smem_bytes <= MAX_SMEM_BYTES
-    assert plan.grid == plan.per_sm * 132 and plan.per_sm == (2 if plan.bm == 128 else 1)
+    # the halo of a tile (csrc: rows + 2 by w + 2 pixels), double-buffered,
+    # and the weight ring fit the block's shared memory, which fits the card
+    halo_h, halo_w = plan.rows + 2, w + 2
+    assert 2 * halo_h * halo_w * (plan.kc + 16) + HALO_STAGES * plan.bn * plan.kc \
+        <= plan.smem_bytes <= MAX_SMEM_BYTES
+    assert plan.grid == (2 if plan.bm == 128 else 1) * 132
     # no GroupNorm group straddles an N tile, nor one of the epilogue's passes
     assert plan.bn % cpg == 0 and _rb_pass(plan.bn) % cpg == 0 and plan.bn % _rb_pass(plan.bn) == 0
     # every (sample, pixel, channel) of the conv output exactly once
     tiles_img = -(-h // plan.rows)
     ntn = n // plan.bn
-    assert plan.conv_tiles == b * tiles_img * ntn == plan.items[4]
+    assert plan.conv_tiles == b * tiles_img * ntn
     cover = np.zeros((b, h, w, n), np.int32)
     slots = np.zeros((b, groups, plan.gn2_slots), np.int32)
     for item in range(plan.conv_tiles):     # csrc conv_halo: make_tile(item / ntn, item % ntn)
@@ -63,8 +67,6 @@ def _check_halo_plan(b, c, h, w, n, plan):
     # halo reads (csrc a_row / tap_offset): every lane's row, clamped to the
     # tile's last valid pixel, and each tap's shift stay inside the staged
     # halo and land on the image pixel (y + dy - 1, x + dx - 1)
-    halo_h, halo_w = plan.halo_h, plan.halo_w
-    assert (halo_h, halo_w) == (plan.rows + 2, w + 2)
     for r0 in range(0, h, plan.rows):
         valid = min(plan.rows, h - r0) * w
         m = np.minimum(np.arange(plan.bm), valid - 1)

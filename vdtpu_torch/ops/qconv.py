@@ -48,6 +48,7 @@ no integer convolution).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -100,8 +101,18 @@ HALO_STAGES = 4              # kStages: the weight ring
 EPILOGUE_CHANNELS = 32       # kEpiCh: f32 output rows the epilogue stages at a time
 GENERAL_SMEM_BYTES = 2 * (128 + 64) * (64 + 16)   # the general path's static tiles
 WIDE_TILE_MIN_BLOCKS = 128   # 256-pixel tiles where they still fill a wave of 132 SMs
-NUM_SMS = 132
+NUM_SMS = 132                # the plans' default: an H100 SXM
 SM_SMEM_BYTES = 233_472      # shared memory an SM holds for its blocks (228 KB)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, which both launches plan for."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +139,7 @@ class QConvPlan:
 
 
 def qconv3_plan(b: int, h: int, w: int, c: int, n: int, stride: int, gn: bool = False,
-                aligned: bool = True, raw_elt: int = 0) -> QConvPlan:
+                aligned: bool = True, raw_elt: int = 0, sms: int = NUM_SMS) -> QConvPlan:
     """The kernel's tile plan for input [b, c, h, w] -> n channels; ``gn``:
     the GroupNorm prologue (``qconv3_gn``).
 
@@ -146,7 +157,8 @@ def qconv3_plan(b: int, h: int, w: int, c: int, n: int, stride: int, gn: bool = 
     (pixel stride 1, 16-byte aligned) may be staged in shared memory, two
     chunks' worth, where they fit. The s8 input splits the channel chunks
     over two CTAs when twice the grid still fits one wave of resident
-    blocks (the small maps). Everything else takes the general path."""
+    blocks on ``sms`` SMs (the small maps). Everything else takes the
+    general path."""
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     general = QConvPlan("general", 0, 64, 64, (-(-b * ho * wo // 128), -(-n // 64)),
                         GENERAL_SMEM_BYTES)
@@ -175,7 +187,7 @@ def qconv3_plan(b: int, h: int, w: int, c: int, n: int, stride: int, gn: bool = 
     splitk = 1
     split_smem = max(smem, bm * bn * 4)   # the second CTA's s32 sums, handed over
     per_sm = min(1 if bm > 128 else 2, SM_SMEM_BYTES // (split_smem + 1024))
-    if not gn and c // kc >= 2 and 2 * grid[0] * grid[1] <= NUM_SMS * per_sm:
+    if not gn and c // kc >= 2 and 2 * grid[0] * grid[1] <= sms * per_sm:
         splitk, smem = 2, split_smem
     return QConvPlan("halo", rows, kc, bn, grid, smem, halo_h, halo_w, bm, raw, splitk)
 
@@ -233,7 +245,8 @@ def _launch(x4, in_kind, wq, w_scale, bias, s_x, stride, add_vec, res4, out4,
     elt = x4.element_size()
     rows_aligned = (in_kind == 1 and x4.stride(2) == 1 and x4.data_ptr() % 16 == 0
                     and all(s * elt % 16 == 0 for s in (x4.stride(0), x4.stride(1), x4.stride(3))))
-    plan = qconv3_plan(b, h, w, c, n, stride, in_kind == 1, aligned, elt if rows_aligned else 0)
+    plan = qconv3_plan(b, h, w, c, n, stride, in_kind == 1, aligned, elt if rows_aligned else 0,
+                       sm_count(_device_index(dev)))
     ptr = lambda t: 0 if t is None else t.data_ptr()
     rs = res4.stride() if res4 is not None else (0, 0, 0, 0)
     lib = load("qconv3")
@@ -352,36 +365,25 @@ class ResBlockPlan:
     "general" (the mma.sync implicit GEMM, GN2 statistics a pass over the
     mid). A conv tile is ``rows`` whole output rows of one sample, at most
     ``bm`` pixels (the block has 2 * bm threads), against ``bn`` output
-    channels; ``kc`` input channels a staged halo chunk; ``split`` CTAs
-    share a tile's channel chunks (1). ``phases`` and ``items`` are the
-    launch's phases and the work items of each (the quantize phases group
-    their 64-channel x 128-pixel tiles of x and 64-pixel steps of the mid
-    into runs that cover the grid, at run time); ``grid`` = ``per_sm``
-    blocks an SM x the card's SMs; ``gn2_slots`` partial sums a GroupNorm
-    group of the mid (one per row tile on the halo route; GN1's, and GN2's
-    on the general route, are one a group)."""
+    channels; ``kc`` input channels a staged halo chunk. ``phases`` are the
+    launch's phases, a grid barrier between each two; ``conv_tiles`` the
+    tiles of each conv phase; ``grid`` the blocks (resident on every SM);
+    ``gn2_slots`` partial sums a GroupNorm group of the mid (one per row
+    tile on the halo route, one on the general)."""
     route: str
     rows: int
     bm: int
     kc: int
     bn: int
-    split: int
     phases: tuple[str, ...]
-    items: tuple[int, ...]
+    conv_tiles: int
     smem_bytes: int
-    per_sm: int
     grid: int
     gn2_slots: int
-    halo_h: int = 0
-    halo_w: int = 0
 
     @property
     def barriers(self) -> int:
         return len(self.phases) - 1
-
-    @property
-    def conv_tiles(self) -> int:
-        return self.items[self.phases.index("conv1")]
 
     @property
     def fill(self) -> float:
@@ -411,8 +413,6 @@ def resblock_plan(b: int, h: int, w: int, c: int, n: int, groups: int = 32,
     takes the general route (128 x 64 tiles, 256 threads)."""
     hw = h * w
     cpg = n // groups
-    stat_items, quant_x = b * groups, b * -(-hw // 128) * -(-c // 64)   # one GN1 item a group
-    quant_mid = b * -(-hw // 64)
     per_sm_of = lambda cap, smem: min(cap, SM_SMEM_BYTES // (smem + 1024))
     best = None
     if c % 32 == 0 and n % 32 == 0 and groups <= RB_MAX_GROUPS:
@@ -429,11 +429,9 @@ def resblock_plan(b: int, h: int, w: int, c: int, n: int, groups: int = 32,
             if smem > MAX_SMEM_BYTES or per_sm < 1 or halo_h * halo_w * kc // 4 >= 1 << 16:
                 continue
             s2 = -(-h // rows)
-            tiles = b * s2 * (n // bn)
-            plan = ResBlockPlan("halo", rows, bm, kc, bn, 1,
+            plan = ResBlockPlan("halo", rows, bm, kc, bn,
                                 ("gn1_partials", "quantize_x", "conv1", "quantize_mid", "conv2"),
-                                (stat_items, quant_x, tiles, quant_mid, tiles), smem, per_sm,
-                                per_sm * sms, s2, halo_h, halo_w)
+                                b * s2 * (n // bn), smem, per_sm * sms, s2)
             if plan.fill >= RB_MIN_FILL:
                 return plan
             if best is None or plan.fill > best.fill:
@@ -441,13 +439,10 @@ def resblock_plan(b: int, h: int, w: int, c: int, n: int, groups: int = 32,
     if best is not None:
         return best
     smem = max(GENERAL_SMEM_BYTES, RB_PHASE_SMEM)
-    per_sm = per_sm_of(2, smem)
-    tiles = b * -(-hw // 128) * -(-n // 64)
-    return ResBlockPlan("general", 0, 128, 64, 64, 1,
+    return ResBlockPlan("general", 0, 128, 64, 64,
                         ("gn1_partials", "quantize_x", "conv1", "gn2_partials", "quantize_mid",
                          "conv2"),
-                        (stat_items, quant_x, tiles, stat_items, quant_mid, tiles), smem, per_sm,
-                        per_sm * sms, 1)
+                        b * -(-hw // 128) * -(-n // 64), smem, per_sm_of(2, smem) * sms, 1)
 
 
 def _slot_stats(slots, count: float, cpg: int, eps: float):
@@ -519,9 +514,6 @@ def _pixel_strides(name, t4):
     return sb, sw, sc
 
 
-_SMS: dict[int, int] = {}   # device index -> SMs
-
-
 def _resblock_launch(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q, s2w, b2, sx2,
                      skip, groups, eps, out):
     from vdtpu_torch.ops.kernels.build import load
@@ -556,10 +548,7 @@ def _resblock_launch(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q
     tensors = [x, w1q, w2q, sx1, sx2, film, out, *vecs] + ([skip] if skip is not None else [])
     if any(t.device != dev for t in tensors):
         raise ValueError("resblock_q: every tensor must be on the input's device")
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if index not in _SMS:
-        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    plan = resblock_plan(b, h, w, c, n, groups, _SMS[index])
+    plan = resblock_plan(b, h, w, c, n, groups, sm_count(_device_index(dev)))
     hw = h * w
     mid = torch.empty((b, hw, n), dtype=x.dtype, device=dev)
     s8 = torch.empty((b * hw * max(c, n),), dtype=torch.int8, device=dev)
