@@ -18,8 +18,10 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             held on both of their kernels (the wgmma one at the main
             paths' shapes, the mma.sync one at ``*_MMA_SHAPES``), the
             whole-ResBlock kernel on both of its routes (halo at the
-            UNet's sites, general at ``RESBLOCK_GENERAL_SHAPES``), each
-            launch's path asserted
+            UNet's sites, general at ``RESBLOCK_GENERAL_SHAPES``), the GN
+            kernel on both of its routes (``GN_ROUTES``: resident at the
+            UNet's maps, the text sites and a VAE cluster of 2, streaming
+            at the VAE's 512^2 map), each launch's path asserted
   main      vd_four_flow_v1-0 at full width in bf16, seeded random weights,
             inference_t2i at 512^2, n = 2, DDIM-50, CFG 7.5, cold then warm;
             the launch counters are zeroed just before each run and read
@@ -78,6 +80,11 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             (global batch 8 at 512^2, grad_accum 2, AdamW with the t2i
             experiment's groups, EMA 0.9999), each with its launch counts;
             one more step under torch.profiler
+  gn_sweep  (not run by default) the GN kernel's plan measured: the card's
+            cluster capacities against gn_silu.GN_CLUSTERS, and at
+            ``GN_SWEEP_SHAPES`` both routes at every cluster size the kernel
+            takes there, each held to its plain version, against the plan's
+            choice
   profile   (not run by default) the warm request split into its stages,
             and one CFG UNet step under torch.profiler (exact, int8, int8 +
             ToMe and int8 conv="fused2"): device busy and idle share,
@@ -104,8 +111,8 @@ import time
 import zlib
 
 PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "eps", "main_int8",
-          "modes", "eps_int8", "main_fused2", "probes", "train", "profile")
-DEFAULT_PHASES = PHASES[:-1]
+          "modes", "eps_int8", "main_fused2", "probes", "train", "profile", "gn_sweep")
+DEFAULT_PHASES = PHASES[:-2]
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # and the special-function units' exponentials: 16 per SM per clock on 132
@@ -137,6 +144,21 @@ QCONV_SHAPES = [(4, 320, 64, 64, 320, 1, "film"), (4, 4, 64, 64, 320, 1, None),
                 (4, 1280, 16, 16, 1280, 1, "film"), (4, 640, 32, 32, 640, 1, "film")]
 GN_SHAPES = [(4, 320, 64, 64), (4, 640, 32, 32), (4, 1280, 16, 16), (4, 2560, 8, 8),
              (2, 128, 512, 512)]
+# the GN kernel's shapes in the kernels phase, each with gn_plan's route
+# (asserted a launch): GN_SHAPES (the UNet's maps resident, the VAE's 512^2 map
+# streaming: its CTAs would take more than one wave), the commonest
+# text-diffuser sites, an FC block's [8, F, 1] and a context block's
+# [8, C, 4] (resident, flat layout in bf16), and a resident band of a
+# cluster of 2 (the VAE's 64^2 map)
+GN_ROUTES = {(4, 320, 64, 64): "resident", (4, 640, 32, 32): "resident",
+             (4, 1280, 16, 16): "resident", (4, 2560, 8, 8): "resident",
+             (2, 128, 512, 512): "streaming", (8, 1280, 1): "resident",
+             (8, 320, 4): "resident", (2, 512, 64, 64): "resident"}
+# the GN plan's deciding sites (gn_sweep): the commonest UNet map, the
+# 960-channel 64^2 UNet site (two waves of resident CTAs), and the VAE's maps
+# at batch 2 from 64^2 (resident, clusters of 2) to 512^2 (streaming)
+GN_SWEEP_SHAPES = [(4, 320, 64, 64), (4, 960, 64, 64), (2, 512, 64, 64), (2, 512, 128, 128),
+                   (2, 256, 256, 256), (2, 128, 512, 512)]
 # whole int8 ResBlock (B, C_in, H, W, C_out): the 8 distinct conv="fused2"
 # sites of the full-width UNet at B = 4 (2 x CFG), the commonest first
 RESBLOCK_SHAPES = [(4, 320, 64, 64, 320), (4, 640, 64, 64, 320), (4, 960, 64, 64, 320),
@@ -295,8 +317,7 @@ def phase_build(state):
             log(f"  nvcc {name} registers: {' '.join(wg)}")
     x = torch.randn(2, 64, 4, 4, device="cuda", dtype=torch.bfloat16)
     w = torch.ones(64, device="cuda", dtype=torch.bfloat16)
-    for silu in (True, False):  # compile the Triton specializations
-        gn_silu(x, w, w, 32, 1e-5, silu)
+    gn_silu(x, w, w, 32, 1e-5, True)  # the CUDA kernel's first launch; then the Triton ones
     gn_silu_q(x, w, w, torch.ones((), device="cuda"), 32, 1e-5, True)
     gn_stats(x, 32, 1e-5)
     probe_shift(torch.zeros((4, 4), dtype=torch.int32, device="cuda"))
@@ -410,17 +431,25 @@ def _flash_bwd_case(shape, gen):
 
 
 def _gn_case(shape, gen):
+    """The GN kernel against its plain version, with and without SiLU; the
+    launch must take the route ``GN_ROUTES`` names (``gn_plan``'s), once,
+    and give the same bits twice."""
     import torch
     import torch.nn.functional as F
-    from vdtpu_torch.ops.gn_silu import gn_silu, gn_silu_plain
+    from vdtpu_torch.ops.gn_silu import gn_plan, gn_silu, gn_silu_plain
     c = shape[1]
     x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
     w = (torch.rand(c, device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
     bias = (torch.randn(c, device="cuda", generator=gen) * 0.1).to(torch.bfloat16)
-    worst = (0.0, 0.0, True)
+    plan = gn_plan(tuple(shape), torch.bfloat16, 32)
+    worst = (0.0, 0.0, plan.route == GN_ROUTES[tuple(shape)])
     for silu in (True, False):
-        err, rel, ok = compare(gn_silu(x, w, bias, 32, 1e-6, silu),
-                               gn_silu_plain(x, w, bias, 32, 1e-6, silu))
+        by_path = dict(gn_silu.launches_by_path)
+        out = gn_silu(x, w, bias, 32, 1e-6, silu)
+        took = {k: v - by_path[k] for k, v in gn_silu.launches_by_path.items() if v != by_path[k]}
+        err, rel, ok = compare(out, gn_silu_plain(x, w, bias, 32, 1e-6, silu))
+        ok = ok and took == {plan.route: 1} and torch.equal(out, gn_silu(x, w, bias, 32, 1e-6,
+                                                                         silu))
         worst = (max(worst[0], err), max(worst[1], rel), worst[2] and ok)
     iters = 50 if x.numel() < 1 << 24 else 10
     kern = lambda: gn_silu(x, w, bias, 32, 1e-5, True)
@@ -432,7 +461,9 @@ def _gn_case(shape, gen):
     nbytes = 2 * x.numel() * x.element_size() + 2 * c * w.element_size()
     flops = 12.0 * x.numel()
     bound_ms, bound_by = _bound(nbytes, flops / PEAK_F32)
-    return dict(shape=list(shape), max_abs_err=worst[0], rel_l2_err=worst[1], ok=worst[2],
+    return dict(shape=list(shape), route=plan.route, layout=plan.layout, cluster=plan.cluster,
+                ctas=plan.ctas, threads=plan.threads, smem_bytes=plan.smem_bytes,
+                max_abs_err=worst[0], rel_l2_err=worst[1], ok=worst[2],
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library="F.group_norm + F.silu (two calls)", bound_ms=bound_ms,
                 bound_by=bound_by, eager=eager, bound_detail=dict(bytes=nbytes, flops=flops))
@@ -751,8 +782,8 @@ def phase_kernels(state):
          "vdtpu/ops/pallas/flash.py:40", _attention_case, FLASH_SHAPES + FLASH_MMA_SHAPES),
         ("flash_bwd", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
          "vdtpu/ops/pallas/flash.py:444", _flash_bwd_case, FLASH_SHAPES),
-        ("gn_silu", "triton", "vdtpu_torch/ops/gn_silu.py",
-         "vdtpu/ops/pallas/gn_silu.py:45", _gn_case, GN_SHAPES),
+        ("gn_silu", "cuda", "vdtpu_torch/csrc/gn_silu.cu",
+         "vdtpu/ops/pallas/gn_silu.py:45", _gn_case, list(GN_ROUTES)),
         ("nomax_fwd", "cuda", "vdtpu_torch/csrc/nomax_fwd.cu",
          "vdtpu/ops/pallas/flash.py:223", functools.partial(_attention_case, nomax=True),
          NOMAX_SHAPES + NOMAX_MMA_SHAPES),
@@ -844,6 +875,44 @@ def _system(state):
     return state["system"]
 
 
+def phase_gn_sweep(state):
+    import torch
+    from vdtpu_torch.ops.gn_silu import (GN_CLUSTERS, gn_cluster_capacity, gn_launch_plan,
+                                         gn_plan, gn_silu_plain, gn_variant)
+    caps = {k: gn_cluster_capacity(k, 512, 131072) for k in GN_CLUSTERS}  # one CTA an SM
+    log(f"gn_sweep: clusters of k the card holds at one CTA an SM {caps} "
+        f"(gn_silu.GN_CLUSTERS {GN_CLUSTERS}) [{state.get('card')}]")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, failed = [], []
+    for shape in GN_SWEEP_SHAPES:
+        x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
+        w = (torch.rand(shape[1], device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+        b = (torch.randn(shape[1], device="cuda", generator=gen) * 0.1).to(torch.bfloat16)
+        ref, out = gn_silu_plain(x, w, b), torch.empty_like(x)
+        chosen = gn_plan(shape, torch.bfloat16, 32)
+        ms = {}
+        for route in ("resident", "streaming"):
+            for k in (1, 2, 4, 8, 16):
+                plan = gn_variant(shape, torch.bfloat16, 32, route, k)
+                if plan is None:
+                    continue
+                run = lambda: gn_launch_plan(x, w, b, out, 32, 1e-5, True, plan)
+                run()
+                if not compare(out, ref)[2]:
+                    failed.append(f"{shape} {route} k{k}")
+                ms[f"{route} k{k} x{plan.clusters}"] = time_graph_ms(run)
+        best = min(ms, key=ms.get)
+        rows.append(dict(shape=list(shape), chosen=f"{chosen.route} k{chosen.cluster}", ms=ms,
+                         fastest=best))
+        log(f"gn_sweep {shape}: plan {chosen.route} k{chosen.cluster}, fastest {best} | device "
+            f"ms (graph) {json.dumps({k: round(v, 4) for k, v in ms.items()})} "
+            f"[{state.get('card')}]")
+        torch.cuda.empty_cache()
+    state["gn_sweep"] = dict(cluster_capacity=caps, shapes=rows)
+    if failed:
+        raise RuntimeError(f"gn_sweep: variants disagree with the plain version: {failed}")
+
+
 def phase_main(state):
     import torch
     from vdtpu_torch.ops.flash import flash_attention
@@ -866,20 +935,21 @@ def phase_main(state):
         dt = time.perf_counter() - t
         counts = {"flash_fwd": flash_attention.launches, "gn_silu": gn_silu.launches}
         paths = _wgmma_only(f"main {run}")
+        gn_routes = _gn_routes(f"main {run}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         finite = bool(torch.isfinite(img).all())
         lo, hi = float(img.min()), float(img.max())
         shape_ok = tuple(img.shape) == (2, 512, 512, 3)
         log(f"main {run}: {dt:.3f} s, {2 / dt:.3f} images/s, peak {peak:.2f} GiB, "
             f"shape {tuple(img.shape)} finite {finite} range [{lo:.4f}, {hi:.4f}], "
-            f"launches {counts} (expected {expect}), attention by path {paths} "
-            f"[{state.get('card')}]")
+            f"launches {counts} (expected {expect}), attention by path {paths}, GN by route "
+            f"{gn_routes} [{state.get('card')}]")
         if not (finite and shape_ok and lo >= 0.0 and hi <= 1.0):
             raise RuntimeError(f"main {run}: bad output")
         if counts != expect:
             raise RuntimeError(f"main {run}: launch counts {counts} != {expect}")
         results[run] = dict(seconds=dt, images_per_s=2 / dt, peak_gib=peak, launches=counts,
-                            attention_by_path=paths)
+                            attention_by_path=paths, gn_by_route=gn_routes)
     for name, n in results["warm"]["launches"].items():
         if name in state["kernels"]:
             state["kernels"][name]["launches"] = n
@@ -887,6 +957,8 @@ def phase_main(state):
     if "flash_fwd" in state["kernels"]:
         state["kernels"]["flash_fwd"]["launches_by_path"] = \
             results["warm"]["attention_by_path"]["flash_fwd"]
+    if "gn_silu" in state["kernels"]:
+        state["kernels"]["gn_silu"]["launches_by_path"] = results["warm"]["gn_by_route"]
     state["main"] = results
 
 
@@ -940,13 +1012,14 @@ def phase_main_i2i(state):
             dt = time.perf_counter() - t
             counts = {"flash_fwd": flash_attention.launches, "gn_silu": gn_silu.launches}
             paths = _wgmma_only(f"main_i2i ({label}) {run}")
+            gn_routes = _gn_routes(f"main_i2i ({label}) {run}")
             peak = torch.cuda.max_memory_allocated() / 2**30
             finite = bool(torch.isfinite(img).all())
             lo, hi = float(img.min()), float(img.max())
             log(f"main_i2i ({label}) fid {fid} fcs {fcs} clr {clr} {run}: {dt:.3f} s, "
                 f"{2 / dt:.3f} images/s, peak {peak:.2f} GiB, shape {tuple(img.shape)} finite "
                 f"{finite} range [{lo:.4f}, {hi:.4f}], launches {counts} (expected {expect}), "
-                f"attention by path {paths} [{state.get('card')}]")
+                f"attention by path {paths}, GN by route {gn_routes} [{state.get('card')}]")
             if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0 and hi <= 1.0):
                 raise RuntimeError(f"main_i2i ({label}) {run}: bad output")
             if counts != expect:
@@ -1097,13 +1170,14 @@ def phase_main_text(state):
             calls = []
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            flash_attention.launches = gn_silu.launches = 0
+            _zero_counters()
             with _recording_decode(vae, calls):
                 t = time.perf_counter()
                 texts = run_request()
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t
             counts = {"flash_fwd": flash_attention.launches, "gn_silu": gn_silu.launches}
+            gn_routes = _gn_routes(f"main_text {label} {run}")
             peak = torch.cuda.max_memory_allocated() / 2**30
             (z, ids, decode_s), = calls
             z_ok = tuple(z.shape) == (4, dim) and bool(torch.isfinite(z).all())
@@ -1111,7 +1185,8 @@ def phase_main_text(state):
             log(f"main_text {label} {run}: {dt:.3f} s (GPT-2 decode {decode_s:.3f} s), peak "
                 f"{peak:.2f} GiB, latent "
                 f"{tuple(z.shape)} finite {z_ok}, ids {tuple(ids.shape)} well-formed {rows_ok}, "
-                f"launches {counts} (expected {expect}), texts {texts} [{state.get('card')}]")
+                f"launches {counts} (expected {expect}), GN by route {gn_routes}, texts {texts} "
+                f"[{state.get('card')}]")
             if not (z_ok and rows_ok and len(texts) == 4):
                 raise RuntimeError(f"main_text {label} {run}: bad output")
             if counts != expect:
@@ -1296,6 +1371,16 @@ def _plan_paths(calls, label: str) -> dict:
 
 def _read_counters():
     return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _gn_routes(label: str) -> dict:
+    """Launches of the GN kernel by gn_plan route since its counters were
+    zeroed; raises unless every launch took one of the two routes."""
+    from vdtpu_torch.ops.gn_silu import gn_silu
+    by = dict(gn_silu.launches_by_path)
+    if sum(by.values()) != gn_silu.launches:
+        raise RuntimeError(f"{label}: gn_silu launches by route {by} of {gn_silu.launches}")
+    return by
 
 
 def _wgmma_only(label: str) -> dict:
@@ -1926,10 +2011,12 @@ def phase_train(state):
         dt = time.perf_counter() - t
         counts = {k: c.launches for k, c in _train_counters().items()}
         paths = _wgmma_only(f"train step {i + 1}")["flash_fwd"]
-        steps.append(dict(seconds=dt, loss=loss, launches=counts, flash_fwd_by_path=paths))
+        gn_routes = _gn_routes(f"train step {i + 1}")
+        steps.append(dict(seconds=dt, loss=loss, launches=counts, flash_fwd_by_path=paths,
+                          gn_by_route=gn_routes))
         log(f"train step {i + 1}: {dt:.3f} s, {TRAIN_BATCH / dt:.3f} images/s, loss "
             f"{loss:.6f}, launches {counts} (expected {expect}), flash forward by path "
-            f"{paths} [{state.get('card')}]")
+            f"{paths}, GN by route {gn_routes} [{state.get('card')}]")
         if not math.isfinite(loss):
             raise RuntimeError(f"train step {i + 1}: loss {loss}")
         if counts != expect:
@@ -2023,7 +2110,7 @@ def _kernel_kind(name: str) -> str:
         return "int8 conv (hand)"
     if "resblock_kernel" in n:
         return "int8 ResBlock (hand)"
-    if "gn_stats" in n or "gn_apply" in n or "gn_finalize" in n:
+    if "gn_kernel" in n or "gn_stats" in n or "gn_apply" in n or "gn_finalize" in n:
         return "gn_silu (hand)"
     if "nchwtonhwc" in n or "nhwctonchw" in n:
         return "layout conversion (cuDNN)"

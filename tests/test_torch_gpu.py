@@ -140,21 +140,75 @@ def test_attn_fwd_refuses_a_plan_it_does_not_mirror(gen, source):
     assert not bool(out.any())
 
 
-@pytest.mark.parametrize("shape,groups", [((2, 96, 7, 9), 32), ((3, 320, 33, 17), 32),
-                                          ((1, 64, 1, 1), 32), ((2, 256, 4), 8)])
+# (shape, groups, the plan's (route, cluster) in bf16): the flat layout
+# (odd maps, pixel counts that are no multiple of 16, the text diffuser's
+# [8, F, 1] and [8, C, 4] sites, one-element groups), the rows layout at one
+# CTA a band (the UNet's maps; 24 pixels a row), resident clusters of 2 and 8
+# (the VAE's 64^2 and 128^2 maps at batch 1), streaming at one CTA a band
+# (the UNet's 960-channel 64^2 site), clusters of 2 (the VAE's maps from
+# 128^2 at batch 2) and 16 (its 256^2 and 512^2 maps at batch 1): every
+# (route, cluster) the plan gives the flows' sites
+GN_CASES = [((2, 96, 7, 9), 32, ("resident", 1)), ((3, 320, 33, 17), 32, ("resident", 1)),
+            ((1, 64, 1, 1), 32, ("resident", 1)), ((2, 256, 4), 8, ("resident", 1)),
+            ((8, 1280, 1), 32, ("resident", 1)), ((8, 320, 4), 32, ("resident", 1)),
+            ((2, 64, 3, 8), 32, ("resident", 1)), ((4, 320, 64, 64), 32, ("resident", 1)),
+            ((4, 2560, 8, 8), 32, ("resident", 1)), ((1, 512, 64, 64), 32, ("resident", 2)),
+            ((1, 512, 128, 128), 32, ("resident", 8)),
+            ((4, 960, 64, 64), 32, ("streaming", 1)),
+            ((2, 512, 128, 128), 32, ("streaming", 2)),
+            ((2, 128, 512, 512), 32, ("streaming", 2)),
+            ((1, 256, 256, 256), 32, ("streaming", 16)),
+            ((1, 128, 512, 512), 32, ("streaming", 16))]
+
+
+@pytest.mark.parametrize("shape,groups,want", GN_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("with_silu", [True, False])
-def test_gn_kernel_matches_plain(gen, shape, groups, dtype, with_silu):
+def test_gn_kernel_matches_plain(gen, shape, groups, want, dtype, with_silu):
+    """One launch a call on gn_plan's route, within the tolerance of its
+    plain version, the same bits run to run (the cluster's combine has a
+    fixed order)."""
+    from vdtpu_torch.ops.gn_silu import gn_plan
     c = shape[1]
     x = (_randn(gen, *shape, dtype=torch.float32) * 2 + 0.5).to(dtype)
     w = (torch.rand(c, device="cuda", generator=gen) + 0.5).to(dtype)
     bias = _randn(gen, c, dtype=dtype)
-    before = gn_silu.launches
-    out = gn_silu(x, w, bias, groups, 1e-5, with_silu)
-    assert gn_silu.launches == before + 1
+    plan = gn_plan(tuple(shape), dtype, groups)
+    if dtype == torch.bfloat16:
+        assert (plan.route, plan.cluster) == want, plan
+    out = _one_launch(gn_silu, plan.route, lambda: gn_silu(x, w, bias, groups, 1e-5, with_silu))
     ref = gn_silu_plain(x, w, bias, groups, 1e-5, with_silu)
     atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (ATOL, RTOL)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    assert torch.equal(out, gn_silu(x, w, bias, groups, 1e-5, with_silu))
+
+
+@pytest.mark.parametrize("route", ["resident", "streaming"])
+def test_gn_kernel_routes_agree(gen, route):
+    """Both routes at one shape (gn_variant, gn_launch_plan) against the
+    plain version: the streaming route at a map the plan keeps resident."""
+    from vdtpu_torch.ops.gn_silu import _gn_out, gn_launch_plan, gn_variant
+    x = _randn(gen, 4, 640, 32, 32) * 2 + 0.5
+    w = torch.rand(640, device="cuda", generator=gen).to(torch.bfloat16) + 0.5
+    bias = _randn(gen, 640)
+    plan = gn_variant(tuple(x.shape), x.dtype, 32, route, 2)
+    out = _gn_out(x)
+    gn_launch_plan(x, w, bias, out, 32, 1e-5, True, plan)
+    torch.testing.assert_close(out.float(), gn_silu_plain(x, w, bias).float(), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_gn_kernel_takes_a_misaligned_start(gen):
+    """x starting 2 bytes past a 16-byte boundary: the flat layout, y at the
+    same address modulo 16."""
+    base = _randn(gen, 2 * 64 * 8 * 8 + 1)
+    x = base[1:].view(2, 64, 8, 8)
+    assert x.data_ptr() % 16 == 2
+    w = torch.ones(64, device="cuda", dtype=torch.bfloat16)
+    out = gn_silu(x, w, w * 0.1)
+    assert out.data_ptr() % 16 == 2
+    torch.testing.assert_close(out.float(), gn_silu_plain(x, w, w * 0.1).float(), atol=ATOL,
+                               rtol=RTOL)
 
 
 def test_gn_kernel_refuses_non_contiguous(gen):

@@ -42,6 +42,7 @@ SOURCES = {
     "qconv3": ("vd_qconv3", [_P] * 11 + [_I] * 9 + [_L] * 13 + [_I] * 9 + [_P]),
     "resblock_q": ("vd_resblock_q", [_P] * 20 + [_I] * 6 + [_F] + [_L] * 10 + [_I] * 9 + [_P]),
     "probe_s8mm": ("vd_probe_s8mm", [_P] * 3 + [_I] * 4 + [_P]),
+    "gn_silu": ("vd_gn_silu", [_P] * 6),
 }
 
 _lock = threading.Lock()
