@@ -21,7 +21,11 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             UNet's sites, general at ``RESBLOCK_GENERAL_SHAPES``), the GN
             kernel on both of its routes (``GN_ROUTES``: resident at the
             UNet's maps, the text sites and a VAE cluster of 2, streaming
-            at the VAE's 512^2 map), each launch's path asserted
+            at the VAE's 512^2 map), the int8 GN kernels (gn_silu_q and
+            gn_stats) at every distinct int8 GroupNorm site of the UNet
+            (``GNQ_SHAPES``: gn_silu_q streaming, gn_stats in clusters)
+            and on their general route (``GNQ_ODD_SHAPES``), each launch's
+            path asserted
   main      vd_four_flow_v1-0 at full width in bf16, seeded random weights,
             inference_t2i at 512^2, n = 2, DDIM-50, CFG 7.5, cold then warm;
             the launch counters are zeroed just before each run and read
@@ -56,10 +60,12 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
   modes     one full-width int8 eps call in each opt-in policy mode
             (gn_prologue "fused" and "stats", conv "fused") against the
             default mode's, with each mode's launch counts derived from the
-            program, and the fused-prologue conv against its plain version
-            at every distinct site of its call; then one t2i request under
-            the default int8 policy, one under conv "fused" and the default
-            again, each cold then warm (recorded beside each other)
+            program (the int8 GN kernels' also by route), and the
+            fused-prologue conv against its plain version at every distinct
+            site of its call; then t2i requests under the default int8
+            policy, gn_prologue "fused", gn_prologue "stats", conv "fused"
+            and the default again, each cold then warm (times recorded
+            beside each other, the opt-in modes' launch counts asserted)
   eps_int8  one full-width int8 eps call on the card (bf16) against the
             port's int8 plain path on the CPU in f32, same scales
   main_fused2 QuantPolicy(conv="fused2") on the calibrated system: the
@@ -85,11 +91,24 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             ``GN_SWEEP_SHAPES`` both routes at every cluster size the kernel
             takes there, each held to its plain version, against the plan's
             choice
+  gnq_sweep (not run by default) the int8 GN kernels' plan measured: at
+            ``GNQ_SWEEP_SHAPES`` every geometry gnq_variants gives (route,
+            Cs, threads, pixels a tile) of gn_silu_q and gn_stats, each held
+            to its plain version, against the plan's choice (gn_stats:
+            clusters of k CTAs a group and the cooperative kernel); the
+            card's blocks per SM against the plan's assumption; one traced
+            launch of gn_silu_q's plan (each CTA's phases, us)
+  gnq_times (not run by default) gn_silu_q and gn_stats through the
+            package's wrappers at GNQ_SHAPES, each against its plain version,
+            device (graph) and eager ms, assuming no plan or route: for
+            timing another checkout's kernels in the same call (a copy of
+            this script placed at that checkout's root imports its package)
   profile   (not run by default) the warm request split into its stages,
             and one CFG UNet step under torch.profiler (exact, int8, int8 +
-            ToMe and int8 conv="fused2"): device busy and idle share,
-            kernel time by kind, the int8 conv's and the whole-ResBlock
-            kernel's device ms, and the top kernels
+            ToMe, int8 gn_prologue="fused" and int8 conv="fused2"): device
+            busy and idle share, kernel time by kind, the int8 conv's, the
+            whole-ResBlock kernel's and the int8 GN kernels' device ms, and
+            the top kernels
 
 It prints the card line and a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. ``--phases`` runs a subset (development
@@ -100,6 +119,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -111,8 +131,9 @@ import time
 import zlib
 
 PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "eps", "main_int8",
-          "modes", "eps_int8", "main_fused2", "probes", "train", "profile", "gn_sweep")
-DEFAULT_PHASES = PHASES[:-2]
+          "modes", "eps_int8", "main_fused2", "probes", "train", "profile", "gn_sweep",
+          "gnq_sweep", "gnq_times")
+DEFAULT_PHASES = PHASES[:-4]
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # and the special-function units' exponentials: 16 per SM per clock on 132
@@ -144,6 +165,24 @@ QCONV_SHAPES = [(4, 320, 64, 64, 320, 1, "film"), (4, 4, 64, 64, 320, 1, None),
                 (4, 1280, 16, 16, 1280, 1, "film"), (4, 640, 32, 32, 640, 1, "film")]
 GN_SHAPES = [(4, 320, 64, 64), (4, 640, 32, 32), (4, 1280, 16, 16), (4, 2560, 8, 8),
              (2, 128, 512, 512)]
+# the int8 GN kernels (gn_silu_q, gn_stats): the distinct int8 GroupNorm
+# sites of the full-width UNet at B = 4 (2 x CFG), the ResBlock GroupNorms
+# on maps of at least 256 pixels (tests/test_torch_gnq_plan.py derives them
+# from the config literals; the modes phase from the model), the commonest
+# first; then shapes that take the kernels' general route (rows that are not
+# 16-byte runs, one pixel a channel, C % 16 != 0 in groups of 5, conv_in's
+# 4 channels in 4 groups for the codes), with their groups
+GNQ_SHAPES = [(4, 320, 64, 64), (4, 640, 64, 64), (4, 960, 64, 64), (4, 320, 32, 32),
+              (4, 640, 32, 32), (4, 960, 32, 32), (4, 1280, 32, 32), (4, 1920, 32, 32),
+              (4, 640, 16, 16), (4, 1280, 16, 16), (4, 1920, 16, 16), (4, 2560, 16, 16)]
+GNQ_ODD_SHAPES = [(2, 96, 7, 9), (3, 320, 33, 17), (1, 64, 1, 1), (2, 40, 5, 3), (4, 4, 64, 64)]
+GNQ_GROUPS = {(2, 40, 5, 3): 8, (4, 4, 64, 64): 4}
+# the int8 GN plan's deciding sites (gnq_sweep): the commonest 64^2 site,
+# the streaming 960-channel one, a 32^2 site of several ranges a channel,
+# the widest 32^2 one, a 16^2 site of one range, and the commonest site at
+# batch 2 (the modes phase's eps calls)
+GNQ_SWEEP_SHAPES = [(4, 320, 64, 64), (4, 960, 64, 64), (4, 640, 32, 32), (4, 1920, 32, 32),
+                    (4, 1280, 16, 16), (2, 320, 64, 64)]
 # the GN kernel's shapes in the kernels phase, each with gn_plan's route
 # (asserted a launch): GN_SHAPES (the UNet's maps resident, the VAE's 512^2 map
 # streaming: its CTAs would take more than one wave), the commonest
@@ -213,6 +252,8 @@ TEXT_PROMPT = "a red cat"
 # y / s lies within f32 rounding of a half-integer (other summation order
 # of the statistics, y / (1 + exp(-y)) against y * sigmoid(y))
 GNQ_MAX_OFF_BY_ONE = 1e-3
+# gn_stats against its plain version (f32 sums in another order): relative
+GNQ_STATS_RTOL = 1e-4
 # flash backward against its plain version: the gradients are small (about
 # 1e-2 at the path's shapes), so the two bf16 ulps are taken at the largest
 # magnitude of each output, |k - p| <= ATOL * max|p| + RTOL * |p|, and the
@@ -317,7 +358,7 @@ def phase_build(state):
             log(f"  nvcc {name} registers: {' '.join(wg)}")
     x = torch.randn(2, 64, 4, 4, device="cuda", dtype=torch.bfloat16)
     w = torch.ones(64, device="cuda", dtype=torch.bfloat16)
-    gn_silu(x, w, w, 32, 1e-5, True)  # the CUDA kernel's first launch; then the Triton ones
+    gn_silu(x, w, w, 32, 1e-5, True)  # the CUDA kernels' first launches; then the Triton ones
     gn_silu_q(x, w, w, torch.ones((), device="cuda"), 32, 1e-5, True)
     gn_stats(x, 32, 1e-5)
     probe_shift(torch.zeros((4, 4), dtype=torch.int32, device="cuda"))
@@ -488,50 +529,95 @@ def _true_shift(q, k, scale):
     return mx
 
 
-def _gn_q_case(shape, gen):
+def _gnq_want(shape, stats: bool) -> str:
+    """The route gnq_plan must give: gn_silu_q the streaming route at the
+    int8 GN sites and the general route at GNQ_ODD_SHAPES; gn_stats the
+    cluster route at the sites and at conv_in's 4 channels, else the
+    general route."""
+    if stats:
+        return "cluster" if shape in GNQ_SHAPES or shape == (4, 4, 64, 64) else "general"
+    return "general" if shape in GNQ_ODD_SHAPES else "streaming"
+
+
+def _gnq_agree(out, ref, stats: bool):
+    """(max abs err, off-by-one share of the codes or the statistics'
+    relative error, within the gate): codes within one of the plain
+    version's and at most GNQ_MAX_OFF_BY_ONE of them off; statistics within
+    GNQ_STATS_RTOL."""
+    import torch
+    if stats:
+        err = float(((out - ref).abs() / ref.abs().clamp_min(1e-6)).max())
+        return float((out - ref).abs().max()), err, bool(torch.isfinite(out).all()) and \
+            err <= GNQ_STATS_RTOL
+    diff = (out.int() - ref.int()).abs()
+    off = float((diff > 0).float().mean())
+    return float(diff.max()), off, int(diff.max()) <= 1 and off <= GNQ_MAX_OFF_BY_ONE
+
+
+def _gnq_case(shape, gen, stats: bool = False):
+    """gn_silu_q (``stats``: gn_stats) against its plain version, with and
+    without SiLU; one launch a call on the route ``_gnq_want`` names
+    (``launches_by_route``), the same bits twice; device (graph) and eager
+    ms of the kernel, the plain version and the yardstick (GN+SiLU and the
+    quantize ops, several calls; torch.var_mean over the groups, one call)."""
     import torch
     import torch.nn.functional as F
-    from vdtpu_torch.ops.gn_silu import gn_silu_q, gn_silu_q_plain, gn_stats, gn_stats_plain
+    from vdtpu_torch.ops.gn_silu import (gn_silu_q, gn_silu_q_plain, gn_stats, gn_stats_plain,
+                                         gnq_plan)
+    from vdtpu_torch.ops.qconv import sm_count
+    groups = GNQ_GROUPS.get(tuple(shape), 32)
     c = shape[1]
     x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
     w = (torch.rand(c, device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
     bias = (torch.randn(c, device="cuda", generator=gen) * 0.1).to(torch.bfloat16)
     s = torch.tensor(0.02, device="cuda")
-    codes = gn_silu_q(x, w, bias, s, 32, 1e-5, True)
-    diff = (codes.int() - gn_silu_q_plain(x, w, bias, s, 32, 1e-5, True).int()).abs()
-    off = float((diff > 0).float().mean())
-    st, st_ref = gn_stats(x, 32, 1e-5), gn_stats_plain(x, 32, 1e-5)
-    st_err = float(((st - st_ref).abs() / st_ref.abs().clamp_min(1e-6)).max())
-    torch.cuda.synchronize()
-    ok = int(diff.max()) <= 1 and off <= GNQ_MAX_OFF_BY_ONE and st_err <= 1e-4
-
-    def lib():  # F.group_norm + F.silu + the quantize ops: several calls
-        y = F.silu(F.group_norm(x, 32, w, bias, 1e-5)).float()
-        return torch.clamp(torch.round(y * (1.0 / s)), -127, 127).to(torch.int8)
-
+    plan = gnq_plan(tuple(shape), torch.bfloat16, groups, sm_count(0), stats)
+    fn = gn_stats if stats else gn_silu_q
+    worst, ok = (0.0, 0.0), plan.route == _gnq_want(tuple(shape), stats)
+    for silu in ((False,) if stats else (True, False)):
+        if stats:
+            kern = lambda: gn_stats(x, groups, 1e-5)
+            plain = lambda: gn_stats_plain(x, groups, 1e-5)
+        else:
+            kern = lambda: gn_silu_q(x, w, bias, s, groups, 1e-5, silu)
+            plain = lambda: gn_silu_q_plain(x, w, bias, s, groups, 1e-5, silu)
+        by, n0 = dict(fn.launches_by_route), fn.launches
+        out = kern()
+        took = {k: v - by[k] for k, v in fn.launches_by_route.items() if v != by[k]}
+        again = kern()
+        err, off, agree = _gnq_agree(out, plain(), stats)
+        torch.cuda.synchronize()
+        ok = (ok and agree and took == {plan.route: 1} and fn.launches == n0 + 2
+              and torch.equal(out, again))
+        worst = (max(worst[0], err), max(worst[1], off))
+    if not stats:   # timed as the int8 sites call it: with SiLU
+        kern = lambda: gn_silu_q(x, w, bias, s, groups, 1e-5, True)
+        plain = lambda: gn_silu_q_plain(x, w, bias, s, groups, 1e-5, True)
+    if stats:   # one library reduction over the groups (no channel broadcast)
+        lib = lambda: torch.var_mean(x.view(shape[0], groups, -1), dim=-1, correction=0)
+        library = "torch.var_mean over the groups (one call)"
+        nbytes = x.numel() * x.element_size() + 8 * shape[0] * c
+        t_ops = 3.0 * x.numel() / PEAK_F32
+    else:       # F.group_norm + F.silu + the quantize ops: several calls
+        def lib():
+            y = F.silu(F.group_norm(x, groups, w, bias, 1e-5)).float()
+            return torch.clamp(torch.round(y * (1.0 / s)), -127, 127).to(torch.int8)
+        library = "F.group_norm + F.silu + round/clamp/cast (several calls)"
+        nbytes = x.numel() * (x.element_size() + 1) + 2 * c * w.element_size()
+        # 14 f32 operations and two special-function ones (exp, rcp) a code
+        t_ops = max(14.0 * x.numel() / PEAK_F32, 2.0 * x.numel() / PEAK_EXP)
     iters = 50 if x.numel() < 1 << 24 else 10
-    kern = lambda: gn_silu_q(x, w, bias, s, 32, 1e-5, True)
-    plain = lambda: gn_silu_q_plain(x, w, bias, s, 32, 1e-5, True)
-    stats = lambda: gn_stats(x, 32, 1e-5)
-    stats_plain = lambda: gn_stats_plain(x, 32, 1e-5)
-    # the statistics' yardstick: one library reduction over the groups
-    # (mean and biased variance per (b, g), without the channel broadcast)
-    stats_lib = lambda: torch.var_mean(x.view(shape[0], 32, -1), dim=-1, correction=0)
     eager = dict(ms=time_ms(kern, iters), plain_ms=time_ms(plain, iters),
-                 library_ms=time_ms(lib, iters), stats_ms=time_ms(stats, iters))
+                 library_ms=time_ms(lib, iters))
     ms, plain_ms, lib_ms = time_graph_ms(kern), time_graph_ms(plain), time_graph_ms(lib)
-    stats_ms, stats_plain_ms = time_graph_ms(stats), time_graph_ms(stats_plain)
-    stats_lib_ms = time_graph_ms(stats_lib)
-    nbytes = x.numel() * (x.element_size() + 1) + 2 * c * w.element_size()
-    bound_ms, bound_by = _bound(nbytes, 14.0 * x.numel() / PEAK_F32)
-    return dict(shape=list(shape), max_abs_err=float(diff.max()), off_by_one=off,
-                stats_rel_err=st_err, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library="F.group_norm + F.silu + round/clamp/cast (several calls)",
-                stats_ms=stats_ms, stats_plain_ms=stats_plain_ms, stats_library_ms=stats_lib_ms,
-                stats_library="torch.var_mean over the groups (one call)",
-                stats_bound_ms=1e3 * x.numel() * x.element_size() / PEAK_BYTES,
-                bound_ms=bound_ms, bound_by=bound_by, eager=eager,
-                bound_detail=dict(bytes=nbytes, flops=14.0 * x.numel()))
+    bound_ms, bound_by = _bound(nbytes, t_ops)
+    return dict(shape=list(shape), groups=groups, route=plan.route, cs=plan.cs,
+                cluster=plan.cluster, pixels=plan.pixels, threads=plan.threads,
+                tiles=plan.tiles, ctas=plan.ctas,
+                smem_bytes=plan.smem_bytes, max_abs_err=worst[0],
+                **{("stats_rel_err" if stats else "off_by_one"): worst[1]}, ok=ok, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library=library, bound_ms=bound_ms,
+                bound_by=bound_by, eager=eager, bound_detail=dict(bytes=nbytes, ops_seconds=t_ops))
 
 
 def _qconv_case(spec, gen):
@@ -787,8 +873,11 @@ def phase_kernels(state):
         ("nomax_fwd", "cuda", "vdtpu_torch/csrc/nomax_fwd.cu",
          "vdtpu/ops/pallas/flash.py:223", functools.partial(_attention_case, nomax=True),
          NOMAX_SHAPES + NOMAX_MMA_SHAPES),
-        ("gn_silu_q", "triton", "vdtpu_torch/ops/gn_silu.py",
-         "vdtpu/ops/pallas/gn_silu.py:155", _gn_q_case, GN_SHAPES),
+        ("gn_silu_q", "cuda", "vdtpu_torch/csrc/gn_q.cu",
+         "vdtpu/ops/pallas/gn_silu.py:155", _gnq_case, GNQ_SHAPES + GNQ_ODD_SHAPES),
+        ("gn_stats", "cuda", "vdtpu_torch/csrc/gn_q.cu",
+         "vdtpu/ops/pallas/gn_silu.py:182", functools.partial(_gnq_case, stats=True),
+         GNQ_SHAPES + GNQ_ODD_SHAPES),
         ("qconv3", "cuda", "vdtpu_torch/csrc/qconv3.cu",
          "vdtpu/ops/pallas/qconv.py:149", _qconv_case, QCONV_SHAPES),
         ("resblock_q", "cuda", "vdtpu_torch/csrc/resblock_q.cu",
@@ -827,6 +916,8 @@ def phase_kernels(state):
             shapes=rows)
         if name == "flash_bwd":  # _bwd_impl's two TPU kernels: dq :444, dk/dv :474
             state["kernels"][name]["replaces_also"] = "vdtpu/ops/pallas/flash.py:474"
+        if name == "gn_silu_q":  # _gn_silu_q_blocked's apply pass
+            state["kernels"][name]["replaces_also"] = "vdtpu/ops/pallas/gn_silu.py:210"
     if failed:
         raise RuntimeError(f"kernels disagree with their plain versions: {failed}")
 
@@ -911,6 +1002,140 @@ def phase_gn_sweep(state):
     state["gn_sweep"] = dict(cluster_capacity=caps, shapes=rows)
     if failed:
         raise RuntimeError(f"gn_sweep: variants disagree with the plain version: {failed}")
+
+
+def phase_gnq_sweep(state):
+    """The int8 GN kernels' plan measured: at each GNQ_SWEEP_SHAPES site
+    every geometry ``gnq_variants`` gives (gn_silu_q: route, Cs 32, 16 and
+    8, threads, pixels a tile; gn_stats: the same on the cooperative kernel
+    with Cs 16 and 8, and the cluster route at every k), each held to its
+    plain version, against gnq_plan's choice; and the card's blocks per SM
+    of each cooperative geometry against the plan's assumption
+    (``gnq_blocks_per_sm``). gn_silu_q's plan is also timed with one grid
+    barrier in place of its per-slice arrival counts, and traced
+    (``_gnq_trace``)."""
+    import torch
+    from vdtpu_torch.ops.gn_silu import (gn_silu_q_plain, gn_stats_plain, gnq_blocks_per_sm,
+                                         gnq_card_blocks_per_sm, gnq_launch_plan, gnq_plan,
+                                         gnq_variants)
+    from vdtpu_torch.ops.qconv import sm_count
+    sms, bf = sm_count(0), torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, failed, residency = [], [], {}
+
+    def label(p):
+        if p.route == "cluster":
+            return f"cluster k{p.cluster} t{p.threads} x{p.ctas}"
+        return (f"{p.route} cs{p.cs} t{p.threads} p{p.pixels} x{p.ctas}"
+                + (" grid barrier" if p.sync == "grid" else ""))
+
+    for shape in GNQ_SWEEP_SHAPES:
+        c = shape[1]
+        x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(bf)
+        w = (torch.rand(c, device="cuda", generator=gen) + 0.5).to(bf)
+        b = (torch.randn(c, device="cuda", generator=gen) * 0.1).to(bf)
+        s = torch.tensor(0.02, device="cuda")
+        for stats in (False, True):
+            ref = gn_stats_plain(x) if stats else gn_silu_q_plain(x, w, b, s)
+            out = torch.empty_like(ref)
+            args = () if stats else (w, b, s)
+            chosen = gnq_plan(shape, bf, 32, sms, stats)
+            plans = {}
+            for cs in ((16, 8) if stats else (32, 16, 8)):
+                if c % cs == 0:
+                    plans.update((label(p), p) for p in gnq_variants(shape, bf, 32, sms, stats,
+                                                                     cs=cs))
+            if chosen.route != "cluster":   # its one-grid-barrier twin
+                twin = dataclasses.replace(chosen, sync="grid")
+                plans[label(twin)] = twin
+            ms = {}
+            for name, plan in plans.items():
+                run = lambda: gnq_launch_plan(x, out, plan, 32, 1e-5, *args)
+                run()
+                if not _gnq_agree(out, ref, stats)[2]:
+                    failed.append(f"{shape} {'stats' if stats else 'q'} {name}")
+                key = (stats, plan.cs, plan.route, plan.threads, plan.smem_bytes)
+                if plan.route != "cluster" and key not in residency:
+                    residency[key] = (gnq_card_blocks_per_sm(plan, bf, stats),
+                                      gnq_blocks_per_sm(plan.threads, plan.smem_bytes))
+                ms[name] = time_graph_ms(run)
+            best = min(ms, key=ms.get)
+            kernel = "gn_stats" if stats else "gn_silu_q"
+            rows.append(dict(shape=list(shape), kernel=kernel, chosen=label(chosen),
+                             chosen_ms=ms[label(chosen)], fastest=best, ms=ms))
+            if not stats:
+                rows[-1]["trace_us"] = _gnq_trace(
+                    state, shape, chosen, lambda: gnq_launch_plan(x, out, chosen, 32, 1e-5,
+                                                                  *args))
+            log(f"gnq_sweep {kernel} {shape}: plan {label(chosen)} {ms[label(chosen)]:.4f} ms, "
+                f"fastest {best} {ms[best]:.4f} | device ms (graph) "
+                f"{json.dumps({k: round(v, 4) for k, v in sorted(ms.items(), key=lambda kv: kv[1])})}"
+                f" [{state.get('card')}]")
+            torch.cuda.empty_cache()
+    short = {k: v for k, v in residency.items() if v[0] < v[1]}
+    log(f"gnq_sweep: blocks an SM on the card against the plan's assumption, (stats, cs, "
+        f"route, threads, smem) -> (card, plan): {json.dumps({str(k): v for k, v in residency.items()})}")
+    state["gnq_sweep"] = dict(shapes=rows, residency={str(k): v for k, v in residency.items()})
+    if failed or short:
+        raise RuntimeError(f"gnq_sweep: variants disagree with the plain version {failed}; "
+                           f"the card holds fewer blocks than planned {short}")
+
+
+def _gnq_trace(state, shape, plan, run) -> dict:
+    """One traced launch of a cooperative gn_silu_q plan (csrc/gn_q.cu's
+    vd_gnq_set_trace, %globaltimer at each phase of every CTA): for each
+    stamp, its min / median / max over the CTAs in us from the first CTA's
+    start; logged and returned."""
+    import ctypes
+    import torch
+    from vdtpu_torch.ops.gn_silu import _gnq_lib
+    run()
+    buf = torch.zeros(plan.ctas * 8, dtype=torch.int64, device="cuda")
+    lib = _gnq_lib()
+    torch.cuda.synchronize()
+    lib.vd_gnq_set_trace(ctypes.c_void_p(buf.data_ptr()))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        lib.vd_gnq_set_trace(ctypes.c_void_p(0))
+    t = buf.view(-1, 8).double()
+    rel = (t[:, :6] - t[:, 0].min()) / 1e3
+    names = ("start", "phase 1 done", "partials in", "statistics", "codes", "end")
+    out = {n: [round(float(rel[:, i].quantile(q)), 3) for q in (0.0, 0.5, 1.0)]
+           for i, n in enumerate(names)}
+    log(f"gnq_sweep trace gn_silu_q {shape} (us from the first CTA's start, min / median / "
+        f"max over {plan.ctas} CTAs): {json.dumps(out)} [{state.get('card')}]")
+    return out
+
+
+def phase_gnq_times(state):
+    import torch
+    from vdtpu_torch.ops.gn_silu import gn_silu_q, gn_silu_q_plain, gn_stats, gn_stats_plain
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, failed = [], []
+    for shape in GNQ_SHAPES:
+        c = shape[1]
+        x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
+        w = (torch.rand(c, device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+        b = (torch.randn(c, device="cuda", generator=gen) * 0.1).to(torch.bfloat16)
+        s = torch.tensor(0.02, device="cuda")
+        row = dict(shape=list(shape))
+        for name, kern, plain, stats in (
+                ("gn_silu_q", lambda: gn_silu_q(x, w, b, s), lambda: gn_silu_q_plain(x, w, b, s),
+                 False),
+                ("gn_stats", lambda: gn_stats(x), lambda: gn_stats_plain(x), True)):
+            ok = _gnq_agree(kern(), plain(), stats)[2]
+            torch.cuda.synchronize()
+            if not ok:
+                failed.append(f"{name}{shape}")
+            row[name] = dict(ok=ok, ms=time_graph_ms(kern), eager_ms=time_ms(kern, 50))
+        rows.append(row)
+        log(f"gnq_times {shape}: {json.dumps(row)} [{state.get('card')}]")
+        torch.cuda.empty_cache()
+    state["gnq_times"] = rows
+    if failed:
+        raise RuntimeError(f"gnq_times: kernels disagree with their plain versions: {failed}")
 
 
 def phase_main(state):
@@ -1311,6 +1536,52 @@ def _int8_sites(system, c_type: str = "text"):
     return convs, gn_convs, mms
 
 
+def _gnq_sites(system, batch: int, min_pixels: int | None = None, latent: int = 64):
+    """[B, C, side, side] of every ResBlock GroupNorm whose conv runs int8
+    on a calibrated scale, on maps of at least the policy's min_pixels (or
+    ``min_pixels``; conv="fused" takes fused_min_pixels), in program order:
+    the int8 GN kernels' calls of one UNet call at batch ``batch``."""
+    from vdtpu_torch.ops.quant import QuantPolicy
+    unet = system.model.diffuser["image"]
+    floor = QuantPolicy().min_pixels if min_pixels is None else min_pixels
+    side, di, out = latent, 0, []
+    for tok in unet.program.layer_order:
+        if tok != "d":
+            continue
+        spec, block = unet.program.data[di], unet.data_blocks[di][0]
+        if spec.kind == "res" and side * side >= floor:
+            for conv, ch in ((block.in_layers[2], spec.in_ch), (block.out_layers[3], spec.out_ch)):
+                if conv.act_scale is not None:
+                    out.append((batch, ch, side, side))
+        side = side // 2 if spec.kind == "down" else side * 2 if spec.kind == "up" else side
+        di += 1
+    return out
+
+
+def _gnq_expected(sites, stats: bool, calls: int = 1) -> dict:
+    """Launches by gnq_plan route of ``calls`` UNet calls' int8 GN sites
+    (the bf16 system's), over every route of the wrapper."""
+    import torch
+    from vdtpu_torch.ops.gn_silu import gn_silu_q, gn_stats, gnq_plan
+    from vdtpu_torch.ops.qconv import sm_count
+    out = dict.fromkeys((gn_stats if stats else gn_silu_q).launches_by_route, 0)
+    for shape in sites:
+        out[gnq_plan(shape, torch.bfloat16, 32, sm_count(0), stats).route] += calls
+    return out
+
+
+def _gnq_routes() -> dict:
+    """The int8 GN wrappers' launches by route since their counters were
+    zeroed; raises unless every launch took one of their routes."""
+    from vdtpu_torch.ops.gn_silu import gn_silu_q, gn_stats
+    out = {}
+    for name, fn in (("gn_silu_q", gn_silu_q), ("gn_stats", gn_stats)):
+        out[name] = dict(fn.launches_by_route)
+        if sum(out[name].values()) != fn.launches:
+            raise RuntimeError(f"{name} launches by route {out[name]} of {fn.launches}")
+    return out
+
+
 def _int8_launches(system, tome_ratio: float | None):
     """Launches of one int8 request, derived from the program: per UNet call
     (x STEPS) every calibrated conv site of the image data blocks runs the
@@ -1346,12 +1617,13 @@ def _counters():
 
 
 def _zero_counters(*extra):
-    """Zero the launch counts (and counts by path and kv length) of every
-    wrapper in ``_counters`` and of ``extra``."""
+    """Zero the launch counts (and counts by path, route and kv length) of
+    every wrapper in ``_counters`` and of ``extra``."""
     for fn in (*_counters().values(), *extra):
         fn.launches = 0
-        for path in getattr(fn, "launches_by_path", {}):
-            fn.launches_by_path[path] = 0
+        for by in (getattr(fn, "launches_by_path", {}), getattr(fn, "launches_by_route", {})):
+            for key in by:
+                by[key] = 0
     _counters()["nomax_fwd"].launches_by_kv.clear()
 
 
@@ -1613,6 +1885,16 @@ def phase_modes(state):
     attn = _int8_launches(system, None)[0]["nomax_fwd"] // STEPS
     log(f"modes: int8 eps against the exact bf16 eps (int8's own error): rel_l2 {effect:.5f}")
     results, totals, calls = {"int8_rel_l2_to_exact": effect}, {}, []
+    sites = _gnq_sites(system, x.shape[0])
+    fused_sites = _gnq_sites(system, x.shape[0], QuantPolicy().fused_min_pixels)
+    no_q, no_st = _gnq_expected([], False), _gnq_expected([], True)
+    # each mode's int8 GN launches by route: one launch a site, on its plan's route
+    want_routes = {"gn_prologue=fused": {"gn_silu_q": _gnq_expected(sites, False),
+                                         "gn_stats": no_st},
+                   "gn_prologue=stats": {"gn_silu_q": no_q,
+                                         "gn_stats": _gnq_expected(sites, True)},
+                   "conv=fused": {"gn_silu_q": no_q,
+                                  "gn_stats": _gnq_expected(fused_sites, True)}}
     for mode, pol in (("gn_prologue=fused", QuantPolicy(gn_prologue="fused")),
                       ("gn_prologue=stats", QuantPolicy(gn_prologue="stats")),
                       ("conv=fused", QuantPolicy(conv="fused"))):
@@ -1624,6 +1906,7 @@ def phase_modes(state):
             torch.cuda.synchronize()
             got = _read_counters()
             _wgmma_only(f"modes {mode}")
+            routes = _gnq_routes()
         cos, rel = _cosine(eps, base)
         # routing: every calibrated conv site runs int8 (per site or fused),
         # every ResBlock conv behind a GroupNorm takes the mode's prologue,
@@ -1632,13 +1915,16 @@ def phase_modes(state):
                     "conv=fused": got["qconv3_gn"]}[mode]
         routed = (got["qconv3"] + got["qconv3_gn"] == convs and got["nomax_fwd"] == attn
                   and got["int_mm"] == mms and got["flash_fwd"] == 0
-                  and (prologue == gn_convs if mode != "conv=fused"
-                       else 0 < prologue == got["gn_stats"] and got["gn_silu_q"] == 0))
+                  and (prologue == gn_convs == len(sites) if mode != "conv=fused"
+                       else 0 < prologue == got["gn_stats"] and got["gn_silu_q"] == 0)
+                  and routes == want_routes[mode])
         log(f"modes {mode}: eps [2, 4, 64, 64] against the default mode: cosine {cos:.6f} "
             f"rel_l2 {rel:.5f} (limits cos >= {INT8_MIN_COS}, rel_l2 <= {INT8_MAX_REL_L2}); "
             f"launches {got} (int8 conv sites {convs}, of them behind a GroupNorm {gn_convs}, "
-            f"no-max {attn}, int_mm {mms}; routed {routed}) [{state.get('card')}]")
-        results[mode] = dict(cosine=cos, rel_l2=rel, launches=got, routed=routed)
+            f"no-max {attn}, int_mm {mms}; routed {routed}); int8 GN launches by route "
+            f"{routes} (expected {want_routes[mode]}) [{state.get('card')}]")
+        results[mode] = dict(cosine=cos, rel_l2=rel, launches=got, gnq_by_route=routes,
+                             routed=routed)
         for k, v in got.items():
             totals[k] = totals.get(k, 0) + v
         if not (math.isfinite(rel) and rel <= INT8_MAX_REL_L2 and cos >= INT8_MIN_COS):
@@ -1650,30 +1936,57 @@ def phase_modes(state):
     log(f"modes conv=fused: qconv3_gn by path {fused_paths} in one eps call")
     results["conv=fused"]["qconv3_gn_by_path"] = fused_paths
     del calls
-    results["requests"] = _fused_request(state, system)
-    if "gn_silu_q" in state["kernels"]:
-        k2 = state["kernels"]["gn_silu_q"]
-        k2["launches"] = totals["gn_silu_q"] + totals["gn_stats"]
-        k2["launches_by_wrapper"] = {"gn_silu_q": totals["gn_silu_q"],
-                                     "gn_stats": totals["gn_stats"]}
-        k2["path"] = "modes (one eps call per opt-in mode)"
+    results["requests"] = reqs = _fused_request(state, system)
+    for name, mode in (("gn_silu_q", "gn_prologue=fused"), ("gn_stats", "gn_prologue=stats")):
+        if name in state["kernels"]:
+            k = state["kernels"][name]
+            warm = reqs[f"{mode} warm"]
+            k["launches"] = warm[name]
+            k["launches_by_route"] = warm["gnq_by_route"][name]
+            k["path"] = f"modes: a {mode} t2i request (512^2, n = 2, DDIM-{STEPS}, CFG)"
+            if name == "gn_stats":
+                k["launches_conv_fused"] = reqs["conv=fused warm"]["gn_stats"]
+    if "qconv3" in state["kernels"]:
         state["kernels"]["qconv3"]["launches_gn_prologue"] = totals["qconv3_gn"]
     state["modes"] = results
 
 
 def _fused_request(state, system):
-    """One t2i request under the default int8 policy and one under
-    conv="fused" (the GN prologue inside the conv kernel), each cold then
-    warm, in this call: recorded, not gated, beside each other."""
+    """t2i requests under the default int8 policy, gn_prologue "fused" and
+    "stats", conv "fused" and the default again, each cold then warm, in
+    this call: times recorded beside each other, not gated. The opt-in
+    modes' int8 GN launches are asserted as derived from the program: a
+    request's UNet calls (STEPS, batch 4: 2 images x CFG) each launch
+    gn_silu_q ("fused") or gn_stats ("stats") once at every int8 ResBlock
+    GroupNorm site (``_int8_sites``' GroupNorm-fed convs), on its plan's
+    route, and under conv "fused" gn_stats once before every qconv3_gn."""
     import torch
     from vdtpu_torch.ops.quant import QuantPolicy
     from vdtpu_torch.serving.api import VDInference
     vdi = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
                       ddim_steps=STEPS, n_sample_image=2)
     prompt = "a red cat sitting on a wooden bench in the sun"
+    sites = _gnq_sites(system, 4)
+    fused_sites = _gnq_sites(system, 4, QuantPolicy().fused_min_pixels)
+    if len(sites) != _int8_sites(system)[1]:
+        raise RuntimeError(f"modes: {len(sites)} int8 GN sites, {_int8_sites(system)[1]} "
+                           "GroupNorm-fed int8 convs")
+    n, nf = len(sites) * STEPS, len(fused_sites) * STEPS
+    none_q, none_st = _gnq_expected([], False), _gnq_expected([], True)
+    want = {"default": (dict(gn_silu_q=0, gn_stats=0), none_q, none_st),
+            "gn_prologue=fused": (dict(gn_silu_q=n, gn_stats=0),
+                                  _gnq_expected(sites, False, STEPS), none_st),
+            "gn_prologue=stats": (dict(gn_silu_q=0, gn_stats=n), none_q,
+                                  _gnq_expected(sites, True, STEPS)),
+            "conv=fused": (dict(gn_silu_q=0, gn_stats=nf, qconv3_gn=nf), none_q,
+                           _gnq_expected(fused_sites, True, STEPS))}
     out = {}
-    for mode, pol in (("default", system.quant_policy), ("conv=fused", QuantPolicy(conv="fused")),
+    for mode, pol in (("default", system.quant_policy),
+                      ("gn_prologue=fused", QuantPolicy(gn_prologue="fused")),
+                      ("gn_prologue=stats", QuantPolicy(gn_prologue="stats")),
+                      ("conv=fused", QuantPolicy(conv="fused")),
                       ("default again", system.quant_policy)):
+        counts, want_q, want_st = want[mode.replace(" again", "")]
         with _policy(system, pol):
             for run in ("cold", "warm"):
                 torch.cuda.synchronize()
@@ -1683,13 +1996,23 @@ def _fused_request(state, system):
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t
                 got = _read_counters()
+                routes = _gnq_routes()
                 finite = bool(torch.isfinite(img).all())
+                counted = ({k: got[k] for k in counts} == counts
+                           and routes == {"gn_silu_q": want_q, "gn_stats": want_st})
                 log(f"modes request {mode} {run}: {dt:.3f} s, finite {finite}, int8 conv "
-                    f"{got['qconv3']} (fused prologue {got['qconv3_gn']}) [{state.get('card')}]")
+                    f"{got['qconv3']} (fused prologue {got['qconv3_gn']}), gn_silu_q "
+                    f"{got['gn_silu_q']}, gn_stats {got['gn_stats']}, int8 GN by route {routes} "
+                    f"(expected {counts}) [{state.get('card')}]")
                 if not finite:
                     raise RuntimeError(f"modes request {mode} {run}: non-finite output")
+                if not counted:
+                    raise RuntimeError(f"modes request {mode} {run}: launches {got} {routes}, "
+                                       f"expected {counts} {want_q} {want_st}")
                 out[f"{mode} {run}"] = dict(seconds=dt, qconv3=got["qconv3"],
-                                            qconv3_gn=got["qconv3_gn"])
+                                            qconv3_gn=got["qconv3_gn"],
+                                            gn_silu_q=got["gn_silu_q"], gn_stats=got["gn_stats"],
+                                            gnq_by_route=routes)
     return out
 
 
@@ -2110,7 +2433,9 @@ def _kernel_kind(name: str) -> str:
         return "int8 conv (hand)"
     if "resblock_kernel" in n:
         return "int8 ResBlock (hand)"
-    if "gn_kernel" in n or "gn_stats" in n or "gn_apply" in n or "gn_finalize" in n:
+    if "gnq_kernel" in n or "gn_stats_cluster" in n:
+        return "gn int8 (hand)"
+    if "gn_kernel" in n:
         return "gn_silu (hand)"
     if "nchwtonhwc" in n or "nhwctonchw" in n:
         return "layout conversion (cuDNN)"
@@ -2187,18 +2512,20 @@ def _profile_mode(state, system, label):
         log(f"  kind {kind}: {us / iters / 1e3:.3f} ms/step ({us / iters / 1e3 / busy:.3f})")
     qconv = sum(_dev_t(e) for e in rows if "qconv3" in e.key) / iters / 1e3
     rb = sum(_dev_t(e) for e in rows if "resblock_kernel" in e.key) / iters / 1e3
+    gnq = sum(_dev_t(e) for e in rows if "gnq_kernel" in e.key) / iters / 1e3
     log(f"profile {label}: device busy {busy:.3f} ms/step, of it the int8 conv (qconv3) "
         f"{qconv:.3f} ms ({qconv / busy:.3f}), the whole int8 ResBlock (resblock_q) "
-        f"{rb:.3f} ms ({rb / busy:.3f}) [{state.get('card')}]")
+        f"{rb:.3f} ms ({rb / busy:.3f}), the int8 GN kernels (gn_silu_q, gn_stats) "
+        f"{gnq:.3f} ms ({gnq / busy:.3f}) [{state.get('card')}]")
     for e in sorted(rows, key=_dev_t, reverse=True)[:12]:
         log(f"  top {_dev_t(e) / iters / 1e3:.3f} ms/step x{e.count // iters} {e.key[:90]}")
     state.setdefault("profile", {})[label] = dict(wall_ms=1e3 * wall, busy_ms=busy,
-                                                  kinds=kinds, resblock_q_ms=rb)
+                                                  kinds=kinds, resblock_q_ms=rb, gnq_ms=gnq)
 
 
 def phase_profile(state):
-    """Profile the exact path, and int8, int8 + ToMe and int8 conv="fused2"
-    once calibrated."""
+    """Profile the exact path, and int8, int8 + ToMe, int8
+    gn_prologue="fused" and int8 conv="fused2" once calibrated."""
     from vdtpu_torch.ops.quant import QuantPolicy
     system = _system(state)
     policy = system.quant_policy
@@ -2212,6 +2539,8 @@ def phase_profile(state):
         _profile_mode(state, system, "int8_tome")
     finally:
         system.enable_tome(0)
+    with _policy(system, QuantPolicy(gn_prologue="fused")):
+        _profile_mode(state, system, "gn_fused")
     with _policy(system, QuantPolicy(conv="fused2")):
         _profile_mode(state, system, "fused2")
 

@@ -332,22 +332,132 @@ def _codes_agree(a, b):
     assert float((diff > 0).float().mean()) <= MAX_OFF_BY_ONE
 
 
-@pytest.mark.parametrize("shape,groups", [((2, 96, 7, 9), 32), ((3, 320, 33, 17), 32),
-                                          ((1, 64, 1, 1), 32), ((2, 40, 5, 3), 8)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_gn_int8_kernels_match_plain(gen, shape, groups, dtype):
-    from vdtpu_torch.ops.gn_silu import gn_silu_q, gn_silu_q_plain, gn_stats, gn_stats_plain
+def _one_route(fn, route, call):
+    """call() launches fn's kernel once, on ``route`` (launches_by_route)."""
+    before, by = fn.launches, dict(fn.launches_by_route)
+    out = call()
+    assert fn.launches == before + 1
+    assert fn.launches_by_route[route] == by[route] + 1, (route, fn.launches_by_route)
+    return out
+
+
+# (shape, groups, gn_silu_q's route, gn_stats' route): rows that are not
+# 16-byte runs, one pixel a channel and C % 16 != 0 (the general route; at
+# C % 32 == 0 with whole 32-byte code runs stored by lane pairs around an odd
+# last pixel); slices of 32, 16 and 8 channels (gn_stats one CTA a group);
+# C % 8 != 0 (masked code bytes); the 960-channel 64^2 UNet site (two tiles a
+# CTA). The resident route, the grid barrier and clusters of 2-8 CTAs a group
+# are held in test_gn_int8_kernels_every_variant_matches_plain.
+GNQ_CASES = [((2, 96, 7, 9), 32, "general", "general"),
+             ((3, 320, 33, 17), 32, "general", "general"),
+             ((1, 64, 1, 1), 32, "general", "general"),
+             ((2, 40, 5, 3), 8, "general", "general"),
+             ((2, 64, 16, 16), 32, "streaming", "cluster"),
+             ((2, 48, 16, 16), 16, "streaming", "cluster"),
+             ((2, 40, 16, 16), 8, "streaming", "cluster"),
+             ((2, 4, 16, 16), 4, "general", "cluster"),
+             ((4, 960, 64, 64), 32, "streaming", "cluster")]
+
+
+@pytest.mark.parametrize("shape,groups,route,stats_route", GNQ_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_gn_int8_kernels_match_plain(gen, shape, groups, route, stats_route, dtype):
+    from vdtpu_torch.ops.gn_silu import (gn_silu_q, gn_silu_q_plain, gn_stats, gn_stats_plain,
+                                         gnq_plan, gnq_slice)
     c = shape[1]
+    for stats in (False, True):
+        plan = gnq_plan(shape, dtype, groups, torch.cuda.get_device_properties(0)
+                        .multi_processor_count, stats)
+        assert plan.route == (stats_route if stats else route)
+        assert plan.cs == (0 if plan.route == "cluster" else gnq_slice(c, stats))
     x = (_randn(gen, *shape, dtype=torch.float32) * 2 + 0.5).to(dtype)
     w = (torch.rand(c, device="cuda", generator=gen) + 0.5).to(dtype)
     bias = _randn(gen, c, dtype=dtype)
-    st = gn_stats(x, groups, 1e-5)
+    st = _one_route(gn_stats, stats_route, lambda: gn_stats(x, groups, 1e-5))
     torch.testing.assert_close(st, gn_stats_plain(x, groups, 1e-5), atol=1e-5, rtol=1e-5)
+    assert torch.equal(st, gn_stats(x, groups, 1e-5))     # fixed-order sums: the same bits
     s = torch.tensor(0.02, device="cuda")
     for silu in (True, False):
-        q = gn_silu_q(x, w, bias, s, groups, 1e-5, silu)
+        q = _one_route(gn_silu_q, route, lambda: gn_silu_q(x, w, bias, s, groups, 1e-5, silu))
         assert q.dtype == torch.int8 and q.shape == (shape[0],) + shape[2:] + (c,)
         _codes_agree(q, gn_silu_q_plain(x, w, bias, s, groups, 1e-5, silu))
+        assert torch.equal(q, gn_silu_q(x, w, bias, s, groups, 1e-5, silu))
+
+
+@pytest.mark.parametrize("shape,groups", [((2, 64, 16, 16), 32), ((2, 40, 16, 16), 8),
+                                          ((2, 96, 7, 9), 32)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gn_int8_kernels_every_variant_matches_plain(gen, shape, groups, dtype):
+    """Every plan gnq_variants gives (each route, slice width, thread count
+    and tile length, with per-slice arrival counts and with one grid
+    barrier; gn_stats' cooperative routes and every cluster size), each
+    launched through gnq_launch_plan, against the plain versions, and the
+    same bits twice."""
+    import dataclasses
+    from vdtpu_torch.ops.gn_silu import (gn_silu_q_plain, gn_stats_plain, gnq_launch_plan,
+                                         gnq_variants)
+    c = shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x = (_randn(gen, *shape, dtype=torch.float32) * 2 + 0.5).to(dtype)
+    w = (torch.rand(c, device="cuda", generator=gen) + 0.5).to(dtype)
+    bias = _randn(gen, c, dtype=dtype)
+    s = torch.tensor(0.02, device="cuda")
+    ref_q, ref_st = gn_silu_q_plain(x, w, bias, s, groups), gn_stats_plain(x, groups)
+    seen = set()
+    for stats in (False, True):
+        plans = {p for cs in ((16, 8) if stats else (32, 16, 8)) if c % cs == 0 or cs == 8
+                 for p in gnq_variants(shape, dtype, groups, sms, stats, cs=cs)}
+        plans |= {dataclasses.replace(p, sync="grid") for p in plans if p.route != "cluster"}
+        for plan in sorted(plans, key=str):
+            seen.add(plan.route)
+            outs = []
+            for _ in range(2):
+                out = torch.empty_like(ref_st if stats else ref_q)
+                gnq_launch_plan(x, out, plan, groups, 1e-5, *(() if stats else (w, bias, s)))
+                outs.append(out)
+            if stats:
+                torch.testing.assert_close(outs[0], ref_st, atol=1e-5, rtol=1e-5)
+            else:
+                _codes_agree(outs[0], ref_q)
+            assert torch.equal(outs[0], outs[1]), plan
+    assert seen >= ({"general"} if shape[2] == 7 else {"resident", "streaming", "stats",
+                                                       "cluster"})
+
+
+def test_gn_int8_kernels_take_a_misaligned_start(gen):
+    """x one element into its buffer: the general route, same results."""
+    from vdtpu_torch.ops.gn_silu import gn_silu_q, gn_silu_q_plain, gn_stats, gn_stats_plain
+    shape = (2, 64, 16, 16)
+    x = _randn(gen, math.prod(shape) + 1)[1:].view(shape)
+    w = torch.rand(64, device="cuda", generator=gen) + 0.5
+    bias = _randn(gen, 64, dtype=torch.float32)
+    s = torch.tensor(0.02, device="cuda")
+    st = _one_route(gn_stats, "general", lambda: gn_stats(x))
+    torch.testing.assert_close(st, gn_stats_plain(x), atol=1e-5, rtol=1e-5)
+    q = _one_route(gn_silu_q, "general", lambda: gn_silu_q(x, w, bias, s))
+    _codes_agree(q, gn_silu_q_plain(x, w, bias, s))
+
+
+def test_gn_int8_kernels_refuse_a_plan_they_do_not_derive(gen):
+    """The C entry points recompute the plan: a tile count that is not
+    theirs, a resident plan with fewer CTAs than tiles, and a gn_stats plan
+    on the resident route come back as cudaError 1."""
+    import dataclasses
+    from vdtpu_torch.ops.gn_silu import gnq_launch_plan, gnq_variants
+    x = _randn(gen, 2, 64, 16, 16)
+    w = torch.ones(64, device="cuda", dtype=torch.bfloat16)
+    s = torch.tensor(0.02, device="cuda")
+    q = torch.empty((2, 16, 16, 64), dtype=torch.int8, device="cuda")
+    st = torch.empty((2, 2, 64), device="cuda")
+    plan = next(p for p in gnq_variants((2, 64, 16, 16), torch.bfloat16, 32)
+                if p.route == "resident")
+    assert plan.ctas > 1
+    for bad in (dataclasses.replace(plan, tiles=plan.tiles + 1),
+                dataclasses.replace(plan, ctas=plan.ctas - 1)):
+        with pytest.raises(RuntimeError, match="cudaError 1 "):
+            gnq_launch_plan(x, q, bad, 32, 1e-5, w, w, s)
+    with pytest.raises(RuntimeError, match="cudaError 1 "):
+        gnq_launch_plan(x, st, plan, 32, 1e-5)
 
 
 def test_gn_int8_kernels_refuse(gen):

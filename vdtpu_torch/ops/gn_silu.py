@@ -1,5 +1,5 @@
 """GroupNorm(+SiLU): a hand-written CUDA C++ kernel and its plain version;
-the int8 policy's GroupNorm kernels (Triton).
+the int8 policy's GroupNorm kernels (CUDA C++).
 
 Counterpart of ``vdtpu/ops/pallas/gn_silu.py::gn_silu`` (its ``_kernel``,
 reached through ``_fused_impl``). Both compute, per sample and group, f32
@@ -25,31 +25,40 @@ that does not match. Bound on this card: one read and one write of x at
 3.35 TB/s. The wrapper's host cost is the checks, one allocation and one
 ctypes call with the launch's arguments built once a distinct call.
 
-The int8 serving policy adds two Triton kernels on a split reduction over a
-(B*G, S) grid (kernel K2 of the port):
-  - ``gn_stats``: a stats pass of partial sums, then a finalize pass that
-    writes [B, 2, C] f32 channel-broadcast (mean, rstd). Replaces
-    ``vdtpu/ops/pallas/gn_silu.py::gn_stats`` (its ``_stats_kernel``).
-  - ``gn_silu_q``: the stats pass, then an apply pass that normalizes,
-    applies the affine and SiLU and quantizes to int8 with the static
+The int8 serving policy adds two hand-written CUDA kernels in
+``csrc/gn_q.cu`` (its source note has the design), one launch a call each:
+  - ``gn_silu_q``: GroupNorm(+SiLU) then int8 codes with the static
     activation scale, clip(round half to even(y * (1 / s)), -127, 127): the
     multiply by the reciprocal of ``_kernel_q`` / ``_apply_q_kernel``, not
     ``_quantize_act``'s divide (codes can differ by one at rounding
     boundaries; ROADMAP queue 3). Replaces ``gn_silu_q`` (``_kernel_q``)
-    and ``_gn_silu_q_blocked`` (``_stats_kernel`` + ``_apply_q_kernel``),
-    whose two-pass design this already is.
-The apply pass is where the layout changes: it reads x channel-first
-(groups contiguous, as the statistics want) and stores the s8 codes
-channels-last, [B, *spatial, C], which is what the int8 conv kernel
-(``ops/qconv.py``) reads as its implicit-GEMM K axis. Each program takes a
-[64 channels x 64 pixels] block, so both its loads (along pixels) and its
-s8 stores (along channels) are contiguous runs; moving the layout here
-costs no extra pass, where a separate transpose would read and write the
-codes once more. Bound: one read of x and one s8 write, at [4, 320, 64,
-64] 10.5 + 5.2 MB, about 0.0047 ms at 3.35 TB/s (the stats pass's
-re-read mostly hits L2). The int8 variant on the CUDA kernel's template
-(bands of lcm(C / G, 16) channels, so that a pixel's codes are whole
-16-byte runs) was built and measured slower than this one: ROADMAP.
+    and ``_gn_silu_q_blocked`` (``_stats_kernel`` + ``_apply_q_kernel``).
+    One cooperative launch: a CTA's tile is (sample, a slice of Cs = 32
+    channels (16, 8 where C does not divide), a range of P pixels); phase 1
+    sums each channel's x and x^2 over the tile into a workspace of
+    per-channel partials [B, C, ranges] and counts the tile's arrival for
+    its (sample, slice); a tile's phase 2 waits for every range of the
+    slices its groups cover (a slice may cut a group), combines the groups'
+    partials in one fixed order, normalizes, applies the affine and SiLU,
+    quantizes into a code buffer in shared memory, transposed, and stores
+    each pixel's run as 16-byte vectors into the channels-last
+    [B, *spatial, C] layout the int8 conv (``ops/qconv.py``) reads as its
+    implicit-GEMM K axis.
+  - ``gn_stats``: [B, 2, C] f32 channel-broadcast (mean, rstd). Replaces
+    ``vdtpu/ops/pallas/gn_silu.py::gn_stats`` (its ``_stats_kernel``). A
+    CTA a (sample, group) sums the group's contiguous range (the "cluster"
+    route, in row 6's manner: clusters of k CTAs combine their partials over
+    distributed shared memory; the plan takes k = 1); the cooperative kernel
+    without its apply takes the shapes the clusters do not.
+``gnq_plan`` picks the route ("streaming": phase 1 from global memory, the
+tile copied in again from L2 for phase 2; "resident", a variant: the tile
+kept in shared memory; "general": scalar loads for rows that are not
+16-byte runs or codes that are not whole vectors; "cluster" for
+``gn_stats``), Cs, P, the threads and the shared memory, and raises on what
+the kernels do not take; the C entry points recompute it and refuse a plan
+that is not theirs. Bound: one read of x and one s8 write (``gn_stats``:
+one read of x), at [4, 320, 64, 64] bf16 0.0047 (0.0031) ms at 3.35 TB/s.
+``gnq_blocked_plain`` is the kernels' order of work on the CPU.
 
 Every wrapper takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises. ``gn_silu`` is differentiable
@@ -66,11 +75,6 @@ import math
 import torch
 
 from vdtpu_torch.ops.kernels.build import load
-
-_BLOCK = 1024
-_TARGET_PROGRAMS = 132 * 8
-_MAX_SPLIT = 64
-_QBLOCK = 64  # channels a program of gn_stats' finalize pass
 
 NUM_SMS = 132                # the plan's default: an H100 SXM
 GN_MAX_SMEM = 232_448        # dynamic shared memory a CTA can have (227 KB)
@@ -127,15 +131,6 @@ def gn_silu_q_plain(x, weight, bias, s_act, groups: int = 32, eps: float = 1e-5,
     inv = 1.0 / torch.as_tensor(s_act, dtype=torch.float32, device=x.device)
     q = torch.round(y * inv).clamp(-127, 127).to(torch.int8)
     return q.movedim(1, -1).contiguous()
-
-
-def split_count(bg: int, group_len: int) -> int:
-    """gn_stats' programs per group: enough to fill the card, each with >= one block."""
-    s = 1
-    while (s * 2 <= _MAX_SPLIT and bg * s < _TARGET_PROGRAMS
-           and group_len >= s * 2 * _BLOCK):
-        s *= 2
-    return s
 
 
 # ---- the CUDA kernel's plan ------------------------------------------------
@@ -548,105 +543,412 @@ def _check_gn_input(name: str, x, groups: int, weight=None, bias=None):
             raise ValueError(f"{name}: weight and bias must be contiguous [C] on x's device")
 
 
-# ---- gn_stats: the Triton split reduction ------------------------------------
-
-_kernels = None
 
 
-def _triton_kernels():
-    global _kernels
-    if _kernels is not None:
-        return _kernels
-    from vdtpu_torch.ops.kernels.build import use_triton_cache_dir
-    use_triton_cache_dir()
-    import triton
-    import triton.language as tl
+# ---- the int8 GroupNorm kernels (csrc/gn_q.cu): the plan ---------------------
 
-    @triton.jit
-    def gn_stats_kernel(x_ptr, part_ptr, L, CHUNK, S: tl.constexpr, BLOCK: tl.constexpr):
-        bg = tl.program_id(0)
-        s = tl.program_id(1)
-        base = x_ptr + bg.to(tl.int64) * L
-        start = s * CHUNK
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        acc2 = tl.zeros([BLOCK], dtype=tl.float32)
-        for off in range(0, CHUNK, BLOCK):
-            idx = start + off + tl.arange(0, BLOCK)
-            xv = tl.load(base + idx, mask=idx < L, other=0.0).to(tl.float32)
-            acc += xv
-            acc2 += xv * xv
-        out = part_ptr + (bg * S + s) * 2
-        tl.store(out, tl.sum(acc, axis=0))
-        tl.store(out + 1, tl.sum(acc2, axis=0))
-
-    @triton.jit
-    def gn_finalize_kernel(part_ptr, out_ptr, C, CPG, G, inv_count, eps, S: tl.constexpr,
-                           SP: tl.constexpr, BC: tl.constexpr):
-        b = tl.program_id(0)
-        c = tl.program_id(1) * BC + tl.arange(0, BC)
-        cm = c < C
-        so = tl.arange(0, SP)
-        row = (b * G + c // CPG) * S
-        m2 = cm[:, None] & (so[None, :] < S)
-        tot = tl.sum(tl.load(part_ptr + (row[:, None] + so[None, :]) * 2, mask=m2, other=0.0), 1)
-        tot2 = tl.sum(tl.load(part_ptr + (row[:, None] + so[None, :]) * 2 + 1, mask=m2,
-                              other=0.0), 1)
-        mean = tot * inv_count
-        var = tl.maximum(tot2 * inv_count - mean * mean, 0.0)
-        rstd = 1.0 / tl.sqrt(var + eps)
-        tl.store(out_ptr + b * 2 * C + c, mean, mask=cm)
-        tl.store(out_ptr + b * 2 * C + C + c, rstd, mask=cm)
-
-    @triton.jit
-    def gn_apply_q_kernel(x_ptr, q_ptr, w_ptr, b_ptr, part_ptr, s_ptr, C, HW, CPG, G,
-                          inv_count, eps, S: tl.constexpr, SP: tl.constexpr,
-                          BC: tl.constexpr, BP: tl.constexpr, WITH_SILU: tl.constexpr):
-        b = tl.program_id(0)
-        p = tl.program_id(1) * BP + tl.arange(0, BP)
-        c = tl.program_id(2) * BC + tl.arange(0, BC)
-        cm = c < C
-        so = tl.arange(0, SP)
-        row = (b * G + c // CPG) * S
-        m2 = cm[:, None] & (so[None, :] < S)
-        tot = tl.sum(tl.load(part_ptr + (row[:, None] + so[None, :]) * 2, mask=m2, other=0.0), 1)
-        tot2 = tl.sum(tl.load(part_ptr + (row[:, None] + so[None, :]) * 2 + 1, mask=m2,
-                              other=0.0), 1)
-        mean = tot * inv_count
-        var = tl.maximum(tot2 * inv_count - mean * mean, 0.0)
-        rstd = 1.0 / tl.sqrt(var + eps)
-        w = tl.load(w_ptr + c, mask=cm, other=0.0).to(tl.float32)
-        bb = tl.load(b_ptr + c, mask=cm, other=0.0).to(tl.float32)
-        inv = 1.0 / tl.load(s_ptr)
-        m = cm[:, None] & (p[None, :] < HW)
-        base = b.to(tl.int64) * C * HW
-        xv = tl.load(x_ptr + base + c[:, None] * HW + p[None, :], mask=m, other=0.0)
-        y = (xv.to(tl.float32) - mean[:, None]) * rstd[:, None] * w[:, None] + bb[:, None]
-        if WITH_SILU:
-            y = y / (1.0 + tl.exp(-y))
-        v = tl.minimum(tl.maximum(y * inv, -127.0), 127.0)
-        # round half to even: adding and removing 1.5 * 2^23 leaves the
-        # nearest integer, ties to even, for |v| <= 2^22
-        v = (v + 12582912.0) - 12582912.0
-        tl.store(q_ptr + base + p[None, :] * C + c[:, None], v.to(tl.int8), mask=m)
+GNQ_THREADS = (128, 256)
+GNQ_REGS = 48                # registers a thread: csrc/gn_q.cu's __launch_bounds__(256, 5)
+GNQ_VECTORS = (1, 2, 4, 8)   # 16-byte vectors a lane sums in a tile (the vector routes)
+GNQ_SCALARS = (2, 4, 8, 16, 32)  # elements a lane sums in a tile (the general route)
+# a CTA's fixed cost in the plan's cost (its group combine, table, barrier
+# and tail), in bytes of x an SM would move meanwhile
+GNQ_CTA_BYTES = 4096
+GNQ_CLUSTERS = (1, 2, 4, 8)  # gn_stats' cluster route: CTAs a (sample, group)
+GNQ_CLUSTER_THREADS = 512
+_GNQ_ROUTE_CODE = {"resident": 0, "streaming": 1, "stats": 1, "general": 2}
 
 
-    _kernels = (triton, gn_stats_kernel, gn_finalize_kernel, gn_apply_q_kernel)
-    return _kernels
+@dataclasses.dataclass(frozen=True)
+class GNQPlan:
+    """Geometry of one ``csrc/gn_q.cu`` launch. A tile is (sample, a slice
+    of ``cs`` channels, a range of ``pixels`` pixels); there are ``ranges``
+    ranges a channel and ``tiles`` tiles, walked by ``ctas`` CTAs of
+    ``threads`` threads (``threads / cs`` lanes a channel row) and
+    ``smem_bytes`` shared memory. ``route``: "resident" (gn_silu_q: a CTA a
+    tile, every tile held in shared memory at once), "streaming" (gn_silu_q:
+    persistent CTAs, phase 2 copies each tile in again), "stats" (gn_stats on
+    the cooperative kernel: the vector route, nothing kept), "general"
+    (scalar loads, masked code stores; any shape), or "cluster" (gn_stats in
+    row 6's manner, ``vd_gn_stats_cluster``: a cluster of ``cluster`` CTAs a
+    (sample, group), each summing ``pixels`` elements of the group's
+    contiguous range; ``tiles`` = ``ctas`` = B * G * cluster, ``cs`` 0).
+    ``sync``: how phase 2 waits for the partials of the cooperative routes,
+    "slices" (a tile waits for every range of the slices its groups cover:
+    per-(sample, slice) arrival counts) or "grid" (one grid barrier; for
+    measuring the two against each other)."""
+    route: str
+    cs: int
+    pixels: int
+    threads: int
+    ranges: int
+    tiles: int
+    ctas: int
+    smem_bytes: int
+    cluster: int = 0
+    sync: str = "slices"
+
+    @property
+    def tiles_per_cta(self) -> int:
+        return -(-self.tiles // self.ctas)
 
 
-def _stats_partials(x, groups: int):
-    """Launch the stats pass; returns (partials [B*G, S, 2], S, group_len,
-    the elements each of the S programs of a group reads)."""
+def gnq_smem_bytes(stats: bool, cs: int, pixels: int, es: int) -> int:
+    """Shared memory of a launch, as csrc/gn_q.cu::smem_bytes lays it out:
+    the tile and its codes (gn_silu_q), then the per-channel table and the
+    groups' statistics (24 bytes a channel of the slice)."""
+    r16 = lambda n: -(-n // 16) * 16
+    return (0 if stats else r16(cs * pixels * es) + r16(cs * pixels)) + 24 * cs
+
+
+def gnq_blocks_per_sm(threads: int, smem_bytes: int) -> int:
+    """CTAs of the kernel an SM holds at once: by threads (2048), registers
+    (GNQ_REGS a thread), shared memory (GN_SM_SMEM, 1 KB reserved a CTA) and
+    blocks (32). ``vd_gnq_blocks_per_sm`` asks the card (``gnq_sweep``)."""
+    return min(32, 2048 // threads, 65536 // (threads * GNQ_REGS),
+               GN_SM_SMEM // (smem_bytes + 1024))
+
+
+def _gnq_shape(shape: tuple, dtype: torch.dtype, groups: int):
+    """(b, c, hw, itemsize), or raises on what the kernel does not take."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"gn int8 kernels: unsupported dtype {dtype}")
+    b, c = shape[0], shape[1]
+    hw = math.prod(shape[2:])
+    if b < 1 or c < 1 or hw < 1 or groups < 1 or c % groups:
+        raise ValueError(f"gnq_plan: {groups} groups do not divide shape {tuple(shape)}")
+    return b, c, hw, torch.empty((), dtype=dtype).element_size()
+
+
+def gnq_vector_route(shape: tuple, dtype: torch.dtype, stats: bool, aligned: bool = True) -> bool:
+    """Rows of whole 16-byte vectors from an aligned x (and, for the codes,
+    C % 8 == 0, so that a pixel's codes of a slice are one 8- or 16-byte
+    store); else the general route."""
+    es = torch.empty((), dtype=dtype).element_size()
+    return aligned and (math.prod(shape[2:]) * es) % 16 == 0 and (stats or shape[1] % 8 == 0)
+
+
+def gnq_slice(c: int, stats: bool) -> int:
+    """Channels a slice: 32 where C % 32 == 0 (gn_silu_q: each pixel's codes
+    one whole 32-byte sector), else 16 where C % 16 == 0, else 8 (the
+    cooperative kernel's statistics: 16 or 8)."""
+    return 32 if c % 32 == 0 and not stats else 16 if c % 16 == 0 else 8
+
+
+def gnq_cluster_variants(shape: tuple, dtype: torch.dtype, groups: int,
+                         aligned: bool = True) -> list:
+    """gn_stats' cluster plans (clusters of k of GNQ_CLUSTERS CTAs a
+    (sample, group)): x aligned and each CTA's part of a group whole
+    16-byte vectors."""
+    b, c, hw, es = _gnq_shape(shape, dtype, groups)
+    count = c // groups * hw
+    out = []
+    for k in GNQ_CLUSTERS:
+        if aligned and count % (k * 16 // es) == 0:
+            n = b * groups * k
+            out.append(GNQPlan("cluster", 0, count // k, GNQ_CLUSTER_THREADS, 1, n, n, 0, k))
+    return out
+
+
+def gnq_variants(shape: tuple, dtype: torch.dtype, groups: int, sms: int = NUM_SMS,
+                 stats: bool = False, aligned: bool = True, cs: int | None = None) -> list:
+    """Every plan the kernel takes for x of ``shape`` (``cs``: the slice's
+    channels, default gnq_plan's): each thread count of GNQ_THREADS and each
+    tile length (GNQ_VECTORS 16-byte vectors a lane, or GNQ_SCALARS
+    elements on the general route) up to the one that covers a row, on
+    every route that applies. The resident route needs every tile resident
+    at once (``gnq_blocks_per_sm`` x ``sms``); the others take the fewest
+    CTAs that the card holds at once and that share the tiles evenly."""
+    b, c, hw, es = _gnq_shape(shape, dtype, groups)
+    cs = cs or gnq_slice(c, stats)
+    vec = gnq_vector_route(shape, dtype, stats, aligned)
+    routes = (["stats"] if stats else ["resident", "streaming"]) if vec else ["general"]
+    out = []
+    for threads in GNQ_THREADS:
+        tpr = threads // cs
+        if tpr < 4:
+            continue
+        unit = tpr * (16 // es if vec else 1)
+        for n in (GNQ_VECTORS if vec else GNQ_SCALARS):
+            pixels = unit * n
+            if n > (GNQ_VECTORS if vec else GNQ_SCALARS)[0] and pixels // 2 >= hw:
+                break   # the last length covered the row
+            smem = gnq_smem_bytes(stats, cs, pixels, es)
+            if smem > GN_MAX_SMEM:
+                break
+            ranges = -(-hw // pixels)
+            tiles = b * -(-c // cs) * ranges
+            cap = sms * gnq_blocks_per_sm(threads, smem)
+            for route in routes:
+                if route == "resident":
+                    if tiles > cap:
+                        continue
+                    ctas = tiles
+                else:
+                    ctas = -(-tiles // -(-tiles // cap))
+                out.append(GNQPlan(route, cs, pixels, threads, ranges, tiles, ctas, smem))
+    return out + (gnq_cluster_variants(shape, dtype, groups, aligned) if stats else [])
+
+
+def gnq_cost(plan: GNQPlan, es: int, sms: int = NUM_SMS) -> float:
+    """The plan's cost: the busiest SM's CTAs (ctas / sms, rounded up) times
+    a CTA's tiles times a tile's bytes of x (the streaming route's second
+    read, from L2, at half) and GNQ_CTA_BYTES."""
+    tile = plan.cs * plan.pixels * es * (1.5 if plan.route in ("streaming", "general") else 1)
+    return -(-plan.ctas // sms) * plan.tiles_per_cta * (tile + GNQ_CTA_BYTES)
+
+
+@functools.lru_cache(maxsize=512)
+def gnq_plan(shape: tuple, dtype: torch.dtype, groups: int, sms: int = NUM_SMS,
+             stats: bool = False, aligned: bool = True) -> GNQPlan:
+    """The int8 GN kernels' plan for a contiguous x of ``shape`` [B, C,
+    *spatial] (``stats``: gn_stats, else gn_silu_q; ``aligned``: x starts on
+    a 16-byte boundary). Cs by ``gnq_slice``. gn_silu_q takes the streaming
+    route, whose CTAs (one a tile wherever the tiles fit the card at once)
+    sum phase 1 from global memory and copy the tile in again from L2 for
+    phase 2: at every site gnq_sweep measured it read as fast as the same
+    geometry on the resident route or faster (PERF.md), which stays a
+    variant for measuring; shapes whose rows are not 16-byte runs (or whose
+    codes are not whole 8-byte runs) take the general route. gn_stats takes the
+    cluster route where it applies, one CTA a group (gnq_sweep read larger
+    clusters slower at B = 4 and at B = 2, PERF.md), else the cooperative
+    kernel's "stats" or general route. Among the cooperative plans, the
+    least ``gnq_cost``; on a tie the most tiles, then the most threads."""
+    b, _, _, es = _gnq_shape(shape, dtype, groups)
+    if stats:
+        ks = gnq_cluster_variants(shape, dtype, groups, aligned)
+        if ks:
+            return ks[0]
+    pool = [p for p in gnq_variants(shape, dtype, groups, sms, stats, aligned)
+            if p.route not in ("cluster", "resident")]
+    if not pool:
+        raise ValueError(f"gnq_plan: no plan takes {tuple(shape)} {dtype}")
+    return min(pool, key=lambda p: (gnq_cost(p, es, sms), -p.tiles, -p.threads))
+
+
+# ---- the int8 kernels' order of work, on the CPU ------------------------------
+
+def _gnq_partials(xf, plan: GNQPlan, es: int):
+    """Phase 1: [B, C, ranges, 2] per-channel (sum, sum of squares), each
+    channel row of a tile summed by its threads / cs lanes as
+    ``_team_sums`` takes them (lane j: 16-byte vectors j, j + lanes, ...,
+    or single elements on the general route)."""
+    b, c, hw = xf.shape
+    width = 16 // es if plan.route != "general" else 1
+    tpr = plan.threads // plan.cs
+    ws = torch.zeros((b, c, plan.ranges, 2), dtype=torch.float32)
+    for bi in range(b):
+        for ch in range(c):
+            for pr in range(plan.ranges):
+                seg = xf[bi, ch, pr * plan.pixels:(pr + 1) * plan.pixels]
+                ws[bi, ch, pr] = torch.stack(_team_sums([_strided(seg.reshape(-1, width), tpr)],
+                                                        tpr))
+    return ws
+
+
+def _gnq_group_stats(ws, groups: int, count: float, eps: float):
+    """Phase 2's combine: per (sample, group) a warp sums the group's cpg x
+    ranges partials (lane l: items l, l + 32, ... in order, then a
+    butterfly), then (mean, rstd) as csrc/gn_q.cu::finish. -> [B, G, 2]."""
+    b, c = ws.shape[:2]
+    cpg = c // groups
+    cnt = torch.tensor(count, dtype=torch.float32)
+    out = torch.empty((b, groups, 2), dtype=torch.float32)
+    for bi in range(b):
+        for g in range(groups):
+            lanes = _strided(ws[bi, g * cpg:(g + 1) * cpg].reshape(-1, 2), 32)
+            acc = torch.zeros((32, 2), dtype=torch.float32)
+            for it in range(lanes.shape[0]):
+                acc = acc + lanes[it]
+            t, t2 = _butterfly(acc[:, 0]), _butterfly(acc[:, 1])
+            mean = t / cnt
+            var = torch.clamp_min(t2 / cnt - mean * mean, 0.0)
+            out[bi, g] = torch.stack([mean, 1.0 / torch.sqrt(var + torch.tensor(
+                eps, dtype=torch.float32))])
+    return out
+
+
+def _gnq_cluster_stats(xf, groups: int, eps: float, plan: GNQPlan, es: int):
+    """The cluster route: per (sample, group) each of ``plan.cluster`` CTAs
+    sums its part of the group's range as a team of ``plan.threads``
+    threads (``_team_sums``: 16-byte vectors t, t + threads, ...), then rank
+    0 sums the CTAs' partials by a butterfly (as they are, for one CTA), and
+    (mean, rstd) as csrc/gn_q.cu::finish. -> [B, G, 2]."""
+    b, c, hw = xf.shape
+    vec, k = 16 // es, plan.cluster
+    count = torch.tensor(float(c // groups) * float(hw), dtype=torch.float32)
+    out = torch.empty((b, groups, 2), dtype=torch.float32)
+    for bi in range(b):
+        for g, grp in enumerate(xf[bi].reshape(groups, -1)):
+            parts = [_team_sums([_strided(part.reshape(-1, vec), plan.threads)], plan.threads)
+                     for part in grp.reshape(k, -1)]
+            t, t2 = parts[0] if k == 1 else (_butterfly(torch.stack([p[0] for p in parts])),
+                                             _butterfly(torch.stack([p[1] for p in parts])))
+            mean = t / count
+            var = torch.clamp_min(t2 / count - mean * mean, 0.0)
+            out[bi, g] = torch.stack([mean, 1.0 / torch.sqrt(var + torch.tensor(
+                eps, dtype=torch.float32))])
+    return out
+
+
+def gnq_blocked_plain(x, weight, bias, s_act, groups: int, eps: float, with_silu: bool,
+                      plan: GNQPlan, stats: bool = False):
+    """``csrc/gn_q.cu``'s order of work for ``plan`` on CPU tensors: the
+    per-channel partials of every tile (phase 1), the fixed-order combine
+    of each group's partials (the cluster route: ``_gnq_cluster_stats``),
+    then either the statistics [B, 2, C]
+    (``stats``) or, tile by tile, the apply (x - mean by a fused multiply-add
+    with rstd w and the bias, SiLU as y / (1 + exp(-y)), the reciprocal
+    scale, half to even, +-127) and the transposed store of each pixel's
+    codes into [B, *spatial, C] int8."""
     b, c = x.shape[:2]
     hw = x.numel() // (b * c)
-    group_len = (c // groups) * hw
-    bg = b * groups
-    s = split_count(bg, group_len)
-    chunk = -(-group_len // (s * _BLOCK)) * _BLOCK
-    stats_k = _triton_kernels()[1]
-    part = torch.empty((bg, s, 2), dtype=torch.float32, device=x.device)
-    stats_k[(bg, s)](x, part, group_len, chunk, S=s, BLOCK=_BLOCK, num_warps=4)
-    return part, s, group_len, chunk
+    es = x.element_size()
+    cpg = c // groups
+    xf = x.float().reshape(b, c, hw)
+    if plan.route == "cluster":
+        gs = _gnq_cluster_stats(xf, groups, eps, plan, es)
+    else:
+        gs = _gnq_group_stats(_gnq_partials(xf, plan, es), groups, float(cpg) * float(hw), eps)
+    per_c = gs.repeat_interleave(cpg, dim=1)                   # [B, C, 2]
+    if stats:
+        return per_c.permute(0, 2, 1).contiguous()
+    sc = per_c[..., 1] * weight.float()                        # [B, C] rstd w
+    mu, bi_ = per_c[..., 0], bias.float().expand(b, c)
+    inv = 1.0 / torch.as_tensor(s_act, dtype=torch.float32)
+    q = torch.empty((b, hw, c), dtype=torch.int8)
+    slices = -(-c // plan.cs)
+    for t in range(plan.tiles):
+        bs, pr = divmod(t, plan.ranges)
+        bi, s = divmod(bs, slices)
+        ch = slice(s * plan.cs, min(c, (s + 1) * plan.cs))
+        px = slice(pr * plan.pixels, min(hw, (pr + 1) * plan.pixels))
+        v = xf[bi, ch, px] - mu[bi, ch, None]
+        y = (v.double() * sc[bi, ch, None].double() + bi_[bi, ch, None].double()).float()
+        if with_silu:
+            y = y / (1.0 + torch.exp(-y))
+        q[bi, px, ch] = torch.round(y * inv).clamp(-127, 127).to(torch.int8).t()
+    return q.reshape((b,) + tuple(x.shape[2:]) + (c,))
+
+
+# ---- the int8 kernels' wrappers ------------------------------------------------
+
+class _GNQArgs(ctypes.Structure):
+    """csrc/gn_q.cu::GNQArgs: the shape and the plan of one launch."""
+    _fields_ = [("hw", ctypes.c_longlong)] + [(f, ctypes.c_int) for f in (
+        "batch", "c", "groups", "silu", "dtype", "wdt", "bdt", "route", "cs", "P", "threads",
+        "ranges", "tiles", "ctas", "smem_bytes", "sync")] + [("eps", ctypes.c_float)]
+
+
+class _GNSArgs(ctypes.Structure):
+    """csrc/gn_q.cu::GNSArgs: vd_gn_stats_cluster's launch."""
+    _fields_ = [("hw", ctypes.c_longlong)] + [(f, ctypes.c_int) for f in (
+        "batch", "c", "groups", "dtype", "k", "threads")] + [("eps", ctypes.c_float)]
+
+
+@functools.cache
+def _gnq_lib() -> ctypes.CDLL:
+    """The library with every entry point's types (``build.SOURCES`` types
+    vd_gn_silu_q)."""
+    lib = load("gn_q")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, types in (("vd_gn_stats", [ptr] * 6), ("vd_gnq_blocks_per_sm", [i32] * 6),
+                        ("vd_gn_stats_cluster", [ptr] * 4)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = types, i32
+    lib.vd_gnq_set_trace.argtypes, lib.vd_gnq_set_trace.restype = [ptr], None
+    return lib
+
+
+def _gnq_args(shape: tuple, dtype, groups: int, eps: float, with_silu: bool, plan: GNQPlan,
+              wdt=torch.float32, bdt=torch.float32):
+    """The launch's arguments: _GNSArgs for the cluster route, else _GNQArgs."""
+    if plan.route == "cluster":
+        return _GNSArgs(math.prod(shape[2:]), shape[0], shape[1], groups, _DTYPE_CODE[dtype],
+                        plan.cluster, plan.threads, float(eps))
+    codes = _DTYPE_CODE.get(wdt), _DTYPE_CODE.get(bdt)
+    if None in codes:
+        raise TypeError("gn_silu_q kernel: weight and bias must be bf16, f16 or f32")
+    return _GNQArgs(math.prod(shape[2:]), shape[0], shape[1], groups, int(bool(with_silu)),
+                    _DTYPE_CODE[dtype], *codes, _GNQ_ROUTE_CODE[plan.route], plan.cs,
+                    plan.pixels, plan.threads, plan.ranges, plan.tiles, plan.ctas,
+                    plan.smem_bytes, int(plan.sync == "grid"), float(eps))
+
+
+@functools.lru_cache(maxsize=1024)
+def _gnq_launch_args(shape: tuple, dtype, groups: int, aligned: bool, dev: int, eps: float,
+                     with_silu: bool, wdt, bdt, stats: bool):
+    """(plan, _GNQArgs) of a call: built once a distinct call."""
+    plan = gnq_plan(shape, dtype, groups, _sm_count(dev), stats, aligned)
+    return plan, _gnq_args(shape, dtype, groups, eps, with_silu, plan, wdt, bdt)
+
+
+_workspaces: dict = {}   # (device, float2 count) -> the per-channel partials' buffer
+_arrivals: dict = {}     # device -> the (sample, slice) arrival counts, zero between launches
+
+
+def _workspace(x, n: int):
+    """Room for n float2 partials on x's device, allocated once a size and
+    kept (launches on one stream take turns with it); while a CUDA graph is
+    captured, a buffer of the graph's own."""
+    key = (x.device, n)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = torch.empty(2 * n, dtype=torch.float32, device=x.device)
+        if not torch.cuda.is_current_stream_capturing():
+            _workspaces[key] = ws
+    return ws
+
+
+def _arrival_counts(x, n: int):
+    """At least n zeroed 32-bit counts on x's device: the cooperative
+    kernel's (sample, slice) arrivals and its CTAs done. Each launch leaves
+    them zero, so one buffer a device serves every shape (kept, grown when a
+    launch needs more; while a CUDA graph is captured, a zeroed buffer of the
+    graph's own)."""
+    buf = _arrivals.get(x.device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=x.device)
+        if not torch.cuda.is_current_stream_capturing():
+            _arrivals[x.device] = buf
+    return buf
+
+
+def _gnq_call(name: str, ptrs: tuple, plan, dev: int):
+    fn = getattr(_gnq_lib(), name)
+    if dev == torch.cuda.current_device():
+        rc = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc} ({plan})")
+
+
+def _check_scale(x, s_act):
+    if not (torch.is_tensor(s_act) and s_act.numel() == 1 and s_act.dtype == torch.float32
+            and s_act.device == x.device):
+        raise ValueError("gn_silu_q: s_act must be a one-element f32 tensor on x's device")
+
+
+def _gnq_launch(x, groups: int, eps: float, plan: GNQPlan, args: _GNQArgs, out, weight=None,
+                bias=None, s_act=None):
+    """One launch of either entry point (codes if ``s_act`` is given, else
+    statistics) into ``out``."""
+    dev = _device(x)
+    if plan.route == "cluster":
+        _gnq_call("vd_gn_stats_cluster", (x.data_ptr(), out.data_ptr(), ctypes.byref(args)),
+                  plan, dev)
+        return
+    ws = _workspace(x, x.shape[0] * x.shape[1] * plan.ranges)
+    arrived = _arrival_counts(x, plan.tiles // plan.ranges + 1).data_ptr()
+    if s_act is None:
+        _gnq_call("vd_gn_stats", (x.data_ptr(), out.data_ptr(), ws.data_ptr(), arrived,
+                                  ctypes.byref(args)), plan, dev)
+    else:
+        _gnq_call("vd_gn_silu_q", (x.data_ptr(), out.data_ptr(), weight.data_ptr(),
+                                   bias.data_ptr(), s_act.data_ptr(), ws.data_ptr(), arrived,
+                                   ctypes.byref(args)), plan, dev)
 
 
 def gn_stats(x, groups: int = 32, eps: float = 1e-5):
@@ -655,18 +957,18 @@ def gn_stats(x, groups: int = 32, eps: float = 1e-5):
         return gn_stats_plain(x, groups, eps)
     _check_gn_input("gn_stats", x, groups)
     b, c = x.shape[:2]
-    triton, _, fin_k, _ = _triton_kernels()
+    plan, args = _gnq_launch_args(tuple(x.shape), x.dtype, groups, x.data_ptr() % 16 == 0,
+                                  _device(x), float(eps), False, torch.float32,
+                                  torch.float32, True)
     out = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        part, s, group_len, _ = _stats_partials(x, groups)
-        fin_k[(b, triton.cdiv(c, _QBLOCK))](
-            part, out, c, c // groups, groups, 1.0 / group_len, float(eps), S=s,
-            SP=max(2, triton.next_power_of_2(s)), BC=_QBLOCK, num_warps=4)
+    _gnq_launch(x, groups, eps, plan, args, out)
     gn_stats.launches += 1
+    gn_stats.launches_by_route[plan.route] += 1
     return out
 
 
 gn_stats.launches = 0
+gn_stats.launches_by_route = {"cluster": 0, "stats": 0, "general": 0}   # gnq_plan's route
 
 
 def gn_silu_q(x, weight, bias, s_act, groups: int = 32, eps: float = 1e-5,
@@ -677,21 +979,39 @@ def gn_silu_q(x, weight, bias, s_act, groups: int = 32, eps: float = 1e-5,
     if x.device.type == "cpu":
         return gn_silu_q_plain(x, weight, bias, s_act, groups, eps, with_silu)
     _check_gn_input("gn_silu_q", x, groups, weight, bias)
-    if not (torch.is_tensor(s_act) and s_act.numel() == 1 and s_act.dtype == torch.float32
-            and s_act.device == x.device):
-        raise ValueError("gn_silu_q: s_act must be a one-element f32 tensor on x's device")
+    _check_scale(x, s_act)
     b, c = x.shape[:2]
-    hw = x.numel() // (b * c)
-    triton, _, _, apply_q = _triton_kernels()
+    plan, args = _gnq_launch_args(tuple(x.shape), x.dtype, groups, x.data_ptr() % 16 == 0,
+                                  _device(x), float(eps), bool(with_silu), weight.dtype,
+                                  bias.dtype, False)
     q = torch.empty((b,) + tuple(x.shape[2:]) + (c,), dtype=torch.int8, device=x.device)
-    with torch.cuda.device(x.device):
-        part, s, group_len, _ = _stats_partials(x, groups)
-        apply_q[(b, triton.cdiv(hw, _QBLOCK), triton.cdiv(c, _QBLOCK))](
-            x, q, weight, bias, part, s_act, c, hw, c // groups, groups, 1.0 / group_len,
-            float(eps), S=s, SP=max(2, triton.next_power_of_2(s)), BC=_QBLOCK, BP=_QBLOCK,
-            WITH_SILU=bool(with_silu), num_warps=4)
+    _gnq_launch(x, groups, eps, plan, args, q, weight, bias, s_act)
     gn_silu_q.launches += 1
+    gn_silu_q.launches_by_route[plan.route] += 1
     return q
 
 
 gn_silu_q.launches = 0
+gn_silu_q.launches_by_route = {"resident": 0, "streaming": 0, "general": 0}
+
+
+def gnq_launch_plan(x, out, plan: GNQPlan, groups: int, eps: float, weight=None, bias=None,
+                    s_act=None, with_silu: bool = True):
+    """One launch on a given plan (``gnq_variants``), for measuring the
+    plan's choices against each other: codes into ``out`` if ``s_act`` is
+    given, else statistics; counts no launch."""
+    _check_gn_input("gnq_launch_plan", x, groups, weight, bias)
+    if s_act is not None:
+        _check_scale(x, s_act)
+    wdt = weight.dtype if weight is not None else torch.float32
+    bdt = bias.dtype if bias is not None else torch.float32
+    args = _gnq_args(tuple(x.shape), x.dtype, groups, eps, with_silu, plan, wdt, bdt)
+    _gnq_launch(x, groups, eps, plan, args, out, weight, bias, s_act)
+
+
+def gnq_card_blocks_per_sm(plan: GNQPlan, dtype: torch.dtype, stats: bool) -> int:
+    """Blocks of the plan's kernel an SM of the current card holds (against
+    ``gnq_blocks_per_sm``, the plan's assumption)."""
+    return _gnq_lib().vd_gnq_blocks_per_sm(int(not stats), _DTYPE_CODE[dtype], plan.cs,
+                                           _GNQ_ROUTE_CODE[plan.route], plan.threads,
+                                           plan.smem_bytes)

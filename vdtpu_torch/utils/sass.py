@@ -4,6 +4,7 @@ many that is per unit of work (a score, for the attention kernels).
 
     python -m vdtpu_torch.utils.sass flash_fwd nomax_fwd flash_bwd   # where nvcc is
     python -m vdtpu_torch.utils.sass resblock_q qconv3
+    python -m vdtpu_torch.utils.sass --cubin build/triton/<hash>/kernel.cubin
 
 It builds (or finds) ``build/kernels/lib<name>-*.so`` through
 ``vdtpu_torch.ops.kernels.build``, disassembles it with the toolkit's
@@ -13,6 +14,11 @@ where the kernel has one (the whole-ResBlock kernel also holds the general
 route's mma.sync loop). Each instruction is counted once, as written; a
 predicated instruction counts whether or not it runs. Each row says how
 many wgmma and mma.sync instructions the loop holds.
+
+``--cubin`` disassembles any cubin (a Triton kernel's, from its cache
+directory) and counts, for each kernel, its memory instructions by full
+opcode (``STG.E.U8``, ``STS.128``, ...) over the whole kernel: what its
+loads and stores are.
 """
 from __future__ import annotations
 
@@ -125,6 +131,31 @@ def loop_counts(name: str) -> dict[str, dict]:
     return out
 
 
+_MEM_OPS = ("LDG", "STG", "LDS", "STS", "LDGSTS", "LDSM", "RED", "ATOM", "ATOMS")
+
+
+def memory_ops(cubin: str) -> dict[str, dict[str, int]]:
+    """Per kernel of a cubin: its memory instructions by full opcode (all of
+    the kernel, each counted once as written)."""
+    sass = subprocess.run([_cuobjdump(), "-sass", cubin], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for fn, instrs in parse(sass).items():
+        ops = collections.Counter()
+        for _, text in instrs:
+            parts = text.split()
+            op = parts[1] if parts and parts[0].startswith("@") and len(parts) > 1 else (
+                parts[0] if parts else "")
+            if op.split(".")[0] in _MEM_OPS:
+                ops[op] += 1
+        out[fn] = dict(ops.most_common())
+    return out
+
+
 if __name__ == "__main__":
-    for lib in sys.argv[1:]:
-        print(json.dumps({lib: loop_counts(lib)}, indent=1))
+    if sys.argv[1:2] == ["--cubin"]:
+        for path in sys.argv[2:]:
+            print(json.dumps({os.path.basename(path): memory_ops(path)}, indent=1))
+    else:
+        for lib in sys.argv[1:]:
+            print(json.dumps({lib: loop_counts(lib)}, indent=1))
