@@ -23,7 +23,7 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             UNet's maps, the text sites and a VAE cluster of 2, streaming
             at the VAE's 512^2 map), the int8 GN kernels (gn_silu_q and
             gn_stats) at every distinct int8 GroupNorm site of the UNet
-            (``GNQ_SHAPES``: gn_silu_q streaming, gn_stats in clusters)
+            (``GNQ_SHAPES``: gn_silu_q streaming, gn_stats a CTA a group)
             and on their general route (``GNQ_ODD_SHAPES``), each launch's
             path asserted
   main      vd_four_flow_v1-0 at full width in bf16, seeded random weights,
@@ -92,17 +92,20 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             takes there, each held to its plain version, against the plan's
             choice
   gnq_sweep (not run by default) the int8 GN kernels' plan measured: at
-            ``GNQ_SWEEP_SHAPES`` every geometry gnq_variants gives (route,
-            Cs, threads, pixels a tile) of gn_silu_q and gn_stats, each held
-            to its plain version, against the plan's choice (gn_stats:
-            clusters of k CTAs a group and the cooperative kernel); the
-            card's blocks per SM against the plan's assumption; one traced
-            launch of gn_silu_q's plan (each CTA's phases, us)
-  gnq_times (not run by default) gn_silu_q and gn_stats through the
+            ``GNQ_SWEEP_SHAPES`` every geometry gnq_variants gives (Cs,
+            threads, pixels a tile) of gn_silu_q and gn_stats, each held to
+            its plain version, against the plan's choice (gn_stats: a CTA a
+            group and the cooperative kernel); the card's blocks per SM
+            against the plan's assumption; one traced launch of gn_silu_q's
+            plan (each CTA's phases, us)
+  gnq_compare (not run by default) gn_silu_q and gn_stats through the
             package's wrappers at GNQ_SHAPES, each against its plain version,
-            device (graph) and eager ms, assuming no plan or route: for
-            timing another checkout's kernels in the same call (a copy of
-            this script placed at that checkout's root imports its package)
+            device (graph) and eager ms; then warm t2i requests on the
+            calibrated system, the default int8 policy and
+            gn_prologue="fused" in turn (``GNQ_COMPARE_ROUNDS`` of each).
+            It assumes no plan, route or counter of the kernels, so a copy of
+            this script placed at another checkout's root times that
+            checkout's package the same way, in the same call
   profile   (not run by default) the warm request split into its stages,
             and one CFG UNet step under torch.profiler (exact, int8, int8 +
             ToMe, int8 gn_prologue="fused" and int8 conv="fused2"): device
@@ -119,7 +122,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import functools
 import json
 import math
@@ -132,7 +134,7 @@ import zlib
 
 PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "eps", "main_int8",
           "modes", "eps_int8", "main_fused2", "probes", "train", "profile", "gn_sweep",
-          "gnq_sweep", "gnq_times")
+          "gnq_sweep", "gnq_compare")
 DEFAULT_PHASES = PHASES[:-4]
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
@@ -183,6 +185,9 @@ GNQ_GROUPS = {(2, 40, 5, 3): 8, (4, 4, 64, 64): 4}
 # batch 2 (the modes phase's eps calls)
 GNQ_SWEEP_SHAPES = [(4, 320, 64, 64), (4, 960, 64, 64), (4, 640, 32, 32), (4, 1920, 32, 32),
                     (4, 1280, 16, 16), (2, 320, 64, 64)]
+# gnq_compare: warm requests of each policy, taken in turn (the host's load
+# moves a request's time by up to 20% from call to call)
+GNQ_COMPARE_ROUNDS = 5
 # the GN kernel's shapes in the kernels phase, each with gn_plan's route
 # (asserted a launch): GN_SHAPES (the UNet's maps resident, the VAE's 512^2 map
 # streaming: its CTAs would take more than one wave), the commonest
@@ -532,10 +537,10 @@ def _true_shift(q, k, scale):
 def _gnq_want(shape, stats: bool) -> str:
     """The route gnq_plan must give: gn_silu_q the streaming route at the
     int8 GN sites and the general route at GNQ_ODD_SHAPES; gn_stats the
-    cluster route at the sites and at conv_in's 4 channels, else the
-    general route."""
+    group route at the sites and at conv_in's 4 channels, else the general
+    route."""
     if stats:
-        return "cluster" if shape in GNQ_SHAPES or shape == (4, 4, 64, 64) else "general"
+        return "group" if shape in GNQ_SHAPES or shape == (4, 4, 64, 64) else "general"
     return "general" if shape in GNQ_ODD_SHAPES else "streaming"
 
 
@@ -612,7 +617,7 @@ def _gnq_case(shape, gen, stats: bool = False):
     ms, plain_ms, lib_ms = time_graph_ms(kern), time_graph_ms(plain), time_graph_ms(lib)
     bound_ms, bound_by = _bound(nbytes, t_ops)
     return dict(shape=list(shape), groups=groups, route=plan.route, cs=plan.cs,
-                cluster=plan.cluster, pixels=plan.pixels, threads=plan.threads,
+                pixels=plan.pixels, threads=plan.threads,
                 tiles=plan.tiles, ctas=plan.ctas,
                 smem_bytes=plan.smem_bytes, max_abs_err=worst[0],
                 **{("stats_rel_err" if stats else "off_by_one"): worst[1]}, ok=ok, ms=ms,
@@ -1006,13 +1011,12 @@ def phase_gn_sweep(state):
 
 def phase_gnq_sweep(state):
     """The int8 GN kernels' plan measured: at each GNQ_SWEEP_SHAPES site
-    every geometry ``gnq_variants`` gives (gn_silu_q: route, Cs 32, 16 and
-    8, threads, pixels a tile; gn_stats: the same on the cooperative kernel
-    with Cs 16 and 8, and the cluster route at every k), each held to its
-    plain version, against gnq_plan's choice; and the card's blocks per SM
-    of each cooperative geometry against the plan's assumption
-    (``gnq_blocks_per_sm``). gn_silu_q's plan is also timed with one grid
-    barrier in place of its per-slice arrival counts, and traced
+    every geometry ``gnq_variants`` gives (gn_silu_q: Cs 32, 16 and 8,
+    threads, pixels a tile; gn_stats: the cooperative kernel's general route
+    with Cs 16 and 8, and the group route), each held to its plain version,
+    against gnq_plan's choice; and the card's blocks per SM of each
+    cooperative geometry against the plan's assumption
+    (``gnq_blocks_per_sm``). gn_silu_q's plan is also traced
     (``_gnq_trace``)."""
     import torch
     from vdtpu_torch.ops.gn_silu import (gn_silu_q_plain, gn_stats_plain, gnq_blocks_per_sm,
@@ -1024,10 +1028,9 @@ def phase_gnq_sweep(state):
     rows, failed, residency = [], [], {}
 
     def label(p):
-        if p.route == "cluster":
-            return f"cluster k{p.cluster} t{p.threads} x{p.ctas}"
-        return (f"{p.route} cs{p.cs} t{p.threads} p{p.pixels} x{p.ctas}"
-                + (" grid barrier" if p.sync == "grid" else ""))
+        if p.route == "group":
+            return f"group t{p.threads} x{p.ctas}"
+        return f"{p.route} cs{p.cs} t{p.threads} p{p.pixels} x{p.ctas}"
 
     for shape in GNQ_SWEEP_SHAPES:
         c = shape[1]
@@ -1045,9 +1048,6 @@ def phase_gnq_sweep(state):
                 if c % cs == 0:
                     plans.update((label(p), p) for p in gnq_variants(shape, bf, 32, sms, stats,
                                                                      cs=cs))
-            if chosen.route != "cluster":   # its one-grid-barrier twin
-                twin = dataclasses.replace(chosen, sync="grid")
-                plans[label(twin)] = twin
             ms = {}
             for name, plan in plans.items():
                 run = lambda: gnq_launch_plan(x, out, plan, 32, 1e-5, *args)
@@ -1055,7 +1055,7 @@ def phase_gnq_sweep(state):
                 if not _gnq_agree(out, ref, stats)[2]:
                     failed.append(f"{shape} {'stats' if stats else 'q'} {name}")
                 key = (stats, plan.cs, plan.route, plan.threads, plan.smem_bytes)
-                if plan.route != "cluster" and key not in residency:
+                if plan.route != "group" and key not in residency:
                     residency[key] = (gnq_card_blocks_per_sm(plan, bf, stats),
                                       gnq_blocks_per_sm(plan.threads, plan.smem_bytes))
                 ms[name] = time_graph_ms(run)
@@ -1101,7 +1101,7 @@ def _gnq_trace(state, shape, plan, run) -> dict:
         lib.vd_gnq_set_trace(ctypes.c_void_p(0))
     t = buf.view(-1, 8).double()
     rel = (t[:, :6] - t[:, 0].min()) / 1e3
-    names = ("start", "phase 1 done", "partials in", "statistics", "codes", "end")
+    names = ("start", "phase 1 done", "barrier passed", "statistics", "codes", "end")
     out = {n: [round(float(rel[:, i].quantile(q)), 3) for q in (0.0, 0.5, 1.0)]
            for i, n in enumerate(names)}
     log(f"gnq_sweep trace gn_silu_q {shape} (us from the first CTA's start, min / median / "
@@ -1109,9 +1109,12 @@ def _gnq_trace(state, shape, plan, run) -> dict:
     return out
 
 
-def phase_gnq_times(state):
+def phase_gnq_compare(state):
+    import statistics
     import torch
     from vdtpu_torch.ops.gn_silu import gn_silu_q, gn_silu_q_plain, gn_stats, gn_stats_plain
+    from vdtpu_torch.ops.quant import QuantPolicy
+    from vdtpu_torch.serving.api import VDInference
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows, failed = [], []
     for shape in GNQ_SHAPES:
@@ -1131,11 +1134,37 @@ def phase_gnq_times(state):
                 failed.append(f"{name}{shape}")
             row[name] = dict(ok=ok, ms=time_graph_ms(kern), eager_ms=time_ms(kern, 50))
         rows.append(row)
-        log(f"gnq_times {shape}: {json.dumps(row)} [{state.get('card')}]")
+        log(f"gnq_compare {shape}: {json.dumps(row)} [{state.get('card')}]")
         torch.cuda.empty_cache()
-    state["gnq_times"] = rows
+    system = _system(state)
+    _calibrate(state, system, "gnq_compare")
+    vdi = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
+                      ddim_steps=STEPS, n_sample_image=2)
+    prompt = "a red cat sitting on a wooden bench in the sun"
+    policies = (("default", system.quant_policy),
+                ("gn_prologue=fused", QuantPolicy(gn_prologue="fused")))
+    secs = {mode: [] for mode, _ in policies}
+    for rnd in range(GNQ_COMPARE_ROUNDS + 1):   # round 0 warms each policy up
+        for mode, pol in policies:
+            with _policy(system, pol):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                img = vdi.inference_t2i(prompt, seed=SEED)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+            if not bool(torch.isfinite(img).all()):
+                failed.append(f"request {mode} round {rnd}: non-finite output")
+            if rnd:
+                secs[mode].append(dt)
+    med = {mode: statistics.median(v) for mode, v in secs.items()}
+    diff = statistics.median(f - d for f, d in zip(secs["gn_prologue=fused"], secs["default"]))
+    log(f"gnq_compare requests (t2i 512^2, n = 2, DDIM-{STEPS}, warm, in turn): median s "
+        f"{json.dumps(med)}, median of fused - default a round {diff:.4f} s; every request s "
+        f"{json.dumps(secs)} [{state.get('card')}]")
+    state["gnq_compare"] = dict(kernels=rows, requests=secs, median_s=med,
+                                fused_minus_default_s=diff)
     if failed:
-        raise RuntimeError(f"gnq_times: kernels disagree with their plain versions: {failed}")
+        raise RuntimeError(f"gnq_compare: {failed}")
 
 
 def phase_main(state):
@@ -2433,7 +2462,7 @@ def _kernel_kind(name: str) -> str:
         return "int8 conv (hand)"
     if "resblock_kernel" in n:
         return "int8 ResBlock (hand)"
-    if "gnq_kernel" in n or "gn_stats_cluster" in n:
+    if "gnq_kernel" in n or "gn_stats_group" in n:
         return "gn int8 (hand)"
     if "gn_kernel" in n:
         return "gn_silu (hand)"

@@ -21,7 +21,7 @@ import torch
 from vdtpu.ops.pallas import gn_silu as jgn
 from vdtpu_torch.config import configs
 from vdtpu_torch.models.unet import D, build_program_2d
-from vdtpu_torch.ops.gn_silu import (GN_MAX_SMEM, GNQ_CLUSTERS, GNQPlan, gn_silu_q,
+from vdtpu_torch.ops.gn_silu import (GN_MAX_SMEM, GNQ_GROUP_THREADS, GNQPlan, gn_silu_q,
                                      gn_silu_q_plain, gn_stats, gn_stats_plain,
                                      gnq_blocked_plain, gnq_blocks_per_sm, gnq_plan, gnq_slice,
                                      gnq_smem_bytes, gnq_variants)
@@ -82,10 +82,10 @@ def _check(shape, dtype, plan: GNQPlan, stats: bool, sms: int = SMS, groups: int
     b, c = shape[:2]
     hw = math.prod(shape[2:])
     es = _es(dtype)
-    if plan.route == "cluster":   # gn_stats' clusters of k CTAs a group, whole vectors each
-        k = plan.cluster
-        assert stats and k in GNQ_CLUSTERS and plan.ctas == plan.tiles == b * groups * k
-        assert plan.pixels * k == c // groups * hw and plan.pixels % (16 // es) == 0
+    if plan.route == "group":   # gn_stats: a CTA a group of whole 16-byte vectors
+        assert stats and plan.ctas == plan.tiles == b * groups and plan.cs == 0
+        assert plan.pixels == c // groups * hw and plan.pixels % (16 // es) == 0
+        assert plan.threads == GNQ_GROUP_THREADS
         return
     assert plan.cs in ((8, 16) if stats else (8, 16, 32)) and plan.threads in (128, 256)
     tpr = plan.threads // plan.cs
@@ -96,25 +96,22 @@ def _check(shape, dtype, plan: GNQPlan, stats: bool, sms: int = SMS, groups: int
     # the cooperative launch: every CTA resident at once
     assert 1 <= plan.ctas <= min(plan.tiles, sms * gnq_blocks_per_sm(plan.threads,
                                                                      plan.smem_bytes))
-    if plan.route == "resident":
-        assert not stats and plan.ctas == plan.tiles   # one wave: a CTA a tile
-    if plan.route != "general":
-        assert (hw * es) % 16 == 0 and plan.pixels % (16 // es) == 0
-        assert stats or c % 8 == 0
+    assert plan.route in (("general",) if stats else ("streaming", "general"))
+    if plan.route == "streaming":
+        assert (hw * es) % 16 == 0 and plan.pixels % (16 // es) == 0 and c % 8 == 0
 
 
 def _cover(shape, plan: GNQPlan, groups: int = 32):
     """How often the plan's tiles (walked by its CTAs as csrc/gn_q.cu walks
-    them; the cluster route: CTA r of a group's cluster its r-th part) take
-    each element of x."""
+    them; the group route: CTA b * G + g group g of sample b) take each
+    element of x."""
     b, c = shape[:2]
     hw = math.prod(shape[2:])
     seen = np.zeros((b, c, hw), np.int8)
-    if plan.route == "cluster":
+    if plan.route == "group":
         flat = seen.reshape(b * groups, -1)
         for cta in range(plan.ctas):
-            bg, rank = divmod(cta, plan.cluster)
-            flat[bg, rank * plan.pixels:(rank + 1) * plan.pixels] += 1
+            flat[cta, :plan.pixels] += 1
         return seen
     slices = -(-c // plan.cs)
     for cta in range(plan.ctas):
@@ -131,9 +128,9 @@ def test_plan_at_every_int8_site(dtype):
     pixel's codes one 32-byte sector) within 227 KB of shared memory a CTA,
     its CTAs resident at once (one wave), one tile a CTA but at the 640- and
     960-channel 64^2 sites in 16-bit types (21 and 31.5 MB of x) and at the
-    widest sites in f32; the resident route (the tile kept in shared memory)
-    stays a variant, one wave wherever it fits. gn_stats takes the cluster
-    route everywhere, one CTA a group (128 CTAs)."""
+    widest sites in f32; every variant of the site takes the streaming
+    route. gn_stats takes the group route everywhere, one CTA a group (128
+    CTAs)."""
     for site in int8_gn_sites():
         plan = gnq_plan(site, dtype, 32)
         _check(site, dtype, plan, False)
@@ -141,13 +138,10 @@ def test_plan_at_every_int8_site(dtype):
         assert plan.ctas >= SMS or plan.ctas == plan.tiles, (site, plan)
         if dtype != torch.float32:
             assert (plan.tiles_per_cta > 1) == (site in ((4, 640, 64, 64), (4, 960, 64, 64)))
-        resident = [p for p in gnq_variants(site, dtype, 32) if p.route == "resident"]
-        assert all(p.ctas == p.tiles for p in resident)
-        if dtype != torch.float32:
-            assert bool(resident) == (site not in ((4, 640, 64, 64), (4, 960, 64, 64)))
+        assert {p.route for p in gnq_variants(site, dtype, 32)} == {"streaming"}
         st = gnq_plan(site, dtype, 32, stats=True)
         _check(site, dtype, st, True)
-        assert (st.route, st.cluster, st.ctas) == ("cluster", 1, 128)
+        assert (st.route, st.ctas) == ("group", 128)
 
 
 @pytest.mark.parametrize("shape", sorted(set(int8_gn_sites()), key=lambda s: (-s[2], s[1])))
@@ -162,7 +156,7 @@ def test_tiles_cover_every_element_once(shape):
 def test_odd_shapes_take_the_general_route(shape, groups, dtype):
     """Rows that are not 16-byte runs, C % 8 != 0 for the codes (conv_in's 4
     channels in 4 groups), and an x that starts off a 16-byte boundary;
-    gn_stats' cluster route (one CTA a group) needs only whole vectors in a
+    gn_stats' group route (one CTA a group) needs only whole vectors in a
     group."""
     hw = math.prod(shape[2:])
     es = _es(dtype)
@@ -172,9 +166,9 @@ def test_odd_shapes_take_the_general_route(shape, groups, dtype):
             plan = gnq_plan(shape, dtype, groups, stats=stats, aligned=aligned)
             _check(shape, dtype, plan, stats, groups=groups)
             if stats and aligned and (shape[1] // groups * hw) % (16 // es) == 0:
-                assert (plan.route, plan.cluster) == ("cluster", 1), (shape, plan)
+                assert plan.route == "group", (shape, plan)
             else:
-                vec = aligned and aligned_rows and (stats or shape[1] % 8 == 0)
+                vec = aligned and aligned_rows and not stats and shape[1] % 8 == 0
                 assert (plan.route != "general") == vec, (shape, stats, aligned, plan)
                 assert plan.cs == gnq_slice(shape[1], stats)
             assert (_cover(shape, plan, groups) == 1).all()
@@ -183,8 +177,9 @@ def test_odd_shapes_take_the_general_route(shape, groups, dtype):
 @pytest.mark.parametrize("shape", [(4, 320, 64, 64), (4, 960, 64, 64), (4, 1280, 16, 16),
                                    (4, 640, 32, 32)])
 def test_variants_cover_every_element_once(shape):
-    """chip_smoke.py's gnq_sweep plans: both slice widths, each thread count
-    and tile length, every route that applies; the plan is one of them."""
+    """chip_smoke.py's gnq_sweep plans: every slice width, each thread count
+    and tile length, every route that applies (gn_stats: the cooperative
+    kernel's general route and the group route); the plan is one of them."""
     routes = set()
     for stats in (False, True):
         for cs in ((8, 16) if stats else (8, 16, 32)):
@@ -195,8 +190,7 @@ def test_variants_cover_every_element_once(shape):
                     assert (_cover(shape, plan) == 1).all()
         assert gnq_plan(shape, torch.bfloat16, 32, stats=stats) in gnq_variants(
             shape, torch.bfloat16, 32, stats=stats)
-    assert {"streaming", "stats", "cluster"} <= routes
-    assert ("resident" in routes) == (shape != (4, 960, 64, 64))
+    assert routes == {"streaming", "general", "group"}
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
@@ -213,8 +207,8 @@ def test_plan_refuses_what_the_kernel_does_not_take():
 
 
 def test_wrappers_count_launches_by_route():
-    assert set(gn_silu_q.launches_by_route) == {"resident", "streaming", "general"}
-    assert set(gn_stats.launches_by_route) == {"cluster", "stats", "general"}
+    assert set(gn_silu_q.launches_by_route) == {"streaming", "general"}
+    assert set(gn_stats.launches_by_route) == {"group", "general"}
 
 
 # ---- the blocked model against vdtpu's Pallas kernels (interpret mode) ----
@@ -240,15 +234,15 @@ def _nhwc(x):
 
 
 def _plans(shape, stats=False):
-    """The plan and a cooperative variant of several pixel ranges (vector
-    routes; gn_stats also clusters of 2 CTAs a group), or the general plan."""
+    """The plan and a cooperative variant of several pixel ranges (gn_silu_q's
+    streaming route; gn_stats' cooperative general route beside its group
+    plan), or the general plan."""
     plan = gnq_plan(shape, torch.float32, 32, stats=stats)
     if plan.route == "general":
         return [plan]
-    variants = gnq_variants(shape, torch.float32, 32, stats=stats)
-    others = [p for p in variants if p.route not in ("resident", "cluster") and p.ranges > 1]
-    pairs = [p for p in variants if p.cluster == 2]
-    return [plan, min(others, key=lambda p: p.pixels)] + pairs
+    others = [p for p in gnq_variants(shape, torch.float32, 32, stats=stats)
+              if p.route != "group" and p.ranges > 1]
+    return [plan, min(others, key=lambda p: p.pixels)]
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 16, 16), (2, 96, 7, 9)])
@@ -285,12 +279,11 @@ def test_blocked_model_matches_jax_blocked():
 @pytest.mark.parametrize("shape", [(2, 128, 16, 16), (2, 256, 8, 16)])
 def test_blocked_model_statistics_match_jax(shape):
     """``gn_stats`` (C % 128 == 0, as vdtpu's kernel needs) on the plan (one
-    CTA a group), a cooperative variant of several ranges, and clusters of 2
-    (the CTAs' partials combined by a butterfly); 1e-5."""
+    CTA a group) and a cooperative variant of several ranges; 1e-5."""
     x, _, _ = _inputs(shape, shape[1])
     ref = np.asarray(jgn.gn_stats(_nhwc(x), 32, 1e-5, interpret=True))
     plans = _plans(shape, stats=True)
-    assert [(p.route, p.cluster) for p in plans] == [("cluster", 1), ("stats", 0), ("cluster", 2)]
+    assert [p.route for p in plans] == ["group", "general"]
     for plan in plans:
         out = gnq_blocked_plain(torch.from_numpy(x), None, None, None, 32, 1e-5, False, plan,
                                 stats=True)
@@ -305,7 +298,7 @@ def test_blocked_model_statistics_general_route():
     shape, groups = (2, 40, 5, 3), 8
     x, _, _ = _inputs(shape, 3)
     plan = gnq_plan(shape, torch.float32, groups, stats=True)
-    assert plan.route == "general" and plan.cs == 8    # parts of 75 elements: no cluster
+    assert plan.route == "general" and plan.cs == 8    # groups of 75 elements: not vectors
     out = gnq_blocked_plain(torch.from_numpy(x), None, None, None, groups, 1e-5, False, plan,
                             stats=True)
     np.testing.assert_allclose(out.numpy(), gn_stats_plain(torch.from_numpy(x), groups).numpy(),

@@ -346,17 +346,17 @@ def _one_route(fn, route, call):
 # C % 32 == 0 with whole 32-byte code runs stored by lane pairs around an odd
 # last pixel); slices of 32, 16 and 8 channels (gn_stats one CTA a group);
 # C % 8 != 0 (masked code bytes); the 960-channel 64^2 UNet site (two tiles a
-# CTA). The resident route, the grid barrier and clusters of 2-8 CTAs a group
-# are held in test_gn_int8_kernels_every_variant_matches_plain.
+# CTA). Every other geometry is held in
+# test_gn_int8_kernels_every_variant_matches_plain.
 GNQ_CASES = [((2, 96, 7, 9), 32, "general", "general"),
              ((3, 320, 33, 17), 32, "general", "general"),
              ((1, 64, 1, 1), 32, "general", "general"),
              ((2, 40, 5, 3), 8, "general", "general"),
-             ((2, 64, 16, 16), 32, "streaming", "cluster"),
-             ((2, 48, 16, 16), 16, "streaming", "cluster"),
-             ((2, 40, 16, 16), 8, "streaming", "cluster"),
-             ((2, 4, 16, 16), 4, "general", "cluster"),
-             ((4, 960, 64, 64), 32, "streaming", "cluster")]
+             ((2, 64, 16, 16), 32, "streaming", "group"),
+             ((2, 48, 16, 16), 16, "streaming", "group"),
+             ((2, 40, 16, 16), 8, "streaming", "group"),
+             ((2, 4, 16, 16), 4, "general", "group"),
+             ((4, 960, 64, 64), 32, "streaming", "group")]
 
 
 @pytest.mark.parametrize("shape,groups,route,stats_route", GNQ_CASES)
@@ -369,7 +369,7 @@ def test_gn_int8_kernels_match_plain(gen, shape, groups, route, stats_route, dty
         plan = gnq_plan(shape, dtype, groups, torch.cuda.get_device_properties(0)
                         .multi_processor_count, stats)
         assert plan.route == (stats_route if stats else route)
-        assert plan.cs == (0 if plan.route == "cluster" else gnq_slice(c, stats))
+        assert plan.cs == (0 if plan.route == "group" else gnq_slice(c, stats))
     x = (_randn(gen, *shape, dtype=torch.float32) * 2 + 0.5).to(dtype)
     w = (torch.rand(c, device="cuda", generator=gen) + 0.5).to(dtype)
     bias = _randn(gen, c, dtype=dtype)
@@ -389,11 +389,9 @@ def test_gn_int8_kernels_match_plain(gen, shape, groups, route, stats_route, dty
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gn_int8_kernels_every_variant_matches_plain(gen, shape, groups, dtype):
     """Every plan gnq_variants gives (each route, slice width, thread count
-    and tile length, with per-slice arrival counts and with one grid
-    barrier; gn_stats' cooperative routes and every cluster size), each
-    launched through gnq_launch_plan, against the plain versions, and the
-    same bits twice."""
-    import dataclasses
+    and tile length; gn_stats' cooperative general route and its group
+    route), each launched through gnq_launch_plan, against the plain
+    versions, and the same bits twice."""
     from vdtpu_torch.ops.gn_silu import (gn_silu_q_plain, gn_stats_plain, gnq_launch_plan,
                                          gnq_variants)
     c = shape[1]
@@ -407,7 +405,6 @@ def test_gn_int8_kernels_every_variant_matches_plain(gen, shape, groups, dtype):
     for stats in (False, True):
         plans = {p for cs in ((16, 8) if stats else (32, 16, 8)) if c % cs == 0 or cs == 8
                  for p in gnq_variants(shape, dtype, groups, sms, stats, cs=cs)}
-        plans |= {dataclasses.replace(p, sync="grid") for p in plans if p.route != "cluster"}
         for plan in sorted(plans, key=str):
             seen.add(plan.route)
             outs = []
@@ -420,8 +417,7 @@ def test_gn_int8_kernels_every_variant_matches_plain(gen, shape, groups, dtype):
             else:
                 _codes_agree(outs[0], ref_q)
             assert torch.equal(outs[0], outs[1]), plan
-    assert seen >= ({"general"} if shape[2] == 7 else {"resident", "streaming", "stats",
-                                                       "cluster"})
+    assert seen == ({"general"} if shape[2] == 7 else {"streaming", "general", "group"})
 
 
 def test_gn_int8_kernels_take_a_misaligned_start(gen):
@@ -440,8 +436,9 @@ def test_gn_int8_kernels_take_a_misaligned_start(gen):
 
 def test_gn_int8_kernels_refuse_a_plan_they_do_not_derive(gen):
     """The C entry points recompute the plan: a tile count that is not
-    theirs, a resident plan with fewer CTAs than tiles, and a gn_stats plan
-    on the resident route come back as cudaError 1."""
+    theirs, more CTAs than tiles, and a gn_stats plan on the streaming route
+    (a group of whole vectors takes the group kernel) come back as
+    cudaError 1."""
     import dataclasses
     from vdtpu_torch.ops.gn_silu import gnq_launch_plan, gnq_variants
     x = _randn(gen, 2, 64, 16, 16)
@@ -450,10 +447,10 @@ def test_gn_int8_kernels_refuse_a_plan_they_do_not_derive(gen):
     q = torch.empty((2, 16, 16, 64), dtype=torch.int8, device="cuda")
     st = torch.empty((2, 2, 64), device="cuda")
     plan = next(p for p in gnq_variants((2, 64, 16, 16), torch.bfloat16, 32)
-                if p.route == "resident")
-    assert plan.ctas > 1
+                if p.route == "streaming")
+    assert plan.ctas == plan.tiles > 1
     for bad in (dataclasses.replace(plan, tiles=plan.tiles + 1),
-                dataclasses.replace(plan, ctas=plan.ctas - 1)):
+                dataclasses.replace(plan, ctas=plan.ctas + 1)):
         with pytest.raises(RuntimeError, match="cudaError 1 "):
             gnq_launch_plan(x, q, bad, 32, 1e-5, w, w, s)
     with pytest.raises(RuntimeError, match="cudaError 1 "):

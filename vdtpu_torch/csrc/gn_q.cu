@@ -31,39 +31,33 @@
 //   (every UNet site), else 16 where C % 16 == 0, else 8, so that a pixel's
 //   codes of the slice are whole vectors of [B, HW, C]. The tile geometry is
 //   free of C / G: a slice may cut a group, and groups meet in global memory.
-// - Phase 1, the statistics. Each row of the tile is summed (x and x^2, f32)
-//   by tpr = threads / Cs lanes of one warp, each lane its 16-byte vectors
-//   j, j + tpr, ... in order, then a butterfly over the tpr lanes. Lane 0
-//   writes the channel's partial to the workspace [B, C, ranges] (float2);
-//   after a fence the CTA counts the tile's arrival for its (sample, slice).
-//   "streaming" route (gnq_plan's): CTAs (one a tile where the tiles fit the
-//   card at once, else persistent CTAs walking them) sum from global memory,
-//   four 16-byte loads in flight a thread, marked evict-last in L2.
-//   "resident" route (a variant): the vectors are copied into shared memory
-//   with cp.async by the lanes that sum them, and the tile stays there.
-// - The wait. The launch is cooperative (the plan keeps the grid within
-//   the blocks the card holds at once; the launch is refused otherwise), so
-//   a CTA can wait for others: a tile's phase 2 waits until every range of
-//   the slices its groups cover has arrived, not for the whole grid (one
-//   grid barrier, the other sync mode, kept for measuring). The last CTA out
-//   zeroes the counts for the next launch.
-// - Phase 2. For each of its tiles (newest first) a CTA sums, a warp a
-//   group, the cpg x ranges partials of every group its slice touches in one
-//   fixed order (lane l takes items l, l + 32, ..., then a butterfly), so
-//   every CTA and every run gets the same bits (no atomics); the affine
-//   parameters are loaded beside the partials, the scale at the start. The
-//   streaming route copies the tile in again (from L2). Each lane then takes
-//   one channel's 16-byte chunk (its table entry in registers), normalizes,
-//   applies the affine and SiLU, quantizes, and writes the codes into a code
-//   buffer [pixel][channel] in shared memory: the transpose. Row r's chunk i
-//   sits at chunk i ^ (r & 7) of the row (fewer bits in shorter rows), so the
-//   eight rows a quarter warp reads at one chunk fall in eight bank groups.
-//   Then each pixel's Cs codes go out as 16-byte vectors (two lanes a
-//   32-byte sector).
+// - Phase 1, the statistics. CTAs (one a tile where the tiles fit the card at
+//   once, else persistent CTAs walking them) sum each row of a tile (x and
+//   x^2, f32) from global memory by tpr = threads / Cs lanes of one warp,
+//   each lane its 16-byte vectors j, j + tpr, ... in order (four loads in
+//   flight, marked evict-last in L2: phase 2 reads them again), then a
+//   butterfly over the tpr lanes. Lane 0 writes the channel's partial to the
+//   workspace [B, C, ranges] (float2).
+// - One grid barrier. The launch is cooperative (the plan keeps the grid
+//   within the blocks the card holds at once; the launch is refused
+//   otherwise), so every partial is in after it.
+// - Phase 2. For each of its tiles (newest first: the likeliest still in L2)
+//   a CTA sums, a warp a group, the cpg x ranges partials of every group its
+//   slice touches in one fixed order (lane l takes items l, l + 32, ...,
+//   then a butterfly), so every CTA and every run gets the same bits (no
+//   atomics); the affine parameters are loaded beside the partials, the
+//   scale at the start. The tile is copied into shared memory again (from
+//   L2). Each lane then takes one channel's 16-byte chunk (its table entry
+//   in registers), normalizes, applies the affine and SiLU, quantizes, and
+//   writes the codes into a code buffer [pixel][channel] in shared memory:
+//   the transpose. Row r's chunk i sits at chunk i ^ (r & 7) of the row
+//   (fewer bits in shorter rows), so the eight rows a quarter warp reads at
+//   one chunk fall in eight bank groups. Then each pixel's Cs codes go out
+//   as 16-byte vectors (two lanes a 32-byte sector).
 // - "general" route, for every other shape (rows that are not 16-byte runs,
-//   an unaligned x, C % 8 != 0 for the codes): scalar loads, phase 1 from
-//   global memory, the tile copied in again for phase 2, masked byte stores
-//   where a pixel's codes are not a whole vector.
+//   an unaligned x, C % 8 != 0 for the codes): scalar loads, the tile copied
+//   in element by element for phase 2, masked byte stores where a pixel's
+//   codes are not a whole vector.
 // - Arithmetic: SiLU as y / (1 + exp(-y)) (ex2 and rcp), not tanh.approx,
 //   whose error at y ~ 1-2.5 is a visible share of a 0.02-wide code; codes
 //   by __float2int_rn (half to even) then a clamp to +-127; the statistics
@@ -72,16 +66,13 @@
 //   two special-function-unit operations a code (ex2, rcp) at 16 a clock an
 //   SM; a per-CTA trace (vd_gnq_set_trace) shows where a launch's time goes.
 //
-// gn_stats: clusters of k CTAs a (sample, group) (vd_gn_stats_cluster, row
-// 6's manner), each CTA summing one of k equal parts of the group's
-// contiguous range (four 16-byte loads in flight a thread), the partials
-// combined over distributed shared memory by rank 0, which writes the
-// group's channels. gnq_plan takes k = 1 (a CTA a group, 128 CTAs at the
-// UNet's sites at B = 4): with no wait on other CTAs' partials it read
-// faster than the cooperative kernel's statistics, and larger clusters
-// slower (gnq_sweep measures all of them). The cooperative kernel without
-// phase 2's apply (the CTA of pixel range 0 of a slice writes its channels)
-// takes the shapes the clusters do not: a group that is not whole vectors.
+// gn_stats: one CTA a (sample, group) (vd_gn_stats_group) where a group is
+// whole 16-byte vectors of an aligned x: it sums the group's contiguous
+// range (four 16-byte loads in flight a thread), a butterfly in each warp and
+// one over the warps, and writes the group's channels; no partials in global
+// memory and no wait on other CTAs. The cooperative kernel without phase 2's
+// apply (the CTA of pixel range 0 of a slice writes its channels) takes the
+// other shapes on its general route.
 // Measured by chip_smoke.py (kernels, gnq_sweep) on an NVIDIA H100 80GB HBM3.
 
 #include <cooperative_groups.h>
@@ -97,16 +88,15 @@ namespace cg = cooperative_groups;
 struct GNQArgs {
   long long hw;
   int batch, c, groups, silu, dtype, wdt, bdt;
-  int route;  // 0 resident, 1 streaming (gn_stats: its vector route), 2 general
+  int route;  // 0 streaming (16-byte vectors; gn_silu_q only), 1 general
   int cs, P, threads, ranges, tiles, ctas, smem_bytes;
-  int sync;   // 0: per-slice arrival counts, 1: one grid barrier (measured by gnq_sweep)
   float eps;
 };
 
-// vd_gn_stats_cluster's launch (ops/gn_silu.py::_GNSArgs)
+// vd_gn_stats_group's launch (ops/gn_silu.py::_GNSArgs)
 struct GNSArgs {
   long long hw;
-  int batch, c, groups, dtype, k, threads;
+  int batch, c, groups, dtype, threads;
   float eps;
 };
 
@@ -115,8 +105,8 @@ namespace {
 constexpr int kMaxThreads = 256;
 constexpr int kMinBlocks = 5;     // with kMaxThreads: at most 48 registers a thread
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a CTA can have
-constexpr int kInFlight = 4;      // loads a thread keeps in flight (phase 1 from global)
-constexpr int kResident = 0, kStreaming = 1, kGeneral = 2;
+constexpr int kInFlight = 4;      // loads a thread keeps in flight (phase 1)
+constexpr int kStreaming = 0, kGeneral = 1;
 
 struct Params {
   const void* x;       // [B, C, HW] of T
@@ -126,10 +116,9 @@ struct Params {
   const void* b;       // [C] GroupNorm bias
   const float* s_act;  // 0-d activation scale
   float2* ws;          // [B, C, ranges] per-channel (sum, sum of squares)
-  unsigned* arrived;   // [B * slices] tiles summed a (sample, slice), then CTAs done; 0 between launches
   long long hw;
   int C, cpg, P, ranges, slices, tiles;
-  int resident, silu, wdt, bdt, vec_store, grid_sync;
+  int silu, wdt, bdt, vec_store;
   int cbuf_off;        // byte offsets in shared memory: the codes of the tile [P][Cs],
   int tab_off;         // the per-channel table
   float eps, count;    // count: C / G * HW
@@ -157,12 +146,6 @@ __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -238,9 +221,11 @@ __device__ __forceinline__ Tile tile_of(int t, int ranges, int slices) {
 }
 
 // kCs channels a slice, kVec: 16-byte vectors of x (else scalar loads), kQ:
-// gn_silu_q (else gn_stats)
+// gn_silu_q (else gn_stats, which takes scalar loads only: a group of whole
+// vectors takes gn_stats_group_kernel)
 template <typename T, int kCs, bool kVec, bool kQ>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) gnq_kernel(const __grid_constant__ Params p) {
+  static_assert(kQ || !kVec, "gn_stats' cooperative kernel takes scalar loads");
   constexpr int V = 16 / sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
   T* tile = reinterpret_cast<T*>(smem);                         // [kCs][P] (gn_silu_q)
@@ -257,8 +242,8 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) gnq_kernel(const __gr
   const long long hw = p.hw;
   const int C = p.C, P = p.P, NP = p.ranges;
   const T* x = static_cast<const T*>(p.x);
-  // trace: the CTA's start, phase 1 done, its first phase-2 tile's partials
-  // in, its statistics, its codes, its end (ns), and its SM
+  // trace: the CTA's start, phase 1 done, the grid barrier passed, its first
+  // phase-2 tile's statistics, its codes, its end (ns), and its SM
   unsigned long long* tr = p.trace ? p.trace + 8 * blockIdx.x : nullptr;
   if (tr && tid == 0) {
     unsigned sm;
@@ -268,7 +253,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) gnq_kernel(const __gr
   }
   const float inv = kQ ? 1.f / __ldg(p.s_act) : 0.f;  // asked first: it meets phase 2
   uint64_t keep = 0;
-  if constexpr (kQ && kVec)
+  if constexpr (kVec)
     asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(keep));
 
   // ---- phase 1: every tile's per-channel partial sums ----
@@ -280,59 +265,33 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) gnq_kernel(const __gr
     float sx = 0.f, sxx = 0.f;
     if (c < C) {
       const T* src = x + (static_cast<long long>(tl.b) * C + c) * hw + p0;
-      if constexpr (kVec) {
-        const int nv = np / V;
-        if (kQ && p.resident) {  // each lane copies the vectors it sums; they stay
-          for (int i = j; i < nv; i += tpr) cp_async16(chunk(row, i), src + i * V);
-          cp_async_wait_all();
-          for (int i = j; i < nv; i += tpr)
-            acc_vec<T>(*reinterpret_cast<const uint4*>(chunk(row, i)), sx, sxx);
-        } else {
-          for (int i = j; i < nv;) {  // kInFlight loads, then their sums in order
-            uint4 u[kInFlight];
-            int n = 0;
+      const int n = kVec ? np / V : np;  // vectors, or elements
+      for (int i = j; i < n;) {          // kInFlight loads, then their sums in order
+        uint4 u[kInFlight];
+        float f[kInFlight];
+        int m = 0;
 #pragma unroll
-            for (int k = 0; k < kInFlight; ++k)
-              if (i < nv) {
-                const void* a = src + i * V;
-                u[k] = kQ ? ld_keep(a, keep) : __ldg(reinterpret_cast<const uint4*>(a));
-                n = k + 1;
-                i += tpr;
-              }
-#pragma unroll
-            for (int k = 0; k < kInFlight; ++k)
-              if (k < n) acc_vec<T>(u[k], sx, sxx);
+        for (int k = 0; k < kInFlight; ++k)
+          if (i < n) {
+            if constexpr (kVec) u[k] = ld_keep(src + i * V, keep);
+            else f[k] = Elt<T>::f(src[i]);
+            m = k + 1;
+            i += tpr;
           }
-        }
-      } else {
-        for (int i = j; i < np;) {
-          float f[kInFlight];
-          int n = 0;
 #pragma unroll
-          for (int k = 0; k < kInFlight; ++k)
-            if (i < np) {
-              f[k] = Elt<T>::f(src[i]);
-              n = k + 1;
-              i += tpr;
-            }
-#pragma unroll
-          for (int k = 0; k < kInFlight; ++k)
-            if (k < n) acc_one(f[k], sx, sxx);
-        }
+        for (int k = 0; k < kInFlight; ++k)
+          if (k < m) {
+            if constexpr (kVec) acc_vec<T>(u[k], sx, sxx);
+            else acc_one(f[k], sx, sxx);
+          }
       }
     }
     const float2 r = lanes_sum(make_float2(sx, sxx), tpr);
     if (j == 0 && c < C) p.ws[(static_cast<long long>(tl.b) * C + c) * NP + tl.pr] = r;
-    if (!p.grid_sync) {  // the tile's partials, then its arrival (one fence a CTA)
-      __syncthreads();
-      if (tid == 0) {
-        __threadfence();
-        atomicAdd(p.arrived + tl.b * p.slices + tl.s, 1u);
-      }
-    }
   }
   if (tr && tid == 0) tr[1] = global_ns();
-  if (p.grid_sync) cg::this_grid().sync();
+  cg::this_grid().sync();  // every tile's partials are in
+  if (tr && tid == 0) tr[2] = global_ns();
 
   // ---- phase 2: this CTA's tiles, newest first ----
   const int mine = (p.tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x);
@@ -346,15 +305,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) gnq_kernel(const __gr
       wc = load_param(p.w, c0 + tid, p.wdt);
       bc = load_param(p.b, c0 + tid, p.bdt);
     }
-    if (!p.grid_sync && tid == 0) {  // every range of the slices the groups cover is summed
-      const int s1 = ((g0 + ng) * p.cpg - 1) / kCs;
-      for (int sl = g0 * p.cpg / kCs; sl <= s1; ++sl)
-        while (ld_acquire(p.arrived + tl.b * p.slices + sl) < static_cast<unsigned>(NP)) {
-        }
-    }
-    __syncthreads();  // the partials are in; the last tile's table and tile are read
-    if (tr && tid == 0 && t == static_cast<int>(blockIdx.x) + mine * static_cast<int>(gridDim.x))
-      tr[2] = global_ns();
+    __syncthreads();  // the last tile's table, tile and codes are read
     for (int g = warp; g < ng; g += nwarps) {  // a warp a group, in one fixed order
       const float2* part =
           p.ws + (static_cast<long long>(tl.b) * C + static_cast<long long>(g0 + g) * p.cpg) * NP;
@@ -369,7 +320,8 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) gnq_kernel(const __gr
       if (lane == 0) gst[g] = finish(tot, p.count, p.eps);
     }
     __syncthreads();
-    if (tr && tid == 0) tr[3] = global_ns();
+    if (tr && tid == 0 && t == static_cast<int>(blockIdx.x) + mine * static_cast<int>(gridDim.x))
+      tr[3] = global_ns();
     if constexpr (!kQ) {
       if (tid < kCs && c0 + tid < C) {
         const float2 m = gst[(c0 + tid) / p.cpg - g0];
@@ -383,18 +335,16 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) gnq_kernel(const __gr
       }
       const long long p0 = static_cast<long long>(tl.pr) * P;
       const int np = static_cast<int>(min(static_cast<long long>(P), hw - p0));
-      if (!p.resident) {  // the tile again (from L2 where phase 1 kept it)
-        const int c = c0 + row;
-        if (c < C) {
-          const T* src = x + (static_cast<long long>(tl.b) * C + c) * hw + p0;
-          if constexpr (kVec) {
-            for (int i = j; i < np / V; i += tpr) cp_async16(chunk(row, i), src + i * V);
-          } else {
-            for (int i = j; i < np; i += tpr) chunk(row, i / V)[i % V] = src[i];
-          }
+      const int c = c0 + row;  // the tile again (from L2 where phase 1 kept it)
+      if (c < C) {
+        const T* src = x + (static_cast<long long>(tl.b) * C + c) * hw + p0;
+        if constexpr (kVec) {
+          for (int i = j; i < np / V; i += tpr) cp_async16(chunk(row, i), src + i * V);
+        } else {
+          for (int i = j; i < np; i += tpr) chunk(row, i / V)[i % V] = src[i];
         }
-        if constexpr (kVec) cp_async_wait_all();
       }
+      if constexpr (kVec) cp_async_wait_all();
       __syncthreads();  // the table, and the tile
       const int silu = p.silu;
       int8_t* qb = p.q + (static_cast<long long>(tl.b) * hw + p0) * C + c0;
@@ -434,55 +384,29 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) gnq_kernel(const __gr
     }
   }
   if (tr && tid == 0) tr[5] = global_ns();
-  if (!p.grid_sync) {  // the last CTA out zeroes the counts for the next launch
-    __syncthreads();
-    if (tid == 0) {
-      const int n = p.tiles / NP;  // B * slices
-      if (atomicAdd(p.arrived + n, 1u) == gridDim.x - 1) {
-        for (int i = 0; i <= n; ++i) p.arrived[i] = 0u;
-      }
-    }
-  }
 }
 
-// ---- gn_stats in row 6's manner: clusters of k CTAs a (sample, group) ----
-
-__device__ __forceinline__ void cluster_sync_all() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
-                   : "memory");
-}
-// the float2 at a shared::cta address in the cluster's CTA `rank`
-__device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr, uint32_t rank) {
-  float2 v;
-  asm volatile(
-      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %2, %3;\n"
-      "ld.shared::cluster.v2.f32 {%0, %1}, [remote];\n}\n"
-      : "=f"(v.x), "=f"(v.y)
-      : "r"(addr), "r"(rank)
-      : "memory");
-  return v;
-}
+// ---- gn_stats where a group is whole 16-byte vectors: a CTA a (sample, group) ----
 
 struct SParams {
   const void* x;
   float* st;
-  long long len;  // elements a CTA: cpg * HW / k
-  int C, cpg, groups, k;
-  float eps, count;
+  long long len;  // elements a group: cpg * HW
+  int C, cpg, groups;
+  float eps;
 };
 
-// A cluster of k CTAs a (sample, group): CTA rank r sums the r-th of k equal
-// parts of the group's contiguous range (16-byte vectors), a butterfly in
-// each warp and one over the warps; rank 0 sums the k partials over
-// distributed shared memory and writes the group's channels.
+// The CTA sums its group's contiguous range (16-byte vectors t, t + threads,
+// ..., four in flight), a butterfly in each warp and one over the warps, and
+// writes the group's channels.
 template <typename T>
-__global__ void __launch_bounds__(512) gn_stats_cluster_kernel(const __grid_constant__ SParams p) {
+__global__ void __launch_bounds__(512) gn_stats_group_kernel(const __grid_constant__ SParams p) {
   constexpr int V = 16 / sizeof(T);
-  __shared__ float2 red[17];  // the warps' partials, then the CTA's at [16]
+  __shared__ float2 red[16];  // the warps' partials
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const int rank = static_cast<int>(blockIdx.x) % p.k, bg = static_cast<int>(blockIdx.x) / p.k;
-  const T* src = static_cast<const T*>(p.x) + static_cast<long long>(bg) * p.k * p.len +
-                 static_cast<long long>(rank) * p.len;
+  const int bg = static_cast<int>(blockIdx.x);
+  const uint4* src = reinterpret_cast<const uint4*>(static_cast<const T*>(p.x) +
+                                                    static_cast<long long>(bg) * p.len);
   const long long nv = p.len / V;
   float sx = 0.f, sxx = 0.f;
   for (long long i = tid; i < nv;) {
@@ -491,7 +415,7 @@ __global__ void __launch_bounds__(512) gn_stats_cluster_kernel(const __grid_cons
 #pragma unroll
     for (int k = 0; k < kInFlight; ++k)
       if (i < nv) {
-        u[k] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+        u[k] = __ldg(src + i);
         n = k + 1;
         i += blockDim.x;
       }
@@ -504,22 +428,13 @@ __global__ void __launch_bounds__(512) gn_stats_cluster_kernel(const __grid_cons
   __syncthreads();
   if (warp == 0) {
     t = lanes_sum(lane < nwarps ? red[lane] : make_float2(0.f, 0.f), 32);
-    if (lane == 0) red[16] = t;
-  }
-  if (p.k > 1) cluster_sync_all();  // every CTA's partial is in place
-  else __syncthreads();
-  if (rank == 0 && warp == 0) {
-    t = p.k == 1 ? red[16]
-                 : lanes_sum(lane < p.k ? ld_cluster_f2(smem_u32(red + 16), lane)
-                                        : make_float2(0.f, 0.f), 32);
-    const float2 m = finish(t, p.count, p.eps);
+    const float2 m = finish(t, static_cast<float>(p.len), p.eps);
     const int b = bg / p.groups, g = bg % p.groups;
     for (int c = g * p.cpg + lane; c < (g + 1) * p.cpg; c += 32) {
       p.st[static_cast<long long>(b) * 2 * p.C + c] = m.x;
       p.st[static_cast<long long>(b) * 2 * p.C + p.C + c] = m.y;
     }
   }
-  if (p.k > 1) cluster_sync_all();  // the peers stay until rank 0 has read them
 }
 
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
@@ -594,16 +509,19 @@ struct Kern {
 
 template <typename T> struct Type { using type = T; };
 
-// f(Kern<T, cs, vec, kQ>{}) for the dtype code (0 bf16, 1 f16, 2 f32)
+// f(Kern<T, cs, vec, kQ>{}) for the dtype code (0 bf16, 1 f16, 2 f32); the
+// statistics take cs 16 or 8 on scalar loads
 template <bool kQ, typename F>
 cudaError_t select(int dtype, int cs, bool vec, F f) {
   auto pick = [&](auto tag) -> cudaError_t {
     using T = typename decltype(tag)::type;
     if constexpr (kQ) {
-      if (cs == 32) return vec ? f(Kern<T, 32, true, kQ>{}) : f(Kern<T, 32, false, kQ>{});
+      if (cs == 32) return vec ? f(Kern<T, 32, true, true>{}) : f(Kern<T, 32, false, true>{});
+      if (cs == 16) return vec ? f(Kern<T, 16, true, true>{}) : f(Kern<T, 16, false, true>{});
+      return vec ? f(Kern<T, 8, true, true>{}) : f(Kern<T, 8, false, true>{});
+    } else {
+      return cs == 16 ? f(Kern<T, 16, false, false>{}) : f(Kern<T, 8, false, false>{});
     }
-    if (cs == 16) return vec ? f(Kern<T, 16, true, kQ>{}) : f(Kern<T, 16, false, kQ>{});
-    return vec ? f(Kern<T, 8, true, kQ>{}) : f(Kern<T, 8, false, kQ>{});
   };
   if (dtype == 0) return pick(Type<__nv_bfloat16>{});
   if (dtype == 1) return pick(Type<__half>{});
@@ -628,21 +546,17 @@ bool plan_ok(const GNQArgs* a, bool q_mode, const void* x, const void* q, Params
   const int tpr = threads / cs;
   if (tpr < 4 || tpr > 32) return false;
   const int route = a->route;
-  if (route < kResident || route > kGeneral || (route == kResident && !q_mode)) return false;
-  const bool vec = route != kGeneral;
+  if (route != kStreaming && route != kGeneral) return false;
+  const bool vec = route == kStreaming;
+  if (vec && !q_mode) return false;  // a group of whole vectors takes vd_gn_stats_group
   if (P < 1) return false;
   if (P % V) return false;  // whole 16-byte chunks of a tile row
-  if (vec) {
-    if (reinterpret_cast<uintptr_t>(x) % 16 || (hw * es) % 16) return false;
-    if (q_mode && c % 8) return false;
-  }
+  if (vec && (reinterpret_cast<uintptr_t>(x) % 16 || (hw * es) % 16 || c % 8)) return false;
   const long long ranges = (hw + P - 1) / P;
   const int slices = (c + cs - 1) / cs;
   if (ranges != a->ranges || static_cast<long long>(a->batch) * slices * ranges != a->tiles)
     return false;
-  if (a->ctas < 1 || a->ctas > a->tiles || (route == kResident && a->ctas != a->tiles))
-    return false;
-  if (a->sync != 0 && a->sync != 1) return false;
+  if (a->ctas < 1 || a->ctas > a->tiles) return false;
   if (smem_bytes(q_mode, cs, P, es) != a->smem_bytes || a->smem_bytes > kMaxSmem) return false;
   p->x = x;
   p->hw = hw;
@@ -652,12 +566,10 @@ bool plan_ok(const GNQArgs* a, bool q_mode, const void* x, const void* q, Params
   p->ranges = static_cast<int>(ranges);
   p->slices = slices;
   p->tiles = a->tiles;
-  p->resident = route == kResident;
   p->silu = a->silu;
   p->wdt = a->wdt;
   p->bdt = a->bdt;
   p->vec_store = q_mode && c % cs == 0 && reinterpret_cast<uintptr_t>(q) % cs == 0;
-  p->grid_sync = a->sync;
   p->cbuf_off = cbuf_offset(cs, P, es);
   p->tab_off = tab_offset(q_mode, cs, P, es);
   p->eps = a->eps;
@@ -668,7 +580,7 @@ bool plan_ok(const GNQArgs* a, bool q_mode, const void* x, const void* q, Params
 
 template <bool kQ>
 int run(const Params& p, const GNQArgs* a, void* stream) {
-  return select<kQ>(a->dtype, a->cs, a->route != kGeneral, [&](auto k) {
+  return select<kQ>(a->dtype, a->cs, a->route == kStreaming, [&](auto k) {
     return decltype(k)::launch(p, a->ctas, a->threads, a->smem_bytes,
                                static_cast<cudaStream_t>(stream));
   });
@@ -678,18 +590,14 @@ int run(const Params& p, const GNQArgs* a, void* stream) {
 
 // GroupNorm(+SiLU) + int8 quantize of x [batch, c, hw] (contiguous; dtype 0
 // bf16, 1 f16, 2 f32; weight and bias of dtypes wdt, bdt) into codes q
-// [batch, hw, c] with the scale *s_act; ws holds batch * c * ranges float2,
-// arrived batch * ceil(c / cs) + 1 counts that are 0 (and are 0 again when
-// the launch ends).
+// [batch, hw, c] with the scale *s_act; ws holds batch * c * ranges float2.
 // Returns cudaErrorInvalidValue (1) for a plan this source does not derive,
 // cudaErrorCooperativeLaunchTooLarge where the grid would not be resident at
 // once, else the launch's cudaGetLastError().
 extern "C" int vd_gn_silu_q(const void* x, void* q, const void* w, const void* b,
-                            const float* s_act, void* ws, void* arrived, const GNQArgs* a,
-                            void* stream) {
+                            const float* s_act, void* ws, const GNQArgs* a, void* stream) {
   Params p = {};
   if (!plan_ok(a, true, x, q, &p)) return cudaErrorInvalidValue;
-  p.arrived = static_cast<unsigned*>(arrived);
   p.q = static_cast<int8_t*>(q);
   p.w = w;
   p.b = b;
@@ -699,75 +607,62 @@ extern "C" int vd_gn_silu_q(const void* x, void* q, const void* w, const void* b
 }
 
 // GroupNorm statistics of x [batch, c, hw] into st [batch, 2, c] f32
-// (channel-broadcast mean, rstd); the same plan rules and return codes.
-extern "C" int vd_gn_stats(const void* x, float* st, void* ws, void* arrived, const GNQArgs* a,
-                           void* stream) {
+// (channel-broadcast mean, rstd) on the cooperative kernel's general route;
+// the same plan rules and return codes.
+extern "C" int vd_gn_stats(const void* x, float* st, void* ws, const GNQArgs* a, void* stream) {
   Params p = {};
   if (!plan_ok(a, false, x, nullptr, &p)) return cudaErrorInvalidValue;
-  p.arrived = static_cast<unsigned*>(arrived);
   p.st = st;
   p.ws = static_cast<float2*>(ws);
   return run<false>(p, a, stream);
 }
 
 // Later cooperative launches stamp %globaltimer (ns) at each phase of every
-// CTA into trace[8 * cta + i] (i: 0 start, 1 phase 1 done, 2 the first
-// phase-2 tile's partials in, 3 its statistics, 4 its codes, 5 end, 7 the
-// SM), room for every CTA of the launch; null stops it. For profiling.
+// CTA into trace[8 * cta + i] (i: 0 start, 1 phase 1 done, 2 the grid
+// barrier passed, 3 the first phase-2 tile's statistics, 4 its codes, 5 end,
+// 7 the SM), room for every CTA of the launch; null stops it. For profiling.
 extern "C" void vd_gnq_set_trace(void* trace) {
   g_trace = static_cast<unsigned long long*>(trace);
 }
 
-// Blocks an SM holds of the kernel of (q, dtype, cs, route) at `threads`
-// threads and `smem` bytes (what gnq_plan assumes, for checking it); -1 on
-// an error.
+// Blocks an SM holds of the cooperative kernel of (q, dtype, cs, route) at
+// `threads` threads and `smem` bytes (what gnq_plan assumes, for checking
+// it); -1 on an error.
 extern "C" int vd_gnq_blocks_per_sm(int q, int dtype, int cs, int route, int threads, int smem) {
   int per_sm = 0, sms = 0;
   auto ask = [&](auto k) { return decltype(k)::residency(threads, smem, &per_sm, &sms); };
-  const bool vec = route != kGeneral;
+  const bool vec = route == kStreaming;
   const cudaError_t rc =
       q ? select<true>(dtype, cs, vec, ask) : select<false>(dtype, cs, vec, ask);
   return rc == cudaSuccess ? per_sm : -1;
 }
 
-// gn_stats by clusters of k CTAs a (sample, group): x 16-byte
-// aligned, each CTA's part (C / G * HW / k elements) whole 16-byte vectors,
-// k in 1, 2, 4, 8, threads 128-512. Returns cudaErrorInvalidValue otherwise.
-extern "C" int vd_gn_stats_cluster(const void* x, float* st, const GNSArgs* a, void* stream) {
+// gn_stats by one CTA a (sample, group): x 16-byte aligned, a group (C / G *
+// HW elements) whole 16-byte vectors, threads 128-512 in whole warps.
+// Returns cudaErrorInvalidValue otherwise, else the launch's
+// cudaGetLastError().
+extern "C" int vd_gn_stats_group(const void* x, float* st, const GNSArgs* a, void* stream) {
   const int es = a->dtype == 2 ? 4 : 2;
-  if (a->dtype < 0 || a->dtype > 2 || a->batch < 1 || a->groups < 1 || a->c % a->groups)
+  if (a->dtype < 0 || a->dtype > 2 || a->batch < 1 || a->groups < 1 || a->c % a->groups ||
+      a->hw < 1)
     return cudaErrorInvalidValue;
-  const int k = a->k, cpg = a->c / a->groups;
-  const long long L = static_cast<long long>(cpg) * a->hw;
-  if ((k != 1 && k != 2 && k != 4 && k != 8) || L % (static_cast<long long>(k) * (16 / es)) ||
-      reinterpret_cast<uintptr_t>(x) % 16 || a->threads < 128 || a->threads > 512 ||
-      a->threads % 32)
+  const int cpg = a->c / a->groups;
+  const long long len = static_cast<long long>(cpg) * a->hw;
+  if (len % (16 / es) || reinterpret_cast<uintptr_t>(x) % 16 || a->threads < 128 ||
+      a->threads > 512 || a->threads % 32)
     return cudaErrorInvalidValue;
   SParams p;
   p.x = x;
   p.st = st;
-  p.len = L / k;
+  p.len = len;
   p.C = a->c;
   p.cpg = cpg;
   p.groups = a->groups;
-  p.k = k;
   p.eps = a->eps;
-  p.count = static_cast<float>(L);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a->batch * a->groups * k, 1, 1);
-  cfg.blockDim = dim3(a->threads, 1, 1);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = k;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = k > 1 ? 1 : 0;
-  cudaError_t rc;
-  if (a->dtype == 0) rc = cudaLaunchKernelEx(&cfg, gn_stats_cluster_kernel<__nv_bfloat16>, p);
-  else if (a->dtype == 1) rc = cudaLaunchKernelEx(&cfg, gn_stats_cluster_kernel<__half>, p);
-  else rc = cudaLaunchKernelEx(&cfg, gn_stats_cluster_kernel<float>, p);
-  if (rc != cudaSuccess) return rc;
+  const dim3 grid(a->batch * a->groups), block(a->threads);
+  const cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
+  if (a->dtype == 0) gn_stats_group_kernel<__nv_bfloat16><<<grid, block, 0, stream_>>>(p);
+  else if (a->dtype == 1) gn_stats_group_kernel<__half><<<grid, block, 0, stream_>>>(p);
+  else gn_stats_group_kernel<float><<<grid, block, 0, stream_>>>(p);
   return cudaGetLastError();
 }

@@ -36,29 +36,26 @@ The int8 serving policy adds two hand-written CUDA kernels in
     One cooperative launch: a CTA's tile is (sample, a slice of Cs = 32
     channels (16, 8 where C does not divide), a range of P pixels); phase 1
     sums each channel's x and x^2 over the tile into a workspace of
-    per-channel partials [B, C, ranges] and counts the tile's arrival for
-    its (sample, slice); a tile's phase 2 waits for every range of the
-    slices its groups cover (a slice may cut a group), combines the groups'
-    partials in one fixed order, normalizes, applies the affine and SiLU,
-    quantizes into a code buffer in shared memory, transposed, and stores
-    each pixel's run as 16-byte vectors into the channels-last
-    [B, *spatial, C] layout the int8 conv (``ops/qconv.py``) reads as its
-    implicit-GEMM K axis.
+    per-channel partials [B, C, ranges]; after one grid barrier, phase 2
+    combines the partials of the groups a slice touches (a slice may cut a
+    group) in one fixed order, copies the tile in again from L2, normalizes,
+    applies the affine and SiLU, quantizes into a code buffer in shared
+    memory, transposed, and stores each pixel's run as 16-byte vectors into
+    the channels-last [B, *spatial, C] layout the int8 conv
+    (``ops/qconv.py``) reads as its implicit-GEMM K axis.
   - ``gn_stats``: [B, 2, C] f32 channel-broadcast (mean, rstd). Replaces
-    ``vdtpu/ops/pallas/gn_silu.py::gn_stats`` (its ``_stats_kernel``). A
-    CTA a (sample, group) sums the group's contiguous range (the "cluster"
-    route, in row 6's manner: clusters of k CTAs combine their partials over
-    distributed shared memory; the plan takes k = 1); the cooperative kernel
-    without its apply takes the shapes the clusters do not.
-``gnq_plan`` picks the route ("streaming": phase 1 from global memory, the
-tile copied in again from L2 for phase 2; "resident", a variant: the tile
-kept in shared memory; "general": scalar loads for rows that are not
-16-byte runs or codes that are not whole vectors; "cluster" for
-``gn_stats``), Cs, P, the threads and the shared memory, and raises on what
-the kernels do not take; the C entry points recompute it and refuse a plan
-that is not theirs. Bound: one read of x and one s8 write (``gn_stats``:
-one read of x), at [4, 320, 64, 64] bf16 0.0047 (0.0031) ms at 3.35 TB/s.
-``gnq_blocked_plain`` is the kernels' order of work on the CPU.
+    ``vdtpu/ops/pallas/gn_silu.py::gn_stats`` (its ``_stats_kernel``). One
+    CTA a (sample, group) sums the group's contiguous range ("group" route)
+    where a group is whole 16-byte vectors of an aligned x; the cooperative
+    kernel without its apply takes the other shapes.
+``gnq_plan`` picks the route ("streaming": 16-byte vectors; "general":
+scalar loads for rows that are not 16-byte runs or codes that are not
+whole vectors; "group" for ``gn_stats``), Cs, P, the threads and the shared
+memory, and raises on what the kernels do not take; the C entry points
+recompute it and refuse a plan that is not theirs. Bound: one read of x and
+one s8 write (``gn_stats``: one read of x), at [4, 320, 64, 64] bf16 0.0047
+(0.0031) ms at 3.35 TB/s. ``gnq_blocked_plain`` is the kernels' order of
+work on the CPU.
 
 Every wrapper takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises. ``gn_silu`` is differentiable
@@ -549,14 +546,13 @@ def _check_gn_input(name: str, x, groups: int, weight=None, bias=None):
 
 GNQ_THREADS = (128, 256)
 GNQ_REGS = 48                # registers a thread: csrc/gn_q.cu's __launch_bounds__(256, 5)
-GNQ_VECTORS = (1, 2, 4, 8)   # 16-byte vectors a lane sums in a tile (the vector routes)
+GNQ_VECTORS = (1, 2, 4, 8)   # 16-byte vectors a lane sums in a tile (the streaming route)
 GNQ_SCALARS = (2, 4, 8, 16, 32)  # elements a lane sums in a tile (the general route)
 # a CTA's fixed cost in the plan's cost (its group combine, table, barrier
 # and tail), in bytes of x an SM would move meanwhile
 GNQ_CTA_BYTES = 4096
-GNQ_CLUSTERS = (1, 2, 4, 8)  # gn_stats' cluster route: CTAs a (sample, group)
-GNQ_CLUSTER_THREADS = 512
-_GNQ_ROUTE_CODE = {"resident": 0, "streaming": 1, "stats": 1, "general": 2}
+GNQ_GROUP_THREADS = 512      # gn_stats' group route: a CTA a (sample, group)
+_GNQ_ROUTE_CODE = {"streaming": 0, "general": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -565,18 +561,13 @@ class GNQPlan:
     of ``cs`` channels, a range of ``pixels`` pixels); there are ``ranges``
     ranges a channel and ``tiles`` tiles, walked by ``ctas`` CTAs of
     ``threads`` threads (``threads / cs`` lanes a channel row) and
-    ``smem_bytes`` shared memory. ``route``: "resident" (gn_silu_q: a CTA a
-    tile, every tile held in shared memory at once), "streaming" (gn_silu_q:
-    persistent CTAs, phase 2 copies each tile in again), "stats" (gn_stats on
-    the cooperative kernel: the vector route, nothing kept), "general"
-    (scalar loads, masked code stores; any shape), or "cluster" (gn_stats in
-    row 6's manner, ``vd_gn_stats_cluster``: a cluster of ``cluster`` CTAs a
-    (sample, group), each summing ``pixels`` elements of the group's
-    contiguous range; ``tiles`` = ``ctas`` = B * G * cluster, ``cs`` 0).
-    ``sync``: how phase 2 waits for the partials of the cooperative routes,
-    "slices" (a tile waits for every range of the slices its groups cover:
-    per-(sample, slice) arrival counts) or "grid" (one grid barrier; for
-    measuring the two against each other)."""
+    ``smem_bytes`` shared memory, in one cooperative launch with one grid
+    barrier. ``route``: "streaming" (gn_silu_q on 16-byte vectors; phase 2
+    copies each tile in again), "general" (scalar loads, masked code
+    stores; any shape; gn_stats' cooperative kernel), or "group" (gn_stats,
+    ``vd_gn_stats_group``: a CTA a (sample, group) summing the group's
+    ``pixels`` contiguous elements; ``tiles`` = ``ctas`` = B * G, ``cs``
+    0)."""
     route: str
     cs: int
     pixels: int
@@ -585,8 +576,6 @@ class GNQPlan:
     tiles: int
     ctas: int
     smem_bytes: int
-    cluster: int = 0
-    sync: str = "slices"
 
     @property
     def tiles_per_cta(self) -> int:
@@ -620,12 +609,12 @@ def _gnq_shape(shape: tuple, dtype: torch.dtype, groups: int):
     return b, c, hw, torch.empty((), dtype=dtype).element_size()
 
 
-def gnq_vector_route(shape: tuple, dtype: torch.dtype, stats: bool, aligned: bool = True) -> bool:
-    """Rows of whole 16-byte vectors from an aligned x (and, for the codes,
-    C % 8 == 0, so that a pixel's codes of a slice are one 8- or 16-byte
-    store); else the general route."""
+def gnq_vector_route(shape: tuple, dtype: torch.dtype, aligned: bool = True) -> bool:
+    """gn_silu_q's streaming route: rows of whole 16-byte vectors from an
+    aligned x and C % 8 == 0, so that a pixel's codes of a slice are one 8-
+    or 16-byte store; else the general route."""
     es = torch.empty((), dtype=dtype).element_size()
-    return aligned and (math.prod(shape[2:]) * es) % 16 == 0 and (stats or shape[1] % 8 == 0)
+    return aligned and (math.prod(shape[2:]) * es) % 16 == 0 and shape[1] % 8 == 0
 
 
 def gnq_slice(c: int, stats: bool) -> int:
@@ -635,43 +624,39 @@ def gnq_slice(c: int, stats: bool) -> int:
     return 32 if c % 32 == 0 and not stats else 16 if c % 16 == 0 else 8
 
 
-def gnq_cluster_variants(shape: tuple, dtype: torch.dtype, groups: int,
-                         aligned: bool = True) -> list:
-    """gn_stats' cluster plans (clusters of k of GNQ_CLUSTERS CTAs a
-    (sample, group)): x aligned and each CTA's part of a group whole
-    16-byte vectors."""
+def gnq_group_plan(shape: tuple, dtype: torch.dtype, groups: int,
+                   aligned: bool = True) -> GNQPlan | None:
+    """gn_stats' group route (a CTA a (sample, group)) where a group is whole
+    16-byte vectors of an aligned x, else None."""
     b, c, hw, es = _gnq_shape(shape, dtype, groups)
     count = c // groups * hw
-    out = []
-    for k in GNQ_CLUSTERS:
-        if aligned and count % (k * 16 // es) == 0:
-            n = b * groups * k
-            out.append(GNQPlan("cluster", 0, count // k, GNQ_CLUSTER_THREADS, 1, n, n, 0, k))
-    return out
+    if not aligned or count % (16 // es):
+        return None
+    return GNQPlan("group", 0, count, GNQ_GROUP_THREADS, 1, b * groups, b * groups, 0)
 
 
 def gnq_variants(shape: tuple, dtype: torch.dtype, groups: int, sms: int = NUM_SMS,
                  stats: bool = False, aligned: bool = True, cs: int | None = None) -> list:
-    """Every plan the kernel takes for x of ``shape`` (``cs``: the slice's
+    """Every plan the kernels take for x of ``shape`` (``cs``: the slice's
     channels, default gnq_plan's): each thread count of GNQ_THREADS and each
-    tile length (GNQ_VECTORS 16-byte vectors a lane, or GNQ_SCALARS
-    elements on the general route) up to the one that covers a row, on
-    every route that applies. The resident route needs every tile resident
-    at once (``gnq_blocks_per_sm`` x ``sms``); the others take the fewest
-    CTAs that the card holds at once and that share the tiles evenly."""
+    tile length (GNQ_VECTORS 16-byte vectors a lane on the streaming route,
+    GNQ_SCALARS elements on the general route) up to the one that covers a
+    row, with the fewest CTAs that the card holds at once and that share the
+    tiles evenly; gn_stats' cooperative plans are general ones, and its
+    group plan follows them where it applies."""
     b, c, hw, es = _gnq_shape(shape, dtype, groups)
     cs = cs or gnq_slice(c, stats)
-    vec = gnq_vector_route(shape, dtype, stats, aligned)
-    routes = (["stats"] if stats else ["resident", "streaming"]) if vec else ["general"]
+    vec = not stats and gnq_vector_route(shape, dtype, aligned)
+    route, lengths = ("streaming", GNQ_VECTORS) if vec else ("general", GNQ_SCALARS)
     out = []
     for threads in GNQ_THREADS:
         tpr = threads // cs
         if tpr < 4:
             continue
         unit = tpr * (16 // es if vec else 1)
-        for n in (GNQ_VECTORS if vec else GNQ_SCALARS):
+        for n in lengths:
             pixels = unit * n
-            if n > (GNQ_VECTORS if vec else GNQ_SCALARS)[0] and pixels // 2 >= hw:
+            if n > lengths[0] and pixels // 2 >= hw:
                 break   # the last length covered the row
             smem = gnq_smem_bytes(stats, cs, pixels, es)
             if smem > GN_MAX_SMEM:
@@ -679,22 +664,17 @@ def gnq_variants(shape: tuple, dtype: torch.dtype, groups: int, sms: int = NUM_S
             ranges = -(-hw // pixels)
             tiles = b * -(-c // cs) * ranges
             cap = sms * gnq_blocks_per_sm(threads, smem)
-            for route in routes:
-                if route == "resident":
-                    if tiles > cap:
-                        continue
-                    ctas = tiles
-                else:
-                    ctas = -(-tiles // -(-tiles // cap))
-                out.append(GNQPlan(route, cs, pixels, threads, ranges, tiles, ctas, smem))
-    return out + (gnq_cluster_variants(shape, dtype, groups, aligned) if stats else [])
+            ctas = -(-tiles // -(-tiles // cap))
+            out.append(GNQPlan(route, cs, pixels, threads, ranges, tiles, ctas, smem))
+    group = gnq_group_plan(shape, dtype, groups, aligned) if stats else None
+    return out + ([group] if group else [])
 
 
 def gnq_cost(plan: GNQPlan, es: int, sms: int = NUM_SMS) -> float:
-    """The plan's cost: the busiest SM's CTAs (ctas / sms, rounded up) times
-    a CTA's tiles times a tile's bytes of x (the streaming route's second
-    read, from L2, at half) and GNQ_CTA_BYTES."""
-    tile = plan.cs * plan.pixels * es * (1.5 if plan.route in ("streaming", "general") else 1)
+    """A cooperative plan's cost: the busiest SM's CTAs (ctas / sms, rounded
+    up) times a CTA's tiles times a tile's bytes of x at 1.5 (phase 2's
+    second read, from L2, at half) and GNQ_CTA_BYTES."""
+    tile = plan.cs * plan.pixels * es * 1.5
     return -(-plan.ctas // sms) * plan.tiles_per_cta * (tile + GNQ_CTA_BYTES)
 
 
@@ -706,23 +686,17 @@ def gnq_plan(shape: tuple, dtype: torch.dtype, groups: int, sms: int = NUM_SMS,
     a 16-byte boundary). Cs by ``gnq_slice``. gn_silu_q takes the streaming
     route, whose CTAs (one a tile wherever the tiles fit the card at once)
     sum phase 1 from global memory and copy the tile in again from L2 for
-    phase 2: at every site gnq_sweep measured it read as fast as the same
-    geometry on the resident route or faster (PERF.md), which stays a
-    variant for measuring; shapes whose rows are not 16-byte runs (or whose
-    codes are not whole 8-byte runs) take the general route. gn_stats takes the
-    cluster route where it applies, one CTA a group (gnq_sweep read larger
-    clusters slower at B = 4 and at B = 2, PERF.md), else the cooperative
-    kernel's "stats" or general route. Among the cooperative plans, the
-    least ``gnq_cost``; on a tie the most tiles, then the most threads."""
+    phase 2; shapes whose rows are not 16-byte runs (or whose codes are not
+    whole 8-byte runs) take the general route. gn_stats takes the group
+    route where it applies (gnq_sweep read it faster than the cooperative
+    kernel's statistics and than clusters of 2-8 CTAs a group, PERF.md),
+    else the cooperative kernel's general route. Among the cooperative
+    plans, the least ``gnq_cost``; on a tie the most tiles, then the most
+    threads."""
     b, _, _, es = _gnq_shape(shape, dtype, groups)
-    if stats:
-        ks = gnq_cluster_variants(shape, dtype, groups, aligned)
-        if ks:
-            return ks[0]
-    pool = [p for p in gnq_variants(shape, dtype, groups, sms, stats, aligned)
-            if p.route not in ("cluster", "resident")]
-    if not pool:
-        raise ValueError(f"gnq_plan: no plan takes {tuple(shape)} {dtype}")
+    pool = gnq_variants(shape, dtype, groups, sms, stats, aligned)
+    if pool[-1].route == "group":
+        return pool[-1]
     return min(pool, key=lambda p: (gnq_cost(p, es, sms), -p.tiles, -p.threads))
 
 
@@ -734,7 +708,7 @@ def _gnq_partials(xf, plan: GNQPlan, es: int):
     ``_team_sums`` takes them (lane j: 16-byte vectors j, j + lanes, ...,
     or single elements on the general route)."""
     b, c, hw = xf.shape
-    width = 16 // es if plan.route != "general" else 1
+    width = 16 // es if plan.route == "streaming" else 1
     tpr = plan.threads // plan.cs
     ws = torch.zeros((b, c, plan.ranges, 2), dtype=torch.float32)
     for bi in range(b):
@@ -746,10 +720,17 @@ def _gnq_partials(xf, plan: GNQPlan, es: int):
     return ws
 
 
+def _gnq_finish(t, t2, count, eps: float):
+    """(mean, rstd) as csrc/gn_q.cu::finish."""
+    mean = t / count
+    var = torch.clamp_min(t2 / count - mean * mean, 0.0)
+    return torch.stack([mean, 1.0 / torch.sqrt(var + torch.tensor(eps, dtype=torch.float32))])
+
+
 def _gnq_group_stats(ws, groups: int, count: float, eps: float):
     """Phase 2's combine: per (sample, group) a warp sums the group's cpg x
     ranges partials (lane l: items l, l + 32, ... in order, then a
-    butterfly), then (mean, rstd) as csrc/gn_q.cu::finish. -> [B, G, 2]."""
+    butterfly), then (mean, rstd). -> [B, G, 2]."""
     b, c = ws.shape[:2]
     cpg = c // groups
     cnt = torch.tensor(count, dtype=torch.float32)
@@ -760,34 +741,21 @@ def _gnq_group_stats(ws, groups: int, count: float, eps: float):
             acc = torch.zeros((32, 2), dtype=torch.float32)
             for it in range(lanes.shape[0]):
                 acc = acc + lanes[it]
-            t, t2 = _butterfly(acc[:, 0]), _butterfly(acc[:, 1])
-            mean = t / cnt
-            var = torch.clamp_min(t2 / cnt - mean * mean, 0.0)
-            out[bi, g] = torch.stack([mean, 1.0 / torch.sqrt(var + torch.tensor(
-                eps, dtype=torch.float32))])
+            out[bi, g] = _gnq_finish(_butterfly(acc[:, 0]), _butterfly(acc[:, 1]), cnt, eps)
     return out
 
 
-def _gnq_cluster_stats(xf, groups: int, eps: float, plan: GNQPlan, es: int):
-    """The cluster route: per (sample, group) each of ``plan.cluster`` CTAs
-    sums its part of the group's range as a team of ``plan.threads``
-    threads (``_team_sums``: 16-byte vectors t, t + threads, ...), then rank
-    0 sums the CTAs' partials by a butterfly (as they are, for one CTA), and
-    (mean, rstd) as csrc/gn_q.cu::finish. -> [B, G, 2]."""
+def _gnq_group_route_stats(xf, groups: int, eps: float, plan: GNQPlan, es: int):
+    """The group route: per (sample, group) one CTA sums the group's range
+    as a team of ``plan.threads`` threads (``_team_sums``: 16-byte vectors
+    t, t + threads, ...), then (mean, rstd). -> [B, G, 2]."""
     b, c, hw = xf.shape
-    vec, k = 16 // es, plan.cluster
     count = torch.tensor(float(c // groups) * float(hw), dtype=torch.float32)
     out = torch.empty((b, groups, 2), dtype=torch.float32)
     for bi in range(b):
         for g, grp in enumerate(xf[bi].reshape(groups, -1)):
-            parts = [_team_sums([_strided(part.reshape(-1, vec), plan.threads)], plan.threads)
-                     for part in grp.reshape(k, -1)]
-            t, t2 = parts[0] if k == 1 else (_butterfly(torch.stack([p[0] for p in parts])),
-                                             _butterfly(torch.stack([p[1] for p in parts])))
-            mean = t / count
-            var = torch.clamp_min(t2 / count - mean * mean, 0.0)
-            out[bi, g] = torch.stack([mean, 1.0 / torch.sqrt(var + torch.tensor(
-                eps, dtype=torch.float32))])
+            t, t2 = _team_sums([_strided(grp.reshape(-1, 16 // es), plan.threads)], plan.threads)
+            out[bi, g] = _gnq_finish(t, t2, count, eps)
     return out
 
 
@@ -795,19 +763,18 @@ def gnq_blocked_plain(x, weight, bias, s_act, groups: int, eps: float, with_silu
                       plan: GNQPlan, stats: bool = False):
     """``csrc/gn_q.cu``'s order of work for ``plan`` on CPU tensors: the
     per-channel partials of every tile (phase 1), the fixed-order combine
-    of each group's partials (the cluster route: ``_gnq_cluster_stats``),
-    then either the statistics [B, 2, C]
-    (``stats``) or, tile by tile, the apply (x - mean by a fused multiply-add
-    with rstd w and the bias, SiLU as y / (1 + exp(-y)), the reciprocal
-    scale, half to even, +-127) and the transposed store of each pixel's
-    codes into [B, *spatial, C] int8."""
+    of each group's partials (the group route: ``_gnq_group_route_stats``),
+    then either the statistics [B, 2, C] (``stats``) or, tile by tile, the
+    apply (x - mean by a fused multiply-add with rstd w and the bias, SiLU
+    as y / (1 + exp(-y)), the reciprocal scale, half to even, +-127) and the
+    transposed store of each pixel's codes into [B, *spatial, C] int8."""
     b, c = x.shape[:2]
     hw = x.numel() // (b * c)
     es = x.element_size()
     cpg = c // groups
     xf = x.float().reshape(b, c, hw)
-    if plan.route == "cluster":
-        gs = _gnq_cluster_stats(xf, groups, eps, plan, es)
+    if plan.route == "group":
+        gs = _gnq_group_route_stats(xf, groups, eps, plan, es)
     else:
         gs = _gnq_group_stats(_gnq_partials(xf, plan, es), groups, float(cpg) * float(hw), eps)
     per_c = gs.repeat_interleave(cpg, dim=1)                   # [B, C, 2]
@@ -837,13 +804,13 @@ class _GNQArgs(ctypes.Structure):
     """csrc/gn_q.cu::GNQArgs: the shape and the plan of one launch."""
     _fields_ = [("hw", ctypes.c_longlong)] + [(f, ctypes.c_int) for f in (
         "batch", "c", "groups", "silu", "dtype", "wdt", "bdt", "route", "cs", "P", "threads",
-        "ranges", "tiles", "ctas", "smem_bytes", "sync")] + [("eps", ctypes.c_float)]
+        "ranges", "tiles", "ctas", "smem_bytes")] + [("eps", ctypes.c_float)]
 
 
 class _GNSArgs(ctypes.Structure):
-    """csrc/gn_q.cu::GNSArgs: vd_gn_stats_cluster's launch."""
+    """csrc/gn_q.cu::GNSArgs: vd_gn_stats_group's launch."""
     _fields_ = [("hw", ctypes.c_longlong)] + [(f, ctypes.c_int) for f in (
-        "batch", "c", "groups", "dtype", "k", "threads")] + [("eps", ctypes.c_float)]
+        "batch", "c", "groups", "dtype", "threads")] + [("eps", ctypes.c_float)]
 
 
 @functools.cache
@@ -852,8 +819,8 @@ def _gnq_lib() -> ctypes.CDLL:
     vd_gn_silu_q)."""
     lib = load("gn_q")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, types in (("vd_gn_stats", [ptr] * 6), ("vd_gnq_blocks_per_sm", [i32] * 6),
-                        ("vd_gn_stats_cluster", [ptr] * 4)):
+    for name, types in (("vd_gn_stats", [ptr] * 5), ("vd_gnq_blocks_per_sm", [i32] * 6),
+                        ("vd_gn_stats_group", [ptr] * 4)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = types, i32
     lib.vd_gnq_set_trace.argtypes, lib.vd_gnq_set_trace.restype = [ptr], None
@@ -862,17 +829,17 @@ def _gnq_lib() -> ctypes.CDLL:
 
 def _gnq_args(shape: tuple, dtype, groups: int, eps: float, with_silu: bool, plan: GNQPlan,
               wdt=torch.float32, bdt=torch.float32):
-    """The launch's arguments: _GNSArgs for the cluster route, else _GNQArgs."""
-    if plan.route == "cluster":
+    """The launch's arguments: _GNSArgs for the group route, else _GNQArgs."""
+    if plan.route == "group":
         return _GNSArgs(math.prod(shape[2:]), shape[0], shape[1], groups, _DTYPE_CODE[dtype],
-                        plan.cluster, plan.threads, float(eps))
+                        plan.threads, float(eps))
     codes = _DTYPE_CODE.get(wdt), _DTYPE_CODE.get(bdt)
     if None in codes:
         raise TypeError("gn_silu_q kernel: weight and bias must be bf16, f16 or f32")
     return _GNQArgs(math.prod(shape[2:]), shape[0], shape[1], groups, int(bool(with_silu)),
                     _DTYPE_CODE[dtype], *codes, _GNQ_ROUTE_CODE[plan.route], plan.cs,
                     plan.pixels, plan.threads, plan.ranges, plan.tiles, plan.ctas,
-                    plan.smem_bytes, int(plan.sync == "grid"), float(eps))
+                    plan.smem_bytes, float(eps))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -884,7 +851,6 @@ def _gnq_launch_args(shape: tuple, dtype, groups: int, aligned: bool, dev: int, 
 
 
 _workspaces: dict = {}   # (device, float2 count) -> the per-channel partials' buffer
-_arrivals: dict = {}     # device -> the (sample, slice) arrival counts, zero between launches
 
 
 def _workspace(x, n: int):
@@ -898,20 +864,6 @@ def _workspace(x, n: int):
         if not torch.cuda.is_current_stream_capturing():
             _workspaces[key] = ws
     return ws
-
-
-def _arrival_counts(x, n: int):
-    """At least n zeroed 32-bit counts on x's device: the cooperative
-    kernel's (sample, slice) arrivals and its CTAs done. Each launch leaves
-    them zero, so one buffer a device serves every shape (kept, grown when a
-    launch needs more; while a CUDA graph is captured, a zeroed buffer of the
-    graph's own)."""
-    buf = _arrivals.get(x.device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=x.device)
-        if not torch.cuda.is_current_stream_capturing():
-            _arrivals[x.device] = buf
-    return buf
 
 
 def _gnq_call(name: str, ptrs: tuple, plan, dev: int):
@@ -931,23 +883,22 @@ def _check_scale(x, s_act):
         raise ValueError("gn_silu_q: s_act must be a one-element f32 tensor on x's device")
 
 
-def _gnq_launch(x, groups: int, eps: float, plan: GNQPlan, args: _GNQArgs, out, weight=None,
+def _gnq_launch(x, groups: int, eps: float, plan: GNQPlan, args, out, weight=None,
                 bias=None, s_act=None):
     """One launch of either entry point (codes if ``s_act`` is given, else
     statistics) into ``out``."""
     dev = _device(x)
-    if plan.route == "cluster":
-        _gnq_call("vd_gn_stats_cluster", (x.data_ptr(), out.data_ptr(), ctypes.byref(args)),
+    if plan.route == "group":
+        _gnq_call("vd_gn_stats_group", (x.data_ptr(), out.data_ptr(), ctypes.byref(args)),
                   plan, dev)
         return
     ws = _workspace(x, x.shape[0] * x.shape[1] * plan.ranges)
-    arrived = _arrival_counts(x, plan.tiles // plan.ranges + 1).data_ptr()
     if s_act is None:
-        _gnq_call("vd_gn_stats", (x.data_ptr(), out.data_ptr(), ws.data_ptr(), arrived,
+        _gnq_call("vd_gn_stats", (x.data_ptr(), out.data_ptr(), ws.data_ptr(),
                                   ctypes.byref(args)), plan, dev)
     else:
         _gnq_call("vd_gn_silu_q", (x.data_ptr(), out.data_ptr(), weight.data_ptr(),
-                                   bias.data_ptr(), s_act.data_ptr(), ws.data_ptr(), arrived,
+                                   bias.data_ptr(), s_act.data_ptr(), ws.data_ptr(),
                                    ctypes.byref(args)), plan, dev)
 
 
@@ -968,7 +919,7 @@ def gn_stats(x, groups: int = 32, eps: float = 1e-5):
 
 
 gn_stats.launches = 0
-gn_stats.launches_by_route = {"cluster": 0, "stats": 0, "general": 0}   # gnq_plan's route
+gn_stats.launches_by_route = {"group": 0, "general": 0}   # gnq_plan's route -> launches
 
 
 def gn_silu_q(x, weight, bias, s_act, groups: int = 32, eps: float = 1e-5,
@@ -992,7 +943,7 @@ def gn_silu_q(x, weight, bias, s_act, groups: int = 32, eps: float = 1e-5,
 
 
 gn_silu_q.launches = 0
-gn_silu_q.launches_by_route = {"resident": 0, "streaming": 0, "general": 0}
+gn_silu_q.launches_by_route = {"streaming": 0, "general": 0}
 
 
 def gnq_launch_plan(x, out, plan: GNQPlan, groups: int, eps: float, weight=None, bias=None,
@@ -1010,8 +961,8 @@ def gnq_launch_plan(x, out, plan: GNQPlan, groups: int, eps: float, weight=None,
 
 
 def gnq_card_blocks_per_sm(plan: GNQPlan, dtype: torch.dtype, stats: bool) -> int:
-    """Blocks of the plan's kernel an SM of the current card holds (against
-    ``gnq_blocks_per_sm``, the plan's assumption)."""
+    """Blocks of the plan's cooperative kernel an SM of the current card
+    holds (against ``gnq_blocks_per_sm``, the plan's assumption)."""
     return _gnq_lib().vd_gnq_blocks_per_sm(int(not stats), _DTYPE_CODE[dtype], plan.cs,
                                            _GNQ_ROUTE_CODE[plan.route], plan.threads,
                                            plan.smem_bytes)

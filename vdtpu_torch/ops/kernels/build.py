@@ -43,7 +43,7 @@ SOURCES = {
     "resblock_q": ("vd_resblock_q", [_P] * 20 + [_I] * 6 + [_F] + [_L] * 10 + [_I] * 9 + [_P]),
     "probe_s8mm": ("vd_probe_s8mm", [_P] * 3 + [_I] * 4 + [_P]),
     "gn_silu": ("vd_gn_silu", [_P] * 6),
-    "gn_q": ("vd_gn_silu_q", [_P] * 9),
+    "gn_q": ("vd_gn_silu_q", [_P] * 8),
 }
 
 _lock = threading.Lock()
