@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (text-to-image, image variation,
-image-to-text and text-to-text, int8 serving, the Mosaic probes, t2i
-training) on one CUDA card.
+image-to-text and text-to-text, the multi-context blends, int8 serving,
+the Mosaic probes, t2i training) on one CUDA card.
 
     python3 chip_smoke.py            # the default phases, on one card
 
@@ -16,7 +16,9 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             events); the "eager" times are the same calls launched one by
             one, host launch costs included. The attention forwards are
             held on both of their kernels (the wgmma one at the main
-            paths' shapes, the mma.sync one at ``*_MMA_SHAPES``), the
+            paths' shapes, the mma.sync one at ``*_MMA_SHAPES``; the
+            flash forward also at the four-image mcg request's
+            cross-attentions, ``FLASH_XATTN_SHAPES``: 1028 keys), the
             whole-ResBlock kernel on both of its routes (halo at the
             UNet's sites, general at ``RESBLOCK_GENERAL_SHAPES``), the GN
             kernel on both of its routes (``GN_ROUTES``: resident at the
@@ -46,6 +48,17 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             and without SiLU, at every distinct GroupNorm site of those two
             calls, on the site's own arguments; the bf16 and f32 decodes on
             shared Gumbel draws, rows that agree counted
+  main_mcg  the multi-context blends on the same system, exact bf16, n = 2,
+            DDIM-50, CFG 7.5, seeded 512^2 images: (a) inference_dcg (one
+            image, focus 0.5, a prompt at strength 0.5), (b) inference_tcg
+            given three images (it keeps two; the second masked) and a
+            prompt at 0.3, (c) inference_mcg with four images and no prompt
+            (1028 context tokens: the cross-attentions take the flash
+            kernel, d 160 the mma.sync one), each cold then warm, with the
+            inputs shown and the launch counts by path derived from the
+            program; one full-width multi-context eps call (text + image)
+            under attention mixing and one under a layer-mixing draw, each
+            against f32 on the CPU
   eps       one full-width UNet eps call on the card (bf16) against the port
             on the CPU in f32, same weights and inputs
   main_int8 the calibrated int8 serving policy on the same system:
@@ -56,7 +69,9 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             warm as (a) int8 and (b) int8 + ToMe 0.75, each with its launch
             counts of the no-max (also by kv length: ToMe's merged sites),
             int8 conv and torch._int_mm paths, and the int8 conv's launches
-            by tile-plan path (halo or general) against qconv3_plan's
+            by tile-plan path (halo or general) against qconv3_plan's; then
+            main_mcg's tcg request (b) under int8 + ToMe 0.75, cold and
+            warm, with its launch counts
   modes     one full-width int8 eps call in each opt-in policy mode
             (gn_prologue "fused" and "stats", conv "fused") against the
             default mode's, with each mode's launch counts derived from the
@@ -132,9 +147,9 @@ import sys
 import time
 import zlib
 
-PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "eps", "main_int8",
-          "modes", "eps_int8", "main_fused2", "probes", "train", "profile", "gn_sweep",
-          "gnq_sweep", "gnq_compare")
+PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "main_mcg", "eps",
+          "main_int8", "modes", "eps_int8", "main_fused2", "probes", "train", "profile",
+          "gn_sweep", "gnq_sweep", "gnq_compare")
 DEFAULT_PHASES = PHASES[:-4]
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
@@ -158,6 +173,12 @@ NOMAX_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 40), (4, 1024, 8, 80)]
 # at an offset of one and at d 36 (the TPU's _nomax_kernel case), 16-byte
 # cp.async loads at d 96
 FLASH_MMA_SHAPES = [(4, 1024, 8, 40, 1), (4, 1024, 8, 96, 0)]
+# the flash forward at a four-image mcg request's cross-attentions
+# (main_mcg (c)): 4 x 257 = 1028 image tokens as keys, a ragged last key
+# tile, under the queries of the 64^2, 32^2 and 16^2 maps; (B, N, H, D,
+# offset, keys). d 160 takes the mma.sync kernel
+FLASH_XATTN_SHAPES = [(4, 4096, 8, 40, 0, 1028), (4, 1024, 8, 80, 0, 1028),
+                      (4, 256, 8, 160, 0, 1028)]
 NOMAX_MMA_SHAPES = [(4, 1024, 8, 36, 0), (4, 1024, 8, 96, 0)]
 # int8 3x3 conv: (B, C_in, H, W, C_out, stride, add); the first is the
 # commonest site (64^2 ResBlock conv with its FiLM vector); 64^2, 32^2 and
@@ -380,13 +401,15 @@ def _attention_case(shape, gen, nomax: bool = False):
     path's shapes and the mma.sync kernel's at ``*_MMA_SHAPES``."""
     import torch
     import torch.nn.functional as F
-    from vdtpu_torch.ops.flash import _plan_for, flash_attention, flash_attention_plain
+    from vdtpu_torch.ops.flash import (
+        ATTN_WG_MAX_D, _plan_for, flash_attention, flash_attention_plain)
     from vdtpu_torch.ops.nomax import flash_attention_nomax, flash_attention_nomax_plain
-    b, n, h, d, offset = (*shape, 0)[:5]
-    want = "mma" if shape in FLASH_MMA_SHAPES + NOMAX_MMA_SHAPES else "wgmma"
-    size = b * n * h * d
-    q, k, v = (torch.randn(size + offset, device="cuda", generator=gen).to(torch.bfloat16)
-               [offset:].view(b, n, h, d) for _ in range(3))
+    b, n, h, d = shape[:4]
+    offset = shape[4] if len(shape) > 4 else 0
+    m = shape[5] if len(shape) > 5 else n
+    want = "mma" if shape in FLASH_MMA_SHAPES + NOMAX_MMA_SHAPES or d > ATTN_WG_MAX_D else "wgmma"
+    q, k, v = (torch.randn(b * rows * h * d + offset, device="cuda", generator=gen)
+               .to(torch.bfloat16)[offset:].view(b, rows, h, d) for rows in (n, m, m))
     if nomax:
         shift = _true_shift(q, k, d ** -0.5)
         fn = flash_attention_nomax
@@ -403,7 +426,7 @@ def _attention_case(shape, gen, nomax: bool = False):
     path = _plan_for(q, k, v).path
     err, rel, ok = compare(out, ref)
     ok = ok and rel <= ATTN_MAX_REL_L2 and took == [path] and path == want
-    extra = {"path": path, "offset": offset}
+    extra = {"path": path, "offset": offset, "keys": m}
     if not nomax:  # the lse output (training's forward) and its time
         from vdtpu_torch.ops.flash import flash_attention_fwd
         kern_lse = lambda: flash_attention_fwd(q, k, v, d ** -0.5, with_lse=True)
@@ -417,8 +440,8 @@ def _attention_case(shape, gen, nomax: bool = False):
     eager = dict(ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3, warmup=1),
                  library_ms=time_ms(lib, 20))
     ms, plain_ms, lib_ms = time_graph_ms(kern), time_graph_ms(plain, 2, 2), time_graph_ms(lib)
-    nbytes = 4 * q.numel() * q.element_size()
-    flops, exps = 4.0 * b * h * n * n * d, float(b * h * n * n)
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    flops, exps = 4.0 * b * h * n * m * d, float(b * h * n * m)
     bound_ms, bound_by = _bound(nbytes, max(flops / PEAK_BF16, exps / PEAK_EXP))
     return dict(shape=[b, n, h, d], max_abs_err=err, rel_l2_err=rel, ok=ok, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, library="F.scaled_dot_product_attention",
@@ -870,7 +893,8 @@ def phase_kernels(state):
     gen = torch.Generator(device="cuda").manual_seed(0)
     specs = [
         ("flash_fwd", "cuda", "vdtpu_torch/csrc/flash_fwd.cu",
-         "vdtpu/ops/pallas/flash.py:40", _attention_case, FLASH_SHAPES + FLASH_MMA_SHAPES),
+         "vdtpu/ops/pallas/flash.py:40", _attention_case,
+         FLASH_SHAPES + FLASH_MMA_SHAPES + FLASH_XATTN_SHAPES),
         ("flash_bwd", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
          "vdtpu/ops/pallas/flash.py:444", _flash_bwd_case, FLASH_SHAPES),
         ("gn_silu", "cuda", "vdtpu_torch/csrc/gn_silu.cu",
@@ -1510,6 +1534,166 @@ def phase_main_text(state):
                 results[f"{label}_warm"]["launches"]["gn_silu"]
 
 
+def _mcg_inputs():
+    """The seeded inputs of main_mcg's requests: four 512^2 images and a
+    rectangular mask [1, 512, 512, 1] (1 hides a pixel)."""
+    import torch
+    images = [_i2i_image(SEED + 20 + i) for i in range(4)]
+    mask = torch.zeros((1, 512, 512, 1), device="cuda")
+    mask[:, 96:352, 160:448] = 1.0
+    return images, mask
+
+
+def _mcg_requests(vdi, images, mask):
+    """(label, call, images used, contexts as (c_type, keys)) of main_mcg's
+    requests: (a) dcg, one image and a prompt; (b) tcg given three images
+    (the flow keeps two; the second masked) and a prompt; (c) mcg, four
+    images and no prompt, whose 4 x 257 = 1028 image tokens reach the
+    flash rule's 1024 keys."""
+    text = ("text", 77)
+    return (
+        ("a", lambda: (None, vdi.inference_dcg(images[0], 0.5, TEXT_PROMPT, 0.5, seed=SEED)),
+         None, [text, ("image", 257)]),
+        ("b", lambda: vdi.inference_tcg(
+            [{"image": images[0], "fcs_lvl": 0.5}, {"image": images[1], "mask": mask},
+             {"image": images[2]}], TEXT_PROMPT, 0.3, seed=SEED), 2, [text, ("image", 514)]),
+        ("c", lambda: vdi.inference_mcg([{"image": im} for im in images], None, 0.5,
+                                        seed=SEED), 4, [("image", 1028)]))
+
+
+def _mc_gn(system, c_types) -> int:
+    """GroupNorms of one multi-context UNet call: the image data blocks' and
+    those of each context's stack."""
+    from vdtpu_torch.models.layers import GroupNorm32
+    d = system.model.diffuser
+    count = lambda mods: sum(isinstance(m, GroupNorm32) for m in mods.modules())
+    return count(d["image"].data_blocks) + sum(count(d[c].context_blocks) for c in c_types)
+
+
+def _mc_launches(system, contexts):
+    """Launches of one exact multi-context request, derived from the
+    program: at each context slot every context's stack runs; its
+    self-attention takes the flash kernel on maps of 1024 tokens or more,
+    its cross-attention on maps of 256 or more when the context has 1024
+    keys or more (the flash rule), on the wgmma kernel for heads up to
+    ATTN_WG_MAX_D and the mma.sync one above; every GroupNorm of the UNet
+    call and of the VAE decoder the GN kernel. Returns (launches, flash
+    launches by path)."""
+    from vdtpu_torch.ops.flash import ATTN_WG_MAX_D
+    d = system.model.diffuser
+    paths = {"wgmma": 0, "mma": 0}
+    for ci, n in enumerate(_ctx_tokens(d["image"], 64)):
+        for c_type, keys in contexts:
+            dh = d[c_type].program.ctx[ci].dim_head
+            path = "wgmma" if dh <= ATTN_WG_MAX_D and dh % 8 == 0 else "mma"
+            paths[path] += STEPS * ((n >= 1024) + (n >= 256 and keys >= 1024))
+    _, vae_gn, _ = _gn_sites(system)
+    gn = _mc_gn(system, [c for c, _ in contexts]) * STEPS + vae_gn
+    return {"flash_fwd": sum(paths.values()), "gn_silu": gn}, paths
+
+
+def _mc_request(state, label, call, n_shown, expect, expect_paths, expect_kv=None):
+    """Run one multi-context request cold then warm; gate its output, its
+    inputs shown and its launches: ``expect``'s counts, every other counter
+    of ``_counters`` at 0, the attention forwards by path and (where given)
+    the no-max kernel's by kv length."""
+    import torch
+    by_kv_now = _counters()["nomax_fwd"].launches_by_kv
+    results = {}
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters()
+        t = time.perf_counter()
+        shown, img = call()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got, by_kv = _read_counters(), dict(by_kv_now)
+        counts = {k: got[k] for k in expect}
+        paths = _attn_paths(f"{label} {run}")
+        gn_routes = _gn_routes(f"{label} {run}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        finite = bool(torch.isfinite(img).all())
+        lo, hi = float(img.min()), float(img.max())
+        n_got = None if shown is None else len(shown)
+        log(f"{label} {run}: {dt:.3f} s, {2 / dt:.3f} images/s, peak {peak:.2f} GiB, shape "
+            f"{tuple(img.shape)} finite {finite} range [{lo:.4f}, {hi:.4f}], inputs shown "
+            f"{n_got} (expected {n_shown}), launches {counts} (expected {expect}), attention "
+            f"by path {paths} (expected {expect_paths}), GN by route {gn_routes}, no-max by kv "
+            f"length {by_kv} (expected {expect_kv}) [{state.get('card')}]")
+        if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0 and hi <= 1.0):
+            raise RuntimeError(f"{label} {run}: bad output")
+        if n_got != n_shown or (shown and any(tuple(s.shape) != (1, 512, 512, 3)
+                                              for s in shown)):
+            raise RuntimeError(f"{label} {run}: inputs shown {n_got} != {n_shown}")
+        if got != {k: expect.get(k, 0) for k in got}:
+            raise RuntimeError(f"{label} {run}: launch counts {got} != {expect}")
+        for name, want in expect_paths.items():
+            if paths[name] != want:
+                raise RuntimeError(f"{label} {run}: {name} by path {paths[name]} != {want}")
+        if expect_kv is not None and by_kv != expect_kv:
+            raise RuntimeError(f"{label} {run}: no-max by kv length {by_kv} != {expect_kv}")
+        results[run] = dict(seconds=dt, images_per_s=2 / dt, peak_gib=peak, launches=counts,
+                            attention_by_path=paths, gn_by_route=gn_routes)
+    return results
+
+
+def _mc_eps(state, system, cpu_model, label: str, mixing: str, choices=None):
+    """One full-width multi-context eps call (text + image context) on the
+    card in bf16 against the f32 CPU copy on the same inputs."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn(1, 4, 64, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    t = torch.tensor([500], device="cuda")
+    ctxs = [system.ctx_encode(stand_in_tokenizer([TEXT_PROMPT]), "text"),
+            system.ctx_encode(_i2i_image(SEED + 5), "image")]
+    args = ([0.3, 0.7], "image", ["text", "image"], mixing, choices)
+    with torch.no_grad():
+        eps_gpu = system.model.apply_model_multicontext(x, t, ctxs, *args).float().cpu()
+        t0 = time.perf_counter()
+        eps_cpu = cpu_model.apply_model_multicontext(
+            x.float().cpu(), t.cpu(), [c.float().cpu() for c in ctxs], *args)
+    cos, rel = _cosine(eps_gpu, eps_cpu)
+    log(f"{label}: multi-context eps ({mixing} mixing"
+        f"{'' if choices is None else f', choices {choices}'}), card bf16 vs cpu f32 at "
+        f"[1, 4, 64, 64]: cosine {cos:.6f} rel_l2 {rel:.5f} (limits cos >= {EPS_MIN_COS}, "
+        f"rel_l2 <= {EPS_MAX_REL_L2}); cpu {time.perf_counter() - t0:.1f} s "
+        f"[{state.get('card')}]")
+    if not (math.isfinite(cos) and cos >= EPS_MIN_COS and rel <= EPS_MAX_REL_L2):
+        raise RuntimeError(f"{label}: card result disagrees with the f32 CPU result")
+    return dict(cosine=cos, rel_l2=rel)
+
+
+def phase_main_mcg(state):
+    import torch
+    from vdtpu_torch.serving.api import VDInference
+    system = _system(state)
+    vdi = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
+                      ddim_steps=STEPS, n_sample_image=2)
+    images, mask = _mcg_inputs()
+    results = {}
+    for label, call, n_shown, contexts in _mcg_requests(vdi, images, mask):
+        expect, flash_paths = _mc_launches(system, contexts)
+        res = _mc_request(state, f"main_mcg ({label})", call, n_shown, expect,
+                          {"flash_fwd": flash_paths, "nomax_fwd": {"wgmma": 0, "mma": 0}})
+        for run, r in res.items():
+            results[f"{label}_{run}"] = r
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    choices = system.model.sample_layer_choices(gen, [0.3, 0.7], "image").tolist()
+    cpu_model = _cpu_model(system)
+    results["eps_attention"] = _mc_eps(state, system, cpu_model, "main_mcg", "attention")
+    results["eps_layer"] = _mc_eps(state, system, cpu_model, "main_mcg", "layer", choices)
+    del cpu_model
+    for name in ("flash_fwd", "gn_silu"):
+        if name in state["kernels"]:
+            k = state["kernels"][name]
+            for label in "abc":
+                k[f"launches_mcg_{label}"] = results[f"{label}_warm"]["launches"][name]
+            if name == "flash_fwd":
+                k["launches_by_path_mcg_c"] = results["c_warm"]["attention_by_path"][name]
+    state["main_mcg"] = results
+
+
 def phase_eps(state):
     import torch
     system = _system(state)
@@ -1611,26 +1795,29 @@ def _gnq_routes() -> dict:
     return out
 
 
-def _int8_launches(system, tome_ratio: float | None):
-    """Launches of one int8 request, derived from the program: per UNet call
-    (x STEPS) every calibrated conv site of the image data blocks runs the
-    int8 conv kernel; every QDense of the text context blocks one
-    torch._int_mm; every self-attention whose (merged) length reaches the
-    flash rule (q >= 256, kv >= 1024) the no-max kernel, and nothing the
-    exact flash kernel (every such site has a shift); the GroupNorms and
-    the VAE decoder as in the bf16 request. Also the no-max launches by kv
-    length: ToMe merges each 4096-token site to 4096 - merge_count."""
+def _int8_launches(system, tome_ratio: float | None, c_types=("text",)):
+    """Launches of one int8 request whose contexts (one stack each, of
+    ``c_types``) have fewer than 1024 keys, derived from the program: per
+    UNet call (x STEPS) every calibrated conv site of the image data blocks
+    runs the int8 conv kernel; every QDense of each stack's context blocks
+    one torch._int_mm; every self-attention whose (merged) length reaches
+    the flash rule (q >= 256, kv >= 1024) the no-max kernel, once a stack,
+    and nothing the exact flash kernel (every such site has a shift; the
+    cross-attentions take the plain path); the GroupNorms and the VAE
+    decoder as in the bf16 request. Also the no-max launches by kv length:
+    ToMe merges each 4096-token site to 4096 - merge_count."""
     from vdtpu_torch.ops.tome import merge_count
-    convs, _, mms = _int8_sites(system)
+    convs, _, _ = _int8_sites(system)
     by_kv = {}
     for n in _ctx_tokens(system.model.diffuser["image"], 64):
         if tome_ratio is not None and n >= 4096:
             n -= merge_count(n, tome_ratio)
         if n >= 1024:
-            by_kv[n] = by_kv.get(n, 0) + STEPS
-    unet_gn, vae_gn, _ = _gn_sites(system)
+            by_kv[n] = by_kv.get(n, 0) + STEPS * len(c_types)
+    _, vae_gn, _ = _gn_sites(system)
     return {"flash_fwd": 0, "nomax_fwd": sum(by_kv.values()), "qconv3": convs * STEPS,
-            "int_mm": mms * STEPS, "gn_silu": unet_gn * STEPS + vae_gn}, by_kv
+            "int_mm": sum(_int8_sites(system, c)[2] for c in c_types) * STEPS,
+            "gn_silu": _mc_gn(system, c_types) * STEPS + vae_gn}, by_kv
 
 
 def _counters():
@@ -1684,16 +1871,25 @@ def _gn_routes(label: str) -> dict:
     return by
 
 
-def _wgmma_only(label: str) -> dict:
+def _attn_paths(label: str) -> dict:
     """Launches by ``attn_fwd_plan`` path of the two attention forwards since
-    their counters were zeroed; raises unless every one took the wgmma
-    kernel (the main paths' heads of 40 and 80 on aligned projections)."""
+    their counters were zeroed; raises unless they add up."""
     c = _counters()
     paths = {name: dict(c[name].launches_by_path) for name in ("flash_fwd", "nomax_fwd")}
     for name, by in paths.items():
-        if by["mma"] or by["wgmma"] != c[name].launches:
-            raise RuntimeError(f"{label}: {name} launches by path {by} of {c[name].launches}; "
-                               "every main-path launch must take the wgmma kernel")
+        if sum(by.values()) != c[name].launches:
+            raise RuntimeError(f"{label}: {name} launches by path {by} of {c[name].launches}")
+    return paths
+
+
+def _wgmma_only(label: str) -> dict:
+    """``_attn_paths``; raises unless every launch took the wgmma kernel (the
+    single-context paths' heads of 40 and 80 on aligned projections)."""
+    paths = _attn_paths(label)
+    for name, by in paths.items():
+        if by["mma"]:
+            raise RuntimeError(f"{label}: {name} launches by path {by}; every "
+                               "launch of this path must take the wgmma kernel")
     return paths
 
 
@@ -1809,6 +2005,18 @@ def phase_main_int8(state):
                                                 launches=counts, nomax_by_kv=by_kv,
                                                 qconv3_by_path=paths,
                                                 attention_by_path=attn_paths)
+        # main_mcg's tcg request (b) under the default serving policy, int8 +
+        # ToMe: both context stacks on the int8 sites, the contexts' 77 and
+        # 514 keys on the plain path
+        system.enable_tome(TOME_RATIO)
+        (_, call, n_shown, contexts), = [r for r in _mcg_requests(vdi, *_mcg_inputs())
+                                         if r[0] == "b"]
+        expect, expect_kv = _int8_launches(system, TOME_RATIO, [c for c, _ in contexts])
+        res = _mc_request(state, "main_int8 tcg int8_tome", call, n_shown, expect,
+                          {"flash_fwd": {"wgmma": 0, "mma": 0},
+                           "nomax_fwd": {"wgmma": expect["nomax_fwd"], "mma": 0}}, expect_kv)
+        for run, r in res.items():
+            results[f"tcg_int8_tome_{run}"] = r
     finally:
         system.enable_tome(0)
     for name in ("nomax_fwd", "qconv3"):

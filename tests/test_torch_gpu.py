@@ -78,6 +78,20 @@ def test_flash_kernel_matches_plain(gen, b, n, m, h, d):
                                atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("b,n,m,h,d", [
+    (4, 4096, 1028, 8, 40),    # a four-image mcg request's 64^2 cross-attentions
+    (4, 1024, 1028, 8, 80),    # its 32^2 ones
+    (4, 256, 1028, 8, 160),    # its 16^2 ones: mma.sync
+])
+def test_flash_kernel_at_the_mcg_cross_attention_shapes(gen, b, n, m, h, d):
+    """1028 keys: the last key tile holds 4 keys, the rest must not count."""
+    q, k, v = _randn(gen, b, n, h, d), _randn(gen, b, m, h, d), _randn(gen, b, m, h, d)
+    out = _one_launch(flash_attention, _expect_path(d), lambda: flash_attention(q, k, v))
+    ref = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+    assert _rel_l2(out, ref) <= ATTN_MAX_REL_L2
+
+
 def test_flash_kernel_reads_strided_views(gen):
     """q, k, v as views of one packed [B, N, 3, H, D] projection, and a
     misaligned start (one element in), which takes the unaligned path."""
@@ -245,6 +259,41 @@ def test_tiny_t2i_on_the_card_goes_through_both_kernels(gen):
         b = cpu_sys.model.apply_model(x.float().cpu(), t.cpu(), ctx.float().cpu(),
                                       "image", "text").flatten()
     assert float(a @ b / (a.norm() * b.norm())) > 0.995
+
+
+def test_full_width_multicontext_eps_bf16_matches_f32(gen):
+    """One full-width multi-context eps call (text + image context,
+    attention mixing) in bf16 on the card, through the kernels, against an
+    f32 copy of the same diffusers on the CPU (the kernels take bf16 only),
+    on the same contexts: chip_smoke.py's eps bound."""
+    from vdtpu_torch.models.vd import VDModel
+    from vdtpu_torch.serving.api import VDSystem
+    system = VDSystem("vd_four_flow_v1-0", dtype=torch.bfloat16, device="cuda").init_random(0)
+    with torch.no_grad():  # zero output convs would make eps identically 0
+        for p in system.net.parameters():
+            if not bool(p.any()):
+                p.copy_(torch.randn(p.shape, device="cuda", generator=gen) * 0.02)
+    with torch.device("meta"):
+        cpu = VDModel.from_config(system.cfg)
+    cpu.diffuser.to_empty(device="cpu")
+    cpu.diffuser.load_state_dict({k: v.float().cpu()
+                                  for k, v in system.model.diffuser.state_dict().items()})
+    ids = torch.arange(77, device="cuda").view(1, 77) + 400
+    ctxs = [system.ctx_encode(ids, "text"),
+            system.ctx_encode(torch.rand((1, 512, 512, 3), device="cuda", generator=gen),
+                              "image")]
+    x = _randn(gen, 1, 4, 64, 64)
+    t = torch.tensor([500], device="cuda")
+    args = ([0.3, 0.7], "image", ["text", "image"])
+    flash_attention.launches = 0
+    with torch.no_grad():
+        out = system.model.apply_model_multicontext(x, t, ctxs, *args).float().cpu()
+        ref = cpu.diffuser.apply_flow_multicontext(
+            x.float().cpu(), t.cpu(), [c.float().cpu() for c in ctxs], *args)
+    assert flash_attention.launches == 20   # 10 long self-attention sites, two stacks
+    a, b = out.flatten().double(), ref.flatten().double()
+    assert float(a @ b / (a.norm() * b.norm())) >= 0.995
+    assert float((a - b).norm() / b.norm()) <= 0.05
 
 
 # ---- int8 serving kernels: no-max attention, GN+SiLU+int8, int8 3x3 conv ----

@@ -9,8 +9,11 @@ projected token states divided by the norm of the projected EOT-pooled
 state (EOT = argmax of the ids, the CLIP convention); its image context is
 the post-LayerNorm, projected tokens divided by the norm of the projected
 CLS token. ``preprocess_images`` is CLIPProcessor's bicubic shortest-side
-resize, centre crop and mean/std normalization. The masked image variant
-(``vision_token_mask``) is not ported.
+resize, centre crop and mean/std normalization. The masked image context
+takes a per-token mask (``vision_token_mask``: the pixel mask averaged
+over each patch, and its global mean for the CLS token) and applies it
+twice, as the JAX package does: to the embeddings before ``pre_layrnorm``
+and to the normalized context.
 """
 from __future__ import annotations
 
@@ -174,15 +177,20 @@ class CLIPVisionTower(nn.Module):
         self.encoder = _Encoder(cfg)
         self.post_layernorm = LayerNorm(cfg.hidden, eps=1e-5)
 
-    def forward(self, pixels):
-        x = self.pre_layrnorm(self.embeddings(pixels))
+    def forward(self, pixels, token_mask=None):
+        """``token_mask`` [B, 1 + P, 1] scales the embeddings (None: no mask)."""
+        x = self.embeddings(pixels)
+        if token_mask is not None:
+            x = x * token_mask.to(x.dtype)
+        x = self.pre_layrnorm(x)
         for layer in self.encoder.layers:
             x = layer(x)
         return x
 
 
 class CLIPImageContextEncoder(nn.Module):
-    """Normalized pixels [B, S, S, 3] -> context [B, 1 + P, projection_dim]."""
+    """Normalized pixels [B, S, S, 3] -> context [B, 1 + P, projection_dim];
+    with ``token_mask`` [B, 1 + P, 1] the masked context."""
 
     def __init__(self, tower=VISION_L14, image_size: int = IMAGE_SIZE, patch: int = PATCH,
                  projection_dim: int = PROJECTION_DIM):
@@ -192,11 +200,23 @@ class CLIPImageContextEncoder(nn.Module):
         self.vision_model = CLIPVisionTower(tower, image_size, patch)
         self.visual_projection = dense(tower.hidden, projection_dim, bias=False, quant=False)
 
-    def forward(self, pixels):
-        hidden = self.vision_model(pixels)
+    def forward(self, pixels, token_mask=None):
+        hidden = self.vision_model(pixels, token_mask)
         z = self.visual_projection(self.vision_model.post_layernorm(hidden))
         norm = z[:, 0:1].float().norm(dim=-1, keepdim=True)
-        return z / norm.to(z.dtype)
+        z = z / norm.to(z.dtype)
+        return z if token_mask is None else z * token_mask.to(z.dtype)
+
+
+def vision_token_mask(masks, patch: int = PATCH):
+    """Pixel mask [B, S, S, 1] -> per-token mask [B, 1 + P, 1] in f32: the
+    mask clamped to [0, 1], averaged over each patch, with its global mean
+    as the CLS entry."""
+    m = torch.as_tensor(masks).float().clamp(0.0, 1.0)
+    b, h, w, _ = m.shape
+    gscale = m.mean(dim=(1, 2, 3)).reshape(b, 1, 1)
+    pooled = m.reshape(b, h // patch, patch, w // patch, patch).mean(dim=(2, 4))
+    return torch.cat([gscale, pooled.reshape(b, -1, 1)], dim=1)
 
 
 def preprocess_images(images, size: int = IMAGE_SIZE):

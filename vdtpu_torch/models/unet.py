@@ -5,7 +5,7 @@ diffuser (NCHW) and the 0-D text-latent diffuser (flat channel-major
 The layer program (``build_program_2d`` / ``build_program_0d``) replays the
 reference's construction order once; the forward walks its token sequence.
 Data blocks and context blocks can come from different diffusers
-(``_run_tokens``): in the (image, text) flow the image diffuser supplies the
+(``run_tokens``): in the (image, text) flow the image diffuser supplies the
 data blocks and the time embedding and the text diffuser the context blocks,
 and the data stream's owner decides how its state becomes tokens
 (``run_context(..., tokenizer=data_host)``).
@@ -23,9 +23,11 @@ of the context diffuser. Forward values are the same either way.
 Under int8 (``ops/quant.py``) ``conv_in`` (4 -> model channels) and the
 output conv (model channels -> 4) are int8 sites like the ResBlock,
 Downsample and Upsample convs, as in the JAX package; the time-embed MLP
-is not. With token merging, ``walk`` makes one ``ToMeWalk`` per walk and
-hands it to every context block, so the merge built at a walk's first long
-site is reused by the later ones of that size and dropped with the walk.
+is not. With token merging, each walk (``walk``, and
+``MultiDiffuser.apply_flow_multicontext`` over all its context stacks)
+makes one ``ToMeWalk`` and hands it to every context block, so the merge
+built at a walk's first long site is reused by the later ones of that size
+and dropped with the walk.
 """
 from __future__ import annotations
 
@@ -294,28 +296,33 @@ class UNetBase(nn.Module):
         block = self.context_blocks[i][0]
         return restore(self._remat(block, self.program.ctx[i].channels, x_cf, ctx, tome))
 
-    def _run_tokens(self, tokens, h, hs, emb, context, data_host: "UNetBase",
-                    ctx_host: "UNetBase", di: int = 0, ci: int = 0,
-                    tome: ToMeWalk | None = None):
-        hs = list(hs)
+    def run_tokens(self, tokens, h, emb, context_step, data_host: "UNetBase | None" = None):
+        """Walk ``tokens`` from h: data blocks of ``data_host`` (default
+        self), ``context_step(ci, h)`` at context slot ci, skip saves and
+        concatenating loads. Returns h."""
+        data_host = data_host or self
+        hs, di, ci = [], 0, 0
         for token in tokens:
             if token == D:
                 h = data_host.run_data(di, h, emb)
                 di += 1
             elif token == C:
-                h = ctx_host.run_context(ci, h, context, tokenizer=data_host, tome=tome)
+                h = context_step(ci, h)
                 ci += 1
             elif token == SAVE:
                 hs.append(h)
             elif token == LOAD:
                 h = torch.cat([h, hs.pop()], dim=1)
-        return h, hs
+        return h
 
     def walk(self, x, emb, context, data_host: "UNetBase", ctx_host: "UNetBase",
              tome: ToMeSpec | None = None):
-        h, _ = self._run_tokens(self.program.layer_order, x, [], emb, context,
-                                data_host, ctx_host, tome=tome and ToMeWalk(tome))
-        return h
+        tome_walk = tome and ToMeWalk(tome)
+        return self.run_tokens(
+            self.program.layer_order, x, emb,
+            lambda ci, h: ctx_host.run_context(ci, h, context, tokenizer=data_host,
+                                               tome=tome_walk),
+            data_host)
 
 
 class UNet2DNext(UNetBase):

@@ -10,18 +10,23 @@ embedding from the ``x_type`` diffuser (or ``global_layer_ptr``) and its
 context blocks from the ``c_type`` diffuser. ``MultiDiffuser.tome`` is the
 serving system's token-merging spec (``VDSystem.enable_tome``; None: off),
 handed to every walk.
+
+``apply_flow_multicontext`` is the multi-context walk of the blend flows
+(dcg, tcg, mcg): the data blocks of ``x_type``, and at every context slot
+the context blocks of each context's diffuser, mixed by ratio
+("attention") or one chosen per slot ("layer").
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterator, Mapping
+from typing import Any, Iterator, Mapping, Sequence
 
 import torch
 from torch import nn
 
 from vdtpu_torch.config.registry import build
 from vdtpu_torch.ops.schedules import DiffusionSchedule, extract
-from vdtpu_torch.ops.tome import ToMeSpec
+from vdtpu_torch.ops.tome import ToMeSpec, ToMeWalk
 
 
 class MultiDiffuser(nn.ModuleDict):
@@ -46,6 +51,54 @@ class MultiDiffuser(nn.ModuleDict):
         emb = self[self.global_layer_ptr or x_type].time_embedding(timesteps, x.dtype)
         host = self[x_type]
         return host.walk(x, emb, context, host, self[c_type], tome=self.tome)
+
+    def apply_flow_multicontext(self, x, timesteps, contexts, ratios, x_type: str,
+                                c_types: Sequence[str], mixing_type: str = "attention",
+                                layer_choices=None):
+        """vd.py:404-455: data blocks from x_type; at context slot ci each
+        context i runs the context blocks of ``c_types[i]``.
+
+        "attention": every context's stack runs and the outputs are summed
+        in context order, each times its ratio (normalized in f32, then cast
+        to h's dtype). "layer": ``layer_choices[ci]`` (ints, one per slot;
+        ``VDModel.sample_layer_choices`` draws them) picks the one context
+        whose stack runs at slot ci. The JAX package runs every stack there
+        and sums them times a one-hot; the port runs only the chosen one,
+        which gives the same values (x * 1 + y * 0 = x for finite y). One
+        ``ToMeWalk`` serves the whole walk, every stack included."""
+        if len(contexts) != len(c_types) or (mixing_type == "attention"
+                                             and len(ratios) != len(contexts)):
+            raise ValueError("one c_type (and one ratio) per context")
+        host = self[x_type]
+        emb = self[self.global_layer_ptr or x_type].time_embedding(timesteps, x.dtype)
+        tome = self.tome and ToMeWalk(self.tome)
+
+        def run(i, ci, h):
+            return self[c_types[i]].run_context(ci, h, contexts[i], tokenizer=host, tome=tome)
+
+        if mixing_type == "attention":
+            r = torch.as_tensor(ratios, dtype=torch.float32)
+            r = r / r.sum()
+
+            def step(ci, h):
+                mixed = None
+                for i in range(len(contexts)):
+                    hi = run(i, ci, h) * r[i].to(h.dtype)
+                    mixed = hi if mixed is None else mixed + hi
+                return mixed
+        elif mixing_type == "layer":
+            if layer_choices is None:
+                raise ValueError("mixing_type='layer' requires layer_choices")
+            choices = [int(c) for c in layer_choices]
+            if len(choices) != len(host.program.ctx) or not all(
+                    0 <= c < len(contexts) for c in choices):
+                raise ValueError(f"layer_choices {choices}: one context index per slot")
+
+            def step(ci, h):
+                return run(choices[ci], ci, h)
+        else:
+            raise ValueError(f"unknown mixing_type {mixing_type!r}")
+        return host.run_tokens(host.program.layer_order, x, emb, step)
 
 
 @dataclasses.dataclass
@@ -109,6 +162,25 @@ class VDModel:
     def apply_model(self, x, timesteps, context, x_type: str, c_type: str):
         """eps for x in the model's own layout (NCHW for images)."""
         return self.diffuser.apply_flow(x, timesteps, context, x_type, c_type)
+
+    def apply_model_multicontext(self, x, timesteps, contexts, ratios, x_type: str,
+                                 c_types: Sequence[str], mixing_type: str = "attention",
+                                 layer_choices=None):
+        """eps of the multi-context walk (``MultiDiffuser.apply_flow_multicontext``)."""
+        return self.diffuser.apply_flow_multicontext(
+            x, timesteps, contexts, ratios, x_type, c_types, mixing_type, layer_choices)
+
+    def num_context_slots(self, x_type: str = "image") -> int:
+        """Context-block slots of a diffuser's program."""
+        return len(self.diffuser[x_type].program.ctx)
+
+    def sample_layer_choices(self, generator, ratios, x_type: str = "image"):
+        """One context index per slot, drawn from the normalized ratios with
+        ``generator`` (the reference's npr.choice per slot): a long tensor
+        [num_context_slots] on the generator's device, for mixing "layer"."""
+        r = torch.as_tensor(ratios, dtype=torch.float32, device=generator.device)
+        return torch.multinomial(r / r.sum(), self.num_context_slots(x_type),
+                                 replacement=True, generator=generator)
 
     def scale_latent(self, z, which: str):
         s = self.latent_scale_factor.get(which)

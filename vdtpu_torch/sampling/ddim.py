@@ -7,12 +7,13 @@ loop adds no host-device synchronization. Classifier-free guidance is one
 explicit ``torch.Generator`` or, for comparisons with the JAX package, a
 pre-drawn ``noise_table``.
 
-``DDIMSampler.sample`` takes and returns NHWC image latents, as the JAX API
-does, and the model runs NCHW in between; text latents are [n, F] on both
-sides. The start is x_T as given, pure noise, or
-(img2img) x0 noised to the k-th lowest timestep with only the k lowest
-steps left to run. Encoder reuse, DPM-Solver++ and the cfg interval are
-later slices.
+``DDIMSampler.sample`` (one context) and ``sample_multicontext`` (the
+blend flows' contexts, mixed by ratio or chosen per context slot, under one
+guidance scale) take and return NHWC image latents, as the JAX API does,
+and the model runs NCHW in between; text latents are [n, F] on both sides.
+Both share the start and the loop: x_T as given, pure noise, or (img2img)
+x0 noised to the k-th lowest timestep with only the k lowest steps left to
+run. Encoder reuse, DPM-Solver++ and the cfg interval are later slices.
 """
 from __future__ import annotations
 
@@ -96,6 +97,21 @@ def cfg_eps_fn(apply_model: Callable, cond, uncond, scale: float) -> Callable:
     return eps
 
 
+def cfg_eps_fn_multicontext(apply_multi: Callable, conds, unconds, scale: float) -> Callable:
+    """Multi-context CFG (ref ddim.py:244-277): one 2x-batched call, each
+    context as [uncond_i, cond_i], under the one guidance scale."""
+    if scale == 1.0:
+        return lambda x, t: apply_multi(x, t, conds)
+    c_in = [torch.cat([u, c], dim=0) for u, c in zip(unconds, conds)]
+
+    def eps(x, t):
+        e = apply_multi(torch.cat([x, x], dim=0), torch.cat([t, t], dim=0), c_in)
+        e_u, e_c = e.chunk(2, dim=0)
+        return e_u + scale * (e_c - e_u)
+
+    return eps
+
+
 def ddim_loop(eps_fn: Callable, x, tables: DDIMTables, generator=None,
               temperature: float = 1.0, noise_dropout: float = 0.0, noise_table=None):
     """The reversed-timestep loop over x in the model's layout.
@@ -113,7 +129,8 @@ def ddim_loop(eps_fn: Callable, x, tables: DDIMTables, generator=None,
 
 
 class DDIMSampler:
-    """Sampler bound to a ``VDModel`` (the JAX ``DDIMSampler.sample`` API)."""
+    """Sampler bound to a ``VDModel`` (the JAX ``DDIMSampler.sample`` and
+    ``sample_multicontext`` API)."""
 
     def __init__(self, model):
         self.model = model
@@ -133,21 +150,12 @@ class DDIMSampler:
         t = torch.full((x0.shape[0],), t0, dtype=torch.long, device=device)
         return self.model.schedule.q_sample(x0, t, noise).to(dtype), tables.tail(k)
 
-    def sample(self, generator, steps: int, shape, x_info, c_info, eta: float = 0.0,
-               temperature: float = 1.0, noise_dropout: float = 0.0, dtype=torch.float32,
-               noise_table=None, device=None):
-        """Single-context sampling with CFG. ``shape``, ``x_info['xt']`` and
-        ``x_info['x0']`` are NHWC ([n, h, w, c]) for a 2-D diffuser and [n, F]
-        for a 0-D one (the text latent); the result has the same layout.
-        ``noise_table`` is [S, *shape] (the JAX package's layout), one row
-        per step that runs."""
-        x_type, c_type = x_info["type"], c_info["type"]
-        scale = float(c_info.get("unconditional_guidance_scale", 1.0))
-        cond = torch.as_tensor(c_info["conditioning"]).to(device=device, dtype=dtype)
-        uncond = c_info.get("unconditional_conditioning")
-        if uncond is not None:
-            uncond = torch.as_tensor(uncond).to(device=device, dtype=dtype)
-        device = cond.device
+    def _run(self, eps, generator, steps: int, shape, x_info, eta: float, temperature: float,
+             noise_dropout: float, dtype, noise_table, device):
+        """The start and the loop of both samplers: x_T as ``x_info['xt']``,
+        x0 noised (``x0_init``) or the generator's normals; then the DDIM
+        loop over ``eps`` in the model's layout (NCHW for images), the
+        result back in the caller's (NHWC)."""
         tables = DDIMTables.create(self.model.schedule, steps, eta)
         if x_info.get("xt") is not None:
             x = torch.as_tensor(x_info["xt"]).to(device=device, dtype=dtype)
@@ -162,7 +170,55 @@ class DDIMSampler:
             noise_table = torch.as_tensor(noise_table).to(device=device, dtype=dtype)
             if image:
                 noise_table = noise_table.permute(0, 1, 4, 2, 3)
-        apply = lambda xx, tt, cc: self.model.apply_model(xx, tt, cc, x_type, c_type)
-        eps = cfg_eps_fn(apply, cond, uncond, scale)
         x = ddim_loop(eps, x, tables, generator, temperature, noise_dropout, noise_table)
         return x.permute(0, 2, 3, 1) if image else x
+
+    def sample(self, generator, steps: int, shape, x_info, c_info, eta: float = 0.0,
+               temperature: float = 1.0, noise_dropout: float = 0.0, dtype=torch.float32,
+               noise_table=None, device=None):
+        """Single-context sampling with CFG. ``shape``, ``x_info['xt']`` and
+        ``x_info['x0']`` are NHWC ([n, h, w, c]) for a 2-D diffuser and [n, F]
+        for a 0-D one (the text latent); the result has the same layout.
+        ``noise_table`` is [S, *shape] (the JAX package's layout), one row
+        per step that runs."""
+        x_type, c_type = x_info["type"], c_info["type"]
+        scale = float(c_info.get("unconditional_guidance_scale", 1.0))
+        cond = torch.as_tensor(c_info["conditioning"]).to(device=device, dtype=dtype)
+        uncond = c_info.get("unconditional_conditioning")
+        if uncond is not None:
+            uncond = torch.as_tensor(uncond).to(device=cond.device, dtype=dtype)
+        apply = lambda xx, tt, cc: self.model.apply_model(xx, tt, cc, x_type, c_type)
+        return self._run(cfg_eps_fn(apply, cond, uncond, scale), generator, steps, shape,
+                         x_info, eta, temperature, noise_dropout, dtype, noise_table,
+                         cond.device)
+
+    def sample_multicontext(self, generator, steps: int, shape, x_info, c_info_list,
+                            eta: float = 0.0, temperature: float = 1.0,
+                            noise_dropout: float = 0.0, mixing_type: str = "attention",
+                            layer_choices=None, dtype=torch.float32, noise_table=None,
+                            device=None):
+        """Multi-context sampling (ref ddim.py:173-242): ``c_info_list`` holds
+        one c_info per context (its ``type``, ``conditioning``,
+        ``unconditional_conditioning`` (None: zeros), ``ratio`` (default 1)
+        and guidance scale, which must be one for all). ``mixing_type`` and
+        ``layer_choices`` as in ``MultiDiffuser.apply_flow_multicontext``;
+        everything else as in ``sample``."""
+        scales = {float(ci.get("unconditional_guidance_scale", 1.0)) for ci in c_info_list}
+        if len(scales) != 1:
+            raise ValueError("all contexts must share one guidance scale (ref ddim.py:256-261)")
+        if mixing_type == "layer" and layer_choices is None:
+            raise ValueError("mixing_type='layer' requires layer_choices")
+        choices = None if layer_choices is None else torch.as_tensor(layer_choices).tolist()
+        x_type = x_info["type"]
+        c_types = [ci["type"] for ci in c_info_list]
+        ratios = [float(ci.get("ratio", 1.0)) for ci in c_info_list]
+        conds = [torch.as_tensor(ci["conditioning"]).to(device=device, dtype=dtype)
+                 for ci in c_info_list]
+        unconds = [torch.zeros_like(c) if ci.get("unconditional_conditioning") is None
+                   else torch.as_tensor(ci["unconditional_conditioning"]).to(c)
+                   for c, ci in zip(conds, c_info_list)]
+        apply = lambda xx, tt, cc: self.model.apply_model_multicontext(
+            xx, tt, cc, ratios, x_type, c_types, mixing_type, choices)
+        return self._run(cfg_eps_fn_multicontext(apply, conds, unconds, scales.pop()),
+                         generator, steps, shape, x_info, eta, temperature, noise_dropout,
+                         dtype, noise_table, conds[0].device)

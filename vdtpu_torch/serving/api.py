@@ -1,7 +1,9 @@
 """Serving API (``vdtpu/serving/api.py``): ``VDSystem`` builds and owns the
 modules of a VD config, ``VDInference`` runs the flows. The port serves
-text-to-image, image variation (``inference_i2i``), image-to-text
-(``inference_i2t``) and text-to-text (``inference_t2t``).
+all seven of the JAX package's flows: text-to-image, image variation
+(``inference_i2i``), image-to-text (``inference_i2t``), text-to-text
+(``inference_t2t``) and the blends of a prompt with images, masked or not
+(``inference_dcg``, ``inference_tcg``, ``inference_mcg``).
 
 ``VDSystem`` builds ``diffuser.*`` (every diffuser of the config, so every
 ``diffuser.*`` key of a checkpoint loads), ``ctx.image`` and ``ctx.text``
@@ -32,7 +34,7 @@ from torch import nn
 from vdtpu_torch.config.configs import model_cfg_bank
 from vdtpu_torch.config.registry import build
 from vdtpu_torch.interop.from_jax import system_state_dict_from_jax
-from vdtpu_torch.models.clip import preprocess_images
+from vdtpu_torch.models.clip import preprocess_images, vision_token_mask
 from vdtpu_torch.models.layers import init_random
 from vdtpu_torch.models.vd import VDModel
 from vdtpu_torch.ops.quant import (
@@ -47,15 +49,16 @@ from vdtpu_torch.serving.postprocess import (
 FOUR_FLOWS = (("image", "text"), ("image", "image"), ("text", "image"), ("text", "text"))
 
 
-def regularize_image(x, hw):
-    """Bicubic-resize an NHWC float batch to ``hw`` = (H, W) as the JAX
-    package does (``jax.image.resize``, antialiased), clamped to [0, 1]. A
-    batch already at ``hw`` is returned as it is. (vdtpu's bilinear option
-    serves the masked image context, which is not ported.)"""
+def regularize_image(x, hw, method: str = "bicubic"):
+    """Resize an NHWC float batch to ``hw`` = (H, W) as the JAX package does
+    (``jax.image.resize``, antialiased): images bicubic, clamped to [0, 1];
+    masks ``method="bilinear"``, unclamped. A batch already at ``hw`` is
+    returned as it is."""
     x = torch.as_tensor(x)
     if tuple(x.shape[1:3]) == (int(hw[0]), int(hw[1])):
         return x
-    return resize(x, hw).clamp(0.0, 1.0)
+    out = resize(x, hw, method)
+    return out.clamp(0.0, 1.0) if method == "bicubic" else out
 
 
 def resolve_device(device=None) -> torch.device:
@@ -258,14 +261,21 @@ class VDSystem:
     # ---- stages ----
 
     @torch.no_grad()
-    def ctx_encode(self, x, which: str = "text"):
+    def ctx_encode(self, x, which: str = "text", masks=None):
         """Token ids [B, L] -> text context; NHWC images in [0, 1] -> image
         context, always through ``preprocess_images`` (resize and crop where
-        needed, the CLIP mean/std always)."""
+        needed, the CLIP mean/std always). ``masks`` [B, H, W, 1] (1 keeps a
+        pixel) gives the masked image context: the mask goes bilinear
+        straight to the encoder's size (no crop), then per token
+        (``vision_token_mask``)."""
         if which == "image":
             enc = self.ctx["image"]
             px = preprocess_images(torch.as_tensor(x).to(self.device), enc.image_size)
-            return enc(px.to(self.dtype))
+            if masks is None:
+                return enc(px.to(self.dtype))
+            m = torch.as_tensor(masks).to(device=self.device, dtype=torch.float32)
+            m = resize(m, (enc.image_size, enc.image_size), "bilinear")
+            return enc(px.to(self.dtype), vision_token_mask(m, enc.patch))
         if which != "text":
             raise ValueError(f"no context encoder {which!r}")
         ids = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x), dtype=torch.long)
@@ -300,7 +310,8 @@ class VDSystem:
 
 class VDInference:
     """Flow-level API (``vdtpu.serving.api.VDInference``): text-to-image,
-    image variation, image-to-text and text-to-text."""
+    image variation, image-to-text, text-to-text, and the multi-context
+    blends (dual, triple and multi-context) under attention mixing."""
 
     def __init__(self, system: VDSystem,
                  text_tokenizer: Callable[[Sequence[str]], np.ndarray] | None = None,
@@ -333,10 +344,11 @@ class VDInference:
         JAX package's ``disentanglement_noglobal``, always on)."""
         return torch.cat([ci[:, 0:1], self.adjust_rank_f(ci[:, 1:], fcs_lvl)], dim=1)
 
-    def _regularize(self, image):
-        """Input regularization to output_dim (bicubic, as the reference)."""
+    def _regularize(self, image, method: str = "bicubic"):
+        """Input regularization to output_dim (images bicubic, masks
+        bilinear, as the reference)."""
         x = torch.as_tensor(image).to(device=self.sys.device, dtype=torch.float32)
-        return regularize_image(x, self.output_dim)
+        return regularize_image(x, self.output_dim, method)
 
     def _image_shape(self, n: int):
         h, w = self.output_dim
@@ -425,3 +437,75 @@ class VDInference:
         gen = torch.Generator(device=self.sys.device).manual_seed(seed)
         x = self._sample_text(gen, c, u, "text", self.scale_textto)
         return self._decode_texts(x, gen)
+
+    @torch.no_grad()
+    def inference_dcg(self, image, fcs_lvl: float, text: str, textstrength: float,
+                      seed: int):
+        """Dual-context (app.py:436-492): one image (focus ``fcs_lvl``) and a
+        prompt, the prompt's share ``textstrength``. Returns [n, H, W, 3]."""
+        return self.inference_mcg([{"image": image, "strength": 1.0, "fcs_lvl": fcs_lvl}],
+                                  text, textstrength, seed)[1]
+
+    @torch.no_grad()
+    def inference_tcg(self, image_ctxs, text: str | None, textstrength: float, seed: int):
+        """Triple-context: ``inference_mcg`` on the first two image contexts."""
+        return self.inference_mcg(image_ctxs[:2], text, textstrength, seed)
+
+    @torch.no_grad()
+    def inference_mcg(self, image_ctxs: Sequence[Mapping[str, Any] | None],
+                      text: str | None, textstrength: float, seed: int):
+        """Multi-context blend (app.py:500-579). Each image context is a dict:
+        ``image`` [1, H, W, 3] in [0, 1] (any size; resized to output_dim),
+        ``strength`` (default 1), ``fcs_lvl`` (default 0.5: no focus
+        filter), ``mask`` [1, H, W, 1] (optional; 1 hides a pixel). Returns
+        (the inputs as shown, one [1, H, W, 3] per image used;
+        [n, H, W, 3] images in [0, 1])."""
+        n = self.n_sample_image
+        inputs_shown, c_info_list = self._mcg_context(image_ctxs, text, textstrength, n)
+        gen = torch.Generator(device=self.sys.device).manual_seed(seed)
+        x = self.sys.sampler.sample_multicontext(
+            gen, self.ddim_steps, self._image_shape(n), {"type": "image"}, c_info_list,
+            eta=self.ddim_eta, dtype=self.sys.dtype, device=self.sys.device)
+        return inputs_shown, self.sys.vae_decode(x, "image")
+
+    def _mcg_context(self, image_ctxs, text: str | None, textstrength: float, n: int):
+        """(inputs_shown, c_info_list) of a multi-context request, tiled to n
+        rows: the text context first (ratio ``textstrength``; skipped when
+        there is no text or its strength is 0), then the image contexts
+        concatenated along the tokens (ratio 1 - textstrength), each
+        focus-filtered, then scaled by its strength; the unconditional image
+        context is zeros. The guidance scale blends ``scale_imgto`` and
+        ``scale_textto`` by ``textstrength``."""
+        c_info_list = []
+        if text and textstrength != 0:
+            scale = self.scale_imgto * (1 - textstrength) + self.scale_textto * textstrength
+            c_info_list.append({
+                "type": "text", "conditioning": self._encode_text([text]).repeat(n, 1, 1),
+                "unconditional_conditioning": self._encode_text([""]).repeat(n, 1, 1),
+                "unconditional_guidance_scale": scale, "ratio": textstrength})
+        else:
+            scale, textstrength = self.scale_imgto, 0.0
+        inputs_shown, imc = [], []
+        for ctx in image_ctxs:
+            if ctx is None or ctx.get("image") is None:
+                continue
+            cx = self._regularize(ctx["image"])
+            mask = ctx.get("mask")
+            if mask is not None:
+                m = 1.0 - self._regularize(mask, "bilinear")
+                inputs_shown.append(cx * m)
+                ci = self.sys.ctx_encode(cx, "image", masks=m)
+            else:
+                inputs_shown.append(cx)
+                ci = self.sys.ctx_encode(cx, "image")
+            ci = self._focus_filter(ci, ctx.get("fcs_lvl", 0.5))
+            strength = torch.tensor(float(ctx.get("strength", 1.0)), dtype=ci.dtype)
+            imc.append((ci * strength).repeat(n, 1, 1))
+        if not imc:
+            raise ValueError("a multi-context request needs at least one image")
+        cis = torch.cat(imc, dim=1)
+        c_info_list.append({
+            "type": "image", "conditioning": cis,
+            "unconditional_conditioning": torch.zeros_like(cis),
+            "unconditional_guidance_scale": scale, "ratio": 1 - textstrength})
+        return inputs_shown, c_info_list
