@@ -59,6 +59,22 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             program; one full-width multi-context eps call (text + image)
             under attention mixing and one under a layer-mixing draw, each
             against f32 on the CPU
+  main_modes the sampler modes on the same system, exact bf16, n = 2, CFG 7.5,
+            each request cold then warm: (a) t2i under DPM-Solver++(2M), 20
+            steps; (b) t2i under encoder_reuse=2 (warmup 5), 50 steps; (c)
+            t2i under cfg_interval=(0.1, 0.8), 50 steps (the steps outside
+            at half batch); (d) t2i, DPM-Solver++ 20 + encoder reuse 2; (e)
+            main_mcg's tcg request (b) under encoder reuse 2; (f) i2i (fid
+            0.5, x0 start) under DPM-Solver++, 20 steps. Each request's
+            flash and GN launches, by path and route, are derived from the
+            layer program (the input half runs on key steps only; GN
+            routes from gn_plan at each step's batch); the VAE's GN
+            launches are read from one decode (and encode). Then one
+            full-width split walk (input half, then the mid and output walk
+            from its cache) against the full walk, and cfg_interval=(0, 1)
+            against plain CFG on the t2i request, each bit-equal or within
+            relative L2 MODE_MAX_REL_L2; and the exact t2i request warm, the
+            yardstick of the modes' times
   eps       one full-width UNet eps call on the card (bf16) against the port
             on the CPU in f32, same weights and inputs
   main_int8 the calibrated int8 serving policy on the same system:
@@ -71,7 +87,9 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             int8 conv and torch._int_mm paths, and the int8 conv's launches
             by tile-plan path (halo or general) against qconv3_plan's; then
             main_mcg's tcg request (b) under int8 + ToMe 0.75, cold and
-            warm, with its launch counts
+            warm, with its launch counts; then one int8 + ToMe 0.75 t2i
+            request under encoder_reuse=2 (the split walk on the no-max,
+            int8 conv and GN kernels), launches derived per half
   modes     one full-width int8 eps call in each opt-in policy mode
             (gn_prologue "fused" and "stats", conv "fused") against the
             default mode's, with each mode's launch counts derived from the
@@ -147,7 +165,8 @@ import sys
 import time
 import zlib
 
-PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "main_mcg", "eps",
+PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "main_mcg",
+          "main_modes", "eps",
           "main_int8", "modes", "eps_int8", "main_fused2", "probes", "train", "profile",
           "gn_sweep", "gnq_sweep", "gnq_compare")
 DEFAULT_PHASES = PHASES[:-4]
@@ -164,6 +183,9 @@ PEAK_EXP = 16 * 132 * 1.98e9
 PEAK_INT32 = 64 * 132 * 1.98e9
 
 FLASH_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
+# the flash forward at half batch: the UNet's self-attention sites on the
+# steps outside the cfg interval (main_modes (c))
+FLASH_HALF_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80)]
 # no-max attention: int8 exact (4096 and 1024 tokens) and the ToMe 0.75
 # site (4096 tokens merged to 1024 at d_head 40)
 NOMAX_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 40), (4, 1024, 8, 80)]
@@ -218,7 +240,12 @@ GNQ_COMPARE_ROUNDS = 5
 GN_ROUTES = {(4, 320, 64, 64): "resident", (4, 640, 32, 32): "resident",
              (4, 1280, 16, 16): "resident", (4, 2560, 8, 8): "resident",
              (2, 128, 512, 512): "streaming", (8, 1280, 1): "resident",
-             (8, 320, 4): "resident", (2, 512, 64, 64): "resident"}
+             (8, 320, 4): "resident", (2, 512, 64, 64): "resident",
+             # the UNet's maps at half batch (main_modes (c): the steps outside
+             # the cfg interval), resident in clusters of 2 and 1
+             (2, 320, 64, 64): "resident", (2, 960, 64, 64): "resident",
+             (2, 640, 32, 32): "resident", (2, 1280, 16, 16): "resident",
+             (2, 2560, 8, 8): "resident"}
 # the GN plan's deciding sites (gn_sweep): the commonest UNet map, the
 # 960-channel 64^2 UNet site (two waves of resident CTAs), and the VAE's maps
 # at batch 2 from 64^2 (resident, clusters of 2) to 512^2 (streaming)
@@ -297,6 +324,17 @@ TRAIN_PG_LRSCALE = {"diffuser_image_data": 1.0, "diffuser_image_context": 1.0,
 TOME_RATIO = 0.75
 SEED = 0      # weights, noise and inputs are made from it
 STEPS = 50    # DDIM steps of the main-path request
+# main_modes: DPM-Solver++(2M) steps, the encoder-reuse interval (warmup 5,
+# the JAX package's default), the cfg interval of request (c); the split
+# walk and cfg_interval=(0, 1) against the full walk and plain CFG, in
+# relative L2 (the same kernels on the same inputs; bit-equal expected)
+MODE_STEPS = 20
+MODE_REUSE = 2
+MODE_BAND = (0.1, 0.8)
+MODE_MAX_REL_L2 = 1e-3
+# warm t2i requests of each mode and of exact DDIM-50, taken in turn, for
+# the modes' time against exact (one request moves by 15% from run to run)
+MODE_ROUNDS = 3
 
 _LOG = None
 # vdtpu_torch.utils.timing.time_graph_ms, bound in main() once the port imports
@@ -894,7 +932,7 @@ def phase_kernels(state):
     specs = [
         ("flash_fwd", "cuda", "vdtpu_torch/csrc/flash_fwd.cu",
          "vdtpu/ops/pallas/flash.py:40", _attention_case,
-         FLASH_SHAPES + FLASH_MMA_SHAPES + FLASH_XATTN_SHAPES),
+         FLASH_SHAPES + FLASH_MMA_SHAPES + FLASH_XATTN_SHAPES + FLASH_HALF_SHAPES),
         ("flash_bwd", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
          "vdtpu/ops/pallas/flash.py:444", _flash_bwd_case, FLASH_SHAPES),
         ("gn_silu", "cuda", "vdtpu_torch/csrc/gn_silu.cu",
@@ -1694,6 +1732,202 @@ def phase_main_mcg(state):
     state["main_mcg"] = results
 
 
+def _split_sites(system, contexts, latent: int = 64):
+    """The two halves of one UNet call (the input half, i_order; the mid and
+    output walk), derived from the program: each half's flash launches by
+    path (as ``_mc_launches``: every context's stack at every slot), its
+    GroupNorm sites as [C, H, W] (the image data blocks' ResBlocks and
+    output) and [C, N] (each context stack's norm), and its self-attention
+    lengths. The GN sites of both halves must add up to ``_mc_gn``."""
+    from vdtpu_torch.ops.flash import ATTN_WG_MAX_D
+    d = system.model.diffuser
+    prog = d["image"].program
+    halves = [dict(flash={"wgmma": 0, "mma": 0}, gn=[], tokens=[]) for _ in range(2)]
+    side, di, ci = latent, 0, 0
+    for pos, tok in enumerate(prog.layer_order):
+        half = halves[pos >= len(prog.i_order)]
+        if tok == "d":
+            spec = prog.data[di]
+            if spec.kind == "res":
+                half["gn"] += [(spec.in_ch, side, side), (spec.out_ch, side, side)]
+            elif spec.kind == "out":
+                half["gn"].append((spec.in_ch, side, side))
+            side = side // 2 if spec.kind == "down" else side * 2 if spec.kind == "up" else side
+            di += 1
+        elif tok == "c":
+            n = side * side
+            for c_type, keys in contexts:
+                cs = d[c_type].program.ctx[ci]
+                half["gn"].append((cs.channels, n))
+                path = "wgmma" if cs.dim_head <= ATTN_WG_MAX_D and cs.dim_head % 8 == 0 else "mma"
+                half["flash"][path] += (n >= 1024) + (n >= 256 and keys >= 1024)
+                half["tokens"].append(n)
+            ci += 1
+    n_gn = sum(len(h["gn"]) for h in halves)
+    if n_gn != _mc_gn(system, [c for c, _ in contexts]):
+        raise RuntimeError(f"split sites: {n_gn} GroupNorms derived, "
+                           f"{_mc_gn(system, [c for c, _ in contexts])} in the modules")
+    return halves
+
+
+def _mode_expect(system, contexts, plan, vae_routes):
+    """Flash launches by path and GN launches by route of one request
+    whose UNet calls are ``plan``: (input half runs, batch) a step; the
+    VAE's GN launches by route as read (``vae_routes``)."""
+    import torch
+    from vdtpu_torch.ops.gn_silu import _sm_count, gn_plan, gn_silu
+    halves = _split_sites(system, contexts)
+    flash = {"wgmma": 0, "mma": 0}
+    gn = {k: vae_routes.get(k, 0) for k in gn_silu.launches_by_path}
+    for encoder, batch in plan:
+        for half in halves[0:2] if encoder else halves[1:]:
+            for path, n in half["flash"].items():
+                flash[path] += n
+            for site in half["gn"]:
+                gn[gn_plan((batch, *site), torch.bfloat16, 32, True, _sm_count(0)).route] += 1
+    return flash, gn
+
+
+def _vae_routes(system, with_encoder: bool) -> dict:
+    """GN launches by route of one VAE decode of a 2-image 64^2 latent (and
+    one encode of a 512^2 image), read from the counters; no flash launch."""
+    import torch
+    from vdtpu_torch.ops.flash import flash_attention
+    from vdtpu_torch.ops.gn_silu import gn_silu
+    _zero_counters()
+    with torch.no_grad():
+        system.vae_decode(torch.zeros((2, 64, 64, 4), device="cuda"), "image")
+        if with_encoder:
+            system.vae_encode(_i2i_image(SEED + 5), "image")
+    torch.cuda.synchronize()
+    if flash_attention.launches:
+        raise RuntimeError(f"the VAE launched the flash kernel {flash_attention.launches} times")
+    return dict(gn_silu.launches_by_path)
+
+
+def _mode_requests(system):
+    """(label, VDInference modes, call(vdi) -> (inputs shown, images), images
+    shown, contexts as (c_type, keys), UNet calls as (input half runs,
+    batch) a step, VAE encode) of main_modes' requests."""
+    from vdtpu_torch.sampling.ddim import encoder_reuse_schedule
+    prompt = "a red cat sitting on a wooden bench in the sun"
+    text = [("text", 77)]
+    t2i = lambda vdi: (None, vdi.inference_t2i(prompt, seed=SEED))
+    images, mask = _mcg_inputs()
+    tcg_request = lambda vdi: next(r for r in _mcg_requests(vdi, images, mask) if r[0] == "b")
+    _, _, tcg_shown, tcg_ctx = tcg_request(None)
+    tcg = lambda vdi: tcg_request(vdi)[1]()
+    lo, hi = (int(round(f * STEPS)) for f in MODE_BAND)
+    reuse = lambda steps: [(bool(k), 4) for k in encoder_reuse_schedule(steps, MODE_REUSE)]
+    fid_steps = int(MODE_STEPS * (1 - 0.5))
+    image = _i2i_image(SEED + 5)
+    return (
+        ("a", dict(ddim_steps=MODE_STEPS, sampler="dpmpp2m"), t2i, None, text,
+         [(True, 4)] * MODE_STEPS, False),
+        ("b", dict(ddim_steps=STEPS, encoder_reuse=MODE_REUSE), t2i, None, text,
+         reuse(STEPS), False),
+        ("c", dict(ddim_steps=STEPS, cfg_interval=MODE_BAND), t2i, None, text,
+         [(True, 4 if lo <= i < hi else 2) for i in range(STEPS)], False),
+        ("d", dict(ddim_steps=MODE_STEPS, sampler="dpmpp2m", encoder_reuse=MODE_REUSE), t2i,
+         None, text, reuse(MODE_STEPS), False),
+        ("e", dict(ddim_steps=STEPS, encoder_reuse=MODE_REUSE), tcg, tcg_shown, tcg_ctx,
+         reuse(STEPS), False),
+        ("f", dict(ddim_steps=MODE_STEPS, sampler="dpmpp2m"),
+         lambda vdi: (None, vdi.inference_i2i(image, 0.5, 0.3, "Simple", seed=SEED)), None,
+         [("image", 257)], [(True, 4)] * fid_steps, True))
+
+
+def _equal_report(state, label: str, out, ref) -> dict:
+    """Bit-equal, relative L2 and max |out - ref| of two card results; fails
+    beyond MODE_MAX_REL_L2."""
+    import torch
+    a, b = out.float(), ref.float()
+    rel = float((a - b).norm() / b.norm())
+    r = dict(bit_equal=bool(torch.equal(out, ref)), rel_l2=rel,
+             max_abs=float((a - b).abs().max()))
+    log(f"main_modes {label}: bit-equal {r['bit_equal']}, rel_l2 {rel:.3e}, max |diff| "
+        f"{r['max_abs']:.3e} (limit rel_l2 <= {MODE_MAX_REL_L2}) [{state.get('card')}]")
+    if not (math.isfinite(rel) and rel <= MODE_MAX_REL_L2):
+        raise RuntimeError(f"main_modes {label}: rel_l2 {rel} > {MODE_MAX_REL_L2}")
+    return r
+
+
+def phase_main_modes(state):
+    import torch
+    from vdtpu_torch.serving.api import VDInference
+    system = _system(state)
+    base = dict(text_tokenizer=stand_in_tokenizer, output_dim=(512, 512), n_sample_image=2)
+    vae = {enc: _vae_routes(system, enc) for enc in (False, True)}
+    results, vdis = {}, {"exact": VDInference(system, **base, ddim_steps=STEPS)}
+    for label, modes, call, n_shown, contexts, plan, enc in _mode_requests(system):
+        vdi = vdis[label] = VDInference(system, **base, **modes)
+        flash, gn = _mode_expect(system, contexts, plan, vae[enc])
+        expect = {"flash_fwd": sum(flash.values()), "gn_silu": sum(gn.values())}
+        batches = {b: sum(1 for _, bb in plan if bb == b) for b in sorted({b for _, b in plan})}
+        log(f"main_modes ({label}) {modes}: {len(plan)} UNet calls, {sum(e for e, _ in plan)} "
+            f"with the input half, by batch {batches}; expected flash by path {flash}, GN by "
+            f"route {gn}")
+        res = _mc_request(state, f"main_modes ({label})", lambda: call(vdi), n_shown, expect,
+                          {"flash_fwd": flash, "nomax_fwd": {"wgmma": 0, "mma": 0}})
+        for run, r in res.items():
+            if r["gn_by_route"] != gn:
+                raise RuntimeError(f"main_modes ({label}) {run}: GN by route "
+                                   f"{r['gn_by_route']} != {gn}")
+            results[f"{label}_{run}"] = dict(r, modes={k: str(v) for k, v in modes.items()},
+                                             unet_calls_by_batch=batches)
+    # one split walk at full width (the CFG batch of 4) against the full walk
+    x, t, ctx = _eps_inputs(system, 4)
+    with torch.no_grad():
+        full = system.model.apply_model(x, t, ctx, "image", "text")
+        split, cache = system.model.apply_model_encreuse(x, t, ctx, "image", "text", None, False)
+        reused, _ = system.model.apply_model_encreuse(x, t, ctx, "image", "text", cache, True)
+    torch.cuda.synchronize()
+    results["split_walk"] = _equal_report(state, "split walk vs full walk", split, full)
+    results["reused_cache"] = _equal_report(state, "decoder from the cache vs full walk",
+                                            reused, full)
+    del full, split, cache, reused
+    # cfg_interval (0, 1) against plain CFG; the exact request's warm time
+    prompt = "a red cat sitting on a wooden bench in the sun"
+    imgs, secs = {}, {}
+    for name, modes in (("exact", {}), ("band_0_1", dict(cfg_interval=(0.0, 1.0)))):
+        vdi = VDInference(system, **base, ddim_steps=STEPS, **modes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs[name] = vdi.inference_t2i(prompt, seed=SEED)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    results["cfg_interval_0_1"] = _equal_report(state, "cfg_interval=(0, 1) vs plain CFG",
+                                                imgs["band_0_1"], imgs["exact"])
+    results["exact_warm_s"] = secs["exact"]
+    ratios = {label: results[f"{label}_warm"]["seconds"] / secs["exact"] for label in "abcdef"}
+    results["warm_over_exact"] = ratios
+    log(f"main_modes: exact t2i warm {secs['exact']:.3f} s (cfg_interval (0, 1): "
+        f"{secs['band_0_1']:.3f} s); warm request / exact t2i: "
+        f"{json.dumps({k: round(v, 4) for k, v in ratios.items()})} [{state.get('card')}]")
+    # the t2i modes and exact DDIM-50 in turn, MODE_ROUNDS warm requests each
+    rounds = {name: [] for name in ("exact", "a", "b", "c", "d")}
+    for _ in range(MODE_ROUNDS):
+        for name, times in rounds.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vdis[name].inference_t2i(prompt, seed=SEED)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    med = {name: sorted(v)[len(v) // 2] for name, v in rounds.items()}
+    results["rounds_s"] = rounds
+    results["median_over_exact"] = {k: med[k] / med["exact"] for k in "abcd"}
+    log(f"main_modes: {MODE_ROUNDS} warm t2i requests each, in turn: "
+        f"{json.dumps({k: [round(x, 4) for x in v] for k, v in rounds.items()})} s; median / "
+        f"exact median: {json.dumps({k: round(v, 4) for k, v in results['median_over_exact'].items()})} "
+        f"[{state.get('card')}]")
+    for name in ("flash_fwd", "gn_silu"):
+        if name in state["kernels"]:
+            for label in "abcdef":
+                state["kernels"][name][f"launches_modes_{label}"] = \
+                    results[f"{label}_warm"]["launches"][name]
+    state["main_modes"] = results
+
+
 def phase_eps(state):
     import torch
     system = _system(state)
@@ -1957,6 +2191,9 @@ def phase_main_int8(state):
     _site_check(state, "qconv3", calls, qconv3, qconv3_plain)
     # the request's UNet calls run the same sites at batch 2 x CFG = 4
     expect_paths = {k: v * STEPS for k, v in _plan_paths(calls, "qconv3").items()}
+    # the input half's sites come first in the recording
+    n_in = _int8_split_sites(system)[0]["qconv3"]
+    half_paths = [_plan_paths(calls[:n_in], "qconv3"), _plan_paths(calls[n_in:], "qconv3")]
     del calls
     torch.cuda.empty_cache()
     vdi = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
@@ -2017,6 +2254,23 @@ def phase_main_int8(state):
                            "nomax_fwd": {"wgmma": expect["nomax_fwd"], "mma": 0}}, expect_kv)
         for run, r in res.items():
             results[f"tcg_int8_tome_{run}"] = r
+        # t2i under int8 + ToMe and encoder reuse: the split walk's halves
+        vdi_reuse = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
+                                ddim_steps=STEPS, n_sample_image=2, encoder_reuse=MODE_REUSE)
+        expect, expect_kv, expect_paths = _int8_reuse_launches(system, TOME_RATIO, half_paths)
+        res = _mc_request(state, "main_int8 t2i int8_tome encoder_reuse",
+                          lambda: (None, vdi_reuse.inference_t2i(prompt, seed=SEED)), None,
+                          expect, {"flash_fwd": {"wgmma": 0, "mma": 0},
+                                   "nomax_fwd": {"wgmma": expect["nomax_fwd"], "mma": 0}},
+                          expect_kv)
+        paths = dict(qconv3.launches_by_path)   # the warm run's
+        log(f"main_int8 t2i int8_tome encoder_reuse: int8 conv by path {paths} (expected "
+            f"{expect_paths}) [{state.get('card')}]")
+        if paths != expect_paths:
+            raise RuntimeError(f"main_int8 encoder_reuse: int8 conv launches by path {paths} "
+                               f"!= {expect_paths}")
+        for run, r in res.items():
+            results[f"t2i_int8_tome_reuse_{run}"] = dict(r, qconv3_by_path=paths)
     finally:
         system.enable_tome(0)
     for name in ("nomax_fwd", "qconv3"):
@@ -2029,6 +2283,52 @@ def phase_main_int8(state):
         state["kernels"]["nomax_fwd"]["launches_by_path"] = \
             results["int8_warm"]["attention_by_path"]["nomax_fwd"]
     state["main_int8"] = results
+
+
+def _int8_split_sites(system):
+    """Per half of one int8 UNet call (t2i), from the program: the
+    calibrated int8 conv sites of the image data blocks and the QDense sites
+    of the text diffuser's context blocks on each side of the input half's
+    end."""
+    from vdtpu_torch.ops.quant import QConv, QDense
+    d = system.model.diffuser
+    n_d, n_c = d["image"]._encoder_counts()
+    convs = lambda blocks: sum(isinstance(m, QConv) and m.act_scale is not None
+                               for m in blocks.modules())
+    mms = lambda blocks: sum(isinstance(m, QDense) and m.w_q is not None
+                             for m in blocks.modules())
+    data, ctx = d["image"].data_blocks, d["text"].context_blocks
+    return [dict(qconv3=convs(data[:n_d]), int_mm=mms(ctx[:n_c])),
+            dict(qconv3=convs(data[n_d:]), int_mm=mms(ctx[n_c:]))]
+
+
+def _int8_reuse_launches(system, tome_ratio: float, half_paths):
+    """Launches of the int8 + ToMe t2i request under encoder reuse (STEPS
+    steps, the input half on the key steps of encoder_reuse_schedule), as
+    ``_int8_launches`` a half; the int8 conv's launches by path from each
+    half's recorded sites (``half_paths``)."""
+    from vdtpu_torch.ops.tome import merge_count
+    from vdtpu_torch.sampling.ddim import encoder_reuse_schedule
+    keys = int(encoder_reuse_schedule(STEPS, MODE_REUSE).sum())
+    calls = (keys, STEPS)   # input half, mid and output walk
+    halves = _split_sites(system, [("text", 77)])
+    sites = _int8_split_sites(system)
+    _, vae_gn, _ = _gn_sites(system)
+    expect = {"flash_fwd": 0, "nomax_fwd": 0, "qconv3": 0, "int_mm": 0, "gn_silu": vae_gn}
+    by_kv, paths = {}, {"halo": 0, "general": 0}
+    for half, site, hp, n_calls in zip(halves, sites, half_paths, calls):
+        expect["qconv3"] += site["qconv3"] * n_calls
+        expect["int_mm"] += site["int_mm"] * n_calls
+        expect["gn_silu"] += len(half["gn"]) * n_calls
+        for n in half["tokens"]:
+            if n >= 4096:
+                n -= merge_count(n, tome_ratio)
+            if n >= 1024:
+                by_kv[n] = by_kv.get(n, 0) + n_calls
+        for k, v in hp.items():
+            paths[k] += v * n_calls
+    expect["nomax_fwd"] = sum(by_kv.values())
+    return expect, by_kv, paths
 
 
 def _calibrate(state, system, label: str) -> float:

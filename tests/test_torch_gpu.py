@@ -67,6 +67,8 @@ def _one_launch(fn, path, call):
     (4, 4096, 4096, 8, 40),    # the main path's 64^2 sites
     (4, 1024, 1024, 8, 80),    # the 32^2 sites
     (4, 1024, 1024, 8, 40),    # the 64^2 sites under ToMe 0.75 (queries merged too)
+    (2, 4096, 4096, 8, 40),    # the 64^2 sites at half batch (outside the cfg interval)
+    (2, 1024, 1024, 8, 80),    # the 32^2 sites at half batch
     (2, 2100, 300, 2, 40),     # 192-row blocks, the last one ragged
     (1, 1000, 1000, 2, 80),    # ragged last query block and key tile on wgmma
     (1, 300, 129, 2, 96),      # a head over 80: mma.sync
@@ -172,7 +174,11 @@ GN_CASES = [((2, 96, 7, 9), 32, ("resident", 1)), ((3, 320, 33, 17), 32, ("resid
             ((2, 512, 128, 128), 32, ("streaming", 2)),
             ((2, 128, 512, 512), 32, ("streaming", 2)),
             ((1, 256, 256, 256), 32, ("streaming", 16)),
-            ((1, 128, 512, 512), 32, ("streaming", 16))]
+            ((1, 128, 512, 512), 32, ("streaming", 16)),
+            # the UNet's maps at half batch (the steps outside the cfg interval)
+            ((2, 320, 64, 64), 32, ("resident", 2)), ((2, 960, 64, 64), 32, ("resident", 2)),
+            ((2, 640, 32, 32), 32, ("resident", 2)), ((2, 1280, 16, 16), 32, ("resident", 1)),
+            ((2, 2560, 8, 8), 32, ("resident", 1))]
 
 
 @pytest.mark.parametrize("shape,groups,want", GN_CASES)
@@ -259,6 +265,32 @@ def test_tiny_t2i_on_the_card_goes_through_both_kernels(gen):
         b = cpu_sys.model.apply_model(x.float().cpu(), t.cpu(), ctx.float().cpu(),
                                       "image", "text").flatten()
     assert float(a @ b / (a.norm() * b.norm())) > 0.995
+
+
+def test_split_walk_on_the_card_equals_the_full_walk(gen):
+    """The tiny system in bf16 through the kernels: the input half, then the
+    mid and output walk from its cache, against one full walk (single- and
+    multi-context); both run the same kernels on the same inputs."""
+    from vdtpu_torch.serving.api import VDSystem
+    system = VDSystem("vd_test_tiny", dtype=torch.bfloat16, device="cuda").init_random(0)
+    with torch.no_grad():  # zero output convs would make eps identically 0
+        for p in system.net.parameters():
+            if not bool(p.any()):
+                p.copy_(torch.randn(p.shape, device="cuda", generator=gen) * 0.02)
+    m = system.model
+    x, t = _randn(gen, 4, 4, 32, 32), torch.tensor([900, 900, 20, 20], device="cuda")
+    ctxs = [_randn(gen, 4, 20, 96), _randn(gen, 4, 17, 96)]
+    mc = ([0.3, 0.7], "image", ["text", "image"])
+    flash_attention.launches = gn_silu.launches = 0
+    with torch.no_grad():
+        full = m.apply_model(x, t, ctxs[0], "image", "text")
+        n_flash, n_gn = flash_attention.launches, gn_silu.launches
+        split, _ = m.apply_model_encreuse(x, t, ctxs[0], "image", "text", None, False)
+        assert (flash_attention.launches, gn_silu.launches) == (2 * n_flash, 2 * n_gn)
+        mfull = m.apply_model_multicontext(x, t, ctxs, *mc)
+        msplit, _ = m.apply_model_multicontext_encreuse(x, t, ctxs, *mc, None, False)
+    assert n_flash > 0 and n_gn > 0
+    assert _rel_l2(split, full) <= 1e-3 and _rel_l2(msplit, mfull) <= 1e-3
 
 
 def test_full_width_multicontext_eps_bf16_matches_f32(gen):

@@ -28,6 +28,11 @@ is not. With token merging, each walk (``walk``, and
 makes one ``ToMeWalk`` and hands it to every context block, so the merge
 built at a walk's first long site is reused by the later ones of that size
 and dropped with the walk.
+
+Encoder reuse splits a walk in two (``walk_encoder``: the input half,
+returning h and the skip stack; ``walk_decoder``: the mid and output walk
+from them). Each half is a walk of its own, with its own ``ToMeWalk``, as
+in the JAX package; the two halves in turn give ``walk``'s result.
 """
 from __future__ import annotations
 
@@ -296,12 +301,14 @@ class UNetBase(nn.Module):
         block = self.context_blocks[i][0]
         return restore(self._remat(block, self.program.ctx[i].channels, x_cf, ctx, tome))
 
-    def run_tokens(self, tokens, h, emb, context_step, data_host: "UNetBase | None" = None):
+    def run_tokens(self, tokens, h, emb, context_step, data_host: "UNetBase | None" = None,
+                   hs=(), di: int = 0, ci: int = 0, return_skips: bool = False):
         """Walk ``tokens`` from h: data blocks of ``data_host`` (default
-        self), ``context_step(ci, h)`` at context slot ci, skip saves and
-        concatenating loads. Returns h."""
+        self) from data slot ``di``, ``context_step(ci, h)`` from context
+        slot ``ci``, skip saves onto and concatenating loads from the stack
+        ``hs``. Returns h, or (h, the skip stack) with ``return_skips``."""
         data_host = data_host or self
-        hs, di, ci = [], 0, 0
+        hs = list(hs)
         for token in tokens:
             if token == D:
                 h = data_host.run_data(di, h, emb)
@@ -313,16 +320,44 @@ class UNetBase(nn.Module):
                 hs.append(h)
             elif token == LOAD:
                 h = torch.cat([h, hs.pop()], dim=1)
-        return h
+        return (h, tuple(hs)) if return_skips else h
+
+    def _encoder_counts(self) -> tuple[int, int]:
+        """(data blocks, context blocks) of the input half (i_order): the
+        slots the mid and output walk starts from."""
+        order = self.program.i_order
+        return order.count(D), order.count(C)
+
+    @staticmethod
+    def _context_step(context, data_host: "UNetBase", ctx_host: "UNetBase",
+                      tome: ToMeSpec | None):
+        """context_step of one walk over ``ctx_host``'s context blocks, with
+        its own ``ToMeWalk``."""
+        tome_walk = tome and ToMeWalk(tome)
+        return lambda ci, h: ctx_host.run_context(ci, h, context, tokenizer=data_host,
+                                                  tome=tome_walk)
 
     def walk(self, x, emb, context, data_host: "UNetBase", ctx_host: "UNetBase",
              tome: ToMeSpec | None = None):
-        tome_walk = tome and ToMeWalk(tome)
-        return self.run_tokens(
-            self.program.layer_order, x, emb,
-            lambda ci, h: ctx_host.run_context(ci, h, context, tokenizer=data_host,
-                                               tome=tome_walk),
-            data_host)
+        return self.run_tokens(self.program.layer_order, x, emb,
+                               self._context_step(context, data_host, ctx_host, tome),
+                               data_host)
+
+    def walk_encoder(self, x, emb, context, data_host: "UNetBase", ctx_host: "UNetBase",
+                     tome: ToMeSpec | None = None):
+        """The input half (i_order): (h, skip stack), the state that encoder
+        reuse keeps between key steps."""
+        return self.run_tokens(self.program.i_order, x, emb,
+                               self._context_step(context, data_host, ctx_host, tome),
+                               data_host, return_skips=True)
+
+    def walk_decoder(self, h, hs, emb, context, data_host: "UNetBase", ctx_host: "UNetBase",
+                     tome: ToMeSpec | None = None):
+        """The mid and output walk from an input half's (h, skip stack)."""
+        di, ci = self._encoder_counts()
+        return self.run_tokens(self.program.m_order + self.program.o_order, h, emb,
+                               self._context_step(context, data_host, ctx_host, tome),
+                               data_host, hs=hs, di=di, ci=ci)
 
 
 class UNet2DNext(UNetBase):

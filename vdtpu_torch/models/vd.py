@@ -15,6 +15,11 @@ handed to every walk.
 (dcg, tcg, mcg): the data blocks of ``x_type``, and at every context slot
 the context blocks of each context's diffuser, mixed by ratio
 ("attention") or one chosen per slot ("layer").
+
+The ``*_encoder`` flows walk the input half only and return (h, skips);
+the ``*_encreuse`` flows take that cache and a ``use_cache`` flag, run the
+input half where the flag is off and the mid and output walk always, and
+return (eps, cache): the JAX package's encoder-reuse serving mode.
 """
 from __future__ import annotations
 
@@ -46,31 +51,42 @@ class MultiDiffuser(nn.ModuleDict):
         if any(o != orders[0] for o in orders[1:]):
             raise ValueError("diffuser layer programs are not aligned")
 
+    def _emb(self, timesteps, dtype, x_type: str):
+        return self[self.global_layer_ptr or x_type].time_embedding(timesteps, dtype)
+
     def apply_flow(self, x, timesteps, context, x_type: str, c_type: str):
         """Data blocks from x_type, context blocks from c_type (vd.py:330-381)."""
-        emb = self[self.global_layer_ptr or x_type].time_embedding(timesteps, x.dtype)
         host = self[x_type]
-        return host.walk(x, emb, context, host, self[c_type], tome=self.tome)
+        return host.walk(x, self._emb(timesteps, x.dtype, x_type), context, host,
+                         self[c_type], tome=self.tome)
 
-    def apply_flow_multicontext(self, x, timesteps, contexts, ratios, x_type: str,
-                                c_types: Sequence[str], mixing_type: str = "attention",
-                                layer_choices=None):
-        """vd.py:404-455: data blocks from x_type; at context slot ci each
-        context i runs the context blocks of ``c_types[i]``.
+    def apply_flow_encoder(self, x, timesteps, context, x_type: str, c_type: str):
+        """The input half of ``apply_flow``: (h, skip stack)."""
+        host = self[x_type]
+        return host.walk_encoder(x, self._emb(timesteps, x.dtype, x_type), context, host,
+                                 self[c_type], tome=self.tome)
 
-        "attention": every context's stack runs and the outputs are summed
-        in context order, each times its ratio (normalized in f32, then cast
-        to h's dtype). "layer": ``layer_choices[ci]`` (ints, one per slot;
-        ``VDModel.sample_layer_choices`` draws them) picks the one context
-        whose stack runs at slot ci. The JAX package runs every stack there
-        and sums them times a one-hot; the port runs only the chosen one,
-        which gives the same values (x * 1 + y * 0 = x for finite y). One
-        ``ToMeWalk`` serves the whole walk, every stack included."""
+    def apply_flow_encreuse(self, x, timesteps, context, x_type: str, c_type: str, cache,
+                            use_cache: bool):
+        """``apply_flow`` under encoder reuse (Faster Diffusion, arXiv
+        2312.09608): with ``use_cache`` the input half is skipped and the
+        cached (h, skips) of the last key step drive the mid and output
+        walk at the current timestep embedding; else the input half runs
+        and its state becomes the cache. Returns (eps, cache)."""
+        host, ctx_host = self[x_type], self[c_type]
+        emb = self._emb(timesteps, x.dtype, x_type)
+        if not use_cache:
+            cache = host.walk_encoder(x, emb, context, host, ctx_host, tome=self.tome)
+        elif cache is None:
+            raise ValueError("encoder reuse needs a key step before its first reuse")
+        h, hs = cache
+        return host.walk_decoder(h, hs, emb, context, host, ctx_host, tome=self.tome), cache
+
+    def _mc_step(self, host, contexts, ratios, c_types, mixing_type: str, layer_choices):
+        """context_step of one multi-context walk (its own ``ToMeWalk``)."""
         if len(contexts) != len(c_types) or (mixing_type == "attention"
                                              and len(ratios) != len(contexts)):
             raise ValueError("one c_type (and one ratio) per context")
-        host = self[x_type]
-        emb = self[self.global_layer_ptr or x_type].time_embedding(timesteps, x.dtype)
         tome = self.tome and ToMeWalk(self.tome)
 
         def run(i, ci, h):
@@ -98,7 +114,55 @@ class MultiDiffuser(nn.ModuleDict):
                 return run(choices[ci], ci, h)
         else:
             raise ValueError(f"unknown mixing_type {mixing_type!r}")
-        return host.run_tokens(host.program.layer_order, x, emb, step)
+        return step
+
+    def apply_flow_multicontext(self, x, timesteps, contexts, ratios, x_type: str,
+                                c_types: Sequence[str], mixing_type: str = "attention",
+                                layer_choices=None):
+        """vd.py:404-455: data blocks from x_type; at context slot ci each
+        context i runs the context blocks of ``c_types[i]``.
+
+        "attention": every context's stack runs and the outputs are summed
+        in context order, each times its ratio (normalized in f32, then cast
+        to h's dtype). "layer": ``layer_choices[ci]`` (ints, one per slot;
+        ``VDModel.sample_layer_choices`` draws them) picks the one context
+        whose stack runs at slot ci. The JAX package runs every stack there
+        and sums them times a one-hot; the port runs only the chosen one,
+        which gives the same values (x * 1 + y * 0 = x for finite y). One
+        ``ToMeWalk`` serves the whole walk, every stack included."""
+        host = self[x_type]
+        step = self._mc_step(host, contexts, ratios, c_types, mixing_type, layer_choices)
+        return host.run_tokens(host.program.layer_order, x,
+                               self._emb(timesteps, x.dtype, x_type), step)
+
+    def apply_flow_multicontext_encoder(self, x, timesteps, contexts, ratios, x_type: str,
+                                        c_types: Sequence[str],
+                                        mixing_type: str = "attention", layer_choices=None):
+        """The input half of the multi-context walk: (h, skip stack)."""
+        host = self[x_type]
+        step = self._mc_step(host, contexts, ratios, c_types, mixing_type, layer_choices)
+        return host.run_tokens(host.program.i_order, x, self._emb(timesteps, x.dtype, x_type),
+                               step, return_skips=True)
+
+    def apply_flow_multicontext_encreuse(self, x, timesteps, contexts, ratios, x_type: str,
+                                         c_types: Sequence[str], cache, use_cache: bool,
+                                         mixing_type: str = "attention", layer_choices=None):
+        """The multi-context walk under encoder reuse, mixing in both halves
+        (each half its own ``ToMeWalk``); as ``apply_flow_encreuse``.
+        Returns (eps, cache)."""
+        host = self[x_type]
+        emb = self._emb(timesteps, x.dtype, x_type)
+        mix = (contexts, ratios, c_types, mixing_type, layer_choices)
+        if not use_cache:
+            cache = host.run_tokens(host.program.i_order, x, emb, self._mc_step(host, *mix),
+                                    return_skips=True)
+        elif cache is None:
+            raise ValueError("encoder reuse needs a key step before its first reuse")
+        h, hs = cache
+        di, ci = host._encoder_counts()
+        out = host.run_tokens(host.program.m_order + host.program.o_order, h, emb,
+                              self._mc_step(host, *mix), hs=hs, di=di, ci=ci)
+        return out, cache
 
 
 @dataclasses.dataclass
@@ -169,6 +233,31 @@ class VDModel:
         """eps of the multi-context walk (``MultiDiffuser.apply_flow_multicontext``)."""
         return self.diffuser.apply_flow_multicontext(
             x, timesteps, contexts, ratios, x_type, c_types, mixing_type, layer_choices)
+
+    def apply_model_encoder(self, x, timesteps, context, x_type: str, c_type: str):
+        """(h, skips) of the input half (``MultiDiffuser.apply_flow_encoder``)."""
+        return self.diffuser.apply_flow_encoder(x, timesteps, context, x_type, c_type)
+
+    def apply_model_encreuse(self, x, timesteps, context, x_type: str, c_type: str, cache,
+                             use_cache: bool):
+        """(eps, cache) under encoder reuse (``MultiDiffuser.apply_flow_encreuse``)."""
+        return self.diffuser.apply_flow_encreuse(x, timesteps, context, x_type, c_type, cache,
+                                                 use_cache)
+
+    def apply_model_multicontext_encoder(self, x, timesteps, contexts, ratios, x_type: str,
+                                         c_types: Sequence[str],
+                                         mixing_type: str = "attention", layer_choices=None):
+        """(h, skips) of the multi-context walk's input half."""
+        return self.diffuser.apply_flow_multicontext_encoder(
+            x, timesteps, contexts, ratios, x_type, c_types, mixing_type, layer_choices)
+
+    def apply_model_multicontext_encreuse(self, x, timesteps, contexts, ratios, x_type: str,
+                                          c_types: Sequence[str], cache, use_cache: bool,
+                                          mixing_type: str = "attention", layer_choices=None):
+        """(eps, cache) of the multi-context walk under encoder reuse."""
+        return self.diffuser.apply_flow_multicontext_encreuse(
+            x, timesteps, contexts, ratios, x_type, c_types, cache, use_cache, mixing_type,
+            layer_choices)
 
     def num_context_slots(self, x_type: str = "image") -> int:
         """Context-block slots of a diffuser's program."""

@@ -18,6 +18,10 @@ diffusers' call sites and calibrates them over vdtpu's four flows
 (``ops/quant.py``); ``enable_tome`` switches token merging on
 (``ops/tome.py``). Both are state of the system, not of the process.
 
+Evaluation and weights: ``clip_image_features`` / ``clip_text_features``
+give the CLIP embeddings the metrics read; ``load_vdtpu_torch_checkpoint``
+serves the port's own ``Trainer`` checkpoints.
+
 Training: the constructor freezes the whole net in one dtype;
 ``for_training`` turns the diffusers back into a trainable f32 tree for
 ``vdtpu_torch.training`` (compute in a lower dtype under autocast). The
@@ -156,6 +160,40 @@ class VDSystem:
         """Load a JAX ``VDSystem.params`` tree (numpy leaves)."""
         return self.load_state_dict(system_state_dict_from_jax(params), strict=strict)
 
+    def load_vdtpu_torch_checkpoint(self, ckpt_dir: str, tag: str | None = None,
+                                    use_ema: bool = True, ctx_slot: str = "text") -> str:
+        """Serve weights trained by the port's ``Trainer``
+        (``training/checkpoints.py``'s ``<ckpt_dir>/<tag>.pt``; ``tag`` None:
+        ``latest_tag``). ``use_ema`` takes the EMA shadow where the run kept
+        one, else the raw parameters. A ``{"diffuser": ..., "ctx": ...}``
+        tree (a run that also trained the context encoder) loads its context
+        encoder into ``ctx[ctx_slot]``. Every diffuser parameter must be in
+        the checkpoint; a learned ``logvar`` loads where the model has one.
+        Returns the tag loaded."""
+        from vdtpu_torch.training.checkpoints import latest_tag, restore_checkpoint
+        if tag is None:
+            tag = latest_tag(ckpt_dir)
+        payload = restore_checkpoint(ckpt_dir, tag, map_location="cpu")
+        ema = payload.get("ema")
+        src = ema["shadow"] if (use_ema and isinstance(ema, Mapping)
+                                and ema.get("shadow") is not None) else payload["params"]
+        diff, ctx = ((src["diffuser"], src.get("ctx")) if isinstance(src.get("diffuser"), Mapping)
+                     else (src, None))
+        diff = dict(diff)
+        logvar = diff.pop("logvar", None)
+        want = {name for name, _ in self.model.diffuser.named_parameters()}
+        if set(diff) != want:
+            raise KeyError(f"checkpoint {tag!r}: diffuser parameters missing "
+                           f"{sorted(want - set(diff))[:5]}, unexpected "
+                           f"{sorted(set(diff) - want)[:5]}")
+        with torch.no_grad():
+            self.model.diffuser.load_state_dict(diff, strict=False)
+            if logvar is not None and self.model.logvar is not None:
+                self.model.logvar.copy_(logvar)
+        if ctx is not None:
+            self.ctx[ctx_slot].load_state_dict(ctx, strict=True)
+        return tag
+
     # ---- serving policy ----
 
     def set_quant_policy(self, policy: QuantPolicy | None) -> "VDSystem":
@@ -281,6 +319,17 @@ class VDSystem:
         ids = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x), dtype=torch.long)
         return self.ctx["text"](ids.to(device=self.device, dtype=torch.long))
 
+    def clip_image_features(self, images):
+        """The CLS token of the image context [B, D] (NHWC images in [0, 1])."""
+        return self.ctx_encode(images, "image")[:, 0]
+
+    def clip_text_features(self, token_ids):
+        """The text context at each row's first EOT id (the largest id) [B, D]."""
+        ids = (token_ids if torch.is_tensor(token_ids) else torch.as_tensor(np.asarray(token_ids)))
+        ids = ids.to(device=self.device, dtype=torch.long)
+        z = self.ctx_encode(ids, "text")
+        return z[torch.arange(z.shape[0], device=z.device), ids.argmax(dim=-1)]
+
     @torch.no_grad()
     def vae_encode(self, x, which: str = "image"):
         """NHWC image in [0, 1] -> NHWC scaled latent (the posterior's mode);
@@ -317,7 +366,12 @@ class VDInference:
                  text_tokenizer: Callable[[Sequence[str]], np.ndarray] | None = None,
                  output_dim=(512, 512), ddim_steps: int = 50, ddim_eta: float = 0.0,
                  n_sample_image: int = 2, n_sample_text: int = 4, image_latent_dim: int = 4,
-                 text_latent_dim: int = 768, latent_downsample: int = 8):
+                 text_latent_dim: int = 768, latent_downsample: int = 8,
+                 sampler: str = "ddim", encoder_reuse=None, cfg_interval=None):
+        """``sampler`` ("ddim" or "dpmpp2m"), ``encoder_reuse`` (None, an
+        interval or {"interval", "warmup"}) and ``cfg_interval`` (None or
+        (lo, hi)) are the sampler modes of every flow
+        (``sampling/ddim.py``); the defaults are exact DDIM."""
         self.sys = system
         self.tokenizer = text_tokenizer
         self.output_dim = tuple(output_dim)
@@ -331,6 +385,9 @@ class VDInference:
         self.text_latent_dim = text_latent_dim
         self.latent_downsample = latent_downsample
         self.text_temperature = 1.0
+        self.sampler = sampler
+        self.encoder_reuse = encoder_reuse
+        self.cfg_interval = cfg_interval
         self.adjust_rank_f = AdjustRank(max_drop_rank=(1, 5), q=20)
 
     def _encode_text(self, texts: Sequence[str]):
@@ -355,6 +412,19 @@ class VDInference:
         f = self.latent_downsample
         return (n, h // f, w // f, self.image_latent_dim)
 
+    def _modes(self) -> dict:
+        return dict(eta=self.ddim_eta, dtype=self.sys.dtype, device=self.sys.device,
+                    method=self.sampler, encoder_reuse=self.encoder_reuse,
+                    cfg_interval=self.cfg_interval)
+
+    def _sample(self, gen, shape, x_info, c_info):
+        return self.sys.sampler.sample(gen, self.ddim_steps, shape, x_info, c_info,
+                                       **self._modes())
+
+    def _sample_multi(self, gen, shape, x_info, c_info_list):
+        return self.sys.sampler.sample_multicontext(gen, self.ddim_steps, shape, x_info,
+                                                    c_info_list, **self._modes())
+
     @torch.no_grad()
     def inference_t2i(self, text: str, seed: int):
         """[n, H, W, 3] images in [0, 1] for one prompt."""
@@ -362,11 +432,9 @@ class VDInference:
         u = self._encode_text([""]).repeat(n, 1, 1)
         c = self._encode_text([text]).repeat(n, 1, 1)
         gen = torch.Generator(device=self.sys.device).manual_seed(seed)
-        x = self.sys.sampler.sample(
-            gen, self.ddim_steps, self._image_shape(n), {"type": "image"},
-            {"type": "text", "conditioning": c, "unconditional_conditioning": u,
-             "unconditional_guidance_scale": self.scale_textto},
-            eta=self.ddim_eta, dtype=self.sys.dtype, device=self.sys.device)
+        x = self._sample(gen, self._image_shape(n), {"type": "image"},
+                         {"type": "text", "conditioning": c, "unconditional_conditioning": u,
+                          "unconditional_guidance_scale": self.scale_textto})
         return self.sys.vae_decode(x, "image")
 
     @torch.no_grad()
@@ -391,11 +459,9 @@ class VDInference:
             x0 = self.sys.vae_encode(cx, "image").repeat(n, 1, 1, 1)
             x_info = {"type": "image", "x0": x0,
                       "x0_forward_timesteps": int(self.ddim_steps * (1 - fid_lvl))}
-        x = self.sys.sampler.sample(
-            gen, self.ddim_steps, self._image_shape(n), x_info,
-            {"type": "image", "conditioning": c, "unconditional_conditioning": u,
-             "unconditional_guidance_scale": self.scale_imgto},
-            eta=self.ddim_eta, dtype=self.sys.dtype, device=self.sys.device)
+        x = self._sample(gen, self._image_shape(n), x_info,
+                         {"type": "image", "conditioning": c, "unconditional_conditioning": u,
+                          "unconditional_guidance_scale": self.scale_imgto})
         out = self.sys.vae_decode(x, "image")
         if clr_adj == "Simple":
             out = color_adjust_simple(out, cx)
@@ -407,11 +473,9 @@ class VDInference:
         return [remove_duplicate_word(t) for t in texts]
 
     def _sample_text(self, gen, c, u, c_type: str, scale: float):
-        return self.sys.sampler.sample(
-            gen, self.ddim_steps, (self.n_sample_text, self.text_latent_dim), {"type": "text"},
-            {"type": c_type, "conditioning": c, "unconditional_conditioning": u,
-             "unconditional_guidance_scale": scale},
-            eta=self.ddim_eta, dtype=self.sys.dtype, device=self.sys.device)
+        return self._sample(gen, (self.n_sample_text, self.text_latent_dim), {"type": "text"},
+                            {"type": c_type, "conditioning": c, "unconditional_conditioning": u,
+                             "unconditional_guidance_scale": scale})
 
     @torch.no_grad()
     def inference_i2t(self, image, seed: int) -> list[str]:
@@ -463,9 +527,7 @@ class VDInference:
         n = self.n_sample_image
         inputs_shown, c_info_list = self._mcg_context(image_ctxs, text, textstrength, n)
         gen = torch.Generator(device=self.sys.device).manual_seed(seed)
-        x = self.sys.sampler.sample_multicontext(
-            gen, self.ddim_steps, self._image_shape(n), {"type": "image"}, c_info_list,
-            eta=self.ddim_eta, dtype=self.sys.dtype, device=self.sys.device)
+        x = self._sample_multi(gen, self._image_shape(n), {"type": "image"}, c_info_list)
         return inputs_shown, self.sys.vae_decode(x, "image")
 
     def _mcg_context(self, image_ctxs, text: str | None, textstrength: float, n: int):
