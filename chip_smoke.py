@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (text-to-image, image variation,
 image-to-text and text-to-text, the multi-context blends, int8 serving,
-the Mosaic probes, t2i training) on one CUDA card.
+the serving queue and CLI, the Mosaic probes, t2i training) on one CUDA
+card.
 
     python3 chip_smoke.py            # the default phases, on one card
 
@@ -27,7 +28,10 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             gn_stats) at every distinct int8 GroupNorm site of the UNet
             (``GNQ_SHAPES``: gn_silu_q streaming, gn_stats a CTA a group)
             and on their general route (``GNQ_ODD_SHAPES``), each launch's
-            path asserted
+            path asserted; the serving queue's bucket batches too (8 images:
+            the UNet at batch 16 for the attention forwards, the GN kernel,
+            the int8 conv and the whole-ResBlock kernel, the decoder at 8;
+            1 image: the UNet at batch 2)
   main      vd_four_flow_v1-0 at full width in bf16, seeded random weights,
             inference_t2i at 512^2, n = 2, DDIM-50, CFG 7.5, cold then warm;
             the launch counters are zeroed just before each run and read
@@ -107,6 +111,22 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             arguments), one eps call against conv="fused", then t2i and i2i
             (a) requests cold and warm with their launch counts (the
             whole-ResBlock kernel's also by resblock_plan route)
+  main_queue the serving queue (vdtpu_torch.serving.queue.BatchingQueue,
+            buckets 1, 2, 4, 8) on the same system: ToMe's merge timed at
+            TOME_SHAPES (deterministic, against the scatter_add_ merge it
+            replaced); (a) 8 concurrent exact t2i requests as one bucket of
+            8 (the UNet at batch 16), DDIM-50, cold then warm, beside a
+            2-image inference_t2i, with peak memory, launches and GN routes
+            derived from the program, and one profiled batch-16 CFG step;
+            (d) the bucket's first request alone at bucket 1, within
+            QUEUE_MAX_REL_L2 / QUEUE_MIN_COS of its bucket-8 image, and (c)
+            bit-equal to inference_t2i at n = 1; (b) a request in two
+            buckets of 8 with other co-riders, bit-equal, and (c) bucket 1
+            against the direct call, under exact, int8 and int8 + ToMe 0.75
+            (QUEUE_STEPS steps; int8 launches derived); (e) one request of
+            each of the seven flows in one sweep, each equal to its direct
+            call at n = 1; (f) the CLI (``cli.main``) for t2i (PNGs read
+            back) and t2t on a synthetic CLIP vocabulary
   probes    the port's counterpart of scripts/mosaic_probe.py, through its
             entry point vdtpu_torch.probes.main(): the s8 matmul, shifted
             slice-add and scratch slice-write kernels at the script's shapes,
@@ -155,6 +175,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import functools
 import json
 import math
@@ -167,8 +188,8 @@ import zlib
 
 PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "main_mcg",
           "main_modes", "eps",
-          "main_int8", "modes", "eps_int8", "main_fused2", "probes", "train", "profile",
-          "gn_sweep", "gnq_sweep", "gnq_compare")
+          "main_int8", "modes", "eps_int8", "main_fused2", "main_queue", "probes", "train",
+          "profile", "gn_sweep", "gnq_sweep", "gnq_compare")
 DEFAULT_PHASES = PHASES[:-4]
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
@@ -186,9 +207,13 @@ FLASH_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
 # the flash forward at half batch: the UNet's self-attention sites on the
 # steps outside the cfg interval (main_modes (c))
 FLASH_HALF_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80)]
+# the attention forwards at the serving queue's full bucket: 8 images, the
+# UNet's self-attention sites at batch 16 (main_queue (a); bucket 1 is
+# FLASH_HALF_SHAPES' batch 2)
+ATTN_BUCKET_SHAPES = [(16, 4096, 8, 40), (16, 1024, 8, 80)]
 # no-max attention: int8 exact (4096 and 1024 tokens) and the ToMe 0.75
 # site (4096 tokens merged to 1024 at d_head 40)
-NOMAX_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 40), (4, 1024, 8, 80)]
+NOMAX_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 40), (4, 1024, 8, 80)] + ATTN_BUCKET_SHAPES
 # shapes that take the two forwards' mma.sync kernels, which no main-path
 # site reaches (heads over 80, d % 8 != 0 and unaligned views go there):
 # (B, N, H, D, elements q, k and v start into their buffers); element loads
@@ -207,7 +232,9 @@ NOMAX_MMA_SHAPES = [(4, 1024, 8, 36, 0), (4, 1024, 8, 96, 0)]
 # 16^2 maps are the int8 sites' three sizes
 QCONV_SHAPES = [(4, 320, 64, 64, 320, 1, "film"), (4, 4, 64, 64, 320, 1, None),
                 (4, 960, 64, 64, 320, 1, "res"), (4, 320, 64, 64, 320, 2, None),
-                (4, 1280, 16, 16, 1280, 1, "film"), (4, 640, 32, 32, 640, 1, "film")]
+                (4, 1280, 16, 16, 1280, 1, "film"), (4, 640, 32, 32, 640, 1, "film"),
+                # the serving queue's full bucket: 8 images, the UNet at batch 16
+                (16, 320, 64, 64, 320, 1, "film")]
 GN_SHAPES = [(4, 320, 64, 64), (4, 640, 32, 32), (4, 1280, 16, 16), (4, 2560, 8, 8),
              (2, 128, 512, 512)]
 # the int8 GN kernels (gn_silu_q, gn_stats): the distinct int8 GroupNorm
@@ -245,7 +272,13 @@ GN_ROUTES = {(4, 320, 64, 64): "resident", (4, 640, 32, 32): "resident",
              # the cfg interval), resident in clusters of 2 and 1
              (2, 320, 64, 64): "resident", (2, 960, 64, 64): "resident",
              (2, 640, 32, 32): "resident", (2, 1280, 16, 16): "resident",
-             (2, 2560, 8, 8): "resident"}
+             (2, 2560, 8, 8): "resident",
+             # the serving queue's full bucket (main_queue (a)): the UNet's maps
+             # at batch 16 (the 64^2 one streams: its resident CTAs would take
+             # more than a wave) and the decoder's 512^2 and 64^2 maps at 8
+             (16, 320, 64, 64): "streaming", (16, 640, 32, 32): "resident",
+             (16, 1280, 16, 16): "resident", (16, 2560, 8, 8): "resident",
+             (8, 128, 512, 512): "streaming", (8, 512, 64, 64): "streaming"}
 # the GN plan's deciding sites (gn_sweep): the commonest UNet map, the
 # 960-channel 64^2 UNet site (two waves of resident CTAs), and the VAE's maps
 # at batch 2 from 64^2 (resident, clusters of 2) to 512^2 (streaming)
@@ -255,7 +288,9 @@ GN_SWEEP_SHAPES = [(4, 320, 64, 64), (4, 960, 64, 64), (2, 512, 64, 64), (2, 512
 # sites of the full-width UNet at B = 4 (2 x CFG), the commonest first
 RESBLOCK_SHAPES = [(4, 320, 64, 64, 320), (4, 640, 64, 64, 320), (4, 960, 64, 64, 320),
                    (4, 320, 32, 32, 640), (4, 640, 32, 32, 640), (4, 1920, 32, 32, 640),
-                   (4, 1280, 32, 32, 640), (4, 960, 32, 32, 640)]
+                   (4, 1280, 32, 32, 640), (4, 960, 32, 32, 640),
+                   # the serving queue's buckets of 8 and 1 images (UNet batch 16, 2)
+                   (16, 320, 64, 64, 320), (2, 320, 64, 64, 320)]
 # a ResBlock that takes the kernel's general route (the mma.sync implicit
 # GEMM, GN2 statistics a pass over the mid), which no UNet site reaches:
 # 96 output channels, which no halo N tile divides, at the 64^2 map
@@ -335,6 +370,25 @@ MODE_MAX_REL_L2 = 1e-3
 # warm t2i requests of each mode and of exact DDIM-50, taken in turn, for
 # the modes' time against exact (one request moves by 15% from run to run)
 MODE_ROUNDS = 3
+# main_queue: the serving queue's buckets; its full bucket of 8 t2i requests
+# (UNet batch 16) at DDIM-50; the co-rider, bucket-1 and seven-flow checks at
+# QUEUE_STEPS; the CLI at CLI_STEPS
+QUEUE_BUCKETS = (1, 2, 4, 8)
+QUEUE_STEPS = 10
+CLI_STEPS = 4
+QUEUE_PROMPTS = ("a red cat sitting on a wooden bench in the sun",
+                 "a lighthouse on a cliff at dawn", "a bowl of ramen, studio photo",
+                 "an astronaut riding a horse", "a watercolor of a fox in the snow",
+                 "a city street at night in the rain", "a vintage car by the sea",
+                 "a mountain lake with pine trees")
+# bucket 1 against bucket 8 (bf16, 50 steps): other batch shapes take other
+# kernels' and libraries' orders of work; the port's fixed full-width
+# sanity gate
+QUEUE_MAX_REL_L2, QUEUE_MIN_COS = 0.10, 0.995
+# ToMe's merge timed at the UNet's 64^2 sites: the CFG batch of 2 images and
+# the queue's full bucket
+TOME_SHAPES = [(4, 4096, 320), (16, 4096, 320)]
+TOME_RUNS = 20
 
 _LOG = None
 # vdtpu_torch.utils.timing.time_graph_ms, bound in main() once the port imports
@@ -932,7 +986,8 @@ def phase_kernels(state):
     specs = [
         ("flash_fwd", "cuda", "vdtpu_torch/csrc/flash_fwd.cu",
          "vdtpu/ops/pallas/flash.py:40", _attention_case,
-         FLASH_SHAPES + FLASH_MMA_SHAPES + FLASH_XATTN_SHAPES + FLASH_HALF_SHAPES),
+         FLASH_SHAPES + FLASH_MMA_SHAPES + FLASH_XATTN_SHAPES + FLASH_HALF_SHAPES
+         + ATTN_BUCKET_SHAPES),
         ("flash_bwd", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
          "vdtpu/ops/pallas/flash.py:444", _flash_bwd_case, FLASH_SHAPES),
         ("gn_silu", "cuda", "vdtpu_torch/csrc/gn_silu.cu",
@@ -1788,15 +1843,16 @@ def _mode_expect(system, contexts, plan, vae_routes):
     return flash, gn
 
 
-def _vae_routes(system, with_encoder: bool) -> dict:
-    """GN launches by route of one VAE decode of a 2-image 64^2 latent (and
-    one encode of a 512^2 image), read from the counters; no flash launch."""
+def _vae_routes(system, with_encoder: bool, batch: int = 2) -> dict:
+    """GN launches by route of one VAE decode of a ``batch``-image 64^2
+    latent (and one encode of a 512^2 image), read from the counters; no
+    flash launch."""
     import torch
     from vdtpu_torch.ops.flash import flash_attention
     from vdtpu_torch.ops.gn_silu import gn_silu
     _zero_counters()
     with torch.no_grad():
-        system.vae_decode(torch.zeros((2, 64, 64, 4), device="cuda"), "image")
+        system.vae_decode(torch.zeros((batch, 64, 64, 4), device="cuda"), "image")
         if with_encoder:
             system.vae_encode(_i2i_image(SEED + 5), "image")
     torch.cuda.synchronize()
@@ -2029,12 +2085,12 @@ def _gnq_routes() -> dict:
     return out
 
 
-def _int8_launches(system, tome_ratio: float | None, c_types=("text",)):
+def _int8_launches(system, tome_ratio: float | None, c_types=("text",), steps: int = STEPS):
     """Launches of one int8 request whose contexts (one stack each, of
     ``c_types``) have fewer than 1024 keys, derived from the program: per
-    UNet call (x STEPS) every calibrated conv site of the image data blocks
-    runs the int8 conv kernel; every QDense of each stack's context blocks
-    one torch._int_mm; every self-attention whose (merged) length reaches
+    UNet call (x ``steps``) every calibrated conv site of the image data
+    blocks runs the int8 conv kernel; every QDense of each stack's context
+    blocks one torch._int_mm; every self-attention whose (merged) length reaches
     the flash rule (q >= 256, kv >= 1024) the no-max kernel, once a stack,
     and nothing the exact flash kernel (every such site has a shift; the
     cross-attentions take the plain path); the GroupNorms and the VAE
@@ -2047,11 +2103,11 @@ def _int8_launches(system, tome_ratio: float | None, c_types=("text",)):
         if tome_ratio is not None and n >= 4096:
             n -= merge_count(n, tome_ratio)
         if n >= 1024:
-            by_kv[n] = by_kv.get(n, 0) + STEPS * len(c_types)
+            by_kv[n] = by_kv.get(n, 0) + steps * len(c_types)
     _, vae_gn, _ = _gn_sites(system)
-    return {"flash_fwd": 0, "nomax_fwd": sum(by_kv.values()), "qconv3": convs * STEPS,
-            "int_mm": sum(_int8_sites(system, c)[2] for c in c_types) * STEPS,
-            "gn_silu": _mc_gn(system, c_types) * STEPS + vae_gn}, by_kv
+    return {"flash_fwd": 0, "nomax_fwd": sum(by_kv.values()), "qconv3": convs * steps,
+            "int_mm": sum(_int8_sites(system, c)[2] for c in c_types) * steps,
+            "gn_silu": _mc_gn(system, c_types) * steps + vae_gn}, by_kv
 
 
 def _counters():
@@ -2707,6 +2763,367 @@ def phase_main_fused2(state):
     state["main_fused2"] = results
 
 
+def _queue_vdi(system, steps: int, **kw):
+    from vdtpu_torch.serving.api import VDInference
+    return VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
+                       ddim_steps=steps, **kw)
+
+
+def _bucket_sizes(vdi, sizes: list):
+    """A copy of ``vdi`` whose samplers record the batch of each dispatch."""
+    probe = copy.copy(vdi)
+
+    def sample(gen, shape, x_info, c_info):
+        sizes.append(shape[0])
+        return vdi._sample(gen, shape, x_info, c_info)
+
+    def sample_multi(gen, shape, x_info, c_info_list):
+        sizes.append(shape[0])
+        return vdi._sample_multi(gen, shape, x_info, c_info_list)
+
+    probe._sample, probe._sample_multi = sample, sample_multi
+    return probe
+
+
+def _queue_run(vdi, requests, buckets=QUEUE_BUCKETS, sizes=None):
+    """Submit ``requests`` ((prompt, seed) t2i pairs) together; every
+    future's result, in order, and the sampler's batch of each dispatch."""
+    from vdtpu_torch.serving.queue import BatchingQueue
+    sizes = [] if sizes is None else sizes
+    with BatchingQueue(_bucket_sizes(vdi, sizes), buckets=buckets, max_wait_ms=1000.0) as q:
+        futs = [q.submit(text, seed) for text, seed in requests]
+        out = [f.result() for f in futs]   # a failed group raises here
+    return out, sizes
+
+
+def _image_ok(img) -> bool:
+    import torch
+    return (tuple(img.shape) == (512, 512, 3) and bool(torch.isfinite(img).all())
+            and float(img.min()) >= 0.0 and float(img.max()) <= 1.0)
+
+
+def _queue_full_bucket(state, system):
+    """(a) 8 concurrent exact t2i requests, one bucket of 8 (the UNet at
+    batch 16), DDIM-50, cold then warm, beside a 2-image inference_t2i;
+    launches, GN routes at batch 16, peak memory; one profiled batch-16
+    CFG step. Returns (results, the warm bucket's images)."""
+    import torch
+    from vdtpu_torch.ops.flash import flash_attention
+    from vdtpu_torch.ops.gn_silu import gn_silu
+    vdi = _queue_vdi(system, STEPS)
+    requests = [(p, SEED + i) for i, p in enumerate(QUEUE_PROMPTS)]
+    unet_gn, vae_gn, _ = _gn_sites(system)
+    expect = {"flash_fwd": 10 * STEPS, "gn_silu": unet_gn * STEPS + vae_gn}
+    _, expect_routes = _mode_expect(system, [("text", 77)], [(True, 16)] * STEPS,
+                                    _vae_routes(system, False, batch=8))
+    results = {}
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters()
+        t = time.perf_counter()
+        imgs, sizes = _queue_run(vdi, requests)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = {"flash_fwd": flash_attention.launches, "gn_silu": gn_silu.launches}
+        paths = _wgmma_only(f"main_queue (a) {run}")
+        routes = _gn_routes(f"main_queue (a) {run}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"main_queue (a) bucket of 8 t2i {run}: {dt:.3f} s a batch, {dt / 8:.4f} s an "
+            f"image, {8 / dt:.3f} images/s, sampler batches {sizes} (UNet batch "
+            f"{2 * sizes[0]}), peak {peak:.2f} GiB, launches {counts} (expected {expect}), "
+            f"attention by path {paths}, GN by route {routes} (expected {expect_routes}) "
+            f"[{state.get('card')}]")
+        if sizes != [8] or not all(_image_ok(im) for im in imgs):
+            raise RuntimeError(f"main_queue (a) {run}: batches {sizes} or a bad image")
+        if counts != expect or routes != expect_routes:
+            raise RuntimeError(f"main_queue (a) {run}: launches {counts} != {expect} or GN "
+                               f"routes {routes} != {expect_routes}")
+        results[run] = dict(seconds=dt, s_per_image=dt / 8, images_per_s=8 / dt,
+                            peak_gib=peak, launches=counts, attention_by_path=paths,
+                            gn_by_route=routes)
+    vdi2 = _queue_vdi(system, STEPS, n_sample_image=2)
+    vdi2.inference_t2i(QUEUE_PROMPTS[0], seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    vdi2.inference_t2i(QUEUE_PROMPTS[0], seed=SEED)
+    torch.cuda.synchronize()
+    dt2 = time.perf_counter() - t
+    peak2 = torch.cuda.max_memory_allocated() / 2**30
+    warm = results["warm"]
+    log(f"main_queue (a) beside a 2-image inference_t2i (warm, same call): {dt2:.3f} s, "
+        f"{dt2 / 2:.4f} s an image, peak {peak2:.2f} GiB; the bucket of 8 takes "
+        f"{warm['seconds'] / dt2:.3f}x its time, {warm['s_per_image'] / (dt2 / 2):.3f}x "
+        f"its time an image [{state.get('card')}]")
+    results["t2i_2_image_warm"] = dict(seconds=dt2, s_per_image=dt2 / 2, peak_gib=peak2)
+    ids = stand_in_tokenizer(["", QUEUE_PROMPTS[0]])
+    prof = _profile_step(state, system, "main_queue (a)", system.ctx_encode(ids[:1], "text"),
+                         system.ctx_encode(ids[1:], "text"), images=8)
+    if prof is not None:
+        _, _, busy, wall, _ = prof
+        results["profiled_step"] = dict(batch=16, busy_ms=busy, wall_ms=1e3 * wall,
+                                        idle_share=1 - busy / (1e3 * wall))
+    for name in ("flash_fwd", "gn_silu"):
+        if name in state["kernels"]:
+            state["kernels"][name]["launches_queue_bucket8"] = warm["launches"][name]
+    return results, imgs
+
+
+def _queue_riders(state, system, label: str, expect=None):
+    """(b) the same request in two full buckets of 8, each with 7 other
+    co-riders, QUEUE_STEPS steps: bit-equal.
+    (c) the request at bucket 1 against inference_t2i at n = 1: bit-equal.
+    ``expect``: the launch counts of the first bucket, where given."""
+    import torch
+    vdi = _queue_vdi(system, QUEUE_STEPS)
+    req = (QUEUE_PROMPTS[0], SEED)
+    riders_a = [(p, SEED + 10 + i) for i, p in enumerate(QUEUE_PROMPTS[1:])]
+    riders_b = [(QUEUE_PROMPTS[0], SEED + 30)] + [(p, SEED + 40 + i)
+                                                  for i, p in enumerate(QUEUE_PROMPTS[2:])]
+    _zero_counters()
+    (a, *_), sizes_a = _queue_run(vdi, [req] + riders_a)
+    torch.cuda.synchronize()
+    got = _read_counters()
+    (b, *_), sizes_b = _queue_run(vdi, [req] + riders_b)
+    (solo,), sizes_1 = _queue_run(vdi, [req], buckets=(1,))
+    direct = _queue_vdi(system, QUEUE_STEPS, n_sample_image=1).inference_t2i(*req)
+    co, one = bool(torch.equal(a, b)), bool(torch.equal(solo, direct[0]))
+    counts = {k: got[k] for k in expect} if expect else {}
+    log(f"main_queue (b) {label}: co-riders bit-equal {co} (batches {sizes_a}, {sizes_b}), "
+        f"max |diff| {float((a.float() - b.float()).abs().max()):.3e}; (c) bucket 1 (batches "
+        f"{sizes_1}) against inference_t2i at n = 1 bit-equal {one}; launches of the first "
+        f"bucket {counts} (expected {expect}) [{state.get('card')}]")
+    if not (co and one and sizes_a == sizes_b == [8] and sizes_1 == [1] and _image_ok(a)):
+        raise RuntimeError(f"main_queue (b)/(c) {label}: co-riders {co}, bucket 1 {one}, "
+                           f"batches {sizes_a} {sizes_b} {sizes_1}")
+    if expect and counts != expect:
+        raise RuntimeError(f"main_queue (b) {label}: launches {counts} != {expect}")
+    return dict(co_riders_bit_equal=co, bucket1_equals_direct=one, launches=counts)
+
+
+def _queue_flows(state, system):
+    """(e) one request of each of the seven flows submitted together,
+    QUEUE_STEPS steps: each is its own group at bucket 1 and must equal its
+    flow's direct call at n = 1 (images bit for bit, texts equal)."""
+    import torch
+    from vdtpu_torch.serving.queue import BatchingQueue
+    dim = dict(system.cfg["args"]["diffuser_cfg_list"])["text"]["args"]["input_channels"]
+    vdi = _queue_vdi(system, QUEUE_STEPS, n_sample_image=1, n_sample_text=1,
+                     text_latent_dim=dim)
+    images, mask = _mcg_inputs()
+    image = _i2i_image(SEED + 5, 480, 640)   # regularized to 512^2 on the way in
+    tcg = [{"image": images[0], "fcs_lvl": 0.5}, {"image": images[1], "mask": mask}]
+    mcg = [{"image": im} for im in images]
+    flows = {
+        "t2i": (lambda q: q.submit(TEXT_PROMPT, SEED + 1),
+                lambda: vdi.inference_t2i(TEXT_PROMPT, SEED + 1)[0]),
+        "i2i": (lambda q: q.submit_i2i(image, 0.5, 0.3, "Simple", SEED + 2),
+                lambda: vdi.inference_i2i(image, 0.5, 0.3, "Simple", SEED + 2)[0]),
+        "i2t": (lambda q: q.submit_i2t(image, SEED + 3),
+                lambda: vdi.inference_i2t(image, SEED + 3)[0]),
+        "t2t": (lambda q: q.submit_t2t(TEXT_PROMPT, SEED + 4),
+                lambda: vdi.inference_t2t(TEXT_PROMPT, SEED + 4)[0]),
+        "dcg": (lambda q: q.submit_dcg(images[2], 0.5, TEXT_PROMPT, 0.5, SEED + 5),
+                lambda: vdi.inference_dcg(images[2], 0.5, TEXT_PROMPT, 0.5, SEED + 5)[0]),
+        "tcg": (lambda q: q.submit_tcg(tcg, TEXT_PROMPT, 0.3, SEED + 6),
+                lambda: vdi.inference_tcg(tcg, TEXT_PROMPT, 0.3, SEED + 6)[1][0]),
+        "mcg": (lambda q: q.submit_mcg(mcg, None, 0.5, SEED + 7),
+                lambda: vdi.inference_mcg(mcg, None, 0.5, SEED + 7)[1][0]),
+    }
+    sizes = []
+    t = time.perf_counter()
+    with BatchingQueue(_bucket_sizes(vdi, sizes), buckets=QUEUE_BUCKETS,
+                       max_wait_ms=1000.0) as q:
+        futs = {k: submit(q) for k, (submit, _) in flows.items()}
+        queued = {k: f.result() for k, f in futs.items()}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    results, bad = {}, []
+    for k, (_, direct) in flows.items():
+        ref, out = direct(), queued[k]
+        if isinstance(ref, str):
+            ok = isinstance(out, str) and out == ref
+        else:
+            ok = bool(torch.equal(out, ref)) and _image_ok(out)
+        results[k] = ok
+        if not ok:
+            bad.append(k)
+    log(f"main_queue (e) seven flows in one sweep, {QUEUE_STEPS} steps: {dt:.3f} s, sampler "
+        f"batches {sorted(sizes)}, equal to the direct call at n = 1: {results}; texts "
+        f"{queued['i2t'][:60]!r} / {queued['t2t'][:60]!r} [{state.get('card')}]")
+    if bad or sorted(sizes) != [1] * 7:
+        raise RuntimeError(f"main_queue (e): flows {bad} differ from their direct calls or "
+                           f"batches {sizes} are not seven of 1")
+    return dict(seconds=dt, equal=results)
+
+
+def _synthetic_clip_vocab(vocab_path: str, merges_path: str):
+    """A CLIP BPE vocabulary of the 256 byte characters, their </w> forms and
+    the two specials (no merges): every id inside the text tower's 49408."""
+    from vdtpu_torch.data.tokenizers import bytes_to_unicode
+    chars = list(bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": len(chars) + i for i, c in enumerate(chars)})
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    with open(vocab_path, "w") as f:
+        json.dump(vocab, f)
+    with open(merges_path, "w") as f:
+        f.write("#version: synthetic\n")
+
+
+def _queue_cli(state):
+    """(f) the CLI at full width on the card: t2i writes two 512^2 PNGs (read
+    back by the CLI's own reader), t2t prints its texts."""
+    import io
+    import tempfile
+    import torch
+    from vdtpu_torch.serving import cli
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab, merges = os.path.join(tmp, "vocab.json"), os.path.join(tmp, "merges.txt")
+        _synthetic_clip_vocab(vocab, merges)
+        common = ["--bf16", "--steps", str(CLI_STEPS), "--clip-vocab", vocab,
+                  "--clip-merges", merges, "--out", os.path.join(tmp, "out"), "--seed",
+                  str(SEED)]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cli.main(["t2i", "--text", TEXT_PROMPT] + common)
+        t2i_s = time.perf_counter() - t
+        pngs = sorted(f for f in os.listdir(os.path.join(tmp, "out")) if f.endswith(".png"))
+        arrays = [cli.read_png(os.path.join(tmp, "out", f)) for f in pngs]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text_out:
+            cli.main(["t2t", "--text", TEXT_PROMPT, "--n-texts", "2"] + common)
+        t2t_s = time.perf_counter() - t
+    texts = text_out.getvalue().rstrip("\n").split("\n")
+    torch.cuda.empty_cache()
+    ok = (pngs == ["t2i_0.png", "t2i_1.png"] and "t2i_0.png" in out.getvalue()
+          and all(a.shape == (512, 512, 3) and a.dtype.name == "uint8" for a in arrays)
+          and len(texts) == 2)
+    log(f"main_queue (f) CLI: t2i {t2i_s:.2f} s (system built, {CLI_STEPS} steps), PNGs "
+        f"{pngs} {[a.shape for a in arrays]} read back, pixel mean "
+        f"{[round(float(a.mean()), 2) for a in arrays]}; t2t {t2t_s:.2f} s, texts "
+        f"{[t[:40] for t in texts]} [{state.get('card')}]")
+    if not ok:
+        raise RuntimeError(f"main_queue (f): CLI output {pngs}, {len(texts)} texts")
+    return dict(t2i_s=t2i_s, t2t_s=t2t_s, pngs=pngs, texts=len(texts))
+
+
+def _tome_merge_scatter_add(x, ratio: float):
+    """The merge closure as the port built it before its one-hot product:
+    the sources added into their destinations by scatter_add_, whose atomic
+    adds land in any order (the yardstick of the merge's time)."""
+    import torch
+    from vdtpu_torch.ops.tome import _partition, merge_count
+    b, n, _ = x.shape
+    r = merge_count(n, ratio)
+    dst_np, src_np = _partition(n)
+    dst_idx, src_idx = (torch.from_numpy(a).to(x.device) for a in (dst_np, src_np))
+    xm = x.float()
+    xm = xm / (torch.linalg.vector_norm(xm, dim=-1, keepdim=True) + 1e-6)
+    best_val, best_dst = torch.einsum("bsc,bdc->bsd", xm[:, src_idx], xm[:, dst_idx]).max(-1)
+    order = torch.argsort(-best_val, dim=-1, stable=True)
+    merged_pos, kept_pos = order[:, :r], order[:, r:]
+    dst_of = torch.gather(best_dst, 1, merged_pos)
+    counts = torch.zeros((b, len(dst_np)), device=x.device)
+    counts.scatter_add_(1, dst_of, torch.ones_like(dst_of, dtype=torch.float32))
+    rows = lambda t, idx: torch.gather(t, 1, idx[..., None].expand(-1, -1, t.shape[-1]))
+
+    def merge(h):
+        hsrc, hdst = h[:, src_idx], h[:, dst_idx]
+        add = torch.zeros(hdst.shape, dtype=torch.float32, device=h.device)
+        add.scatter_add_(1, dst_of[..., None].expand(-1, -1, h.shape[-1]),
+                         rows(hsrc, merged_pos).float())
+        hdst = ((hdst.float() + add) / (1.0 + counts[..., None])).to(h.dtype)
+        return torch.cat([rows(hsrc, kept_pos), hdst], dim=1)
+
+    return merge
+
+
+def _queue_tome_merge(state):
+    """ToMe's merge at TOME_SHAPES, ratio TOME_RATIO: the port's one-hot
+    merge (deterministic: TOME_RUNS more merges bit-equal to the first,
+    required) against the scatter_add_ merge it replaced (its runs that
+    differ counted); device ms of the merge closure (graph replay) and
+    eager ms of the assignment plus the merge."""
+    import torch
+    from vdtpu_torch.ops.tome import ToMeSpec, build_merge
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    spec, out = ToMeSpec(TOME_RATIO), {}
+    for shape in TOME_SHAPES:
+        x = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+        merge, old = build_merge(x, spec)[0], _tome_merge_scatter_add(x, TOME_RATIO)
+        a, o1 = merge(x), old(x)
+        # runs of each that differ in any bit from its first
+        differ = sum(not torch.equal(merge(x), a) for _ in range(TOME_RUNS))
+        old_differ = sum(not torch.equal(old(x), o1) for _ in range(TOME_RUNS))
+        err, same = float((a.float() - o1.float()).abs().max()), differ == 0
+        r = dict(deterministic=same, runs=TOME_RUNS, scatter_add_runs_differing=old_differ,
+                 max_abs_vs_scatter_add=err, ms=time_graph_ms(lambda: merge(x)),
+                 scatter_add_ms=time_graph_ms(lambda: old(x)),
+                 eager_build_and_merge_ms=time_ms(lambda: build_merge(x, spec)[0](x), 10),
+                 eager_scatter_add_build_and_merge_ms=time_ms(
+                     lambda: _tome_merge_scatter_add(x, TOME_RATIO)(x), 10))
+        log(f"main_queue ToMe merge {list(shape)} ratio {TOME_RATIO}: one-hot {r['ms']:.4f} ms "
+            f"(device, graph), scatter_add_ {r['scatter_add_ms']:.4f} ms; with the "
+            f"assignment, eager {r['eager_build_and_merge_ms']:.4f} / "
+            f"{r['eager_scatter_add_build_and_merge_ms']:.4f} ms; of {TOME_RUNS} more runs "
+            f"{differ} one-hot and {old_differ} scatter_add_ merges differ from their first; "
+            f"max |one-hot - scatter_add_| {err:.3e} [{state.get('card')}]")
+        if not same:
+            raise RuntimeError(f"main_queue: ToMe's merge at {shape} is not deterministic")
+        out[str(list(shape))] = r
+    return out
+
+
+def phase_main_queue(state):
+    """The serving queue at full width: (a) a bucket of 8, (d) bucket 1
+    against bucket 8, (b) and (c) under exact, int8 and int8 + ToMe, (e)
+    the seven flows, (f) the CLI; and ToMe's merge timed."""
+    import torch
+    from vdtpu_torch.ops.quant import QuantPolicy
+    system = _system(state)
+    results = {"tome_merge": _queue_tome_merge(state)}
+    with _policy(system, None):
+        results["a"], imgs = _queue_full_bucket(state, system)
+        # (d) the bucket's first request alone at bucket 1, DDIM-50, and (c)
+        # at 50 steps: the same request through inference_t2i at n = 1
+        vdi = _queue_vdi(system, STEPS)
+        (solo,), _ = _queue_run(vdi, [(QUEUE_PROMPTS[0], SEED)], buckets=(1,))
+        direct = _queue_vdi(system, STEPS, n_sample_image=1).inference_t2i(QUEUE_PROMPTS[0],
+                                                                           SEED)
+        cos, rel = _cosine(solo, imgs[0])
+        one = bool(torch.equal(solo, direct[0]))
+        log(f"main_queue (d) bucket 1 against bucket 8, DDIM-50: relative L2 {rel:.5f}, "
+            f"cosine {cos:.6f}, bit-equal {bool(torch.equal(solo, imgs[0]))} (gate: relative "
+            f"L2 <= {QUEUE_MAX_REL_L2}, cosine >= {QUEUE_MIN_COS}); (c) exact, DDIM-50: "
+            f"bucket 1 against inference_t2i at n = 1 bit-equal {one} [{state.get('card')}]")
+        if not (rel <= QUEUE_MAX_REL_L2 and cos >= QUEUE_MIN_COS and one):
+            raise RuntimeError(f"main_queue (d)/(c): relative L2 {rel}, cosine {cos}, "
+                               f"bucket 1 = direct {one}")
+        results["d"] = dict(rel_l2=rel, cosine=cos, bucket1_equals_direct_50=one)
+        results["b_exact"] = _queue_riders(state, system, "exact")
+    calib_s = _calibrate(state, system, "main_queue")
+    with _policy(system, QuantPolicy()):
+        try:
+            for label, ratio in (("int8", None), ("int8_tome", TOME_RATIO)):
+                system.enable_tome(ratio or 0)
+                expect, _ = _int8_launches(system, ratio, steps=QUEUE_STEPS)
+                results[f"b_{label}"] = _queue_riders(state, system, label, expect)
+        finally:
+            system.enable_tome(0)
+    with _policy(system, None):
+        results["e"] = _queue_flows(state, system)
+    results["f"] = _queue_cli(state)
+    results["calibration_s"] = calib_s
+    for name in ("nomax_fwd", "qconv3"):
+        if name in state["kernels"]:
+            state["kernels"][name]["launches_queue_int8_bucket8"] = \
+                results["b_int8"]["launches"][name]
+    state["main_queue"] = results
+
+
 def phase_probes(state):
     """The probes' entry point, ``vdtpu_torch.probes.main()``: every probe
     exact against its plain version and the script's check (main raises
@@ -2988,6 +3405,49 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
+def _profile_step(state, system, label, u1, c1, images: int = 2):
+    """One CFG UNet step of ``images`` images (batch 2 x images, 64^2
+    latent; ``u1`` / ``c1`` the contexts of one image) under torch.profiler:
+    logs wall, device busy, idle share and device ms by kind; returns (the
+    profiler's device rows, iterations, busy ms, wall s, device us by kind),
+    None where the profiler saw no device time."""
+    import torch
+    sync = torch.cuda.synchronize
+    b = 2 * images
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(b, 4, 64, 64, device="cuda", generator=gen).to(system.dtype)
+    tt = torch.full((b,), 500, device="cuda")
+    cc = torch.cat([u1.repeat(images, 1, 1), c1.repeat(images, 1, 1)])
+    step = lambda: system.model.apply_model(x, tt, cc, "image", "text")
+    iters = 5
+    with torch.no_grad():
+        for _ in range(3):
+            step()
+        sync()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+            t = time.perf_counter()
+            for _ in range(iters):
+                step()
+            sync()
+            wall = (time.perf_counter() - t) / iters
+    rows = _device_rows(prof)
+    busy = sum(_dev_t(e) for e in rows) / iters / 1e3  # ms per step
+    n_kernels = sum(e.count for e in rows) / iters
+    log(f"profile {label} UNet step (batch {b} = {images} x CFG, 64^2 latent): wall "
+        f"{1e3 * wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+        f"{1 - busy / (1e3 * wall):.3f}, {n_kernels:.0f} kernels/step [{state.get('card')}]")
+    if not rows:
+        log("profile: the profiler saw no device time")
+        return None
+    kinds: dict[str, float] = {}
+    for e in rows:
+        kinds[_kernel_kind(e.key)] = kinds.get(_kernel_kind(e.key), 0.0) + _dev_t(e)
+    for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"  kind {kind}: {us / iters / 1e3:.3f} ms/step ({us / iters / 1e3 / busy:.3f})")
+    return rows, iters, busy, wall, kinds
+
+
 def _profile_mode(state, system, label):
     """The warm request split into its stages, and one CFG UNet step under
     torch.profiler, under the system's current policy."""
@@ -3017,36 +3477,10 @@ def _profile_mode(state, system, label):
         f"{1e3 * t_sample:.1f} ms ({1e3 * t_sample / STEPS:.2f} ms/step), VAE decode "
         f"{1e3 * t_dec:.1f} ms [{state.get('card')}]")
 
-    x = torch.randn(4, 4, 64, 64, device="cuda", generator=gen).to(system.dtype)
-    tt = torch.full((4,), 500, device="cuda")
-    cc = torch.cat([u, c])
-    step = lambda: system.model.apply_model(x, tt, cc, "image", "text")
-    iters = 5
-    with torch.no_grad():
-        for _ in range(3):
-            step()
-        sync()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-            t = time.perf_counter()
-            for _ in range(iters):
-                step()
-            sync()
-            wall = (time.perf_counter() - t) / iters
-    rows = _device_rows(prof)
-    busy = sum(_dev_t(e) for e in rows) / iters / 1e3  # ms per step
-    n_kernels = sum(e.count for e in rows) / iters
-    log(f"profile {label} UNet step (batch 4 = 2 x CFG, 64^2 latent): wall {1e3 * wall:.2f} "
-        f"ms, device busy {busy:.2f} ms, idle share {1 - busy / (1e3 * wall):.3f}, "
-        f"{n_kernels:.0f} kernels/step [{state.get('card')}]")
-    if not rows:
-        log("profile: the profiler saw no device time")
+    prof = _profile_step(state, system, label, *ctx)
+    if prof is None:
         return
-    kinds: dict[str, float] = {}
-    for e in rows:
-        kinds[_kernel_kind(e.key)] = kinds.get(_kernel_kind(e.key), 0.0) + _dev_t(e)
-    for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        log(f"  kind {kind}: {us / iters / 1e3:.3f} ms/step ({us / iters / 1e3 / busy:.3f})")
+    rows, iters, busy, wall, kinds = prof
     qconv = sum(_dev_t(e) for e in rows if "qconv3" in e.key) / iters / 1e3
     rb = sum(_dev_t(e) for e in rows if "resblock_kernel" in e.key) / iters / 1e3
     gnq = sum(_dev_t(e) for e in rows if "gnq_kernel" in e.key) / iters / 1e3

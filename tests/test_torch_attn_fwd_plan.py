@@ -148,7 +148,9 @@ def test_kernel_sites_are_the_main_paths():
 
 
 @pytest.mark.parametrize("n,m,h,d", _kernel_sites())
-@pytest.mark.parametrize("batch", [2, 4])   # a training micro-batch; a CFG step of 2 images
+# a training micro-batch, a CFG step of 2 images; the serving queue's
+# buckets of 4 and 8 images (and 1: batch 2)
+@pytest.mark.parametrize("batch", [2, 4, 8, 16])
 def test_plan_takes_wgmma_at_every_main_path_site(batch, n, m, h, d):
     """q, k, v are [B, N, H, D] views of the [B, N, H*D] projections
     (``models/transformer.py``): 16-byte aligned, 640-byte rows at d 40 and

@@ -198,6 +198,28 @@ def test_plan_at_the_vae_and_text_sites(dtype):
         assert plan.layout == ("rows" if site[2] * _es(dtype) % 16 == 0 else "flat")
 
 
+@pytest.mark.parametrize("batch", [2, 8, 16])
+def test_plan_at_the_queue_buckets(batch):
+    """The serving queue's buckets (1, 4 and 8 images: the UNet at batch 2,
+    8 and 16, the KL-f8 decoder at 1, 4 and 8): every UNet and decoder site
+    plans validly, its resident CTAs in one wave. At batch 16 the 64^2 maps
+    stream (their resident CTAs would take more than a wave)."""
+    vae_batch = batch // 2
+    for site in unet2d_sites(batch) + vae_sites(vae_batch)[0]:
+        plan = gn_plan(site, torch.bfloat16, 32)
+        _check_plan(site, torch.bfloat16, plan)
+    if batch == 16:
+        assert gn_plan((16, 320, 64, 64), torch.bfloat16, 32).route == "streaming"
+        assert gn_plan((16, 640, 32, 32), torch.bfloat16, 32).route == "resident"
+
+
+@pytest.mark.parametrize("shape", [(16, 320, 64, 64), (16, 640, 32, 32), (16, 2560, 8, 8),
+                                   (8, 512, 64, 64), (2, 960, 64, 64), (1, 128, 512, 512)])
+def test_plan_covers_every_element_once_at_the_buckets(shape):
+    plan = gn_plan(shape, torch.bfloat16, 32)
+    assert (_cover(shape, plan) == 1).all()
+
+
 def _cover(shape, plan: GNPlan, groups: int = 32):
     """How often the plan's (band, rank) shares take each element of x."""
     b, c = shape[:2]

@@ -151,6 +151,23 @@ def test_tiles_cover_every_element_once(shape):
         assert (_cover(shape, plan) == 1).all()
 
 
+@pytest.mark.parametrize("batch", [2, 8, 16])
+def test_plan_at_the_queue_buckets(batch):
+    """The serving queue's UNet batches: every int8 GroupNorm site plans the
+    streaming route with every CTA of the cooperative launch resident at
+    once, gn_stats a CTA a group; the tiles cover x once."""
+    for site in int8_gn_sites(batch):
+        plan = gnq_plan(site, torch.bfloat16, 32)
+        _check(site, torch.bfloat16, plan, False)
+        assert plan.route == "streaming", (site, plan)
+        st = gnq_plan(site, torch.bfloat16, 32, stats=True)
+        _check(site, torch.bfloat16, st, True)
+        assert (st.route, st.ctas) == ("group", 32 * batch)
+    for site in ((batch, 320, 64, 64), (batch, 1920, 32, 32), (batch, 2560, 16, 16)):
+        for stats in (False, True):
+            assert (_cover(site, gnq_plan(site, torch.bfloat16, 32, stats=stats)) == 1).all()
+
+
 @pytest.mark.parametrize("shape,groups", ODD + [((4, 4, 64, 64), 4), ((2, 64, 16, 16), 32)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_odd_shapes_take_the_general_route(shape, groups, dtype):

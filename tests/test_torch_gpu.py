@@ -1211,3 +1211,59 @@ def test_tiny_text_flows_on_the_card(gen):
         a = vae.decoder(bos.cuda(), z)[:, 0].double().cpu().flatten()
         b = cpu_sys.vae["text"].decoder(bos, z.cpu())[:, 0].double().flatten()
     assert float(a @ b / (a.norm() * b.norm())) > 0.995
+
+
+def test_tome_merge_is_deterministic_on_the_card(gen):
+    """ToMe's merge at the UNet's 64^2 sites at the queue's largest bucket
+    (batch 16) and at [4, 4096, 320]: two merges of the same input are
+    bit-equal, a row's merge does not depend on its co-riders, and the
+    card's merge agrees with the CPU's (f32 sums in another order, then the
+    bf16 rounding)."""
+    from vdtpu_torch.ops.tome import ToMeSpec, build_merge
+    spec = ToMeSpec(0.75)
+    for b in (4, 16):
+        x = _randn(gen, b, 4096, 320)
+        outs = [build_merge(x, spec)[0](x) for _ in range(2)]
+        assert outs[0].shape == (b, 1024, 320) and torch.equal(outs[0], outs[1])
+        other = x.clone()
+        other[1:] = _randn(gen, b - 1, 4096, 320)
+        assert torch.equal(build_merge(other, spec)[0](other)[0], outs[0][0])
+    cpu = build_merge(x[:2].float().cpu(), spec)[0](x[:2].float().cpu())
+    card = build_merge(x[:2], spec)[0](x[:2]).float().cpu()
+    # a near-tie of cosine scores may send a source to another destination
+    assert ((card - cpu).abs() <= ATOL + RTOL * cpu.abs()).float().mean() > 0.99
+
+
+def test_tiny_queue_on_the_card(gen):
+    """The serving queue on the card (tiny system, bf16, int8 + ToMe at its
+    1024-token sites): at a fixed bucket a request's image does not depend
+    on its co-riders, and at bucket 1 it is inference_t2i at n = 1, bit for
+    bit."""
+    from vdtpu_torch.serving.api import VDInference, VDSystem
+    from vdtpu_torch.serving.queue import BatchingQueue
+    cuda_sys = VDSystem("vd_test_tiny", dtype=torch.bfloat16, device="cuda").init_random(0)
+    with torch.no_grad():
+        for p in cuda_sys.net.parameters():
+            if not bool(p.any()):
+                p.copy_(torch.randn(p.shape, device="cuda", generator=gen) * 0.02)
+    tok = lambda texts: (torch.arange(16).repeat(len(texts), 1)
+                         + torch.tensor([len(t) for t in texts])[:, None]).numpy() + 1
+    vdi = VDInference(cuda_sys, text_tokenizer=tok, output_dim=(64, 64), ddim_steps=4,
+                      latent_downsample=2, n_sample_image=1)
+
+    def run(riders, buckets=(4,)):
+        with BatchingQueue(vdi, buckets=buckets, max_wait_ms=300.0) as q:
+            f = q.submit("a red cat", 3)
+            for text, seed in riders:
+                q.submit(text, seed)
+            return f.result(600)
+
+    for mode in ("exact", "int8_tome"):
+        if mode == "int8_tome":
+            cuda_sys.enable_int8(image_size=64, latent_downsample=2, n=2)
+            cuda_sys.enable_tome(0.75, min_tokens=1024)
+        a = run([("a dog", 1), ("the sea at night", 2), ("a red cat", 4)])
+        b = run([])
+        assert torch.equal(a, b) and a.shape == (64, 64, 3), mode
+        assert torch.equal(run([], buckets=(1,)), vdi.inference_t2i("a red cat", 3)[0]), mode
+    cuda_sys.enable_tome(0)

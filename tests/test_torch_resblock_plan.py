@@ -87,6 +87,19 @@ def test_full_width_site_plan(site):
     assert plan.fill >= RB_MIN_FILL, (plan.conv_tiles, plan.grid)
 
 
+@pytest.mark.parametrize("batch", [2, 8, 16])
+@pytest.mark.parametrize("site", FULL_WIDTH_SITES, ids=lambda s: f"{s[1]}x{s[2]}-{s[4]}")
+def test_site_plan_at_the_queue_buckets(site, batch):
+    """The serving queue's UNet batches: the halo route, a grid of one
+    resident block an SM (the cooperative launch), tiles covering the
+    output once; at batch 2 the 32^2 sites fill half the grid."""
+    _, c, h, w, n = site
+    plan = resblock_plan(batch, h, w, c, n)
+    _check_halo_plan(batch, c, h, w, n, plan)
+    if batch > 2:
+        assert plan.fill >= RB_MIN_FILL, (plan.conv_tiles, plan.grid)
+
+
 @pytest.mark.parametrize("site", TINY_SITES, ids=lambda s: "-".join(map(str, s)))
 def test_tiny_site_plan(site):
     b, c, h, w, n = site

@@ -94,6 +94,56 @@ def test_merge_matches_jax_and_unmerge_mapping():
     assert eq.sum(axis=1).min() >= n_red - 16       # kept srcs pass through
 
 
+def _merge_scatter_add(x, h, spec):
+    """The merge as the port computed it before its one-hot product: the
+    sources added into their destinations by ``scatter_add_`` (whose atomic
+    adds land in any order on a card)."""
+    b, n, _ = x.shape
+    r = merge_count(n, spec.ratio)
+    dst_np, src_np = _partition(n)
+    dst_idx, src_idx = torch.from_numpy(dst_np), torch.from_numpy(src_np)
+    xm = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-6)
+    best_val, best_dst = torch.einsum("bsc,bdc->bsd", xm[:, src_idx], xm[:, dst_idx]).max(-1)
+    order = torch.argsort(-best_val, dim=-1, stable=True)
+    merged_pos, kept_pos = order[:, :r], order[:, r:]
+    dst_of = torch.gather(best_dst, 1, merged_pos)
+    rows = lambda t, idx: torch.gather(t, 1, idx[..., None].expand(-1, -1, t.shape[-1]))
+    counts = torch.zeros((b, len(dst_np))).scatter_add_(1, dst_of, torch.ones(dst_of.shape))
+    hsrc, hdst = h[:, src_idx], h[:, dst_idx]
+    add = torch.zeros(hdst.shape).scatter_add_(
+        1, dst_of[..., None].expand(-1, -1, h.shape[-1]), rows(hsrc, merged_pos))
+    return torch.cat([rows(hsrc, kept_pos), (hdst + add) / (1.0 + counts[..., None])], dim=1)
+
+
+# the one-hot product sums each destination's sources in another order than
+# scatter_add_ did: f32 rounding of sums of up to 48 terms here
+@pytest.mark.parametrize("clustered", [False, True])
+def test_merge_matches_the_scatter_add_merge(clustered):
+    rs = np.random.RandomState(6)
+    x = rs.randn(3, 256, 8).astype(np.float32)
+    if clustered:   # most sources closest to one destination: long sums
+        x[:, :, 0] += 30.0
+    h = torch.from_numpy(rs.randn(3, 256, 12).astype(np.float32))
+    spec = ToMeSpec(0.75, min_tokens=1)
+    merge, _, n_red = build_merge(torch.from_numpy(x), spec)
+    ref = _merge_scatter_add(torch.from_numpy(x), h, spec)
+    out = merge(h)
+    assert out.shape == ref.shape == (3, n_red, 12)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_merge_of_a_row_does_not_depend_on_its_co_riders():
+    rs = np.random.RandomState(7)
+    x = torch.from_numpy(rs.randn(4, 256, 8).astype(np.float32))
+    spec = ToMeSpec(0.75, min_tokens=1)
+    merge, _, _ = build_merge(x, spec)
+    other = x.clone()
+    other[1:] = torch.from_numpy(rs.randn(3, 256, 8).astype(np.float32))
+    merge_other, _, _ = build_merge(other, spec)
+    assert torch.equal(merge(x)[0], merge_other(other)[0])
+    assert torch.equal(merge(x), merge(x))
+
+
 def test_block_bit_identical_when_off_or_below_min_tokens():
     torch.manual_seed(0)
     blk = BasicTransformerBlock(16, 2, 8, 16).eval()

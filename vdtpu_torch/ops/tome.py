@@ -82,17 +82,27 @@ def build_merge(x, spec: ToMeSpec):
     order = torch.argsort(-best_val, dim=-1, stable=True)
     merged_pos, kept_pos = order[:, :r], order[:, r:]
     dst_of = torch.gather(best_dst, 1, merged_pos)                # [B, r]
-    counts = torch.zeros((b, nd), dtype=torch.float32, device=x.device)
-    counts.scatter_add_(1, dst_of, torch.ones_like(dst_of, dtype=torch.float32))
 
     def rows(t, idx):
         return torch.gather(t, 1, idx[..., None].expand(-1, -1, t.shape[-1]))
 
+    # merged source j of row b lands on destination dst_of[b, j]: the sum
+    # into each destination is a product with this one-hot [B, nd, r], summed
+    # in f32 in an order the shapes fix (atomic adds of scatter_add_ land in
+    # any order on a card), so a row's merge is the same from run to run and
+    # whatever its co-riders. A 16-bit input on the card takes a one-hot of
+    # its own type (0 and 1 are exact) and the tensor cores' products summed
+    # in f32 (bmm's out_dtype, a CUDA op); elsewhere the product is in f32.
+    low = x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)
+    onehot = torch.zeros((b, nd, r), dtype=x.dtype if low else torch.float32, device=x.device)
+    onehot.scatter_(1, dst_of[:, None], 1.0)
+    counts = onehot.sum(dim=-1, dtype=torch.float32)              # exact: sums of ones
+
     def merge(h):
         hsrc, hdst = h[:, src_idx], h[:, dst_idx]
-        add = torch.zeros(hdst.shape, dtype=torch.float32, device=h.device)
-        add.scatter_add_(1, dst_of[..., None].expand(-1, -1, h.shape[-1]),
-                         rows(hsrc, merged_pos).float())
+        src = rows(hsrc, merged_pos)
+        add = (torch.bmm(onehot, src.to(onehot.dtype), out_dtype=torch.float32) if low
+               else torch.bmm(onehot, src.float()))
         hdst = ((hdst.float() + add) / (1.0 + counts[..., None])).to(h.dtype)
         return torch.cat([rows(hsrc, kept_pos), hdst], dim=1)    # [B, N - r, C]
 
