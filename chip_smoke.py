@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (text-to-image, image variation,
 image-to-text and text-to-text, the multi-context blends, int8 serving,
-the serving queue and CLI, the Mosaic probes, t2i training) on one CUDA
-card.
+the serving queue and CLI, the VAE loss, the eval stage and the
+serving-policy gate, the Mosaic probes, t2i training) on one CUDA card.
 
     python3 chip_smoke.py            # the default phases, on one card
 
@@ -127,6 +127,25 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             each of the seven flows in one sweep, each equal to its direct
             call at n = 1; (f) the CLI (``cli.main``) for t2i (PNGs read
             back) and t2t on a synthetic CLIP vocabulary
+  main_quality the slice-16 path, on systems of its own beside the serving one:
+            (a) KL-f8's reconstruction pass at 256^2, batch 2, f32 with grad
+            (AutoencoderKL.forward), LPIPS + PatchGAN generator loss with the
+            adaptive weight and its backward, then the discriminator loss;
+            every term against the same modules in f32 on the CPU (TF32
+            off, QUALITY_LOSS_RTOL), running statistics moved by the
+            discriminator branch only, GN launches of one encoder and
+            decoder pass; (b) the eval stage (training/launch.py::build_eval,
+            EvalStage) on the serving system: two batches of 2 stand-in
+            captions, exact DDIM-50, CLIP-sim, then one batch at
+            DPM-Solver++ 20 scored with CLIP-FID against seeded reals, each
+            batch's flash and GN launches derived; (c) the serving-policy
+            gate (vdtpu_torch.quality.main) in the random-fill and surrogate
+            regimes and its calibration sweep ("none", QUALITY_SWEEP) in the
+            surrogate one: every variant's launches derived as main_int8 and
+            main_modes derive them, rows finite, the exact row bit-equal
+            across two runs, each row printed with README's verdict (within
+            0.5 dB of the int8 row's PSNR and |CLIP-sim delta| <= 0.002 in
+            both regimes; a finding, not a check)
   probes    the port's counterpart of scripts/mosaic_probe.py, through its
             entry point vdtpu_torch.probes.main(): the s8 matmul, shifted
             slice-add and scratch slice-write kernels at the script's shapes,
@@ -188,7 +207,8 @@ import zlib
 
 PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "main_mcg",
           "main_modes", "eps",
-          "main_int8", "modes", "eps_int8", "main_fused2", "main_queue", "probes", "train",
+          "main_int8", "modes", "eps_int8", "main_fused2", "main_queue", "main_quality", "probes",
+          "train",
           "profile", "gn_sweep", "gnq_sweep", "gnq_compare")
 DEFAULT_PHASES = PHASES[:-4]
 
@@ -387,6 +407,19 @@ QUEUE_PROMPTS = ("a red cat sitting on a wooden bench in the sun",
 QUEUE_MAX_REL_L2, QUEUE_MIN_COS = 0.10, 0.995
 # ToMe's merge timed at the UNet's 64^2 sites: the CFG batch of 2 images and
 # the queue's full bucket
+# main_quality: the VAE loss at KL-f8's training resolution, its card
+# against CPU bound (f32 both, TF32 off: cuDNN against oneDNN summation
+# order through two conv stacks, and a ratio of gradient norms), the
+# calibration statistic swept beside "none", the phase's time budget
+QUALITY_LOSS_BATCH = 2
+QUALITY_LOSS_RTOL = 1e-3
+# the adaptive weight's unclipped ratio: the adversarial gradient at the
+# decoder's last kernel is ~1e-6 of the NLL's and goes back through the
+# discriminator's convs, whose cuDNN backward sums in another order than
+# oneDNN's (6.3e-4 read on an H100 80GB HBM3 at 700 W)
+QUALITY_GRAD_RTOL = 1e-2
+QUALITY_SWEEP = "q99.9"
+QUALITY_SECONDS = 150
 TOME_SHAPES = [(4, 4096, 320), (16, 4096, 320)]
 TOME_RUNS = 20
 
@@ -2358,15 +2391,18 @@ def _int8_split_sites(system):
             dict(qconv3=convs(data[n_d:]), int_mm=mms(ctx[n_c:]))]
 
 
-def _int8_reuse_launches(system, tome_ratio: float, half_paths):
-    """Launches of the int8 + ToMe t2i request under encoder reuse (STEPS
-    steps, the input half on the key steps of encoder_reuse_schedule), as
-    ``_int8_launches`` a half; the int8 conv's launches by path from each
-    half's recorded sites (``half_paths``)."""
+def _int8_reuse_launches(system, tome_ratio: float | None, half_paths, steps: int = STEPS,
+                         interval: int = MODE_REUSE):
+    """Launches of an int8 (+ ToMe) t2i request under encoder reuse
+    (``steps`` steps, the input half on the key steps of
+    encoder_reuse_schedule at ``interval``, warmup 5), as ``_int8_launches``
+    a half; the int8 conv's launches by path from each half's recorded sites
+    (``half_paths``; None: not derived)."""
     from vdtpu_torch.ops.tome import merge_count
     from vdtpu_torch.sampling.ddim import encoder_reuse_schedule
-    keys = int(encoder_reuse_schedule(STEPS, MODE_REUSE).sum())
-    calls = (keys, STEPS)   # input half, mid and output walk
+    keys = int(encoder_reuse_schedule(steps, interval).sum())
+    calls = (keys, steps)   # input half, mid and output walk
+    half_paths = half_paths or [{}, {}]
     halves = _split_sites(system, [("text", 77)])
     sites = _int8_split_sites(system)
     _, vae_gn, _ = _gn_sites(system)
@@ -2377,7 +2413,7 @@ def _int8_reuse_launches(system, tome_ratio: float, half_paths):
         expect["int_mm"] += site["int_mm"] * n_calls
         expect["gn_silu"] += len(half["gn"]) * n_calls
         for n in half["tokens"]:
-            if n >= 4096:
+            if tome_ratio and n >= 4096:
                 n -= merge_count(n, tome_ratio)
             if n >= 1024:
                 by_kv[n] = by_kv.get(n, 0) + n_calls
@@ -3122,6 +3158,293 @@ def phase_main_queue(state):
             state["kernels"][name]["launches_queue_int8_bucket8"] = \
                 results["b_int8"]["launches"][name]
     state["main_queue"] = results
+
+
+# ---- main_quality: the VAE loss, the eval stage, the serving-policy gate ----
+
+def _vae_loss_pass(vae, loss, x, backward: bool):
+    """One reconstruction pass (posterior mode) and both loss branches: the
+    generator loss with the adaptive weight (and its backward when asked),
+    then the discriminator loss. Returns (every logged term as a float, the
+    running statistics before, after the generator branch, after the
+    discriminator branch)."""
+    import torch
+    snap = lambda: {k: v.clone() for k, v in loss.discriminator.state_dict().items()
+                    if "running" in k}
+    before = snap()
+    rec, post = vae(x)
+    xi, ri = x * 2.0 - 1.0, rec * 2.0 - 1.0
+    # the adaptive weight's ratio before its clip at 1e4 (random weights
+    # put it above), so the comparison reads the gradients themselves
+    w = vae.decoder.conv_out.weight
+    nll, _ = loss.nll_and_rec(xi, ri)
+    grads = [torch.autograd.grad(v, w, retain_graph=True)[0].norm()
+             for v in (nll, -torch.mean(loss.discriminator(ri)))]
+    g, glog = loss.generator_loss(xi, ri, post, loss.disc_start,
+                                  last_layer=vae.decoder.conv_out.weight)
+    if backward:
+        g.backward()
+    after_g = snap()
+    d, dlog, _ = loss.discriminator_loss(xi, ri, loss.disc_start)
+    terms = {f"g.{k}": float(torch.as_tensor(v).detach()) for k, v in glog.items()}
+    terms["g.d_weight_unclipped"] = float(grads[0] / (grads[1] + 1e-4))
+    terms.update({f"d.{k}": float(torch.as_tensor(v).detach()) for k, v in dlog.items()})
+    return terms, before, after_g, snap()
+
+
+def _quality_vae_loss(state):
+    """(a) KL-f8's reconstruction pass at its training resolution, batch
+    QUALITY_LOSS_BATCH, f32 with grad, through LPIPS + PatchGAN on the card;
+    every term and d_weight against the same modules and weights in f32 on
+    the CPU (TF32 off); the running statistics move only in the
+    discriminator branch; GN launches = the GroupNorms of one encoder and
+    one decoder pass (the backward recomputes the plain version)."""
+    import torch
+    from vdtpu_torch.config.configs import model_cfg_bank
+    from vdtpu_torch.config.registry import build
+    from vdtpu_torch.models.autokl_loss import LPIPSWithDiscriminator
+    from vdtpu_torch.models.layers import GroupNorm32, init_random
+    from vdtpu_torch.ops.gn_silu import gn_silu
+    cfg = dict(model_cfg_bank()("vd_four_flow_v1-0")["args"]["vae_cfg_list"])["image"]
+    size = cfg["args"]["ddconfig"]["resolution"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    with torch.device("cuda"):
+        vae = build(cfg)
+        loss = LPIPSWithDiscriminator(disc_start=50001, kl_weight=1e-6, disc_weight=0.5)
+    init_random(vae, gen)
+    for m in loss.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            init_random(m, gen)
+    x = torch.rand((QUALITY_LOSS_BATCH, 3, size, size), generator=gen, device="cuda")
+    # f32 CPU twins taken before the card's pass updates the statistics; only
+    # the last kernel needs a gradient there (the adaptive weight)
+    cpu_vae, cpu_loss = (copy.deepcopy(m).cpu().requires_grad_(False) for m in (vae, loss))
+    cpu_vae.decoder.conv_out.weight.requires_grad_(True)
+    expect_gn = sum(isinstance(m, GroupNorm32) for part in (vae.encoder, vae.decoder)
+                    for m in part.modules())
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.cuda.synchronize()
+        _zero_counters()
+        t = time.perf_counter()
+        terms, before, after_g, after_d = _vae_loss_pass(vae, loss, x, backward=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got, routes = _read_counters(), dict(gn_silu.launches_by_path)
+        grads_ok = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                       for p in vae.parameters())
+        t = time.perf_counter()
+        ref, *_ = _vae_loss_pass(cpu_vae, cpu_loss, x.cpu(), backward=False)
+        dt_cpu = time.perf_counter() - t
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    rel = {k: abs(terms[k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in ref}
+    bound = {k: QUALITY_GRAD_RTOL if k == "g.d_weight_unclipped" else QUALITY_LOSS_RTOL
+             for k in ref}
+    worst = max(rel, key=lambda k: rel[k] / bound[k])
+    moved_g = any(not torch.equal(before[k], after_g[k]) for k in before)
+    moved_d = all(not torch.equal(after_g[k], after_d[k]) for k in before)
+    log(f"main_quality (a) VAE loss at {size}^2, batch {QUALITY_LOSS_BATCH}, f32, TF32 off: "
+        f"{dt:.3f} s on the card with the backward, {dt_cpu:.3f} s on the CPU without; "
+        f"terms {json.dumps({k: round(v, 6) for k, v in terms.items()})}; largest relative "
+        f"difference to the CPU, against its bound, {rel[worst]:.3e} ({worst}; bound "
+        f"{bound[worst]}); unclipped d_weight {rel['g.d_weight_unclipped']:.3e}; "
+        f"running statistics moved by the generator branch {moved_g}, by the discriminator "
+        f"branch {moved_d}; GN launches {got['gn_silu']} (expected {expect_gn}, by route "
+        f"{routes}); VAE gradients finite {grads_ok} [{state.get('card')}]")
+    if not all(math.isfinite(v) for v in terms.values()) or rel[worst] > bound[worst]:
+        raise RuntimeError(f"main_quality (a): card against CPU {rel}")
+    if moved_g or not moved_d or not grads_ok:
+        raise RuntimeError(f"main_quality (a): statistics moved by the generator branch "
+                           f"{moved_g}, by the discriminator branch {moved_d}; gradients "
+                           f"finite {grads_ok}")
+    if got != {k: (expect_gn if k == "gn_silu" else 0) for k in got}:
+        raise RuntimeError(f"main_quality (a): launches {got}, expected {expect_gn} GN")
+    del vae, loss, cpu_vae, cpu_loss, x
+    torch.cuda.empty_cache()
+    return dict(seconds=dt, cpu_seconds=dt_cpu, terms=terms, cpu_terms=ref, rel_diff=rel,
+                gn_launches=got["gn_silu"], gn_by_route=routes)
+
+
+def _counted(state, label: str, fn, expect):
+    """``fn`` wrapped: counters zeroed before each call and read after it,
+    against ``expect`` (every other counter 0); returns (wrapper, records)."""
+    import torch
+    records = []
+
+    def run(*args):
+        torch.cuda.synchronize()
+        _zero_counters()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        got = _read_counters()
+        records.append(dict(seconds=time.perf_counter() - t, launches=got))
+        if got != {k: expect.get(k, 0) for k in got}:
+            raise RuntimeError(f"{label} call {len(records)}: launches {got} != {expect}")
+        return out
+    return run, records
+
+
+def _quality_eval(state):
+    """(b) The eval stage on the serving system, exact bf16: two batches of
+    2 captions at DDIM-50 scored with CLIP-sim through EvalStage, then one
+    batch at DPM-Solver++ 20 scored with CLIP-FID against seeded reals; each
+    batch's flash and GN launches as derived for a 2-image request."""
+    import numpy as np
+    import torch
+    from vdtpu_torch.training.evaluator import EvalStage
+    from vdtpu_torch.training.launch import build_eval
+    system = _system(state)
+    rs = np.random.RandomState(SEED + 13)
+    batches = [{"caption": list(QUEUE_PROMPTS[i:i + 2]),
+                "image": rs.rand(2, 512, 512, 3).astype(np.float32)} for i in (0, 2, 4)]
+    text = [("text", 77)]
+    results = {}
+    with _policy(system, None):
+        vae = _vae_routes(system, False)
+        runs = (("clip_similarity", dict(ddim_steps=STEPS), batches[:2],
+                 [(True, 4)] * STEPS),
+                ("fid", dict(ddim_steps=MODE_STEPS, sampler="dpmpp2m", evaluator="fid"),
+                 batches[2:], [(True, 4)] * MODE_STEPS))
+        for name, vcfg, data, plan in runs:
+            flash, gn = _mode_expect(system, text, plan, vae)
+            expect = {"flash_fwd": sum(flash.values()), "gn_silu": sum(gn.values())}
+            sample_fn, evaluator = build_eval(system, stand_in_tokenizer,
+                                              dict(vcfg, seed=SEED))
+            counted, records = _counted(state, f"main_quality (b) {name}", sample_fn, expect)
+            t = time.perf_counter()
+            summary = EvalStage(evaluator, counted)(data)
+            dt = time.perf_counter() - t
+            value = summary[name]
+            log(f"main_quality (b) eval {name} {vcfg}: {len(data)} batches of 2 in {dt:.3f} s "
+                f"(sampling {[round(r['seconds'], 3) for r in records]} s), summary {summary}, "
+                f"launches a batch {records[0]['launches']} (expected {expect}) "
+                f"[{state.get('card')}]")
+            if not math.isfinite(value) or (name == "clip_similarity" and abs(value) > 1.0):
+                raise RuntimeError(f"main_quality (b) {name}: summary {summary}")
+            results[name] = dict(summary=summary, seconds=dt, batches=records, expected=expect)
+    return results
+
+
+def _quality_expect(system, name: str):
+    """Launches and no-max launches by kv length of one gate variant
+    (sample + decode at 2 images), derived as main_int8 / main_modes do."""
+    if name.startswith("bf16_exact"):
+        return _mc_launches(system, [("text", 77)])[0], {}
+    if name.startswith("clip=") or name in ("int8", "int8+cfgitv(0.1,0.8)"):
+        return _int8_launches(system, None)
+    if name.startswith("int8+tome"):
+        return _int8_launches(system, float(name[len("int8+tome"):]))
+    if name == f"int8+dpmpp{MODE_STEPS}":
+        return _int8_launches(system, None, steps=MODE_STEPS)
+    reuse = {"int8+encreuse2": (STEPS, 2), "int8+encreuse3": (STEPS, 3),
+             f"int8+dpmpp{MODE_STEPS}+encreuse2": (MODE_STEPS, 2)}
+    steps, interval = reuse[name]
+    expect, by_kv, _ = _int8_reuse_launches(system, None, None, steps, interval)
+    return expect, by_kv
+
+
+def _quality_gate(state):
+    """(c) ``vdtpu_torch.quality.main`` in the random-fill and surrogate
+    regimes, and its calibration sweep ("none" and QUALITY_SWEEP) in the
+    surrogate one: each variant's launches as derived; every row finite, the
+    exact row bit-equal across its two runs; each row's metrics and
+    README's verdict (within 0.5 dB of the int8 row's PSNR and CLIP-sim
+    |delta| <= 0.002, in both regimes), a finding, not a check."""
+    import torch
+    from vdtpu_torch import quality
+    by_kv_now = _counters()["nomax_fwd"].launches_by_kv
+    launches = {}
+
+    def observe(label):
+        def run(name, system, thunk):
+            expect, expect_kv = _quality_expect(system, name)
+            torch.cuda.synchronize()
+            _zero_counters()
+            t = time.perf_counter()
+            out = thunk()
+            torch.cuda.synchronize()
+            got, by_kv = _read_counters(), dict(by_kv_now)
+            launches[f"{label} {name}"] = dict(seconds=time.perf_counter() - t, launches=got,
+                                               nomax_by_kv=by_kv)
+            if got != {k: expect.get(k, 0) for k in got} or by_kv != expect_kv:
+                raise RuntimeError(f"main_quality (c) {label} {name}: launches {got}, no-max "
+                                   f"by kv {by_kv}; expected {expect}, {expect_kv}")
+            return out
+        return run
+
+    runs = {}
+    for label, argv in (("random_fill", []), ("surrogate", ["--surrogate"]),
+                        ("surrogate_sweep", ["--surrogate", "--clip-sweep", QUALITY_SWEEP])):
+        t = time.perf_counter()
+        runs[label] = quality.main(["--seed", str(SEED), *argv], observe=observe(label))
+        mine = {k: v["launches"] for k, v in launches.items() if k.startswith(label + " ")}
+        log(f"main_quality (c) {label}: {time.perf_counter() - t:.1f} s, launches "
+            f"{json.dumps(mine)} [{state.get('card')}]")
+    bad = []
+    for label in ("random_fill", "surrogate"):
+        out = runs[label]
+        if not out["bf16_exact_repeat_bit_equal"]:
+            bad.append(f"{label}: the exact row differs between its two runs")
+        for name, row in out.items():
+            if isinstance(row, dict) and "decoded_psnr_db" in row:
+                vals = [*row.values(), out["clip_sim"][name]]
+                if not all(math.isfinite(v) for v in vals):
+                    bad.append(f"{label} {name}: {row}")
+    for mode, row in runs["surrogate_sweep"]["clip_sweep"].items():
+        if not all(math.isfinite(v) for v in row.values()):
+            bad.append(f"surrogate_sweep {mode}: {row}")
+    if bad:
+        raise RuntimeError(f"main_quality (c): {bad}")
+    verdict = {}
+    names = [k for k, v in runs["random_fill"].items() if isinstance(v, dict)
+             and "decoded_psnr_db" in v]
+    for name in names:
+        per = {}
+        for label in ("random_fill", "surrogate"):
+            out = runs[label]
+            row = out[name]
+            d_psnr = row["decoded_psnr_db"] - out["int8"]["decoded_psnr_db"]
+            d_clip = out["clip_sim_delta_vs_int8"][name]
+            per[label] = dict(d_psnr_db=round(d_psnr, 2), d_clip_sim=d_clip,
+                              within=bool(d_psnr >= -0.5 and abs(d_clip) <= 0.002))
+            log(f"main_quality (c) {label} | {name} | cos {row['final_latent_cos']} | rel err "
+                f"{row['final_latent_rel_err']} | MAE {row['decoded_mae']} | PSNR "
+                f"{row['decoded_psnr_db']} dB | CLIP-sim {out['clip_sim'][name]} | delta vs "
+                f"int8 {d_clip} | [{state.get('card')}]")
+        verdict[name] = dict(per, admitted=all(p["within"] for p in per.values()))
+    for label in ("random_fill", "surrogate"):
+        log(f"main_quality (c) {label}: exact CLIP-sim {runs[label]['clip_sim']['bf16_exact']}, "
+            f"int8 step cos min {runs[label]['int8_step_cos_min']:.6f}, exact row bit-equal "
+            f"across two runs {runs[label]['bf16_exact_repeat_bit_equal']}")
+    for mode, row in runs["surrogate_sweep"]["clip_sweep"].items():
+        log(f"main_quality (c) surrogate clip sweep | {mode} | {json.dumps(row)}")
+    log("main_quality (c) verdict (README's gate: PSNR within 0.5 dB of the int8 row and "
+        "|CLIP-sim delta| <= 0.002 in both regimes): " + json.dumps(
+            {k: v["admitted"] for k, v in verdict.items()}) + f" [{state.get('card')}]")
+    return dict(runs=runs, verdict=verdict, launches=launches)
+
+
+def phase_main_quality(state):
+    import torch
+    t = time.perf_counter()
+    results = {"vae_loss": _quality_vae_loss(state), "eval": _quality_eval(state),
+               "gate": _quality_gate(state)}
+    torch.cuda.empty_cache()
+    results["seconds"] = time.perf_counter() - t
+    log(f"main_quality: {results['seconds']:.1f} s (limit about {QUALITY_SECONDS} s) "
+        f"[{state.get('card')}]")
+    for name in ("flash_fwd", "gn_silu"):
+        if name in state["kernels"]:
+            state["kernels"][name]["launches_quality_eval"] = \
+                results["eval"]["clip_similarity"]["batches"][0]["launches"][name]
+    for name in ("nomax_fwd", "qconv3"):
+        if name in state["kernels"]:
+            state["kernels"][name]["launches_quality_int8"] = \
+                results["gate"]["launches"]["random_fill int8"]["launches"][name]
+    state["main_quality"] = results
 
 
 def phase_probes(state):

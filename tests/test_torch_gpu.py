@@ -1267,3 +1267,105 @@ def test_tiny_queue_on_the_card(gen):
         assert torch.equal(a, b) and a.shape == (64, 64, 3), mode
         assert torch.equal(run([], buckets=(1,)), vdi.inference_t2i("a red cat", 3)[0]), mode
     cuda_sys.enable_tome(0)
+
+
+# ---- slice 16: the VAE loss, the evaluators, the quality gate ----
+
+def _f32_no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    return prev
+
+
+def _seeded_loss(seed):
+    from vdtpu_torch.models.autokl_loss import LPIPSWithDiscriminator
+    from vdtpu_torch.models.layers import init_random
+    loss = LPIPSWithDiscriminator(disc_start=0, kl_weight=1e-6, disc_weight=0.5)
+    g = torch.Generator().manual_seed(seed)
+    for m in loss.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            init_random(m, g)
+    return loss
+
+
+def test_lpips_and_discriminator_on_the_card(gen):
+    """LPIPS, the discriminator (batch statistics and their update) and both
+    loss branches on CUDA tensors against the same modules on the CPU, f32
+    with TF32 off: 1e-4 relative (cuDNN against oneDNN summation order)."""
+    import copy
+    prev = _f32_no_tf32()
+    try:
+        cpu = _seeded_loss(1)
+        card = copy.deepcopy(cpu).cuda()
+        g = torch.Generator().manual_seed(2)
+        x, y = (torch.rand((2, 3, 64, 64), generator=g) * 2 - 1 for _ in range(2))
+        with torch.no_grad():
+            torch.testing.assert_close(card.lpips(x.cuda(), y.cuda()).cpu(), cpu.lpips(x, y),
+                                       rtol=1e-4, atol=1e-6)
+            torch.testing.assert_close(card.discriminator(x.cuda()).cpu(),
+                                       cpu.discriminator(x), rtol=1e-4, atol=1e-5)
+            d_card, log_card, st_card = card.discriminator_loss(x.cuda(), y.cuda(), 1)
+            d_cpu, log_cpu, st_cpu = cpu.discriminator_loss(x, y, 1)
+        for k in log_cpu:
+            torch.testing.assert_close(log_card[k].cpu(), log_cpu[k], rtol=1e-4, atol=1e-6)
+        for k in st_cpu:
+            torch.testing.assert_close(st_card[k].cpu(), st_cpu[k], rtol=1e-4, atol=1e-6)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_evaluators_on_card_tensors(gen):
+    """CUDA bf16 embeddings give the evaluators' summaries of the same
+    values on the CPU, exactly (the reduction runs in float64 on the host)."""
+    from vdtpu_torch.training.evaluator import ClipSimilarityEvaluator, FIDEvaluator
+    zi, zt = _randn(gen, 6, 32), _randn(gen, 6, 32)
+    ident = lambda z: z
+    card, cpu = ClipSimilarityEvaluator(ident, ident), ClipSimilarityEvaluator(ident, ident)
+    card.add_batch(zi, zt)
+    cpu.add_batch(zi.cpu(), zt.cpu().float().numpy())
+    assert card.summarize() == cpu.summarize()
+    card, cpu = FIDEvaluator(ident), FIDEvaluator(ident)
+    card.add_batch(zi, zt)
+    cpu.add_batch(zi.cpu(), zt.cpu())
+    assert card.summarize() == cpu.summarize()
+
+
+def test_reconstruction_pass_under_autograd_on_the_card(gen):
+    """The tiny KL autoencoder's reconstruction pass with grad on the card
+    (the GN kernel forward, its plain-recomputing backward) against the
+    same pass on the CPU in f32, TF32 off: the decode within 1e-4 and the
+    adaptive weight within 1e-3 relative; every gradient finite; one GN
+    launch a GroupNorm."""
+    import copy
+
+    from vdtpu_torch.config.configs import model_cfg_bank
+    from vdtpu_torch.config.registry import build
+    from vdtpu_torch.models.layers import GroupNorm32, init_random
+    prev = _f32_no_tf32()
+    try:
+        cfg = dict(model_cfg_bank()("vd_test_tiny")["args"]["vae_cfg_list"])["image"]
+        vae_cpu = build(cfg)
+        init_random(vae_cpu, torch.Generator().manual_seed(3))
+        vae_card = copy.deepcopy(vae_cpu).cuda()
+        loss_cpu = _seeded_loss(4)
+        loss_card = copy.deepcopy(loss_cpu).cuda()
+        # 32^2: the tiny mid-block attention (d 64) stays under the flash rule,
+        # whose kernel takes bf16 only
+        x = torch.rand((2, 3, 32, 32), generator=torch.Generator().manual_seed(5))
+        n_gn = sum(isinstance(m, GroupNorm32) for m in vae_card.modules())
+        outs = []
+        for vae, loss, xx in ((vae_card, loss_card, x.cuda()), (vae_cpu, loss_cpu, x)):
+            before = gn_silu.launches
+            rec, post = vae(xx)
+            total, log = loss.generator_loss(xx * 2 - 1, rec * 2 - 1, post, 1,
+                                             last_layer=vae.decoder.conv_out.weight)
+            total.backward()
+            assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                       for p in vae.parameters())
+            outs.append((rec.detach().cpu(), float(log["d_weight"]), gn_silu.launches - before))
+        (rec_card, dw_card, n_card), (rec_cpu, dw_cpu, n_cpu) = outs
+        torch.testing.assert_close(rec_card, rec_cpu, rtol=1e-4, atol=1e-5)
+        assert abs(dw_card - dw_cpu) <= 1e-3 * abs(dw_cpu)
+        assert n_card == n_gn and n_cpu == 0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

@@ -35,7 +35,9 @@ _SLICE2 = ("ops/nomax.py", "ops/qconv.py", "ops/quant.py", "ops/tome.py",
            "csrc/qconv_tile.cuh", "csrc/resblock_q.cu", "ops/resize.py",
            "models/distributions.py", "serving/postprocess.py", "models/optimus.py",
            "data/tokenizers.py", "ops/probes.py", "probes.py", "csrc/probe_s8mm.cu",
-           "utils/timing.py", "serving/queue.py", "serving/cli.py", "serving/webui.py")
+           "utils/timing.py", "serving/queue.py", "serving/cli.py", "serving/webui.py",
+           "models/autokl_loss.py", "training/evaluator.py", "training/launch.py",
+           "quality.py")
 
 
 def test_every_module_imports_with_jax_flax_yaml_blocked():
@@ -53,6 +55,8 @@ def test_every_module_imports_with_jax_flax_yaml_blocked():
             "vdtpu_torch.utils.timing"} <= set(modules)
     assert {"vdtpu_torch.serving.queue", "vdtpu_torch.serving.cli",
             "vdtpu_torch.serving.webui"} <= set(modules)
+    assert {"vdtpu_torch.models.autokl_loss", "vdtpu_torch.training.evaluator",
+            "vdtpu_torch.training.launch", "vdtpu_torch.quality"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         *[f"sys.modules[{name!r}] = None" for name in _BLOCKED],

@@ -12,8 +12,9 @@ The same rules convert every tree the port builds: the diffusers, both
 CLIP context encoders (``ctx.image``: the patch-embedding conv, the class
 and position embeddings, HF's LayerNorm names), the whole image VAE
 (``encoder``, ``quant_conv``, ``decoder``, ``post_quant_conv``) and the
-Optimus text VAE (BERT and GPT-2 towers).
-``quant_state_from_jax`` converts the int8 serving policy's calibrated
+Optimus text VAE (BERT and GPT-2 towers); ``loss_state_dict_from_jax``
+converts the VAE training loss (LPIPS, the discriminator and its
+BatchNorm statistics). ``quant_state_from_jax`` converts the int8 serving policy's calibrated
 scales and weight tables the same way.
 """
 from __future__ import annotations
@@ -85,6 +86,25 @@ def system_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, np.ndarra
         sd.update(state_dict_from_jax(p, f"vae.{name}."))
     for name, p in params.get("ctx", {}).items():
         sd.update(state_dict_from_jax(p, f"ctx.{name}.model."))
+    return sd
+
+
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def loss_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """vdtpu's VAE loss tree (``LPIPSWithDiscriminator.init_params``:
+    ``{"lpips", "discriminator", "disc_stats", "logvar"}``) -> the state dict
+    of ``models/autokl_loss.py::LPIPSWithDiscriminator``: conv kernels
+    [kh, kw, I, O] -> [O, I, kh, kw]; BatchNorm ``scale`` / ``bias`` ->
+    ``weight`` / ``bias``, its ``mean`` / ``var`` statistics ->
+    ``running_mean`` / ``running_var``."""
+    sd = state_dict_from_jax(tree["lpips"], "lpips.")
+    sd.update(state_dict_from_jax(tree["discriminator"], "discriminator."))
+    for path, v in _flatten(tree.get("disc_stats") or {}):
+        *parents, leaf = path
+        sd["discriminator." + ".".join([*parents, _BN_STATS[leaf]])] = np.asarray(v)
+    sd["logvar"] = np.asarray(tree["logvar"], np.float32).reshape(())
     return sd
 
 

@@ -189,7 +189,9 @@ class VAEDecoder(nn.Module):
 
 class AutoencoderKL(nn.Module):
     """The KL autoencoder: image [B, 3, H, W] in [0, 1] -> posterior over
-    latents [B, z, H/8, W/8]; latent -> image in [0, 1] (clamped)."""
+    latents [B, z, H/8, W/8]; latent -> image in [0, 1] (clamped);
+    ``forward`` is the reconstruction pass that its training loss
+    (``models/autokl_loss.py``) differentiates."""
 
     def __init__(self, ddconfig=None, embed_dim: int = 4, **_unused):
         super().__init__()
@@ -222,3 +224,11 @@ class AutoencoderKL(nn.Module):
     def decode(self, z, clamp: bool = True):
         dec = (self.decoder(self.post_quant_conv(z)) + 1.0) / 2.0
         return dec.clamp(0.0, 1.0) if clamp else dec
+
+    def forward(self, x, generator=None):
+        """The reconstruction pass of VAE training: (the unclamped decode of
+        the posterior's mode, or of a sample drawn from ``generator``; the
+        posterior)."""
+        post = self.posterior(x)
+        z = post.mode() if generator is None else post.sample(generator)
+        return self.decode(z, clamp=False), post
