@@ -176,11 +176,12 @@ def test_eval_run_matches_jax(systems, vcfg):
     batches = [{"caption": list(CAPTIONS[i:i + 2]),
                 "image": rs.rand(2, 2 * LATENT, 2 * LATENT, 3).astype(np.float32)}
                for i in (0, 2)]
-    xts = [rs.randn(2, LATENT, LATENT, 4).astype(np.float32) for _ in batches]
+    # the port's x_T stream: one generator seeded with the config's seed (0)
+    g = torch.Generator().manual_seed(0)
+    xts = [torch.randn((2, LATENT, LATENT, 4), generator=g).numpy() for _ in batches]
     want, ref_images = _jax_eval(jsys, tok, vcfg, batches, xts)
     # the sample function alone: the images vdtpu's body decodes
-    it = iter(xts)
-    sample_fn, _ = build_eval(psys, tok, vcfg, x_t_fn=lambda shape: torch.from_numpy(next(it)))
+    sample_fn, _ = build_eval(psys, tok, vcfg)
     for batch, ref in zip(batches, ref_images):
         imgs, second = sample_fn(batch)
         assert imgs.shape == ref.shape == (2, 2 * LATENT, 2 * LATENT, 3)
@@ -189,9 +190,7 @@ def test_eval_run_matches_jax(systems, vcfg):
             assert second is batch["image"]
         else:
             np.testing.assert_array_equal(second, tok(batch["caption"]))
-    it = iter(xts)
-    out = run_eval(psys, tok, dict(vcfg, max_batches=2), iter(batches + batches),
-                   x_t_fn=lambda shape: torch.from_numpy(next(it)))
+    out = run_eval(psys, tok, dict(vcfg, max_batches=2), iter(batches + batches))
     name = vcfg.get("evaluator", "clip_similarity")
     assert set(out) == {name} and np.isfinite(out[name])
     np.testing.assert_allclose(out[name], want[name],
@@ -199,7 +198,7 @@ def test_eval_run_matches_jax(systems, vcfg):
 
 
 def test_eval_draws_from_its_seed(systems):
-    """Without x_t_fn each batch's x_T comes from one generator seeded with
+    """Each batch's x_T comes from one generator seeded with
     the config's seed: two runs agree bit for bit, another seed differs."""
     _, psys, _ = systems
     tok = _tokenizer(psys)

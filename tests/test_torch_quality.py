@@ -1,7 +1,7 @@
 """The serving-policy quality gate (``python -m vdtpu_torch.quality``) on the
 tiny config on the CPU: n = 1, four f32 steps (three for DPM-Solver++),
-encoder-reuse warmup 1 so reuse steps exist, ToMe from 256 tokens so the
-32^2 latent's sites merge.
+encoder-reuse warmup 1 so reuse steps exist (``run``'s ``_ladder``), ToMe
+at the 32^2 latent's own map (1024 tokens), as the gate derives it.
 
 Each row's latent must equal, bit for bit, a direct ``DDIMSampler.sample``
 (and ``enable_tome``) call in that row's mode on the same x_T and
@@ -28,8 +28,8 @@ from vdtpu_torch.ops.quant import QuantPolicy
 torch.set_num_threads(2)
 
 N, STEPS, DPMPP, LATENT, SEED = 1, 4, 3, 32, 0
-RUN_KW = dict(n=N, steps=STEPS, latent=LATENT, seed=SEED, dpmpp_steps=DPMPP, reuse_warmup=1,
-              tome_min_tokens=256)
+LADDER = dict(dpmpp_steps=DPMPP, warmup=1)
+RUN_KW = dict(n=N, steps=STEPS, latent=LATENT, seed=SEED, _ladder=LADDER)
 ARGV = ["--device", "cpu", "--config", "vd_test_tiny", "--dtype", "float32", "--n", str(N),
         "--steps", str(STEPS), "--image-size", str(2 * LATENT), "--latent-downsample", "2"]
 
@@ -60,7 +60,7 @@ def _direct(system, gate, steps, **modes):
 
 def test_rows_equal_direct_sampler_calls(gate_run):
     system, out, seen = gate_run
-    rows = quality.row_modes(STEPS, DPMPP, 1, True)
+    rows = quality.row_modes(STEPS, True, **LADDER)
     assert list(seen) == ["bf16_exact", *[r[0] for r in rows], "bf16_exact_repeat"]
     gate = quality.Gate(system, N, LATENT, SEED)
     system.set_quant_policy(None)
@@ -71,7 +71,7 @@ def test_rows_equal_direct_sampler_calls(gate_run):
     try:
         for name, modes, tome in rows:
             steps = modes.pop("steps")
-            system.enable_tome(tome, 256)
+            system.enable_tome(tome, LATENT * LATENT)
             try:
                 x = _direct(system, gate, steps, **modes)
             finally:
@@ -101,7 +101,7 @@ def _script_metrics(x_v, img_v, x_ref, img_ref):
 def test_row_metrics_match_the_script(gate_run):
     _, out, seen = gate_run
     x_ref, img_ref = (t.numpy() for t in seen["bf16_exact"])
-    names = [r[0] for r in quality.row_modes(STEPS, DPMPP, 1, True)]
+    names = [r[0] for r in quality.row_modes(STEPS, True, **LADDER)]
     assert [k for k, v in out.items() if isinstance(v, dict) and "decoded_mae" in v] == names
     for name in names:
         x, img = (t.numpy() for t in seen[name])

@@ -62,6 +62,8 @@ TIMESTEPS = (0, 250, 500, 750, 999)
 SCALE = 7.5
 FILL_STD = 0.02
 CFG_BAND = (0.1, 0.8)
+DPMPP_STEPS = 20
+REUSE_WARMUP = 5
 
 
 def log(msg):
@@ -153,7 +155,8 @@ def divergence(x, img, x_ref, img_ref) -> dict:
             "decoded_psnr_db": round(float(10 * np.log10(rng ** 2 / max(mse, 1e-12))), 2)}
 
 
-def row_modes(steps: int, dpmpp_steps: int, warmup: int, composed: bool):
+def row_modes(steps: int, composed: bool = True, dpmpp_steps: int = DPMPP_STEPS,
+              warmup: int = REUSE_WARMUP):
     """(name, sampler modes, ToMe ratio) of the int8 ladder."""
     reuse = lambda k: {"interval": k, "warmup": warmup}
     rows = [("int8", dict(steps=steps), 0.0),
@@ -170,13 +173,15 @@ def row_modes(steps: int, dpmpp_steps: int, warmup: int, composed: bool):
 
 class Gate:
     """One system, one conditioning, one x_T; every variant samples and
-    decodes through ``observe(name, system, thunk)`` (default: the thunk)."""
+    decodes through ``observe(name, system, thunk)`` (default: the thunk).
+    ToMe merges at the sites of the latent's own map (latent² tokens: 4096
+    at 512², the script's ``enable_tome`` default)."""
 
     def __init__(self, system: VDSystem, n: int, latent: int, seed: int,
-                 observe: Callable | None = None, tome_min_tokens: int = 4096):
+                 observe: Callable | None = None):
         self.sys = system
         self.observe = observe or (lambda name, system, thunk: thunk())
-        self.tome_min_tokens = tome_min_tokens
+        self.tome_min_tokens = latent * latent
         dev = system.device
         enc = system.ctx["text"]
         vocab = enc.text_model.embeddings.token_embedding.num_embeddings
@@ -249,12 +254,12 @@ class Gate:
 
 
 def run(system: VDSystem, n: int = 2, steps: int = 50, latent: int = 64, seed: int = 0,
-        clip_sweep=(), composed: bool = True, dpmpp_steps: int = 20, reuse_warmup: int = 5,
-        tome_min_tokens: int = 4096, weights: str = "random_fill",
-        observe: Callable | None = None) -> dict:
+        clip_sweep=(), composed: bool = True, weights: str = "random_fill",
+        observe: Callable | None = None, _ladder: dict | None = None) -> dict:
     """The gate (or, with ``clip_sweep``, the calibration sweep) on
-    ``system``; returns the JSON result."""
-    gate = Gate(system, n, latent, seed, observe, tome_min_tokens)
+    ``system``; returns the JSON result. ``_ladder`` (tests at a few steps)
+    overrides ``row_modes``' DPM-Solver++ steps and reuse warmup."""
+    gate = Gate(system, n, latent, seed, observe)
     x_ref, img_ref, traj_ref = gate.row("bf16_exact", None, steps, intermediates=True)
     head = {"steps": steps, "batch": n}
     if clip_sweep:
@@ -282,7 +287,7 @@ def run(system: VDSystem, n: int = 2, steps: int = 50, latent: int = 64, seed: i
     log(f"calibration {time.perf_counter() - t0:.1f}s")
     variants = {}
     traj_q = None
-    for name, modes, tome in row_modes(steps, dpmpp_steps, reuse_warmup, composed):
+    for name, modes, tome in row_modes(steps, composed, **(_ladder or {})):
         first = name == "int8"
         x, img, traj = gate.row(name, policy, tome=tome, intermediates=first, **modes)
         traj_q = traj if first else traj_q

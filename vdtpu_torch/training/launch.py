@@ -29,14 +29,13 @@ EVAL_DEFAULTS = {"ddim_steps": 50, "scale": 7.5, "latent_size": 64, "latent_dim"
                  "max_batches": None}
 
 
-def build_eval(system, tokenizer: Callable, vcfg: Mapping | None = None,
-               x_t_fn: Callable | None = None):
+def build_eval(system, tokenizer: Callable, vcfg: Mapping | None = None):
     """(sample_fn, evaluator) of an eval run of ``system`` under the eval
     keys ``vcfg`` (``EVAL_DEFAULTS`` for the missing ones). ``sampler``
     ("ddim" or "dpmpp2m") is the method of ``DDIMSampler.sample``.
-    Each batch's x_T [B, s, s, latent_dim] is ``x_t_fn(shape)`` when given,
-    else normals from one generator seeded with ``seed``, on the system's
-    device."""
+    Each batch's x_T [B, s, s, latent_dim] is the next draw of normals from
+    one generator seeded with ``seed``, on the system's device (the
+    samplers draw nothing else at eta 0)."""
     v = {**EVAL_DEFAULTS, **dict(vcfg or {})}
     steps, scale, method = int(v["ddim_steps"]), float(v["scale"]), v["sampler"]
     s, dim, name = int(v["latent_size"]), int(v["latent_dim"]), v["evaluator"]
@@ -49,8 +48,7 @@ def build_eval(system, tokenizer: Callable, vcfg: Mapping | None = None,
         c = system.ctx_encode(ids, "text")
         u = uncond_1.repeat(c.shape[0], 1, 1)
         shape = (c.shape[0], s, s, dim)
-        xt = (x_t_fn(shape) if x_t_fn is not None
-              else torch.randn(shape, generator=gen, device=system.device))
+        xt = torch.randn(shape, generator=gen, device=system.device)
         x = system.sampler.sample(
             gen, steps, shape, {"type": "image", "xt": xt},
             {"type": "text", "conditioning": c, "unconditional_conditioning": u,
@@ -67,11 +65,11 @@ def build_eval(system, tokenizer: Callable, vcfg: Mapping | None = None,
     return sample_fn, evaluator
 
 
-def run_eval(system, tokenizer: Callable, vcfg: Mapping | None, batches: Iterable,
-             x_t_fn: Callable | None = None) -> dict[str, float]:
+def run_eval(system, tokenizer: Callable, vcfg: Mapping | None,
+             batches: Iterable) -> dict[str, float]:
     """Score ``system`` on ``batches`` (at most ``max_batches``) through
     ``EvalStage``; returns the evaluator's summary."""
-    sample_fn, evaluator = build_eval(system, tokenizer, vcfg, x_t_fn)
+    sample_fn, evaluator = build_eval(system, tokenizer, vcfg)
     limit = {**EVAL_DEFAULTS, **dict(vcfg or {})}["max_batches"]
     loader = itertools.islice(batches, limit) if limit else batches
     return EvalStage(evaluator, sample_fn)(loader)
