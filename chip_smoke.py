@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths (text-to-image, image variation,
 image-to-text and text-to-text, the multi-context blends, int8 serving,
 the serving queue and CLI, the VAE loss, the eval stage and the
-serving-policy gate, the Mosaic probes, t2i training) on one CUDA card.
+serving-policy gate, the Mosaic probes, t2i training, the training
+launcher and its data path) on one CUDA card.
 
     python3 chip_smoke.py            # the default phases, on one card
 
@@ -11,7 +12,8 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
   build     compile every CUDA source (one nvcc each, in parallel) and the
             Triton kernels; print the seconds
   kernels   each kernel against its plain version at the main paths'
-            shapes: max error, kernel / plain / library-call ms and the
+            shapes (the flash forward and backward also on their f32 route
+            at FLASH_SHAPES, in f32 with TF32 off): max error, kernel / plain / library-call ms and the
             bound (bytes or operations over the card's peak). "ms" is device
             time (calls captured in a CUDA graph, replayed between CUDA
             events); the "eager" times are the same calls launched one by
@@ -160,6 +162,28 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             (global batch 8 at 512^2, grad_accum 2, AdamW with the t2i
             experiment's groups, EMA 0.9999), each with its launch counts;
             one more step under torch.profiler
+  main_launch the training launcher (vdtpu_torch.training.launch.main) at full
+            width: (a) PNG shards synthesized (2 x 24 at 512^2, 4 at 640x576)
+            and data.benchmark's images/s at 1 and 4 threads (host work);
+            (b) a run of vd_laion_t2i from a seeded bf16 pretrained .pt and a
+            synthetic CLIP vocabulary: bf16 compute, global batch 8, gradacc
+            2, a latent cache of 3 batches encoded in chunks of 4 (the
+            towers freed after it), text data frozen, 4 steps, async saves
+            every 2: losses finite, frozen tensors unchanged, trained ones
+            moved, iter_2 / iter_4 / last on disk, the towers' memory before
+            and after, peak, cold and warm step, launches a step as derived;
+            (c) the run from iter_2 to step 4 again, within
+            LAUNCH_RESUME_BOUND x its lr sum of (b)'s parameters, and a
+            resume to 6 ("resumed ... at step 4"); (d) --eval of the EMA
+            shadow, one batch of 2, DDIM-50, CFG 7.5: summary.yaml and its
+            launches; then on a system of its own (with the Optimus VAE):
+            (h) f32 compute, a micro-batch-2 gradient through the flash
+            kernels' f32 route against the plain versions (TF32 off), the f32
+            path's launches; (e) the text flow's gradient (Optimus latents)
+            against the plain versions, the GN kernel at the text diffuser's
+            sites, two Trainer steps; (f) two t2i steps with the CLIP text
+            tower trained inside the loss; (g) two steps on bf16 master
+            weights, peak beside (b)'s
   gn_sweep  (not run by default) the GN kernel's plan measured: the card's
             cluster capacities against gn_silu.GN_CLUSTERS, and at
             ``GN_SWEEP_SHAPES`` both routes at every cluster size the kernel
@@ -210,7 +234,7 @@ import zlib
 PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "main_mcg",
           "main_modes", "eps",
           "main_int8", "modes", "eps_int8", "main_fused2", "main_queue", "main_quality", "probes",
-          "train",
+          "train", "main_launch",
           "profile", "gn_sweep", "gnq_sweep", "gnq_compare")
 DEFAULT_PHASES = PHASES[:-4]
 
@@ -367,6 +391,10 @@ TEXT_PROMPT = "a red cat"
 GNQ_MAX_OFF_BY_ONE = 1e-3
 # gn_stats against its plain version (f32 sums in another order): relative
 GNQ_STATS_RTOL = 1e-4
+# the flash kernels' f32 route against their plain versions in f32 (TF32
+# off): |k - p| <= F32_ATOL + F32_RTOL * |p|, the CPU f32 flash band (both
+# sides sum f32 products in other orders), and relative L2 <= F32_MAX_REL_L2
+F32_ATOL, F32_RTOL, F32_MAX_REL_L2 = 2e-5, 1e-4, 1e-5
 # flash backward against its plain version: the gradients are small (about
 # 1e-2 at the path's shapes), so the two bf16 ulps are taken at the largest
 # magnitude of each output, |k - p| <= ATOL * max|p| + RTOL * |p|, and the
@@ -381,6 +409,29 @@ TRAIN_FREEZE = ("diffuser_text_data",)
 # vdtpu/config/experiments/vd_laion_t2i.yaml
 TRAIN_PG_LRSCALE = {"diffuser_image_data": 1.0, "diffuser_image_context": 1.0,
                     "diffuser_text_data": 0.5, "diffuser_text_context": 0.5}
+# main_launch: the launcher's run (vd_laion_t2i cut to LAUNCH_ITERS steps of
+# global batch LAUNCH_BATCH) on LAUNCH_SHARDS PNG shards of LAUNCH_PER_SHARD
+# samples, LAUNCH_OTHER of them at another size; the latent cache of
+# LAUNCH_CACHE batches encoded in chunks of LAUNCH_CHUNK; the resume to
+# LAUNCH_RESUME_ITERS; a rerun from iter_2 held within LAUNCH_RESUME_BOUND
+# times the lr sum of its two steps of the first run (Adam moves an element
+# by about lr a step; fixed before the first run)
+LAUNCH_DIR = os.path.join("build", "main_launch")
+LAUNCH_SHARDS, LAUNCH_PER_SHARD, LAUNCH_OTHER = 2, 24, 4
+LAUNCH_BATCH, LAUNCH_CACHE, LAUNCH_CHUNK = 8, 3, 4
+LAUNCH_ITERS, LAUNCH_RESUME_ITERS = 4, 6
+LAUNCH_RESUME_BOUND = 2.5
+# the launcher's run (b)-(d) is cut in depth, not width: three levels
+# (320 / 640 / 1280 channels, the 64^2, 32^2 and 16^2 maps) with one block
+# a level in both diffusers, set through the experiment's model_args. A
+# call may write 45 GiB to the machine's disk, deleted files included; a
+# full-depth checkpoint (parameters, Adam's moments, the EMA) is 23.8 GB and
+# the run writes three, this cut 10.7 GB with bf16 first moments. (e)-(h)
+# run the full depth and write nothing.
+LAUNCH_LEVELS = {"image": {"num_res_blocks": [1, 1, 1], "channel_mult": [1, 2, 4],
+                           "attention_resolutions": [4, 2, 1]},
+                 "text": {"num_noattn_blocks": [1, 1, 1], "channel_mult": [1, 2, 4],
+                          "second_dim": [4, 4, 4], "with_attn": [True, True, True]}}
 TOME_RATIO = 0.75
 SEED = 0      # weights, noise and inputs are made from it
 STEPS = 50    # DDIM steps of the main-path request
@@ -629,6 +680,107 @@ def _flash_bwd_case(shape, gen):
                 library="F.scaled_dot_product_attention backward (graphed fwd+bwd minus fwd)",
                 bound_ms=bound_ms, bound_by=bound_by, eager=eager,
                 bound_detail=dict(bytes=nbytes, flops=5 * prod, exps=exps))
+
+
+def _flash_f32_case(shape, gen):
+    """The f32 route of the flash forward, with and without lse, against the
+    plain forward in f32 (TF32 off), on the "f32" path; SDPA in f32 is the
+    yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from vdtpu_torch.ops.flash import _plan_for, flash_attention, flash_attention_fwd, \
+        flash_attention_plain
+    b, n, h, d = shape
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen) for _ in range(3))
+    with _no_tf32():
+        before = dict(flash_attention.launches_by_path)
+        kern = lambda: flash_attention(q, k, v)
+        kern_lse = lambda: flash_attention_fwd(q, k, v, d ** -0.5, with_lse=True)
+        plain = lambda: flash_attention_plain(q, k, v)
+        out, (out_l, lse) = kern(), kern_lse()
+        ref, lse_ref = flash_attention_plain(q, k, v, with_lse=True)
+        torch.cuda.synchronize()
+        took = {p: c - before[p] for p, c in flash_attention.launches_by_path.items()
+                if c != before[p]}
+        path = _plan_for(q, k, v).path
+        err, rel, ok = compare(out, ref, F32_ATOL, F32_RTOL)
+        err_l, rel_l, ok_l = compare(out_l, ref, F32_ATOL, F32_RTOL)
+        lse_err, _, ok_lse = compare(lse, lse_ref, F32_ATOL, F32_RTOL)
+        ok = (ok and ok_l and ok_lse and max(rel, rel_l) <= F32_MAX_REL_L2 and path == "f32"
+              and took == {"f32": 2})
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+        eager = dict(ms=time_ms(kern, 5), plain_ms=time_ms(plain, 3, warmup=1),
+                     library_ms=time_ms(lib, 5))
+        ms, plain_ms, lib_ms = time_graph_ms(kern), time_graph_ms(plain, 2, 2), time_graph_ms(lib)
+        ms_lse = time_graph_ms(kern_lse)
+    nbytes = 4 * (q.numel() + 3 * k.numel())
+    flops, exps = 4.0 * b * h * n * n * d, float(b * h * n * n)
+    bound_ms, bound_by = _bound(nbytes, max(flops / PEAK_F32, exps / PEAK_EXP))
+    return dict(shape=list(shape), max_abs_err=max(err, err_l), rel_l2_err=max(rel, rel_l), ok=ok,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library="F.scaled_dot_product_attention (f32)", bound_ms=bound_ms,
+                bound_by=bound_by, eager=eager, path=path, lse_max_abs_err=lse_err,
+                ms_with_lse=ms_lse, bound_detail=dict(bytes=nbytes, flops=flops, exps=exps))
+
+
+def _flash_bwd_f32_case(shape, gen):
+    """The f32 route of the flash backward against the plain backward in
+    f32 (TF32 off) on the same (q, k, v, o, lse, dO), on the "f32" path, and
+    bit-equal across two runs; SDPA's f32 backward is the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from vdtpu_torch.ops.flash import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain)
+    b, n, h, d = shape
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen) for _ in range(4))
+    with _no_tf32():
+        o, lse = flash_attention_plain(q, k, v, with_lse=True)
+        kern = lambda: flash_attention_bwd(q, k, v, o, lse, do, scale)
+        plain = lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+        before = dict(flash_attention_bwd.launches_by_path)
+        outs, again, refs = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        took = {p: c - before[p] for p, c in flash_attention_bwd.launches_by_path.items()
+                if c != before[p]}
+        err = rel = 0.0
+        ok = took == {"f32": 2} and all(torch.equal(a, r) for a, r in zip(outs, again))
+        for a, r in zip(outs, refs):
+            e, rl, ok_a = compare(a, r, F32_ATOL, F32_RTOL)
+            err, rel, ok = max(err, e), max(rel, rl), ok and ok_a
+        ok = ok and rel <= F32_MAX_REL_L2
+        del outs, again, refs
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        lib_f = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+        lib_fb = lambda: torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt),
+                                             (qt, kt, vt), dot)
+        eager = dict(ms=time_ms(kern, 3, warmup=1), plain_ms=time_ms(plain, 3, warmup=1),
+                     library_ms=time_ms(lib_fb, 5) - time_ms(lib_f, 5))
+        ms, plain_ms = time_graph_ms(kern), time_graph_ms(plain, 2, 2)
+        lib_ms = time_graph_ms(lib_fb) - time_graph_ms(lib_f)
+    prod = 2.0 * b * h * n * n * d
+    exps = float(b * h * n * n)
+    nbytes = 4 * (8 * q.numel() + 2 * lse.numel())
+    bound_ms, bound_by = _bound(nbytes, max(5 * prod / PEAK_F32, exps / PEAK_EXP))
+    return dict(shape=list(shape), max_abs_err=err, rel_l2_err=rel, ok=ok, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, path="f32",
+                library="F.scaled_dot_product_attention backward, f32 (graphed fwd+bwd minus fwd)",
+                bound_ms=bound_ms, bound_by=bound_by, eager=eager,
+                bound_detail=dict(bytes=nbytes, flops=5 * prod, exps=exps))
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Full f32 matmuls and convolutions (the plain versions' reference)."""
+    import torch
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 def _gn_case(shape, gen):
@@ -1030,6 +1182,10 @@ def phase_kernels(state):
          + ATTN_BUCKET_SHAPES),
         ("flash_bwd", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
          "vdtpu/ops/pallas/flash.py:444", _flash_bwd_case, FLASH_SHAPES),
+        ("flash_fwd_f32", "cuda", "vdtpu_torch/csrc/flash_fwd.cu",
+         "vdtpu/ops/pallas/flash.py:40", _flash_f32_case, FLASH_SHAPES),
+        ("flash_bwd_f32", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
+         "vdtpu/ops/pallas/flash.py:444", _flash_bwd_f32_case, FLASH_SHAPES),
         ("gn_silu", "cuda", "vdtpu_torch/csrc/gn_silu.cu",
          "vdtpu/ops/pallas/gn_silu.py:45", _gn_case, list(GN_ROUTES)),
         ("nomax_fwd", "cuda", "vdtpu_torch/csrc/nomax_fwd.cu",
@@ -1076,7 +1232,7 @@ def phase_kernels(state):
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=head.get("library"), shape=head["shape"],
             shapes=rows)
-        if name == "flash_bwd":  # _bwd_impl's two TPU kernels: dq :444, dk/dv :474
+        if name in ("flash_bwd", "flash_bwd_f32"):  # _bwd_impl's two TPU kernels: dq :444, dk/dv :474
             state["kernels"][name]["replaces_also"] = "vdtpu/ops/pallas/flash.py:474"
         if name == "gn_silu_q":  # _gn_silu_q_blocked's apply pass
             state["kernels"][name]["replaces_also"] = "vdtpu/ops/pallas/gn_silu.py:210"
@@ -2206,9 +2362,12 @@ def _gn_routes(label: str) -> dict:
 
 def _attn_paths(label: str) -> dict:
     """Launches by ``attn_fwd_plan`` path of the two attention forwards since
-    their counters were zeroed; raises unless they add up."""
+    their counters were zeroed; raises unless they add up. The f32 path is
+    listed only where it launched (the bf16 paths' expectations name the
+    two tensor-core kernels)."""
     c = _counters()
-    paths = {name: dict(c[name].launches_by_path) for name in ("flash_fwd", "nomax_fwd")}
+    paths = {name: {p: n for p, n in c[name].launches_by_path.items() if p != "f32" or n}
+             for name in ("flash_fwd", "nomax_fwd")}
     for name, by in paths.items():
         if sum(by.values()) != c[name].launches:
             raise RuntimeError(f"{label}: {name} launches by path {by} of {c[name].launches}")
@@ -2220,7 +2379,7 @@ def _wgmma_only(label: str) -> dict:
     single-context paths' heads of 40 and 80 on aligned projections)."""
     paths = _attn_paths(label)
     for name, by in paths.items():
-        if by["mma"]:
+        if sum(by.values()) != by["wgmma"]:
             raise RuntimeError(f"{label}: {name} launches by path {by}; every "
                                "launch of this path must take the wgmma kernel")
     return paths
@@ -3545,8 +3704,9 @@ def _train_grads(loss_fn, params, x, ctx, t, noise):
 
 def phase_train(state):
     """t2i training at full width through ``Trainer``, on pre-encoded batches
-    (the harness's default contract; the VAE encoder is not ported, so the
-    latents are seeded normals)."""
+    (the harness's default contract): seeded normal latents and stand-in
+    prompts, no data path (``main_launch`` drives the launcher, the shards,
+    the VAE encoder and the latent cache)."""
     import gc
     import torch
     from vdtpu_torch.serving.api import VDSystem
@@ -3585,16 +3745,7 @@ def phase_train(state):
     _wgmma_only("train gradient check")
     with _plain_kernels():
         g_plain, loss_p, counts_p = _train_grads(loss_fn, params, *args)
-    if set(g_kern) != set(g_plain):
-        raise RuntimeError("train: the two gradient runs reached different parameters")
-    dot = na = nb = nd = 0.0
-    for k, a in g_kern.items():
-        a, b = a.double(), g_plain[k].double()
-        dot += float((a * b).sum())
-        na += float((a * a).sum())
-        nb += float((b * b).sum())
-        nd += float(((a - b) ** 2).sum())
-    cos, rel = dot / math.sqrt(na * nb), math.sqrt(nd / nb)
+    cos, rel = _grad_agreement(g_kern, g_plain)
     n_gn = _gn_sites(system)[0]
     expect_mb = {"flash_fwd": 10, "flash_bwd": 10, "gn_silu": n_gn}
     log(f"train: micro-batch-2 gradient of {len(g_kern)} tensors "
@@ -3699,6 +3850,551 @@ def phase_train(state):
     del trainer, opt, params, system, model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---- main_launch: the training launcher and its data path ----------------------------------
+
+def _grad_agreement(g_kern, g_plain):
+    """(cosine, relative L2) of two gradient dicts over every tensor, in f64."""
+    if set(g_kern) != set(g_plain):
+        raise RuntimeError("the two gradient runs reached different parameters")
+    dot = na = nb = nd = 0.0
+    for k, a in g_kern.items():
+        a, b = a.double(), g_plain[k].double()
+        dot += float((a * b).sum())
+        na += float((a * a).sum())
+        nb += float((b * b).sum())
+        nd += float(((a - b) ** 2).sum())
+    return dot / math.sqrt(na * nb), math.sqrt(nd / nb)
+
+
+@contextlib.contextmanager
+def _launch_probes(records: list, towers: dict):
+    """Time each optimizer step the launcher's Trainer runs (synchronized)
+    with its launch counts (zeroed just before it, read just after), and
+    the device memory around ``VDSystem.free_towers`` (the latent cache);
+    the launcher itself is driven as a user drives it."""
+    import torch
+    from vdtpu_torch.serving.api import VDSystem
+    from vdtpu_torch.training import checkpoints, harness
+    inner_step, inner_free, inner_snap = (harness.make_train_step, VDSystem.free_towers,
+                                          checkpoints.snapshot)
+
+    def make(*a, **kw):
+        step = inner_step(*a, **kw)
+
+        def timed(state, x, ctx, t=None, noise=None, gen=None):
+            torch.cuda.synchronize()
+            _zero_counters(*_train_counters().values())
+            t0 = time.perf_counter()
+            loss, aux = step(state, x, ctx, t, noise, gen)
+            torch.cuda.synchronize()
+            c = _train_counters()
+            records.append(dict(seconds=time.perf_counter() - t0, loss=float(loss),
+                                launches={k: f.launches for k, f in c.items()},
+                                flash_fwd_by_path=dict(c["flash_fwd"].launches_by_path),
+                                flash_bwd_by_path=dict(c["flash_bwd"].launches_by_path)))
+            return loss, aux
+        return timed
+
+    def free(self):
+        torch.cuda.synchronize()
+        towers["gn_encode"] = _train_counters()["gn_silu"].launches
+        towers["before_gib"] = torch.cuda.memory_allocated() / 2**30
+        inner_free(self)
+        towers["after_gib"] = torch.cuda.memory_allocated() / 2**30
+
+    def snap(state):
+        t0 = time.perf_counter()
+        out = inner_snap(state)
+        towers.setdefault("snapshot_s", []).append(time.perf_counter() - t0)
+        return out
+
+    harness.make_train_step, VDSystem.free_towers, checkpoints.snapshot = make, free, snap
+    try:
+        yield
+    finally:
+        harness.make_train_step, VDSystem.free_towers, checkpoints.snapshot = (
+            inner_step, inner_free, inner_snap)
+
+
+@contextlib.contextmanager
+def _no_saves():
+    """The Trainer saves nothing (the resume-equivalence rerun, whose
+    files would only cost disk)."""
+    from vdtpu_torch.training import harness
+    inner = harness.Trainer._save
+    harness.Trainer._save = lambda self, tag: None
+    try:
+        yield
+    finally:
+        harness.Trainer._save = inner
+
+
+def _launch_config(root: str, pretrained: str, vocab: str, merges: str) -> dict:
+    """The (b) experiment: vdtpu/config/experiments/vd_laion_t2i.yaml's t2i
+    run on the synthesized shards, cut to LAUNCH_ITERS steps of global batch
+    LAUNCH_BATCH."""
+    from vdtpu_torch.config.experiments import load_experiment
+    cfg = load_experiment("vd_laion_t2i")
+    cfg.update(name="main_launch", pretrained=pretrained, clip_vocab=vocab, clip_merges=merges,
+               model_args=_launch_model_args())
+    cfg["data"].update(shards=os.path.join(root, "shards"), batch_size=LAUNCH_BATCH,
+                       shuffle_buffer=16, cache_latents=LAUNCH_CACHE, encode_chunk=LAUNCH_CHUNK)
+    cfg["train"].update(num_iters=LAUNCH_ITERS, batch_size=LAUNCH_BATCH, ckpt_every=2,
+                        async_ckpt=True, freeze=list(TRAIN_FREEZE), log_every=1)
+    cfg["train"]["optimizer_args"]["mu_dtype"] = "bfloat16"
+    cfg["eval"] = {"ddim_steps": STEPS, "scale": 7.5, "latent_size": 64, "latent_dim": 4,
+                   "evaluator": "clip_similarity", "sampler": "ddim", "max_batches": 1,
+                   "use_ema": True, "seed": SEED}
+    return cfg
+
+
+def _launch_model_args() -> dict:
+    """model_args of the depth cut (LAUNCH_LEVELS): the four-flow config's
+    diffuser_cfg_list with the levels replaced."""
+    from vdtpu_torch.config.configs import model_cfg_bank
+    diffusers = model_cfg_bank()("vd_four_flow_v1-0")["args"]["diffuser_cfg_list"]
+    for name, sub in diffusers:
+        sub["args"].update(LAUNCH_LEVELS[name])
+    return {"diffuser_cfg_list": diffusers}
+
+
+def _flash_sites(model, latent: int = 64) -> int:
+    """Flash launches of one t2i UNet call's forward: the image program's
+    context slots on maps of >= 1024 tokens (self-attention over as many
+    keys; the 77-token cross-attentions take the plain path)."""
+    prog = model.diffuser["image"].program
+    side, di, n = latent, 0, 0
+    for tok in prog.layer_order:
+        if tok == "d":
+            kind = prog.data[di].kind
+            side = side // 2 if kind == "down" else side * 2 if kind == "up" else side
+            di += 1
+        elif tok == "c":
+            n += side * side >= 1024
+    return n
+
+
+def _edit_run_config(run: str, **sections):
+    path = os.path.join(run, "config.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    for sec, kv in sections.items():
+        cfg[sec].update(kv)
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+
+
+def _check_steps(label: str, records: list, expect: dict, path: str = "wgmma"):
+    """Every step's loss finite, launches as derived, the attention on ``path``."""
+    for i, r in enumerate(records):
+        if not math.isfinite(r["loss"]):
+            raise RuntimeError(f"{label} step {i + 1}: loss {r['loss']}")
+        if r["launches"] != expect:
+            raise RuntimeError(f"{label} step {i + 1}: launches {r['launches']} != {expect}")
+        for key in ("flash_fwd_by_path", "flash_bwd_by_path"):
+            if sum(r[key].values()) != r[key][path]:
+                raise RuntimeError(f"{label} step {i + 1}: {key} {r[key]}, not all {path}")
+
+
+def _n_gn(model, x_type: str = "image", c_type: str = "text") -> int:
+    """GroupNorm calls of one UNet call of the (x_type, c_type) flow."""
+    from vdtpu_torch.models.layers import GroupNorm32
+    count = lambda mod: sum(isinstance(m, GroupNorm32) for m in mod.modules())
+    return (count(model.diffuser[x_type].data_blocks)
+            + count(model.diffuser[c_type].context_blocks))
+
+
+def _launch_data(state, root: str) -> dict:
+    """(a) PNG shards (LAUNCH_SHARDS x LAUNCH_PER_SHARD at 512^2, the last
+    LAUNCH_OTHER at another size) and data.benchmark's images/s (host work)."""
+    from vdtpu_torch.data import benchmark
+    t = time.perf_counter()
+    shards = benchmark.synthesize_shards(os.path.join(root, "shards"), LAUNCH_SHARDS,
+                                         LAUNCH_PER_SHARD, 512, fmt="png", n_other=LAUNCH_OTHER)
+    synth_s = time.perf_counter() - t
+    rates = {th: benchmark.run(shards, 512, LAUNCH_BATCH, th, max_batches=4) for th in (1, 4)}
+    nbytes = sum(os.path.getsize(os.path.join(shards, f)) for f in os.listdir(shards))
+    log(f"main_launch (a) {LAUNCH_SHARDS} PNG shards x {LAUNCH_PER_SHARD} samples at 512^2 "
+        f"({LAUNCH_OTHER} at {512 * 5 // 4}x{512 * 9 // 8}, resized), {nbytes / 2**20:.1f} MiB, "
+        f"made in {synth_s:.1f} s; data.benchmark (host decode + resize, batch {LAUNCH_BATCH}): "
+        f"{rates[1]:.1f} images/s at 1 thread, {rates[4]:.1f} at 4 (host work: no card) "
+        f"[{state.get('card')}]")
+    return dict(synth_s=synth_s, images_per_s=rates, shard_mib=nbytes / 2**20)
+
+
+def _launch_train(state, root: str, cfg_path: str, pretrained: str) -> tuple:
+    """(b) the launcher's run: returns (its log, the run dir)."""
+    import gc
+    import torch
+    from vdtpu_torch.training.ema import tree_items
+    from vdtpu_torch.training.launch import main as launch_main
+    from vdtpu_torch.training.optim import parameter_group_of
+    records, towers = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(*_train_counters().values())
+    t = time.perf_counter()
+    with _launch_probes(records, towers):
+        out = launch_main(["--config", cfg_path, "--debug"])
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer, exp = out["trainer"], out["exp"]
+    n_gn, n_fl = _n_gn(trainer.model), _flash_sites(trainer.model)
+    expect = {"flash_fwd": n_fl * TRAIN_ACCUM, "flash_bwd": n_fl * TRAIN_ACCUM,
+              "gn_silu": n_gn * TRAIN_ACCUM}
+    _check_steps("main_launch (b)", records, expect)
+    files = sorted(os.listdir(exp.weight_dir))
+    sd = torch.load(pretrained, map_location="cpu", mmap=True, weights_only=True)
+    params = dict(tree_items(trainer.state.params))
+    frozen = {k for k in params if parameter_group_of(k) in TRAIN_FREEZE}
+    moved, frozen_moved, grads = set(), set(), set()
+    for k, p in params.items():
+        if p.grad is not None:
+            grads.add(k)
+        if "diffuser." + k in sd and not torch.equal(p.detach().cpu(), sd["diffuser." + k].float()):
+            (frozen_moved if k in frozen else moved).add(k)
+    warm = records[1:]
+    step_s = sum(r["seconds"] for r in warm) / len(warm)
+    res = dict(wall_s=wall, peak_gib=peak, cold_step_s=records[0]["seconds"], warm_step_s=step_s,
+               losses=[r["loss"] for r in records], launches_per_step=records[-1]["launches"],
+               towers_gib=(towers["before_gib"], towers["after_gib"]),
+               gn_encode=towers["gn_encode"], snapshot_s=towers.get("snapshot_s"),
+               files=files, moved=len(moved), frozen_moved=len(frozen_moved))
+    log(f"main_launch (b) launcher run (vd_laion_t2i at full width, 512^2, bf16 compute, "
+        f"global batch {LAUNCH_BATCH}, gradacc {TRAIN_ACCUM}, cache {LAUNCH_CACHE} batches in "
+        f"chunks of {LAUNCH_CHUNK}, {LAUNCH_ITERS} steps, async saves every 2): {wall:.1f} s; "
+        f"losses {res['losses']}; steps cold {records[0]['seconds']:.3f} s, warm {step_s:.3f} s "
+        f"({LAUNCH_BATCH / step_s:.3f} images/s); peak {peak:.2f} GiB; device memory around "
+        f"free_towers {towers['before_gib']:.2f} -> {towers['after_gib']:.2f} GiB; GN launches "
+        f"of the cache's encodes {towers['gn_encode']}; host snapshots {towers.get('snapshot_s')} "
+        f"s; launches a step {records[-1]['launches']} (expected {expect}), flash forward by "
+        f"path {records[-1]['flash_fwd_by_path']}; checkpoints {files}; tensors moved "
+        f"{len(moved)} (with gradients {len(grads)}), frozen moved {len(frozen_moved)} of "
+        f"{len(frozen)} [{state.get('card')}]")
+    if frozen_moved or not grads or not grads <= moved:
+        raise RuntimeError(f"main_launch (b): frozen moved {sorted(frozen_moved)[:3]}, with "
+                           f"gradients not moved {sorted(grads - moved)[:3]}")
+    if files != ["iter_2.pt", "iter_4.pt", "last.pt"]:
+        raise RuntimeError(f"main_launch (b): checkpoints {files}")
+    if not towers["after_gib"] < towers["before_gib"]:
+        raise RuntimeError("main_launch (b): the towers' memory was not freed")
+    lrs = [trainer.scheduler[s // TRAIN_ACCUM] for s in range(LAUNCH_ITERS)]
+    del out, trainer, params, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, exp.log_dir, lrs
+
+
+def _launch_resume(state, cfg_path: str, run: str, lrs) -> dict:
+    """(c) the rerun from iter_2 to step LAUNCH_ITERS (no saves) against (b)'s
+    step-LAUNCH_ITERS parameters, then the resume to LAUNCH_RESUME_ITERS."""
+    import gc
+    import torch
+    from vdtpu_torch.training.ema import tree_items
+    from vdtpu_torch.training.launch import main as launch_main
+    weight = os.path.join(run, "weight")
+    records, towers = [], {}
+    with _launch_probes(records, towers), _no_saves():
+        out = launch_main(["--config", cfg_path, "--resume_dir", run, "--resume_weight", "iter_2"])
+    ref = torch.load(os.path.join(weight, f"iter_{LAUNCH_ITERS}.pt"), map_location="cpu",
+                     mmap=True, weights_only=True)["params"]
+    bound = LAUNCH_RESUME_BOUND * sum(lrs[2:])
+    worst, n_diff, n_all = 0.0, 0, 0
+    for k, p in tree_items(out["trainer"].state.params):
+        d = (p.detach().float().cpu() - ref[k].float()).abs()
+        worst = max(worst, float(d.max()))
+        n_diff += int((d > 0).sum())
+        n_all += d.numel()
+    rerun_steps = [r["seconds"] for r in records]
+    del out, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"main_launch (c) from iter_2 to step {LAUNCH_ITERS} again: {n_diff} of {n_all} "
+        f"parameter elements differ from (b)'s, max |diff| {worst:.3e} (bound "
+        f"{LAUNCH_RESUME_BOUND} x the two steps' lr sum = {bound:.3e}: Adam moves an element by "
+        f"about lr a step, and a gradient at rounding level, whose dQ partials add in no fixed "
+        f"order on the card, may flip its sign); steps {rerun_steps} s [{state.get('card')}]")
+    if not worst <= bound:
+        raise RuntimeError(f"main_launch (c): the rerun from iter_2 is {worst:.3e} from (b)'s "
+                           f"parameters, over {bound:.3e}")
+    for tag in ("iter_2", f"iter_{LAUNCH_ITERS}"):   # 'last' stays (the same file)
+        os.remove(os.path.join(weight, f"{tag}.pt"))
+
+    _edit_run_config(run, train={"num_iters": LAUNCH_RESUME_ITERS})
+    records.clear()
+    t = time.perf_counter()
+    with _launch_probes(records, towers):
+        out = launch_main(["--config", cfg_path, "--resume_dir", run])
+    wall = time.perf_counter() - t
+    step = out["trainer"].state.step
+    with open(os.path.join(run, "train.log")) as f:
+        resumed = [ln for ln in f if ln.startswith("resumed from")]
+    files = sorted(os.listdir(weight))
+    n_fl = _flash_sites(out["trainer"].model)
+    expect = {"flash_fwd": n_fl * TRAIN_ACCUM, "flash_bwd": n_fl * TRAIN_ACCUM,
+              "gn_silu": _n_gn(out["trainer"].model) * TRAIN_ACCUM}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_steps("main_launch (c)", records, expect)
+    log(f"main_launch (c) resume to {LAUNCH_RESUME_ITERS}: {wall:.1f} s, log {resumed!r}, "
+        f"step {step}, losses {[r['loss'] for r in records]}, steps "
+        f"{[round(r['seconds'], 3) for r in records]} s, checkpoints {files} "
+        f"[{state.get('card')}]")
+    if (not resumed or f"at step {LAUNCH_ITERS}" not in resumed[-1]
+            or step != LAUNCH_RESUME_ITERS or f"iter_{LAUNCH_RESUME_ITERS}.pt" not in files):
+        raise RuntimeError(f"main_launch (c): resume log {resumed}, step {step}, files {files}")
+    os.remove(os.path.join(weight, f"iter_{LAUNCH_RESUME_ITERS}.pt"))
+    return dict(rerun_max_diff=worst, rerun_bound=bound, rerun_elements_differ=n_diff,
+                resume_wall_s=wall, resume_steps_s=[r["seconds"] for r in records])
+
+
+def _launch_eval(state, cfg_path: str, run: str) -> dict:
+    """(d) --eval on the run's EMA shadow: one batch of 2, DDIM-50, CFG 7.5."""
+    import gc
+    import torch
+    from vdtpu_torch.serving.api import VDSystem
+    from vdtpu_torch.training.launch import main as launch_main
+    _edit_run_config(run, data={"batch_size": 2})
+    meta = VDSystem("vd_four_flow_v1-0", device="meta", model_args=_launch_model_args())
+    n_unet, n_dec, _ = _gn_sites(meta)
+    expect = {"flash_fwd": _flash_sites(meta.model) * STEPS, "gn_silu": n_unet * STEPS + n_dec}
+    del meta
+    torch.cuda.synchronize()
+    _zero_counters()
+    t = time.perf_counter()
+    summary = launch_main(["--config", cfg_path, "--eval", "--resume_dir", run])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = {k: _read_counters()[k] for k in expect}
+    paths = _wgmma_only("main_launch (d)")["flash_fwd"]
+    with open(os.path.join(run, "eval", "summary.yaml")) as f:
+        text = f.read()
+    written = {k.strip(): float(v) for k, v in (ln.split(":", 1) for ln in text.splitlines())}
+    with open(os.path.join(run, "train.log")) as f:   # the resumed run's log
+        loaded = "eval: loaded trained checkpoint 'last'" in f.read()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"main_launch (d) --eval (EMA shadow of 'last'; 1 batch of 2, DDIM-{STEPS}, CFG 7.5, "
+        f"CLIP-sim): {wall:.1f} s, summary.yaml {text.strip()!r}, checkpoint loaded {loaded}, "
+        f"launches {got} (expected {expect}), flash by path {paths} [{state.get('card')}]")
+    if (written != {k: float(v) for k, v in summary.items()}
+            or not all(math.isfinite(v) for v in written.values()) or not loaded):
+        raise RuntimeError(f"main_launch (d): summary {written} / {summary}, loaded {loaded}")
+    if got != expect:
+        raise RuntimeError(f"main_launch (d): launches {got} != {expect}")
+    return dict(wall_s=wall, summary=written, launches=got)
+
+
+def _launch_flows(state) -> dict:
+    """(e)-(h) on one full-width f32 system with the Optimus VAE."""
+    import gc
+    import torch
+    from vdtpu_torch.ops.flash import flash_attention, flash_attention_bwd
+    from vdtpu_torch.serving.api import VDSystem
+    from vdtpu_torch.training.harness import Trainer, make_loss_fn
+    from vdtpu_torch.training.optim import get_optimizer
+    from vdtpu_torch.training.schedulers import get_scheduler
+    res = {}
+    system = VDSystem("vd_four_flow_v1-0", dtype=torch.float32, device="cuda",
+                      use_checkpoint=False)
+    system.init_random(SEED + 20)
+    derandomize_zeros(system.net, SEED + 21)
+    model = system.model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    prompts = [f"a photo of a {w} on a table in the morning light" for w in (
+        "cat", "dog", "red apple", "blue cup", "lamp", "book", "violin", "plant")]
+    ctx_ids = stand_in_tokenizer(prompts)
+    ctx = system.ctx_encode(ctx_ids, "text")
+    with torch.no_grad():
+        bert = system.vae["text"].encoder.embeddings.word_embeddings.num_embeddings
+        ids = torch.randint(1000, bert, (LAUNCH_BATCH, 32), device="cuda", generator=gen)
+        x_text = model.scale_latent(system.vae["text"].encode_ids(ids), "text").float()
+    x_img = torch.randn(LAUNCH_BATCH, 4, 64, 64, device="cuda", generator=gen)
+    sched = get_scheduler({"type": "stable_diffusion_linear", "base_lr": 1e-7},
+                          global_batch_size=LAUNCH_BATCH, gradacc_every=TRAIN_ACCUM)
+
+    def trainer_steps(label, tree, x, ctx_in, x_type, c_type, expect, freeze=TRAIN_FREEZE,
+                      **kw):
+        opt, set_lr = get_optimizer("adamw", tree, TRAIN_PG_LRSCALE, freeze, weight_decay=0.01)
+        tr = Trainer(model, tree, opt, set_lr, sched, x_type=x_type, c_type=c_type,
+                     ema_decay=0.9999, grad_accum=TRAIN_ACCUM, freeze_groups=freeze,
+                     log_every=1, **kw)
+        times = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            _zero_counters(*_train_counters().values())
+            t = time.perf_counter()
+            tr.run([{"x": x, "ctx": ctx_in}] * 2, num_iters=i + 1, seed=SEED)
+            loss = tr.last_loss
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            got = {k: c.launches for k, c in _train_counters().items()}
+            if not math.isfinite(loss) or got != expect:
+                raise RuntimeError(f"main_launch {label} step {i + 1}: loss {loss}, launches "
+                                   f"{got} != {expect}")
+        return tr, opt, times
+
+    # (h) f32 compute: the f32 route at the 4096- and 1024-token sites
+    params = system.for_training(torch.float32)
+    t_mb = torch.tensor([100, 700], device="cuda")
+    noise = torch.randn(2, 4, 64, 64, device="cuda", generator=gen)
+    with _no_tf32():
+        loss_fn = make_loss_fn(model, "image", "text", TRAIN_FREEZE)
+        _zero_counters(flash_attention_bwd)
+        g_kern, loss_k, counts_k = _train_grads(loss_fn, params, x_img[:2], ctx[:2], t_mb, noise)
+        f32_paths = (dict(flash_attention.launches_by_path),
+                     dict(flash_attention_bwd.launches_by_path))
+        with _plain_kernels():
+            g_plain, loss_p, counts_p = _train_grads(loss_fn, params, x_img[:2], ctx[:2], t_mb,
+                                                     noise)
+    cos, rel = _grad_agreement(g_kern, g_plain)
+    del g_kern, g_plain
+    n_gn, n_fl = _n_gn(model), _flash_sites(model)
+    expect_h = {"flash_fwd": n_fl, "flash_bwd": n_fl, "gn_silu": n_gn}
+    log(f"main_launch (h) f32 compute (bf16: false), micro-batch-2 gradient, kernels vs plain "
+        f"(TF32 off): cosine {cos:.8f} rel_l2 {rel:.3e} (limits cos >= {TRAIN_MIN_COS}, rel_l2 "
+        f"<= {TRAIN_MAX_REL_L2}); loss {loss_k:.7f} vs {loss_p:.7f}; launches {counts_k} "
+        f"(expected {expect_h}), forward by path {f32_paths[0]}, backward by path "
+        f"{f32_paths[1]}; plain run {counts_p} [{state.get('card')}]")
+    if not (cos >= TRAIN_MIN_COS and rel <= TRAIN_MAX_REL_L2) or counts_k != expect_h \
+            or f32_paths[0]["f32"] != n_fl or f32_paths[1]["f32"] != n_fl \
+            or any(counts_p.values()):
+        raise RuntimeError("main_launch (h): the f32 route's gradient or launches disagree")
+    res["h"] = dict(cosine=cos, rel_l2=rel, launches=counts_k, fwd_by_path=f32_paths[0],
+                    bwd_by_path=f32_paths[1])
+    for name, n in (("flash_fwd_f32", f32_paths[0]["f32"]), ("flash_bwd_f32", f32_paths[1]["f32"])):
+        if name in state["kernels"]:
+            state["kernels"][name]["launches"] = n
+            state["kernels"][name]["path"] = "main_launch (h): f32 micro-batch-2 gradient"
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the text flow: Optimus latents, the text diffuser, bf16 compute
+    params = system.for_training(torch.bfloat16)
+    loss_fn = make_loss_fn(model, "text", "text")
+    noise_t = torch.randn(2, x_text.shape[1], device="cuda", generator=gen)
+    g_kern, loss_k, counts_k = _train_grads(loss_fn, params, x_text[:2], ctx[:2], t_mb, noise_t)
+    with _plain_kernels():
+        g_plain, loss_p, counts_p = _train_grads(loss_fn, params, x_text[:2], ctx[:2], t_mb,
+                                                 noise_t)
+    cos, rel = _grad_agreement(g_kern, g_plain)
+    del g_kern, g_plain
+    n_gn_t = _n_gn(model, "text", "text")
+    expect_e = {"flash_fwd": 0, "flash_bwd": 0, "gn_silu": n_gn_t}
+    log(f"main_launch (e) text flow (x_type text, c_type text; Optimus latents {tuple(x_text.shape)}"
+        f"), micro-batch-2 gradient, kernels vs plain: cosine {cos:.6f} rel_l2 {rel:.5f}; loss "
+        f"{loss_k:.6f} vs {loss_p:.6f}; launches {counts_k} (expected {expect_e}: the GN "
+        f"kernel at the text diffuser's sites, no attention over 1024 keys) "
+        f"[{state.get('card')}]")
+    if not (cos >= TRAIN_MIN_COS and rel <= TRAIN_MAX_REL_L2) or counts_k != expect_e:
+        raise RuntimeError("main_launch (e): the text flow's gradient or launches disagree")
+    tr, opt, times = trainer_steps("(e)", params, x_text, ctx, "text", "text",
+                                   {k: v * TRAIN_ACCUM for k, v in expect_e.items()},
+                                   freeze=("diffuser_image_data",))
+    res["e"] = dict(cosine=cos, rel_l2=rel, launches=counts_k, step_s=times)
+    log(f"main_launch (e) two Trainer steps of the text flow: {times} s, loss "
+        f"{tr.last_loss:.6f} [{state.get('card')}]")
+    del tr, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) the trainable CLIP text tower inside the loss
+    cparams, encode = system.trainable_ctx("text", torch.bfloat16)
+    before = {k: _fingerprint(p) for k, p in cparams.items()}
+    tree = {"diffuser": params, "ctx": cparams}
+    expect_f = {"flash_fwd": n_fl * TRAIN_ACCUM, "flash_bwd": n_fl * TRAIN_ACCUM,
+                "gn_silu": n_gn * TRAIN_ACCUM}
+    torch.cuda.reset_peak_memory_stats()
+    tr, opt, times = trainer_steps("(f)", tree, x_img, torch.as_tensor(ctx_ids), "image", "text",
+                                   expect_f, ctx_encode_fn=encode)
+    with_grad = {k for k, p in cparams.items() if p.grad is not None}
+    moved = {k for k, p in cparams.items() if _fingerprint(p) != before[k]}
+    labels = sorted({g["label"] for g in opt.param_groups})
+    peak_f = torch.cuda.max_memory_allocated() / 2**30
+    log(f"main_launch (f) trainable CLIP text tower: two t2i steps {times} s, loss "
+        f"{tr.last_loss:.6f}, tower tensors with gradients {len(with_grad)} of {len(cparams)}, "
+        f"moved {len(moved)}, optimizer groups {labels}, peak {peak_f:.2f} GiB "
+        f"[{state.get('card')}]")
+    if not with_grad or not with_grad <= moved:
+        raise RuntimeError(f"main_launch (f): tower tensors with gradients not moved "
+                           f"{sorted(with_grad - moved)[:3]}")
+    res["f"] = dict(step_s=times, tower_moved=len(moved), tower_with_grad=len(with_grad),
+                    tower_tensors=len(cparams), peak_gib=peak_f)
+    del tr, opt, tree, cparams, encode
+    system.ctx["text"].requires_grad_(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) bf16 master weights
+    params = system.for_training(torch.bfloat16, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    tr, opt, times = trainer_steps("(g)", params, x_img, ctx, "image", "text", expect_f)
+    peak_g = torch.cuda.max_memory_allocated() / 2**30
+    dtypes = sorted({str(st["mu"].dtype) for st in opt.state.values()}
+                    | {str(s.dtype) for s in tr.state.ema.shadow.values()})
+    log(f"main_launch (g) params_dtype bfloat16: two t2i steps {times} s, loss "
+        f"{tr.last_loss:.6f}, moments and shadow {dtypes}, peak {peak_g:.2f} GiB "
+        f"[{state.get('card')}]")
+    if dtypes != ["torch.bfloat16"]:
+        raise RuntimeError(f"main_launch (g): state dtypes {dtypes}")
+    res["g"] = dict(step_s=times, peak_gib=peak_g)
+    del tr, opt, params, system, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_main_launch(state):
+    """The training launcher (python -m vdtpu_torch.training.launch) at full
+    width through its data path: (a) shards and data.benchmark, (b) a run,
+    (c) a rerun from iter_2 and a resume, (d) --eval, then (e)-(h) the text
+    flow, the trainable context encoder, bf16 master weights and f32
+    compute on a system of their own."""
+    import gc
+    import shutil
+    import torch
+    state.pop("system", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.abspath(LAUNCH_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    res = {"a": _launch_data(state, root)}
+    from vdtpu_torch.serving.api import VDSystem
+    t = time.perf_counter()
+    system = VDSystem("vd_four_flow_v1-0", dtype=torch.float32, device="cuda",
+                      model_args=_launch_model_args())
+    system.init_random(SEED)
+    derandomize_zeros(system.net, SEED + 1)
+    pretrained = os.path.join(root, "pretrained.pt")
+    torch.save({k: v.to("cpu", torch.bfloat16) for k, v in system.net.state_dict().items()},
+               pretrained)
+    del system
+    gc.collect()
+    torch.cuda.empty_cache()
+    vocab, merges = os.path.join(root, "vocab.json"), os.path.join(root, "merges.txt")
+    _synthetic_clip_vocab(vocab, merges)
+    cfg_path = os.path.join(root, "experiment.json")
+    with open(cfg_path, "w") as f:
+        json.dump(_launch_config(root, pretrained, vocab, merges), f, indent=1)
+    log(f"main_launch: pretrained {os.path.getsize(pretrained) / 2**30:.2f} GiB (bf16, seeded) "
+        f"written in {time.perf_counter() - t:.1f} s")
+    cwd = os.getcwd()
+    os.chdir(root)      # the run dir goes under <root>/log
+    try:
+        res["b"], run, lrs = _launch_train(state, root, cfg_path, pretrained)
+        res["c"] = _launch_resume(state, cfg_path, run, lrs)
+        res["d"] = _launch_eval(state, cfg_path, run)
+    finally:
+        os.chdir(cwd)
+    shutil.rmtree(root, ignore_errors=True)    # tens of GiB of checkpoints
+    res.update(_launch_flows(state))
+    log(f"main_launch: peak (b) {res['b']['peak_gib']:.2f} GiB (f32 master weights), (g) "
+        f"{res['g']['peak_gib']:.2f} GiB (bf16 master weights) [{state.get('card')}]")
+    state["main_launch"] = res
 
 
 def _dev_t(e) -> float:
@@ -3891,7 +4587,8 @@ def main() -> int:
         log(f"all phases: {time.perf_counter() - t_all:.1f} s")
     finally:
         _LOG.close()
-    if {"main", "main_int8", "modes", "main_fused2", "probes", "train"} <= set(phases):
+    if {"main", "main_int8", "modes", "main_fused2", "probes", "train",
+            "main_launch"} <= set(phases):
         missing = [k for k, v in state["kernels"].items() if not v["launches"]]
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: {missing}")

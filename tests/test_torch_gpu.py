@@ -117,7 +117,7 @@ def test_flash_kernel_reads_strided_views(gen):
 
 
 def test_flash_kernel_refuses(gen):
-    q = _randn(gen, 1, 64, 1, 40, dtype=torch.float32)
+    q = _randn(gen, 1, 64, 1, 40, dtype=torch.float16)   # bf16 and f32 only
     with pytest.raises(TypeError):
         flash_attention(q, q, q)
     q = _randn(gen, 1, 64, 1, 264)
@@ -829,6 +829,85 @@ def test_flash_bwd_takes_an_offset_lse(gen):
     _bwd_close(out, flash_attention_bwd_plain(q, k, v, o, lse, do, d ** -0.5))
 
 
+# the f32 route against its plain version in f32 (the CPU f32 flash band):
+# both sides sum f32 products, in other orders
+F32_ATOL, F32_RTOL, F32_MAX_REL_L2 = 2e-5, 1e-4, 1e-5
+
+
+@pytest.mark.parametrize("b,n,m,h,d", [
+    (4, 4096, 4096, 8, 40),    # the 64^2 sites of an f32 training run
+    (4, 1024, 1024, 8, 80),    # the 32^2 sites
+    (1, 1024, 1024, 2, 64),    # the tiny VAE's mid attention at 64^2
+    (2, 100, 300, 3, 8),       # ragged keys and queries
+    (1, 257, 1023, 2, 36),     # d % 16 != 0
+    (1, 128, 200, 1, 256),     # the widest head
+])
+def test_flash_f32_forward_matches_plain(gen, b, n, m, h, d):
+    from vdtpu_torch.ops.flash import flash_attention_fwd
+    prev = _f32_no_tf32()
+    try:
+        q, k, v = (_randn(gen, b, r, h, d, dtype=torch.float32) for r in (n, m, m))
+        out = _one_launch(flash_attention, "f32", lambda: flash_attention(q, k, v))
+        out_l, lse = _one_launch(flash_attention, "f32",
+                                 lambda: flash_attention_fwd(q, k, v, d ** -0.5, with_lse=True))
+        ref, lse_ref = flash_attention_plain(q, k, v, with_lse=True)
+        for o in (out, out_l):
+            assert o.dtype == torch.float32
+            torch.testing.assert_close(o, ref, atol=F32_ATOL, rtol=F32_RTOL)
+            assert _rel_l2(o, ref) <= F32_MAX_REL_L2
+        torch.testing.assert_close(lse, lse_ref, atol=F32_ATOL, rtol=F32_RTOL)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("b,n,m,h,d", [
+    (4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80), (1, 1024, 1024, 2, 64),
+    (2, 100, 300, 3, 8), (1, 257, 1023, 2, 36), (1, 130, 200, 1, 128),
+])
+def test_flash_f32_backward_matches_plain(gen, b, n, m, h, d):
+    """dQ, dK and dV of the f32 route within the f32 band of the plain
+    backward, bit-equal across two runs (no adds across blocks)."""
+    from vdtpu_torch.ops.flash import flash_attention_bwd, flash_attention_bwd_plain
+    prev = _f32_no_tf32()
+    try:
+        q, k, v = (_randn(gen, b, r, h, d, dtype=torch.float32) for r in (n, m, m))
+        do = _randn(gen, b, n, h, d, dtype=torch.float32)
+        o, lse = flash_attention_plain(q, k, v, with_lse=True)
+        first = _one_launch(flash_attention_bwd, "f32",
+                            lambda: flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5))
+        second = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)
+        ref = flash_attention_bwd_plain(q, k, v, o, lse, do, d ** -0.5)
+        for a, r in zip(first, ref):
+            assert a.dtype == torch.float32
+            torch.testing.assert_close(a, r, atol=F32_ATOL, rtol=F32_RTOL)
+            assert _rel_l2(a, r) <= F32_MAX_REL_L2
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_flash_f32_autograd_on_strided_views(gen):
+    """An f32 flash site under autograd (a ``bf16: false`` training run):
+    the f32 forward with lse and the f32 backward, on views of one packed
+    projection, against autograd through the plain forward."""
+    from vdtpu_torch.ops.attention import scaled_dot_product_attention
+    from vdtpu_torch.ops.flash import flash_attention_bwd
+    prev = _f32_no_tf32()
+    try:
+        b, n, h, d = 1, 1024, 2, 64
+        qkv = _randn(gen, b, n, 3, h, d, dtype=torch.float32).requires_grad_()
+        do = _randn(gen, b, n, h, d, dtype=torch.float32)
+        fwd, bwd = dict(flash_attention.launches_by_path), dict(flash_attention_bwd.launches_by_path)
+        out = scaled_dot_product_attention(*qkv.unbind(dim=2))
+        (g,) = torch.autograd.grad(out, qkv, do)
+        assert flash_attention.launches_by_path["f32"] == fwd["f32"] + 1
+        assert flash_attention_bwd.launches_by_path["f32"] == bwd["f32"] + 1
+        ref = torch.autograd.grad(flash_attention_plain(*qkv.unbind(dim=2)), qkv, do)[0]
+        torch.testing.assert_close(g, ref, atol=F32_ATOL, rtol=F32_RTOL)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
 def test_flash_bwd_refuses(gen):
     from vdtpu_torch.ops.flash import flash_attention_bwd
     q = _randn(gen, 1, 64, 1, 136)
@@ -1349,11 +1428,14 @@ def test_reconstruction_pass_under_autograd_on_the_card(gen):
         vae_card = copy.deepcopy(vae_cpu).cuda()
         loss_cpu = _seeded_loss(4)
         loss_card = copy.deepcopy(loss_cpu).cuda()
-        # 32^2: the tiny mid-block attention (d 64) stays under the flash rule,
-        # whose kernel takes bf16 only
-        x = torch.rand((2, 3, 32, 32), generator=torch.Generator().manual_seed(5))
+        # 64^2: the tiny mid-block attention (1024 keys, d 64) takes the flash
+        # rule in f32, so the f32 route's forward and backward run
+        x = torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(5))
         n_gn = sum(isinstance(m, GroupNorm32) for m in vae_card.modules())
         outs = []
+        from vdtpu_torch.ops.flash import flash_attention_bwd
+        f32_before = (flash_attention.launches_by_path["f32"],
+                      flash_attention_bwd.launches_by_path["f32"])
         for vae, loss, xx in ((vae_card, loss_card, x.cuda()), (vae_cpu, loss_cpu, x)):
             before = gn_silu.launches
             rec, post = vae(xx)
@@ -1370,5 +1452,8 @@ def test_reconstruction_pass_under_autograd_on_the_card(gen):
         assert 0.0 < dw_cpu < 1e4 * loss_cpu.discriminator_weight
         assert abs(dw_card - dw_cpu) <= 1e-3 * abs(dw_cpu)
         assert n_card == n_gn and n_cpu == 0
+        # one encoder and one decoder mid attention: forward and backward each
+        assert (flash_attention.launches_by_path["f32"] - f32_before[0],
+                flash_attention_bwd.launches_by_path["f32"] - f32_before[1]) == (2, 2)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

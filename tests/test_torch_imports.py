@@ -37,7 +37,9 @@ _SLICE2 = ("ops/nomax.py", "ops/qconv.py", "ops/quant.py", "ops/tome.py",
            "data/tokenizers.py", "ops/probes.py", "probes.py", "csrc/probe_s8mm.cu",
            "utils/timing.py", "serving/queue.py", "serving/cli.py", "serving/webui.py",
            "models/autokl_loss.py", "training/evaluator.py", "training/launch.py",
-           "quality.py")
+           "quality.py", "data/webdataset.py", "data/images.py", "data/benchmark.py",
+           "data/native/__init__.py", "data/native/tario.cpp", "training/experiment.py",
+           "config/experiments.py", "csrc/flash_fwd.cu")
 
 
 def test_every_module_imports_with_jax_flax_yaml_blocked():
@@ -57,6 +59,9 @@ def test_every_module_imports_with_jax_flax_yaml_blocked():
             "vdtpu_torch.serving.webui"} <= set(modules)
     assert {"vdtpu_torch.models.autokl_loss", "vdtpu_torch.training.evaluator",
             "vdtpu_torch.training.launch", "vdtpu_torch.quality"} <= set(modules)
+    assert {"vdtpu_torch.data.webdataset", "vdtpu_torch.data.images",
+            "vdtpu_torch.data.benchmark", "vdtpu_torch.data.native",
+            "vdtpu_torch.training.experiment", "vdtpu_torch.config.experiments"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         *[f"sys.modules[{name!r}] = None" for name in _BLOCKED],
@@ -90,3 +95,23 @@ def test_slice2_sources_name_no_library_attention_or_compiler():
             text = f.read()
         assert "scaled_dot_product_attention" not in text, rel
         assert "torch.compile" not in text, rel
+
+
+def test_no_module_imports_pil_at_import():
+    """Pillow may be absent where the port runs: no module of the port and
+    not chip_smoke.py imports it at import (JPEG decoding imports it where
+    it is used)."""
+    modules = ["vdtpu_torch"] + [m.name for m in pkgutil.walk_packages([PKG], "vdtpu_torch.")]
+    code = "\n".join([
+        "import importlib, sys",
+        "sys.modules['PIL'] = None",
+        f"for m in {modules!r}: importlib.import_module(m)",
+        "import chip_smoke",
+        "print('imported without PIL', sum(k.startswith('PIL') and sys.modules[k] is not None"
+        " for k in sys.modules))",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported without PIL 0" in proc.stdout

@@ -45,6 +45,19 @@
 // mma.sync m16n8k16 over a 128-key block, operands by ldmatrix from padded
 // shared-memory rows, the 64-query tiles double-buffered by cp.async, dQ
 // through shared memory and one bulk reduce-add a tile.
+//
+// The f32 route (vd_flash_bwd_f32) is _bwd_impl for f32 operands, in the
+// TPU's split and with every product, p and dS in f32: wgmma and mma.sync
+// take no f32 operands, so two plain SIMT kernels, 64 rows and 256 threads
+// a block, four threads a row (as the forward's f32 route).
+// flash_bwd_dkv_f32_kernel owns 64 keys and walks the query tiles: s and
+// dO.V^T of its 16 queries a thread by FMAs over the head, p and dS through
+// shared memory, dK and dV (a quarter of the row's columns a thread) in
+// registers. flash_bwd_dq_f32_kernel owns 64 queries and walks the key
+// tiles the same way for dQ. Neither adds across blocks, so the f32 route
+// is deterministic. About 7 head-length products a score (the split
+// recomputes s and dO.V^T), 150 GFLOP at [4, 4096, 8, 40]: 2.2 ms at
+// 67 TFLOP/s f32. Only f32 experiments (`bf16: false`) reach it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -761,7 +774,266 @@ int launch(const Params& p, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+// ---- the f32 route ----
+
+constexpr int kF32Rows = 64;      // rows (keys or queries) a block, and of a streamed tile
+constexpr int kF32Threads = 256;  // four threads a row
+constexpr int kF32Cols = kF32Rows / 4;  // scores a thread takes of a tile
+
+struct ParamsF32 {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse;    // [B, H, N]
+  const float* delta;  // [B, H, N]
+  float* dq;
+  float* dk;
+  float* dv;
+  int B, N, M, H, D;
+  long long sqb, sqn, sqh;
+  long long skb, skn, skh;
+  long long svb, svn, svh;
+  long long sdob, sdon, sdoh;
+  long long sdqb, sdqn, sdqh;
+  long long sdkb, sdkn, sdkh;
+  long long sdvb, sdvn, sdvh;
+  float scale;
+};
+
+template <int DP>
+__host__ __device__ constexpr int f32_smem_bytes(int tiles, int score_tiles) {
+  return (tiles * kF32Rows * (DP + 1) + score_tiles * kF32Rows * (kF32Rows + 1) +
+          2 * kF32Rows) * 4;
+}
+
+// rows [row0, row0 + 64) x cols [0, DP) of one (batch, head) slice into
+// shared memory (row stride DP + 1); zeros past nrows and d
+template <int DP>
+__device__ __forceinline__ void load_f32(float* dst, const float* base, long long row_stride,
+                                         int row0, int nrows, int d) {
+  for (int idx = threadIdx.x; idx < kF32Rows * DP; idx += kF32Threads) {
+    const int r = idx / DP, c = idx % DP;
+    const int g = row0 + r;
+    dst[r * (DP + 1) + c] = (g < nrows && c < d) ? base[g * row_stride + c] : 0.f;
+  }
+}
+
+// dK and dV of 64 keys: p = exp(q.k^T scale - lse), dS = p (dO.V^T - delta)
+// scale; dV = p^T.dO, dK = dS^T.Q over every query tile
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const ParamsF32 p) {
+  constexpr int LD = DP + 1, LDP = kF32Rows + 1, OC = DP / 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + kF32Rows * LD;
+  float* sQ = sV + kF32Rows * LD;
+  float* sDO = sQ + kF32Rows * LD;
+  float* sP = sDO + kF32Rows * LD;
+  float* sDS = sP + kF32Rows * LDP;
+  float* sL = sDS + kF32Rows * LDP;
+  float* sDel = sL + kF32Rows;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.x * kF32Rows;
+  const int r = threadIdx.x / 4, t = threadIdx.x % 4;
+  const bool key_ok = k0 + r < p.M;
+  const float* qb = p.q + b * p.sqb + h * p.sqh;
+  const float* dob = p.dout + b * p.sdob + h * p.sdoh;
+  load_f32<DP>(sK, p.k + b * p.skb + h * p.skh, p.skn, k0, p.M, p.D);
+  load_f32<DP>(sV, p.v + b * p.svb + h * p.svh, p.svn, k0, p.M, p.D);
+
+  float dk[OC], dv[OC];
+#pragma unroll
+  for (int i = 0; i < OC; ++i) dk[i] = dv[i] = 0.f;
+  const float* kr = sK + r * LD;
+  const float* vr = sV + r * LD;
+  for (int q0 = 0; q0 < p.N; q0 += kF32Rows) {
+    __syncthreads();  // the previous tile's readers are done
+    load_f32<DP>(sQ, qb, p.sqn, q0, p.N, p.D);
+    load_f32<DP>(sDO, dob, p.sdon, q0, p.N, p.D);
+    if (threadIdx.x < kF32Rows) {
+      const int g = q0 + threadIdx.x;
+      sL[threadIdx.x] = g < p.N ? p.lse[size_t(bh) * p.N + g] : 0.f;
+      sDel[threadIdx.x] = g < p.N ? p.delta[size_t(bh) * p.N + g] : 0.f;
+    }
+    __syncthreads();
+    float s[kF32Cols], dp[kF32Cols];
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) s[j] = dp[j] = 0.f;
+    for (int d = 0; d < DP; ++d) {
+      const float kd = kr[d], vd = vr[d];
+#pragma unroll
+      for (int j = 0; j < kF32Cols; ++j) {
+        s[j] = fmaf(kd, sQ[(t + 4 * j) * LD + d], s[j]);
+        dp[j] = fmaf(vd, sDO[(t + 4 * j) * LD + d], dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) {
+      const int c = t + 4 * j;
+      const float pj = (key_ok && q0 + c < p.N) ? expf(s[j] * p.scale - sL[c]) : 0.f;
+      sP[r * LDP + c] = pj;
+      sDS[r * LDP + c] = pj * (dp[j] - sDel[c]) * p.scale;
+    }
+    __syncwarp();  // a row's four threads are one warp's lanes
+    for (int c = 0; c < kF32Rows; ++c) {
+      const float pc = sP[r * LDP + c], dsc = sDS[r * LDP + c];
+      const float* dor = sDO + c * LD + t;
+      const float* qr = sQ + c * LD + t;
+#pragma unroll
+      for (int i = 0; i < OC; ++i) {
+        dv[i] = fmaf(pc, dor[4 * i], dv[i]);
+        dk[i] = fmaf(dsc, qr[4 * i], dk[i]);
+      }
+    }
+  }
+  if (!key_ok) return;
+  float* dkr = p.dk + b * p.sdkb + h * p.sdkh + (k0 + r) * p.sdkn;
+  float* dvr = p.dv + b * p.sdvb + h * p.sdvh + (k0 + r) * p.sdvn;
+#pragma unroll
+  for (int i = 0; i < OC; ++i) {
+    const int col = t + 4 * i;
+    if (col < p.D) {
+      dkr[col] = dk[i];
+      dvr[col] = dv[i];
+    }
+  }
+}
+
+// dQ of 64 queries: dQ = dS.K over every key tile
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const ParamsF32 p) {
+  constexpr int LD = DP + 1, LDP = kF32Rows + 1, OC = DP / 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sDO = sQ + kF32Rows * LD;
+  float* sK = sDO + kF32Rows * LD;
+  float* sV = sK + kF32Rows * LD;
+  float* sDS = sV + kF32Rows * LD;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * kF32Rows;
+  const int r = threadIdx.x / 4, t = threadIdx.x % 4;
+  const bool q_ok = q0 + r < p.N;
+  const float lse = q_ok ? p.lse[size_t(bh) * p.N + q0 + r] : 0.f;
+  const float del = q_ok ? p.delta[size_t(bh) * p.N + q0 + r] : 0.f;
+  const float* kb = p.k + b * p.skb + h * p.skh;
+  const float* vb = p.v + b * p.svb + h * p.svh;
+  load_f32<DP>(sQ, p.q + b * p.sqb + h * p.sqh, p.sqn, q0, p.N, p.D);
+  load_f32<DP>(sDO, p.dout + b * p.sdob + h * p.sdoh, p.sdon, q0, p.N, p.D);
+
+  float dq[OC];
+#pragma unroll
+  for (int i = 0; i < OC; ++i) dq[i] = 0.f;
+  const float* qr = sQ + r * LD;
+  const float* dor = sDO + r * LD;
+  for (int k0 = 0; k0 < p.M; k0 += kF32Rows) {
+    __syncthreads();
+    load_f32<DP>(sK, kb, p.skn, k0, p.M, p.D);
+    load_f32<DP>(sV, vb, p.svn, k0, p.M, p.D);
+    __syncthreads();
+    float s[kF32Cols], dp[kF32Cols];
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) s[j] = dp[j] = 0.f;
+    for (int d = 0; d < DP; ++d) {
+      const float qd = qr[d], dod = dor[d];
+#pragma unroll
+      for (int j = 0; j < kF32Cols; ++j) {
+        s[j] = fmaf(qd, sK[(t + 4 * j) * LD + d], s[j]);
+        dp[j] = fmaf(dod, sV[(t + 4 * j) * LD + d], dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) {
+      const int c = t + 4 * j;
+      const float pj = (q_ok && k0 + c < p.M) ? expf(s[j] * p.scale - lse) : 0.f;
+      sDS[r * LDP + c] = pj * (dp[j] - del) * p.scale;
+    }
+    __syncwarp();
+    for (int c = 0; c < kF32Rows; ++c) {
+      const float dsc = sDS[r * LDP + c];
+      const float* kc = sK + c * LD + t;
+#pragma unroll
+      for (int i = 0; i < OC; ++i) dq[i] = fmaf(dsc, kc[4 * i], dq[i]);
+    }
+  }
+  if (!q_ok) return;
+  float* dqr = p.dq + b * p.sdqb + h * p.sdqh + (q0 + r) * p.sdqn;
+#pragma unroll
+  for (int i = 0; i < OC; ++i) {
+    const int col = t + 4 * i;
+    if (col < p.D) dqr[col] = dq[i];
+  }
+}
+
+template <int DP>
+int launch_f32(const ParamsF32& p, cudaStream_t stream) {
+  constexpr int smem_dkv = f32_smem_bytes<DP>(4, 2), smem_dq = f32_smem_bytes<DP>(4, 1);
+  static_assert(smem_dkv <= kMaxSmem, "the f32 dK/dV tiles fit shared memory");
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+  if (err != cudaSuccess) return int(err);
+  flash_bwd_dkv_f32_kernel<DP><<<dim3((p.M + kF32Rows - 1) / kF32Rows, p.B * p.H), kF32Threads,
+                                 smem_dkv, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  flash_bwd_dq_f32_kernel<DP><<<dim3((p.N + kF32Rows - 1) / kF32Rows, p.B * p.H), kF32Threads,
+                                smem_dq, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
+
+// The f32 route: f32 q, k, v, dO, lse and delta in, f32 dQ, dK and dV out
+// (strides in elements), on `stream`. Returns a cudaError_t code; 0 means
+// both launches were accepted. d <= 128.
+extern "C" int vd_flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
+                                const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                                int B, int N, int M, int H, int D, long long sqb, long long sqn,
+                                long long sqh, long long skb, long long skn, long long skh,
+                                long long svb, long long svn, long long svh, long long sdob,
+                                long long sdon, long long sdoh, long long sdqb, long long sdqn,
+                                long long sdqh, long long sdkb, long long sdkn, long long sdkh,
+                                long long sdvb, long long sdvn, long long sdvh, float scale,
+                                void* stream) {
+  ParamsF32 p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.dout = static_cast<const float*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.B = B; p.N = N; p.M = M; p.H = H; p.D = D;
+  p.sqb = sqb; p.sqn = sqn; p.sqh = sqh;
+  p.skb = skb; p.skn = skn; p.skh = skh;
+  p.svb = svb; p.svn = svn; p.svh = svh;
+  p.sdob = sdob; p.sdon = sdon; p.sdoh = sdoh;
+  p.sdqb = sdqb; p.sdqn = sdqn; p.sdqh = sdqh;
+  p.sdkb = sdkb; p.sdkn = sdkn; p.sdkh = sdkh;
+  p.sdvb = sdvb; p.sdvn = sdvn; p.sdvh = sdvh;
+  p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((D + 15) / 16) {
+    case 1: return launch_f32<16>(p, st);
+    case 2: return launch_f32<32>(p, st);
+    case 3: return launch_f32<48>(p, st);
+    case 4: return launch_f32<64>(p, st);
+    case 5: return launch_f32<80>(p, st);
+    case 6: return launch_f32<96>(p, st);
+    case 7: return launch_f32<112>(p, st);
+    case 8: return launch_f32<128>(p, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
 
 // Launches the backward kernel, then the dQ conversion, on `stream`.
 // dq_acc: f32 [B * H, n_pad, 16 * ceil(D / 16)] zeroed, n_pad a multiple of

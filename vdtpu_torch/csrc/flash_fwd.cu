@@ -30,6 +30,21 @@
 //   the bf16 A operand of P.V in registers.
 // q, k and v are read in place from [B, N, H, D] through strides, so the
 // caller's projections need no fold copies.
+//
+// The f32 route (vd_flash_fwd_f32, flash_fwd_f32_kernel below) is the same
+// function for f32 q, k and v, as _fwd_kernel computes it for f32 operands:
+// the scale folded into q in f32, f32 products, an f32 online softmax and
+// f32 accumulators. wgmma and mma.sync have no f32 operand type (TF32 keeps
+// 10 bits of mantissa), so it is a plain SIMT kernel: 64 query rows and 256
+// threads a block, four threads a row; each K/V tile of 64 keys lands in
+// shared memory, a thread takes 16 of the tile's scores with FMAs over the
+// head, the row's four threads reduce max and sum by shuffles, the
+// probabilities go through shared memory, and a thread keeps a quarter of
+// its row's output columns in registers. At [4, 4096, 8, 40] it does about
+// 86 GFLOP of f32 FMAs (1.3 ms at 67 TFLOP/s): the f32 units, not memory,
+// bound it. No main-path site runs it (the UNet runs bf16); an experiment
+// that trains in f32 (`bf16: false`) reaches it at the 4096- and 1024-token
+// sites.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -223,7 +238,179 @@ int launch(const Params& p, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+// ---- the f32 route ----
+
+constexpr int kF32Rows = 64;      // query rows a block
+constexpr int kF32Keys = 64;      // keys a K/V tile
+constexpr int kF32Threads = 256;  // four threads a row
+constexpr int kF32Cols = kF32Keys / 4;  // scores a thread takes of a tile
+
+struct ParamsF32 {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  float* lse;  // [B, H, N] f32, or nullptr
+  int B, N, M, H, D;
+  long long sqb, sqn, sqh;
+  long long skb, skn, skh;
+  long long svb, svn, svh;
+  long long sob, son, soh;
+  float scale;
+};
+
+// rows [row0, row0 + 64) x cols [0, DP) of one (batch, head) slice into
+// shared memory (row stride ld), times mul; zeros past nrows and d
+template <int DP>
+__device__ __forceinline__ void load_f32(float* dst, int ld, const float* base,
+                                         long long row_stride, int row0, int nrows, int d,
+                                         float mul) {
+  for (int idx = threadIdx.x; idx < kF32Rows * DP; idx += kF32Threads) {
+    const int r = idx / DP, c = idx % DP;
+    const int g = row0 + r;
+    dst[r * ld + c] = (g < nrows && c < d) ? base[g * row_stride + c] * mul : 0.f;
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const ParamsF32 p) {
+  constexpr int LD = DP + 1;      // odd row stride: the 8 rows of a warp hit 8 banks
+  constexpr int LDP = kF32Keys + 1;
+  constexpr int OC = DP / 4;      // output columns a thread keeps: t, t + 4, ...
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + kF32Rows * LD;
+  float* sV = sK + kF32Keys * LD;
+  float* sP = sV + kF32Keys * DP;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * kF32Rows;
+  const int r = threadIdx.x / 4, t = threadIdx.x % 4;
+  const float* kb = p.k + b * p.skb + h * p.skh;
+  const float* vb = p.v + b * p.svb + h * p.svh;
+
+  // q * scale in f32, as the TPU kernel folds the scale in the input dtype
+  load_f32<DP>(sQ, LD, p.q + b * p.sqb + h * p.sqh, p.sqn, q0, p.N, p.D, p.scale);
+
+  float o[OC];
+#pragma unroll
+  for (int i = 0; i < OC; ++i) o[i] = 0.f;
+  float m_run = -INFINITY, l_run = 0.f;
+  const float* qr = sQ + r * LD;
+
+  for (int k0 = 0; k0 < p.M; k0 += kF32Keys) {
+    __syncthreads();  // the previous tile's readers are done
+    load_f32<DP>(sK, LD, kb, p.skn, k0, p.M, p.D, 1.f);
+    load_f32<DP>(sV, DP, vb, p.svn, k0, p.M, p.D, 1.f);
+    __syncthreads();
+    float s[kF32Cols];
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) s[j] = 0.f;
+    for (int d = 0; d < DP; ++d) {
+      const float qd = qr[d];
+#pragma unroll
+      for (int j = 0; j < kF32Cols; ++j) s[j] = fmaf(qd, sK[(t + 4 * j) * LD + d], s[j]);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) {
+      if (k0 + t + 4 * j >= p.M) s[j] = -INFINITY;  // ragged kv tail
+      mx = fmaxf(mx, s[j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = expf(m_run - m_new);  // exp(-inf) = 0 on the first tile
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) {
+      const float pj = expf(s[j] - m_new);
+      sP[r * LDP + t + 4 * j] = pj;
+      rs += pj;
+    }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l_run = l_run * alpha + rs;
+    m_run = m_new;
+    __syncwarp();  // a row's four threads are one warp's lanes
+#pragma unroll
+    for (int i = 0; i < OC; ++i) o[i] *= alpha;
+    const float* pr = sP + r * LDP;
+    for (int c = 0; c < kF32Keys; ++c) {
+      const float pc = pr[c];
+      const float* vr = sV + c * DP + t;
+#pragma unroll
+      for (int i = 0; i < OC; ++i) o[i] = fmaf(pc, vr[4 * i], o[i]);
+    }
+  }
+
+  const int row = q0 + r;
+  if (row >= p.N) return;
+  float* orow = p.o + b * p.sob + h * p.soh + row * p.son;
+#pragma unroll
+  for (int i = 0; i < OC; ++i) {
+    const int col = t + 4 * i;
+    if (col < p.D) orow[col] = o[i] / l_run;
+  }
+  if (p.lse != nullptr && t == 0) p.lse[size_t(bh) * p.N + row] = m_run + logf(l_run);
+}
+
+template <int DP>
+int launch_f32(const ParamsF32& p, cudaStream_t stream) {
+  const size_t smem = size_t(kF32Rows * (DP + 1) + kF32Keys * (DP + 1) + kF32Keys * DP +
+                             kF32Rows * (kF32Keys + 1)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((p.N + kF32Rows - 1) / kF32Rows, p.B * p.H);
+  flash_fwd_f32_kernel<DP><<<grid, kF32Threads, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
+
+// The f32 route: f32 q, k, v, o and lse (nullptr skips it), strides in
+// elements. Returns a cudaError_t code; 0 means the launch was accepted.
+extern "C" int vd_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                void* lse, int B, int N, int M, int H, int D, long long sqb,
+                                long long sqn, long long sqh, long long skb, long long skn,
+                                long long skh, long long svb, long long svn, long long svh,
+                                long long sob, long long son, long long soh, float scale,
+                                void* stream) {
+  ParamsF32 p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.B = B; p.N = N; p.M = M; p.H = H; p.D = D;
+  p.sqb = sqb; p.sqn = sqn; p.sqh = sqh;
+  p.skb = skb; p.skn = skn; p.skh = skh;
+  p.svb = svb; p.svn = svn; p.svh = svh;
+  p.sob = sob; p.son = son; p.soh = soh;
+  p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((D + 15) / 16) {
+    case 1: return launch_f32<16>(p, st);
+    case 2: return launch_f32<32>(p, st);
+    case 3: return launch_f32<48>(p, st);
+    case 4: return launch_f32<64>(p, st);
+    case 5: return launch_f32<80>(p, st);
+    case 6: return launch_f32<96>(p, st);
+    case 7: return launch_f32<112>(p, st);
+    case 8: return launch_f32<128>(p, st);
+    case 9: return launch_f32<144>(p, st);
+    case 10: return launch_f32<160>(p, st);
+    case 11: return launch_f32<176>(p, st);
+    case 12: return launch_f32<192>(p, st);
+    case 13: return launch_f32<208>(p, st);
+    case 14: return launch_f32<224>(p, st);
+    case 15: return launch_f32<240>(p, st);
+    case 16: return launch_f32<256>(p, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
 
 // Returns a cudaError_t code; 0 means the launch was accepted. plan: the
 // caller's AttnFwdPlan.code, which must be the one vdattn::plan_code gives

@@ -9,7 +9,9 @@
   no mask, the no-max kernel (``ops/nomax.py``).
 
 The rule is the JAX package's ``_pick_backend``: a site goes to flash when
-its tensors are on CUDA, q_len >= 256, kv_len >= 1024 and d_head <= 256.
+its tensors are on CUDA, q_len >= 256, kv_len >= 1024 and d_head <= 256,
+in any dtype, as vdtpu's Pallas kernels take any: bf16 runs the
+tensor-core kernels, f32 their f32 route (``ops/flash.py``).
 The plain path is exact softmax and ignores the shift (softmax is
 shift-invariant), as the JAX package's XLA path does. Both paths are
 differentiable (the flash kernel through its backward kernels; the no-max

@@ -27,7 +27,14 @@ runs ``FlashAttention`` (forward with lse, saving q, k, v, o and lse;
 backward through the backward kernels), otherwise the forward alone,
 without lse. ``flash_attention_fwd`` and ``flash_attention_bwd`` take the
 plain versions for CPU tensors only; for CUDA tensors they launch the
-kernels or raise, never falling back. The kernels read q, k, v and dO in
+kernels or raise, never falling back.
+
+bf16 takes the tensor-core kernels above. f32 q, k and v (an experiment
+that trains with ``bf16: false``) take the f32 route of the same sources
+(``vd_flash_fwd_f32``, ``vd_flash_bwd_f32``): SIMT kernels with f32
+products, softmax and accumulators, free of TF32, as the TPU kernels
+compute f32 operands. Its plan path is "f32" (``attn_fwd_plan``,
+``flash_bwd_path``), and ``launches_by_path`` counts it. The kernels read q, k, v and dO in
 place through their strides (any layout whose last axis is contiguous), so
 callers pass views of their projections without copies. The plain versions
 run with autocast off, so they keep their f32 arithmetic inside an
@@ -56,6 +63,8 @@ ATTN_WG_ROWS, ATTN_BK, ATTN_MAX_STAGES = 64, 128, 4
 ATTN_WG_MAX_D = 80
 ATTN_BOX_COLS = 64
 MAX_SMEM = 232448           # bytes of shared memory a block may take on an H100
+F32_ROWS = 64               # the f32 route's query rows a block and keys a tile
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _consumers(dp: int, n: int) -> int:
@@ -110,13 +119,18 @@ def _rows_aligned(ptrs, strides) -> bool:
     return not any(p % 16 for p in ptrs) and not any(s % 8 for trio in strides for s in trio)
 
 
-def attn_fwd_plan(b: int, n: int, m: int, h: int, d: int, strides, ptrs) -> AttnFwdPlan:
-    """Which forward kernel a bf16 call on q [b, n, h, d], k and v [b, m, h,
-    d] takes, and its geometry. ``strides``: (batch, row, head) element
-    strides of q, k and v; ``ptrs``: their data pointers. The wgmma kernel
+def attn_fwd_plan(b: int, n: int, m: int, h: int, d: int, strides, ptrs,
+                  dtype=torch.bfloat16) -> AttnFwdPlan:
+    """Which forward kernel a call on q [b, n, h, d], k and v [b, m, h, d]
+    takes, and its geometry. ``strides``: (batch, row, head) element
+    strides of q, k and v; ``ptrs``: their data pointers. f32 takes the f32
+    route (64 query rows a block, 64-key tiles). In bf16 the wgmma kernel
     takes d <= 80 with d % 8 == 0 and aligned rows (its tiles come by TMA);
     everything else takes the mma.sync kernel."""
     dp = -(-d // 16) * 16
+    if dtype == torch.float32:
+        return AttnFwdPlan("f32", dp, F32_ROWS, F32_ROWS, 1, _f32_fwd_smem(dp),
+                           (-(-n // F32_ROWS), b * h), False)
     vec = d % 8 == 0 and _rows_aligned(ptrs, strides)
     if vec and d <= ATTN_WG_MAX_D:
         block_q = ATTN_WG_ROWS * _consumers(dp, n)
@@ -129,7 +143,22 @@ def attn_fwd_plan(b: int, n: int, m: int, h: int, d: int, strides, ptrs) -> Attn
 def _plan_for(q, k, v) -> AttnFwdPlan:
     b, n, h, d = q.shape
     return attn_fwd_plan(b, n, k.shape[1], h, d, tuple(t.stride()[:3] for t in (q, k, v)),
-                         tuple(t.data_ptr() for t in (q, k, v)))
+                         tuple(t.data_ptr() for t in (q, k, v)), q.dtype)
+
+
+def _f32_fwd_smem(dp: int) -> int:
+    """Shared memory of the forward's f32 kernel: Q and K rows of dp + 1
+    floats, V rows of dp, the probabilities' 64 x 65."""
+    return 4 * (F32_ROWS * (dp + 1) * 2 + F32_ROWS * dp + F32_ROWS * (F32_ROWS + 1))
+
+
+def flash_bwd_path(d: int, dtype, vec: bool) -> str:
+    """The backward kernel a call takes (csrc/flash_bwd.cu's ``launch``):
+    "f32" for f32 operands; in bf16 "wgmma" for heads up to 80 with aligned
+    rows (``vec``), else "mma"."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if vec and d <= ATTN_WG_MAX_D else "mma"
 
 
 def flash_attention_plain(q, k, v, scale: float | None = None, with_lse: bool = False):
@@ -254,8 +283,9 @@ def _check(name: str, q, k, v, max_d: int):
     if k.shape != (b, m, h, d) or v.shape != (b, m, h, d):
         raise ValueError(f"{name}: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"{name} kernel takes bf16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in KERNEL_DTYPES):
+        raise TypeError(f"{name} kernel takes bf16 or f32, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     if not 1 <= d <= max_d:
         raise ValueError(f"{name} kernel takes d_head <= {max_d}, got {d}")
     if not (q.device == k.device == v.device):
@@ -273,21 +303,23 @@ def flash_attention_fwd(q, k, v, scale: float, with_lse: bool = False):
         res = flash_attention_plain(q, k, v, scale, with_lse)
         return res if with_lse else (res, None)
     _check("flash_attention", q, k, v, MAX_HEAD_DIM)
-    from vdtpu_torch.ops.kernels.build import load
-    lib = load("flash_fwd")
+    lib = _flash_lib("flash_fwd")
     b, n, h, d = q.shape
     plan = _plan_for(q, k, v)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vd_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, b, n, k.shape[1], h, d,
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
-            out.stride(2), float(scale), plan.code, stream)
+            out.stride(2), float(scale))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.path == "f32":
+            rc = lib.vd_flash_fwd_f32(*args, stream)
+        else:
+            rc = lib.vd_flash_fwd(*args, plan.code, stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed ({plan.path} path): cudaError {rc}")
     flash_attention.launches += 1
@@ -313,32 +345,55 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
         do = do.to(q.dtype).contiguous()
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be contiguous f32 [B, H, N]")
-    from vdtpu_torch.ops.kernels.build import load
-    lib = load("flash_bwd")
+    lib = _flash_lib("flash_bwd")
     delta = (do.float() * o).sum(dim=-1).transpose(1, 2).contiguous()  # o promoted exactly
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    n_pad = -(-n // BWD_QUERIES) * BWD_QUERIES
-    dq_acc = torch.zeros((b * h, n_pad, -(-d // 16) * 16), dtype=torch.float32, device=q.device)
     # aligned rows (and a 16-byte aligned lse, which the wgmma kernel reads
     # by TMA) take cp.async or TMA; anything else the element-wise loads
     vec = int(d % 8 == 0 and all(_aligned(t) for t in (q, k, v, do)) and lse.data_ptr() % 16 == 0)
+    path = flash_bwd_path(d, q.dtype, bool(vec))
     st = lambda t: (t.stride(0), t.stride(1), t.stride(2))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    strides = (*st(q), *st(k), *st(v), *st(do), *st(dq), *st(dk), *st(dv))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vd_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
-            b, n, k.shape[1], h, d, n_pad, *st(q), *st(k), *st(v), *st(do), *st(dq), *st(dk),
-            *st(dv), float(scale), vec, stream)
+        if path == "f32":
+            rc = lib.vd_flash_bwd_f32(*ptrs, b, n, k.shape[1], h, d, *strides, float(scale),
+                                      stream)
+        else:
+            n_pad = -(-n // BWD_QUERIES) * BWD_QUERIES
+            dq_acc = torch.zeros((b * h, n_pad, -(-d // 16) * 16), dtype=torch.float32,
+                                 device=q.device)
+            rc = lib.vd_flash_bwd(*ptrs, dq_acc.data_ptr(), b, n, k.shape[1], h, d, n_pad,
+                                  *strides, float(scale), vec, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_bwd launch failed: cudaError {rc}")
+        raise RuntimeError(f"flash_bwd launch failed ({path} path): cudaError {rc}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_path[path] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_path = {"wgmma": 0, "mma": 0, "f32": 0}   # flash_bwd_path
+
+
+@functools.cache
+def _flash_lib(name: str):
+    """The library of ``csrc/<name>.cu`` with its f32 entry point's types
+    (``build.SOURCES`` types the bf16 one)."""
+    import ctypes
+    from vdtpu_torch.ops.kernels.build import load
+    lib = load(name)
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    if name == "flash_fwd":
+        fn, types = lib.vd_flash_fwd_f32, [p] * 5 + [i] * 5 + [ll] * 12 + [f, p]
+    else:
+        fn, types = lib.vd_flash_bwd_f32, [p] * 9 + [i] * 5 + [ll] * 21 + [f, p]
+    fn.argtypes, fn.restype = types, i
+    return lib
 
 
 class FlashAttention(torch.autograd.Function):
@@ -372,4 +427,4 @@ def flash_attention(q, k, v, scale: float | None = None):
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_path = {"wgmma": 0, "mma": 0}   # attn_fwd_plan's path -> launches
+flash_attention.launches_by_path = {"wgmma": 0, "mma": 0, "f32": 0}   # attn_fwd_plan's path

@@ -17,6 +17,11 @@ the rest. They serve the TPU's other two no-max kernels too: d % 8 != 0
 [B, N, H*D] layout (``_nomax_packed_kernel``: pass [B, N, H, D] views of
 it, read in place through strides).
 
+The kernels take bf16 only, and stay so: only the int8 serving policy
+reaches no-max (a calibrated shift), and that policy serves in bf16. f32
+attention (an f32 training run) takes the flash kernels' f32 route
+(``ops/flash.py``), never this one.
+
 ``flash_attention_nomax`` takes the plain version for CPU tensors only;
 for CUDA tensors it launches the kernel or raises. It is forward-only, as
 the JAX package's is (serving; training keeps the exact flash kernels): it

@@ -23,9 +23,16 @@ give the CLIP embeddings the metrics read; ``load_vdtpu_torch_checkpoint``
 serves the port's own ``Trainer`` checkpoints.
 
 Training: the constructor freezes the whole net in one dtype;
-``for_training`` turns the diffusers back into a trainable f32 tree for
-``vdtpu_torch.training`` (compute in a lower dtype under autocast). The
-context encoders stay frozen (``ctx_encode`` runs without gradients).
+``for_training`` turns the diffusers back into a trainable tree for
+``vdtpu_torch.training``: f32 master parameters, or bf16 ones with
+``params_dtype`` (the counterpart of the JAX package's ``cast_params`` in
+its launcher), computing in a lower dtype under autocast.
+``ctx_encode`` runs without gradients; ``trainable_ctx`` makes a context
+encoder trainable and gives the function that encodes with grad inside the
+loss (the trainable context encoder). ``with_text_vae=False`` leaves the
+Optimus VAE out (image-flow training needs no text VAE); ``free_towers``
+drops the VAEs and the context encoders once a latent cache holds what
+they encode.
 """
 from __future__ import annotations
 
@@ -93,10 +100,16 @@ class VDSystem:
 
     def __init__(self, cfg_name: str = "vd_four_flow_v1-0", dtype=torch.float32,
                  device=None, use_checkpoint: bool | None = None,
-                 remat_max_channels: int | None = None):
+                 remat_max_channels: int | None = None, with_text_vae: bool = True,
+                 model_args: Mapping[str, Any] | None = None):
         """``use_checkpoint`` / ``remat_max_channels``: the diffusers' remat
-        in training (None: each diffuser's config flag); serving ignores them."""
+        in training (None: each diffuser's config flag); serving ignores them.
+        ``with_text_vae=False`` builds no Optimus VAE. ``model_args`` replaces
+        keys of the config's args (an experiment's overlay, as the JAX
+        package's ``model_args``)."""
         self.cfg = model_cfg_bank()(cfg_name)
+        if model_args:
+            self.cfg = dict(self.cfg, args=dict(self.cfg["args"], **model_args))
         self.device = resolve_device(device)
         self.dtype = dtype
         args = self.cfg["args"]
@@ -108,7 +121,8 @@ class VDSystem:
             self.net.ctx = nn.ModuleDict({name: _CtxHolder(build(sub))
                                           for name, sub in args["ctx_cfg_list"]})
             self.net.vae = nn.ModuleDict({name: build(sub)
-                                          for name, sub in args["vae_cfg_list"]})
+                                          for name, sub in args["vae_cfg_list"]
+                                          if name != "text" or with_text_vae})
         self.net.eval().requires_grad_(False)
         self.net.to(dtype)
         self.sampler = DDIMSampler(self.model)
@@ -135,19 +149,53 @@ class VDSystem:
         self.dtype = dtype
         return self
 
-    def for_training(self, compute_dtype=torch.bfloat16) -> dict[str, nn.Parameter]:
-        """Make the diffusers (and a learned ``logvar``) trainable: f32
-        parameters with gradients on, ``p_losses`` computing in
-        ``compute_dtype`` under autocast. Returns the parameters by name
+    def for_training(self, compute_dtype=torch.bfloat16,
+                     params_dtype=torch.float32) -> dict[str, nn.Parameter]:
+        """Make the diffusers (and a learned ``logvar``) trainable:
+        ``params_dtype`` master parameters (f32, or bf16 master weights) with
+        gradients on, ``p_losses`` computing in ``compute_dtype`` under
+        autocast. Returns the parameters by name
         (``VDModel.named_parameters``), the tree the trainer takes. The
-        text encoder and the VAE keep the system's dtype and stay frozen;
+        context encoders and the VAEs keep the system's dtype and stay frozen;
         to sample from the trained diffusers, ``cast`` the system."""
-        self.model.diffuser.float().train().requires_grad_(True)
+        if compute_dtype == torch.float32 and params_dtype != torch.float32:
+            raise ValueError(f"{params_dtype} master weights compute in that dtype or "
+                             "another 16-bit one, not in f32")
+        self.model.diffuser.to(params_dtype).train().requires_grad_(True)
         if self.model.logvar is not None:
-            self.model.logvar.data = self.model.logvar.data.float()
+            self.model.logvar.data = self.model.logvar.data.to(params_dtype)
             self.model.logvar.requires_grad_(True)
         self.model.dtype = compute_dtype
         return dict(self.model.named_parameters())
+
+    def trainable_ctx(self, which: str = "text", compute_dtype=torch.bfloat16,
+                      params_dtype=torch.float32):
+        """Make context encoder ``which`` trainable (``params_dtype``
+        parameters, gradients on) for the trainable-context-encoder path:
+        (its parameters by name, ``encode(raw)`` -> context with grad, in
+        ``compute_dtype`` under autocast). ``raw`` is what ``ctx_encode``
+        takes: token ids [B, L] (text) or NHWC images in [0, 1] (image)."""
+        enc = self.ctx[which]
+        enc.to(params_dtype).train().requires_grad_(True)
+
+        def encode(raw):
+            with torch.autocast(self.device.type, dtype=compute_dtype,
+                                enabled=compute_dtype != torch.float32):
+                if which == "image":
+                    px = preprocess_images(torch.as_tensor(raw).to(self.device), enc.image_size)
+                    return enc(px)
+                return enc(torch.as_tensor(raw).to(device=self.device, dtype=torch.long))
+        return dict(enc.named_parameters()), encode
+
+    def free_towers(self) -> None:
+        """Drop the VAEs and the context encoders (after a latent cache
+        holds what they encode): only the diffusers stay on the device."""
+        for name in list(self.net.vae):
+            del self.net.vae[name]
+        for name in list(self.net.ctx):
+            del self.net.ctx[name]
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def load_state_dict(self, sd: Mapping[str, Any], strict: bool = True):
         """Load a reference-keyed state dict (torch tensors or numpy arrays)

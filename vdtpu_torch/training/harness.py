@@ -2,9 +2,14 @@
 step and the step-typed outer loop.
 
 - ``make_loss_fn``: the model's ``p_losses`` on pre-encoded context (frozen
-  encoders, the harness's default contract); ``freeze_groups`` turns off
-  the gradients of the named parameter groups, so the backward neither
-  computes nor keeps them (the JAX package's stop_gradient).
+  encoders, the harness's default contract), or, with ``ctx_encode_fn``,
+  on raw encoder input (token ids, pixels) that the trainable context
+  encoder turns into context inside the loss, so its parameters get
+  gradients (the reference's ctx_encode_trainable); the trainable tree is
+  then ``{"diffuser": {name: tensor}, "ctx": {name: tensor}}``.
+  ``freeze_groups`` turns off the gradients of the named parameter groups,
+  so the backward neither computes nor keeps them (the JAX package's
+  stop_gradient).
 - ``make_train_step``: one optimizer update. The batch splits contiguously
   into ``grad_accum`` micro-batches; each runs forward and backward, the
   gradients sum in place and are divided by ``grad_accum`` before the
@@ -14,15 +19,20 @@ step and the step-typed outer loop.
 - ``Trainer``: iter / epoch / sample units, the lr pushed from an indexable
   scheduler each step (at ``step // grad_accum``, as the JAX package
   indexes it), logging cadence, ``eval_fn`` with a best-checkpoint keep,
-  periodic and final checkpoints, ``restore`` and ``last_loss``. Each
-  step's generator is seeded from (seed, step), so a restored run draws
-  what the uninterrupted run would have drawn.
+  periodic and final checkpoints (``async_ckpt``: host snapshot, disk
+  write in the background; ``iter_N`` and ``last`` of one step are one
+  file, hard-linked), ``restore`` and ``last_loss``. The EMA shadow of a
+  frozen group shares the parameters' storage (they never move, so the
+  average equals them bit for bit). Each step's generator is seeded
+  from (seed, step), so a restored run draws what the uninterrupted run
+  would have drawn.
 
-PyTorch keeps the parameters in the model: ``TrainState.params`` is the
-dict of the live parameters by name (``VDModel.named_parameters``), which
-the step updates in place, and ``opt_state`` is the optimizer that owns the
-optimizer state. Not ported: the trainable context encoder
-(``ctx_encode_fn``), the device mesh, async checkpoints and donation.
+PyTorch keeps the parameters in the modules: ``TrainState.params`` is the
+tree of the live parameters by name (``VDModel.named_parameters``, or the
+combined tree above), which the step updates in place, and ``opt_state``
+is the optimizer that owns the optimizer state. ``donate`` is accepted and
+means nothing here: the step already updates in place, so no second copy
+of the training state exists to give up. Not ported: the device mesh.
 """
 from __future__ import annotations
 
@@ -34,14 +44,14 @@ import numpy as np
 import torch
 
 from vdtpu_torch.models.vd import VDModel
-from vdtpu_torch.training.ema import EmaState, ema_init, ema_update
+from vdtpu_torch.training.ema import EmaState, ema_init, ema_update, tree_items
 from vdtpu_torch.training.optim import parameter_group_of
 from vdtpu_torch.utils.logging import MetricAccumulator, print_log
 
 
 @dataclasses.dataclass
 class TrainState:
-    params: dict[str, torch.Tensor]
+    params: dict[str, Any]
     opt_state: torch.optim.Optimizer
     ema: EmaState | None
     step: int = 0
@@ -58,17 +68,23 @@ def _check_trainable(model: VDModel) -> None:
 
 
 def make_loss_fn(model: VDModel, x_type: str, c_type: str,
-                 freeze_groups: tuple[str, ...] = ()):
-    """loss_fn(x, ctx, t, noise) -> (loss, aux) on the model's parameters;
-    the parameters of ``freeze_groups`` (``parameter_group_of`` labels) stop
+                 freeze_groups: tuple[str, ...] = (), ctx_encode_fn: Callable | None = None,
+                 params: Mapping[str, Any] | None = None):
+    """loss_fn(x, ctx, t, noise) -> (loss, aux) on the model's parameters.
+    With ``ctx_encode_fn``, ctx is the encoder's raw input and
+    ``ctx_encode_fn(ctx)`` (which runs the trainable encoder with grad) the
+    context. The parameters of ``freeze_groups`` (``parameter_group_of``
+    labels) in ``params`` (the trainable tree; default the model's) stop
     requiring gradients here."""
     _check_trainable(model)
     fz = tuple(freeze_groups)
-    for name, p in model.named_parameters():
+    for name, p in tree_items(params if params is not None else dict(model.named_parameters())):
         if parameter_group_of(name) in fz:
             p.requires_grad_(False)
 
     def loss_fn(x, ctx, t, noise):
+        if ctx_encode_fn is not None:
+            ctx = ctx_encode_fn(ctx)
         return model.p_losses(x, t, ctx, x_type, c_type, noise)
     return loss_fn
 
@@ -82,12 +98,14 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def make_train_step(model: VDModel, optimizer: torch.optim.Optimizer,
                     x_type: str = "image", c_type: str = "text",
                     ema_decay: float | None = None, grad_accum: int = 1,
-                    freeze_groups: tuple[str, ...] = ()):
+                    freeze_groups: tuple[str, ...] = (), ctx_encode_fn: Callable | None = None,
+                    params: Mapping[str, Any] | None = None):
     """step(state, x, ctx, t=None, noise=None, gen=None) -> (loss, aux):
     one update of ``state`` in place. x [B, ...] in the model's layout, ctx
-    [B, L, C]; t [B] and noise like x, or both None and drawn from ``gen``.
-    The lr is whatever ``set_lr`` last pushed."""
-    loss_fn = make_loss_fn(model, x_type, c_type, freeze_groups)
+    [B, L, C] (the encoder's raw input with ``ctx_encode_fn``); t [B] and
+    noise like x, or both None and drawn from ``gen``. The lr is whatever
+    ``set_lr`` last pushed."""
+    loss_fn = make_loss_fn(model, x_type, c_type, freeze_groups, ctx_encode_fn, params)
     n_t = model.schedule.num_timesteps
 
     def step(state: TrainState, x, ctx, t=None, noise=None, gen=None):
@@ -107,7 +125,7 @@ def make_train_step(model: VDModel, optimizer: torch.optim.Optimizer,
             losses.append(loss.detach())
             auxs.append({k: v.detach() for k, v in aux.items()})
         if grad_accum > 1:
-            grads = [p.grad for p in state.params.values() if p.grad is not None]
+            grads = [p.grad for _, p in tree_items(state.params) if p.grad is not None]
             torch._foreach_div_(grads, float(grad_accum))
         optimizer.step()
         if ema_decay is not None:
@@ -128,7 +146,13 @@ class Trainer:
                  ema_decay: float | None = None, grad_accum: int = 1,
                  log_every: int = 100, ckpt_every: int | None = None,
                  ckpt_dir: str | None = None, eval_fn: Callable | None = None,
-                 eval_every: int | None = None, freeze_groups: tuple[str, ...] = ()):
+                 eval_every: int | None = None, freeze_groups: tuple[str, ...] = (),
+                 ctx_encode_fn: Callable | None = None, async_ckpt: bool = False,
+                 donate: bool = False):
+        """``params``: the trainable tree (with ``ctx_encode_fn``, the
+        ``{"diffuser", "ctx"}`` one); ``donate`` is accepted for the JAX
+        package's config key and does nothing (module docstring)."""
+        del donate
         self.model = model
         self.set_lr = set_lr
         self.scheduler = scheduler
@@ -138,12 +162,15 @@ class Trainer:
         self.ckpt_dir = ckpt_dir
         self.eval_fn = eval_fn
         self.eval_every = eval_every
+        self.async_ckpt = async_ckpt
         self.best_metric = None
         self._loss_dev = None  # device scalar; float'd lazily (last_loss)
-        self._step = make_train_step(model, optimizer, x_type, c_type, ema_decay,
-                                     grad_accum, tuple(freeze_groups))
+        self._saved = None     # (step, file) of the last save
         params = dict(params)
-        ema = ema_init(params) if ema_decay is not None else None
+        self._step = make_train_step(model, optimizer, x_type, c_type, ema_decay,
+                                     grad_accum, tuple(freeze_groups), ctx_encode_fn, params)
+        frozen = [k for k, _ in tree_items(params) if parameter_group_of(k) in freeze_groups]
+        ema = ema_init(params, alias=frozen) if ema_decay is not None else None
         self.state = TrainState(params, optimizer, ema, 0)
 
     def run(self, batches: Iterable[Mapping[str, Any]], num_iters: int | None = None,
@@ -164,7 +191,7 @@ class Trainer:
             num_iters = -(-num_units // batch_size)
         else:
             raise ValueError(f"unknown step unit {unit!r}")
-        device = next(iter(self.state.params.values())).device
+        device = next(tree_items(self.state.params))[1].device
         logm = MetricAccumulator()
         pending: list = []  # (device aux, weight) awaiting the log window
 
@@ -203,6 +230,10 @@ class Trainer:
             if self.ckpt_every and self.state.step % self.ckpt_every == 0:
                 self._save(f"iter_{self.state.step}")
         self._save("last")
+        if self.async_ckpt:
+            from vdtpu_torch.training.checkpoints import wait_for_saves
+            wait_for_saves()   # 'last' and the cadence saves on disk
+        self._saved = None
         return self.state
 
     @property
@@ -213,8 +244,12 @@ class Trainer:
     def _save(self, tag: str):
         if not self.ckpt_dir:
             return
-        from vdtpu_torch.training.checkpoints import save_checkpoint
-        save_checkpoint(self.ckpt_dir, tag, self.state)
+        from vdtpu_torch.training.checkpoints import link_checkpoint, save_checkpoint
+        step, block = self.state.step, not self.async_ckpt
+        if self._saved is not None and self._saved[0] == step:   # one state, one file
+            link_checkpoint(self.ckpt_dir, tag, self._saved[1], block=block)
+        else:
+            self._saved = (step, save_checkpoint(self.ckpt_dir, tag, self.state, block=block))
 
     @torch.no_grad()
     def restore(self, ckpt_dir: str | None = None, tag: str | None = None):
@@ -225,16 +260,18 @@ class Trainer:
         if tag is None:
             tag = latest_tag(ckpt_dir)
         payload = restore_checkpoint(ckpt_dir, tag, map_location="cpu")
-        params = self.state.params
-        if set(payload["params"]) != set(params):
+        params = dict(tree_items(self.state.params))
+        saved = dict(tree_items(payload["params"]))
+        if set(saved) != set(params):
             raise KeyError(f"checkpoint {tag!r} has other parameters than this model")
-        for k, v in payload["params"].items():
+        for k, v in saved.items():
             params[k].copy_(v)
         self.state.opt_state.load_state_dict(payload["opt_state"])
         ema = self.state.ema
         if ema is not None and payload.get("ema") is not None:
-            for k, v in payload["ema"]["shadow"].items():
-                ema.shadow[k].copy_(v)
+            shadow = dict(tree_items(ema.shadow))
+            for k, v in tree_items(payload["ema"]["shadow"]):
+                shadow[k].copy_(v)
             ema.num_updates = int(payload["ema"]["num_updates"])
         self.state.step = int(payload["step"])
         return self.state

@@ -21,7 +21,16 @@ for step:
   and the update reads it before the cast, as optax does; "adam" is the
   same without decay;
 - "sgd" is ``optax.sgd``: a momentum trace t = g + momentum * t (Nesterov:
-  g + momentum * t), p -= lr * t.
+  g + momentum * t), p -= lr * t;
+- bf16 parameters (bf16 master weights, ``params_dtype``) keep both
+  moments in bf16, as optax's ``zeros_like`` gives them, and take optax's
+  arithmetic in that dtype, every operation rounded and every constant
+  (b1, 1 - b1, b2, 1 - b2, the bias corrections, eps, the decay and the
+  lr) rounded to bf16 first: bit-equal to the JAX package's jitted update.
+``params`` may be the trainable context encoder's tree, ``{"diffuser":
+{name: tensor}, "ctx": {name: tensor}}``: its leaves are named
+"diffuser.<name>" and "ctx.<name>", and the context encoder's fall in the
+group "ctx_<first part of the name>", as the JAX package labels them.
 The updates are ``torch._foreach_*`` passes over chunks of the group, so the
 temporaries stay small beside the moments.
 """
@@ -40,9 +49,12 @@ def parameter_group_of(path) -> str:
     """VD parameter groups, diffuser_<name>_<part> (ref vd.py:108-112), for a
     flat parameter name ("image.data_blocks.3.0.in_layers.0.weight") or its
     tuple of parts: <name> is the diffuser, <part> global (time_embed), data,
-    context or other."""
+    context or other. A trainable context encoder's "ctx.<part>..." is
+    ctx_<part>."""
     if isinstance(path, str):
         path = tuple(path.split("."))
+    if path[0] == "ctx":
+        return f"ctx_{path[1] if len(path) > 1 else 'all'}"
     if path[0] == "diffuser" and len(path) > 1:
         path = path[1:]
     name = path[0]
@@ -84,15 +96,17 @@ class AdamW(torch.optim.Optimizer):
     def _state(self, p):
         st = self.state[p]
         if not st:
-            st["mu"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+            low = p.dtype != torch.float32   # optax: the moments in the param dtype
+            st["mu"] = torch.zeros_like(p, dtype=p.dtype if low else self.mu_dtype or p.dtype)
             st["nu"] = torch.zeros_like(p)
         return st
 
     def load_state_dict(self, state_dict):
         super().load_state_dict(state_dict)
         if self.mu_dtype is not None:  # the base class casts state to the param dtype
-            for st in self.state.values():
-                st["mu"] = st["mu"].to(self.mu_dtype)
+            for p, st in self.state.items():
+                if p.dtype == torch.float32:
+                    st["mu"] = st["mu"].to(self.mu_dtype)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -103,7 +117,10 @@ class AdamW(torch.optim.Optimizer):
             b1, b2, n = group["b1"], group["b2"], group["count"]
             lr = group["lr"] * group["lr_scale"]
             bc1, bc2 = (float(np.float32(1) - np.float32(b) ** np.int32(n)) for b in (b1, b2))
-            params = [p for p in group["params"]]
+            params = [p for p in group["params"] if p.dtype == torch.float32]
+            low = [p for p in group["params"] if p.dtype != torch.float32]
+            for idx in _chunks(low):
+                self._step_low(group, [low[i] for i in idx], bc1, bc2)
             for idx in _chunks(params):
                 ps = [params[i] for i in idx]
                 sts = [self._state(p) for p in ps]
@@ -138,6 +155,35 @@ class AdamW(torch.optim.Optimizer):
                     for st, m in zip(sts, mus):
                         st["mu"].copy_(m)
         return None
+
+    def _step_low(self, group, ps, bc1: float, bc2: float):
+        """optax's adam(w) on low-precision parameters and moments: each
+        operation in the parameter dtype, constants rounded to it first."""
+        dt = ps[0].dtype
+        c = lambda v: float(torch.tensor(v, dtype=torch.float32).to(dt))
+        b1, b2 = group["b1"], group["b2"]
+        sts = [self._state(p) for p in ps]
+        mus, nus = [st["mu"] for st in sts], [st["nu"] for st in sts]
+        torch._foreach_mul_(mus, c(b1))
+        torch._foreach_mul_(nus, c(b2))
+        with_g = [i for i, p in enumerate(ps) if p.grad is not None]
+        if with_g:   # (1 - b) * g + b * m; a zero gradient adds an exact 0
+            grads = [ps[i].grad.to(dt) for i in with_g]
+            torch._foreach_add_([mus[i] for i in with_g], torch._foreach_mul(grads, c(1 - b1)))
+            g2 = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(g2, c(1 - b2))
+            torch._foreach_add_([nus[i] for i in with_g], g2)
+            del g2, grads
+        denom = torch._foreach_div(nus, c(bc2))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, c(_EPS))
+        upd = torch._foreach_div(mus, c(bc1))
+        torch._foreach_div_(upd, denom)
+        del denom
+        if group["weight_decay"]:
+            torch._foreach_add_(upd, torch._foreach_mul(ps, c(group["weight_decay"])))
+        torch._foreach_mul_(upd, -c(c(group["lr"]) * c(group["lr_scale"])))
+        torch._foreach_add_(ps, upd)
 
 
 class SGD(torch.optim.Optimizer):
@@ -183,10 +229,11 @@ def get_optimizer(type: str = "adamw", params: Mapping[str, torch.Tensor] | None
                   **kw) -> tuple[torch.optim.Optimizer, Callable]:
     """(optimizer, set_lr) over the named ``params``; ``set_lr(optimizer, lr)``
     sets every group's lr and returns the optimizer."""
+    from vdtpu_torch.training.ema import tree_items
     pg_lrscale = dict(pg_lrscale or {})
     freeze = tuple(freeze or ())
     groups: dict[str, list] = {}
-    for name, p in (params or {}).items():
+    for name, p in tree_items(params or {}):
         g = parameter_group_of(name)
         if g in freeze:
             continue

@@ -1,18 +1,37 @@
-"""Logging (``vdtpu/utils/logging.py``): ``print_log`` and
+"""Logging (``vdtpu/utils/logging.py``): ``print_log``, the run's log file
+(``set_log_file``, which the training launcher registers) and
 ``MetricAccumulator`` (weighted running means of scalar metrics).
 
 One process drives one card here, so there is no cross-process mean. The
-JAX package's log-file registration (``set_log_file``, which its launch
-CLI calls), multi-host gather and TensorBoard writer are not ported.
+JAX package's multi-host gather and TensorBoard writer are not ported.
 """
 from __future__ import annotations
 
+import os
 from typing import Mapping
+
+_LOG_FILES: list[str] = []
+
+
+def set_log_file(path: str | None):
+    """Append every ``print_log`` line to ``path`` too (None: to no file)."""
+    _LOG_FILES.clear()
+    if path:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        _LOG_FILES.append(path)
 
 
 def print_log(*console_info):
-    """One console line from the parts."""
-    print(" ".join(str(i) for i in console_info))
+    """One console line from the parts, appended to the log file if one is
+    set; a failed append drops the line rather than stop a training step."""
+    msg = " ".join(str(i) for i in console_info)
+    print(msg)
+    for f in _LOG_FILES:
+        try:
+            with open(f, "a") as fh:
+                fh.write(msg + "\n")
+        except OSError:
+            pass
 
 
 class MetricAccumulator:
