@@ -3,7 +3,8 @@
 image-to-text and text-to-text, the multi-context blends, int8 serving,
 the serving queue and CLI, the VAE loss, the eval stage and the
 serving-policy gate, the Mosaic probes, t2i training, the training
-launcher and its data path) on one CUDA card.
+launcher and its data path, data and tensor parallelism over
+torch.distributed with ranks sharing the card) on one CUDA card.
 
     python3 chip_smoke.py            # the default phases, on one card
 
@@ -143,7 +144,9 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             captions, exact DDIM-50, CLIP-sim, then one batch at
             DPM-Solver++ 20 scored with CLIP-FID against seeded reals, each
             batch's flash and GN launches derived; (c) the serving-policy
-            gate (vdtpu_torch.quality.main) in the random-fill and surrogate
+            gate (vdtpu_torch.quality.main, its systems cut to three levels,
+            LAUNCH_LEVELS, to keep the default run in its time limit) in the
+            random-fill and surrogate
             regimes and its calibration sweep ("none", QUALITY_SWEEP) in the
             surrogate one: every variant's launches derived as main_int8 and
             main_modes derive them, rows finite, the exact row bit-equal
@@ -176,7 +179,8 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             LAUNCH_RESUME_BOUND x its lr sum of (b)'s parameters, and a
             resume to 6 ("resumed ... at step 4"); (d) --eval of the EMA
             shadow, one batch of 2, DDIM-50, CFG 7.5: summary.yaml and its
-            launches; then on a system of its own (with the Optimus VAE):
+            launches; then on a system of its own at the same three levels
+            (with the Optimus VAE):
             (h) f32 compute, a micro-batch-2 gradient through the flash
             kernels' f32 route against the plain versions (TF32 off), the f32
             path's launches; (e) the text flow's gradient (Optimus latents)
@@ -184,6 +188,32 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             sites, two Trainer steps; (f) two t2i steps with the CLIP text
             tower trained inside the loss; (g) two steps on bf16 master
             weights, peak beside (b)'s
+  main_parallel data and tensor parallelism over torch.distributed on the
+            one card, at full width: (a) the launcher under torchrun, NCCL,
+            world size 1, PAR_ITERS steps of main_launch's experiment (three
+            levels, global batch 8, gradacc 2) on PAR_SHARDS shards whose
+            samples are all one seeded 512^2 PNG and caption; (b) the same
+            under torchrun with two ranks sharing the card over gloo (dp =
+            2): losses within PAR_LOSS_RTOL of (a)'s, the replicas' parameter
+            and EMA hashes equal after every step, each rank's peak, step s
+            and the all-reduce's share; (c) ``parallel.dryrun`` at tp = 2
+            and three levels: one CFG eps call (batch PAR_TP_BATCH), its
+            model output against one process (PAR_EPS_MIN_COS,
+            PAR_EPS_MAX_REL_L2) and its guided eps against f32 beside one
+            process's (PAR_EPS_F32_RATIO); two Trainer steps, gradients
+            and parameters against one process (TRAIN_MIN_COS,
+            TRAIN_MAX_REL_L2), launches per rank; (d) the
+            dry run at dp = 2 and three levels: a 2-image t2i at DDIM-50,
+            CFG 7.5, and a
+            BatchingQueue at bucket 2 on a leader and a follower, each image
+            against the one-process request (QUEUE_MAX_REL_L2,
+            QUEUE_MIN_COS); (e) the utilities: a UNet step traced by
+            ``utils.profiling.trace`` and broken down by ``summarize_trace``,
+            ``utils.debug.checked`` on a clean and a NaN-injected UNet call,
+            ``device_memory_stats``. Every rank runs under a timeout; a rank
+            that fails or hangs fails the phase. The launcher runs save no
+            checkpoint (a call may write 45 GiB to the disk, and main_launch
+            writes most of it)
   gn_sweep  (not run by default) the GN kernel's plan measured: the card's
             cluster capacities against gn_silu.GN_CLUSTERS, and at
             ``GN_SWEEP_SHAPES`` both routes at every cluster size the kernel
@@ -234,7 +264,7 @@ import zlib
 PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "main_mcg",
           "main_modes", "eps",
           "main_int8", "modes", "eps_int8", "main_fused2", "main_queue", "main_quality", "probes",
-          "train", "main_launch",
+          "train", "main_launch", "main_parallel",
           "profile", "gn_sweep", "gnq_sweep", "gnq_compare")
 DEFAULT_PHASES = PHASES[:-4]
 
@@ -427,11 +457,38 @@ LAUNCH_RESUME_BOUND = 2.5
 # call may write 45 GiB to the machine's disk, deleted files included; a
 # full-depth checkpoint (parameters, Adam's moments, the EMA) is 23.8 GB and
 # the run writes three, this cut 10.7 GB with bf16 first moments. (e)-(h)
-# run the full depth and write nothing.
+# write nothing and run at the same three levels since main_parallel joined
+# the default run (the whole run must end within 1200 s): every path they
+# hold (the text flow, the CLIP tower in the loss, bf16 master weights, the
+# f32 route at the 4096- and 1024-token sites) is there at three levels.
 LAUNCH_LEVELS = {"image": {"num_res_blocks": [1, 1, 1], "channel_mult": [1, 2, 4],
                            "attention_resolutions": [4, 2, 1]},
                  "text": {"num_noattn_blocks": [1, 1, 1], "channel_mult": [1, 2, 4],
                           "second_dim": [4, 4, 4], "with_attn": [True, True, True]}}
+# main_parallel: every sample of its PAR_SHARDS shards is one seeded 512^2 PNG
+# and one caption, so the global batch of dp = 2 (each rank its own shard)
+# holds what one process's does, and (b) is held to (a) step by step. The
+# bounds were fixed before the first run: the losses of dp = 2 (the mean of
+# the ranks' means) within PAR_LOSS_RTOL of one process's (bf16 compute at
+# micro-batch 2 against 4: the libraries take other shapes); a tp = 2 eps
+# call's model output ([uncond; cond]) against one process within
+# PAR_EPS_MIN_COS / PAR_EPS_MAX_REL_L2. The guided eps (uncond + 7.5 (cond -
+# uncond)) multiplies bf16 rounding by up to the scale: on an H100 it read
+# cosine 0.990498, relative L2 0.138 there against one process,
+# while the CPU's f32 and bf16 runs agree bit for bit; so it is held to
+# f32 on the same weights, at most PAR_EPS_F32_RATIO times one process's
+# own distance to f32
+PAR_DIR = os.path.join("build", "main_parallel")
+PAR_SHARDS, PAR_PER_SHARD, PAR_ITERS, PAR_CACHE = 2, 12, 3, 1
+# (c) runs at main_launch's three levels, one dry run for the eps call and
+# the training, batch 2 in one micro-batch: every sharded layer gathers its
+# output and sums its input gradient through the host (gloo), ~19 s a
+# training step at batch 4 in two micro-batches on an H100, and the full
+# depth's separate eps run cost ~50 s of a default run near its time limit
+PAR_TP_BATCH = 2
+PAR_LOSS_RTOL = 1e-2
+PAR_EPS_MIN_COS, PAR_EPS_MAX_REL_L2, PAR_EPS_F32_RATIO = 0.999, 0.02, 1.5
+PAR_TIMEOUT = 420     # seconds for each multi-process run, every rank killed after
 TOME_RATIO = 0.75
 SEED = 0      # weights, noise and inputs are made from it
 STEPS = 50    # DDIM steps of the main-path request
@@ -444,8 +501,10 @@ MODE_REUSE = 2
 MODE_BAND = (0.1, 0.8)
 MODE_MAX_REL_L2 = 1e-3
 # warm t2i requests of each mode and of exact DDIM-50, taken in turn, for
-# the modes' time against exact (one request moves by 15% from run to run)
-MODE_ROUNDS = 3
+# the modes' time against exact (one request moves by 15% from run to run;
+# one round since main_parallel joined the default run, which must end
+# within 1200 s)
+MODE_ROUNDS = 1
 # main_queue: the serving queue's buckets; its full bucket of 8 t2i requests
 # (UNet batch 16) at DDIM-50; the co-rider, bucket-1 and seven-flow checks at
 # QUEUE_STEPS; the CLI at CLI_STEPS
@@ -3556,13 +3615,19 @@ def _quality_gate(state):
         return run
 
     runs = {}
-    for label, argv in (("random_fill", []), ("surrogate", ["--surrogate"]),
-                        ("surrogate_sweep", ["--surrogate", "--clip-sweep", QUALITY_SWEEP])):
-        t = time.perf_counter()
-        runs[label] = quality.main(["--seed", str(SEED), *argv], observe=observe(label))
-        mine = {k: v["launches"] for k, v in launches.items() if k.startswith(label + " ")}
-        log(f"main_quality (c) {label}: {time.perf_counter() - t:.1f} s, launches "
-            f"{json.dumps(mine)} [{state.get('card')}]")
+    inner = quality.VDSystem    # the gate's systems at LAUNCH_LEVELS (module comment)
+    quality.VDSystem = functools.partial(inner, model_args=_launch_model_args())
+    try:
+        for label, argv in (("random_fill", []), ("surrogate", ["--surrogate"]),
+                            ("surrogate_sweep", ["--surrogate", "--clip-sweep", QUALITY_SWEEP])):
+            t = time.perf_counter()
+            runs[label] = quality.main(["--seed", str(SEED), *argv], observe=observe(label))
+            mine = {k: v["launches"] for k, v in launches.items()
+                    if k.startswith(label + " ")}
+            log(f"main_quality (c) {label} (three levels): {time.perf_counter() - t:.1f} s, "
+                f"launches {json.dumps(mine)} [{state.get('card')}]")
+    finally:
+        quality.VDSystem = inner
     bad = []
     for label in ("random_fill", "surrogate"):
         out = runs[label]
@@ -3869,12 +3934,15 @@ def _grad_agreement(g_kern, g_plain):
 
 
 @contextlib.contextmanager
-def _launch_probes(records: list, towers: dict):
+def _launch_probes(records: list, towers: dict, hashes: bool = False):
     """Time each optimizer step the launcher's Trainer runs (synchronized)
-    with its launch counts (zeroed just before it, read just after), and
-    the device memory around ``VDSystem.free_towers`` (the latent cache);
-    the launcher itself is driven as a user drives it."""
+    with its launch counts (zeroed just before it, read just after) and its
+    dp all-reduce's seconds (with ``hashes``, the hashes of the parameters
+    and the EMA after it), and the device memory around
+    ``VDSystem.free_towers`` (the latent cache); the launcher itself is
+    driven as a user drives it."""
     import torch
+    from vdtpu_torch.parallel.mesh import tree_fingerprint
     from vdtpu_torch.serving.api import VDSystem
     from vdtpu_torch.training import checkpoints, harness
     inner_step, inner_free, inner_snap = (harness.make_train_step, VDSystem.free_towers,
@@ -3891,10 +3959,15 @@ def _launch_probes(records: list, towers: dict):
             torch.cuda.synchronize()
             c = _train_counters()
             records.append(dict(seconds=time.perf_counter() - t0, loss=float(loss),
+                                comm_s=step.comm_s,
                                 launches={k: f.launches for k, f in c.items()},
                                 flash_fwd_by_path=dict(c["flash_fwd"].launches_by_path),
                                 flash_bwd_by_path=dict(c["flash_bwd"].launches_by_path)))
+            if hashes:
+                records[-1].update(params_hash=tree_fingerprint(state.params),
+                                   ema_hash=tree_fingerprint(state.ema.shadow))
             return loss, aux
+        timed.comm_s = 0.0
         return timed
 
     def free(self):
@@ -3904,9 +3977,9 @@ def _launch_probes(records: list, towers: dict):
         inner_free(self)
         towers["after_gib"] = torch.cuda.memory_allocated() / 2**30
 
-    def snap(state):
+    def snap(state, *mesh):
         t0 = time.perf_counter()
-        out = inner_snap(state)
+        out = inner_snap(state, *mesh)
         towers.setdefault("snapshot_s", []).append(time.perf_counter() - t0)
         return out
 
@@ -4189,7 +4262,8 @@ def _launch_eval(state, cfg_path: str, run: str) -> dict:
 
 
 def _launch_flows(state) -> dict:
-    """(e)-(h) on one full-width f32 system with the Optimus VAE."""
+    """(e)-(h) on one full-width f32 system of three levels (LAUNCH_LEVELS)
+    with the Optimus VAE."""
     import gc
     import torch
     from vdtpu_torch.ops.flash import flash_attention, flash_attention_bwd
@@ -4199,7 +4273,7 @@ def _launch_flows(state) -> dict:
     from vdtpu_torch.training.schedulers import get_scheduler
     res = {}
     system = VDSystem("vd_four_flow_v1-0", dtype=torch.float32, device="cuda",
-                      use_checkpoint=False)
+                      use_checkpoint=False, model_args=_launch_model_args())
     system.init_random(SEED + 20)
     derandomize_zeros(system.net, SEED + 21)
     model = system.model
@@ -4390,11 +4464,371 @@ def phase_main_launch(state):
         res["d"] = _launch_eval(state, cfg_path, run)
     finally:
         os.chdir(cwd)
-    shutil.rmtree(root, ignore_errors=True)    # tens of GiB of checkpoints
+    shutil.rmtree(os.path.join(root, "log"), ignore_errors=True)  # tens of GiB of checkpoints
+    state["launch_files"] = (pretrained, vocab, merges)   # main_parallel takes them
     res.update(_launch_flows(state))
     log(f"main_launch: peak (b) {res['b']['peak_gib']:.2f} GiB (f32 master weights), (g) "
         f"{res['g']['peak_gib']:.2f} GiB (bf16 master weights) [{state.get('card')}]")
     state["main_launch"] = res
+
+
+# ---- main_parallel ---------------------------------------------------------------------
+
+def _launch_worker(argv: list[str]) -> int:
+    """``chip_smoke.py --launch-worker OUT <launcher args>``, run by torchrun
+    on every rank: the launcher's ``main`` as a user runs it under
+    ``_launch_probes`` (steps timed and hashed), no checkpoint written;
+    writes ``OUT.rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from vdtpu_torch.training.launch import main as launch_main
+    out = argv[argv.index("--launch-worker") + 1]
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    with _launch_probes(records, {}, hashes=True), _no_saves():
+        launch_main(argv[argv.index("--launch-worker") + 2:])
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    res = dict(rank=rank, backend=dist.get_backend() if dist.is_initialized() else None,
+               records=records, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(label: str, cmd: list, cwd: str | None = None,
+               timeout: float = PAR_TIMEOUT) -> tuple[str, float]:
+    """Run one multi-process command (torchrun, or the dry run) in a session
+    of its own, output to chiprun_out/main_parallel_<label>.log. A nonzero
+    exit or the timeout fails the phase, and every process of the session
+    is killed. Returns (the output, seconds)."""
+    import signal
+    path = os.path.abspath(os.path.join("chiprun_out", f"main_parallel_{label}.log"))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t = time.perf_counter()
+    with open(path, "w") as f:
+        p = subprocess.Popen(cmd, cwd=cwd or repo, stdout=f, stderr=subprocess.STDOUT, env=env,
+                             start_new_session=True)
+        try:
+            rc = p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    with open(path) as f:
+        out = f.read()
+    if rc is None:
+        raise RuntimeError(f"main_parallel {label}: no end after {timeout} s (every rank "
+                           f"killed): {out[-2000:]}")
+    if rc != 0:
+        raise RuntimeError(f"main_parallel {label}: exit {rc}: {out[-3000:]}")
+    return out, time.perf_counter() - t
+
+
+def _uniform_shards(root: str) -> str:
+    """PAR_SHARDS tar shards of PAR_PER_SHARD samples, every one the same
+    seeded 512^2 PNG and caption."""
+    import io
+    import tarfile
+    import numpy as np
+    from vdtpu_torch.data.images import encode_png
+    os.makedirs(root, exist_ok=True)
+    rgb = np.random.RandomState(SEED + 30).randint(0, 256, (512, 512, 3), dtype=np.uint8)
+    png, caption = encode_png(rgb), b"a red cat sitting on a wooden bench in the sun"
+    for s in range(PAR_SHARDS):
+        with tarfile.open(os.path.join(root, f"shard-{s:04d}.tar"), "w") as tf:
+            for i in range(PAR_PER_SHARD):
+                for ext, data in (("png", png), ("txt", caption)):
+                    info = tarfile.TarInfo(f"{s:04d}{i:06d}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+    return root
+
+
+def _parallel_setup(state, root: str) -> str:
+    """The experiment of (a) and (b): main_launch's (its pretrained weights,
+    written again when main_launch did not run here) on the uniform shards,
+    PAR_ITERS steps, no checkpoint cadence. Returns its path."""
+    import gc
+    import torch
+    from vdtpu_torch.serving.api import VDSystem
+    os.makedirs(root, exist_ok=True)
+    files = state.get("launch_files")
+    if files is None or not os.path.exists(files[0]):
+        system = VDSystem("vd_four_flow_v1-0", dtype=torch.float32, device="cuda",
+                          model_args=_launch_model_args())
+        system.init_random(SEED)
+        derandomize_zeros(system.net, SEED + 1)
+        files = (os.path.join(root, "pretrained.pt"), os.path.join(root, "vocab.json"),
+                 os.path.join(root, "merges.txt"))
+        torch.save({k: v.to("cpu", torch.bfloat16) for k, v in system.net.state_dict().items()},
+                   files[0])
+        _synthetic_clip_vocab(files[1], files[2])
+        del system
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = _launch_config(root, *files)
+    cfg.update(name="main_parallel", with_text_vae=False)
+    cfg["data"]["shards"] = _uniform_shards(os.path.join(root, "shards"))
+    cfg["train"].update(num_iters=PAR_ITERS, ckpt_every=None, async_ckpt=False)
+    cfg["data"]["cache_latents"] = PAR_CACHE
+    path = os.path.join(root, "experiment.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def _worker_runs(state, root: str, cfg_path: str, nproc: int, label: str) -> dict:
+    """The launcher under torchrun with ``nproc`` ranks on the card."""
+    out = os.path.join(root, f"worker_{label}")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), os.path.abspath(__file__), "--launch-worker", out, "--config",
+           cfg_path, "--debug"]
+    text, wall = _run_ranks(label, cmd, cwd=root)
+    ranks = []
+    for r in range(nproc):
+        with open(f"{out}.rank{r}.json") as f:
+            ranks.append(json.load(f))
+    backend = re.findall(r"distributed: backend (\w+), world (\d+)", text)
+    return dict(ranks=ranks, wall_s=wall, printed=backend)
+
+
+def _par_expect(model_args=None, accum: int = TRAIN_ACCUM) -> dict:
+    """Flash and GN launches of one training step of a rank (no remat)."""
+    from vdtpu_torch.serving.api import VDSystem
+    meta = VDSystem("vd_four_flow_v1-0", device="meta", model_args=model_args)
+    n_fl, n_gn = _flash_sites(meta.model), _n_gn(meta.model)
+    return {"flash_fwd": n_fl * accum, "flash_bwd": n_fl * accum, "gn_silu": n_gn * accum}
+
+
+def _parallel_launcher(state, root: str) -> dict:
+    """(a) torchrun, NCCL, world 1; (b) torchrun, two ranks over gloo."""
+    cfg_path = _parallel_setup(state, root)
+    expect = _par_expect(_launch_model_args())
+    res = {}
+    for label, nproc in (("a", 1), ("b", 2)):
+        run = _worker_runs(state, root, cfg_path, nproc, label)
+        for r in run["ranks"]:
+            _check_steps(f"main_parallel ({label}) rank {r['rank']}", r["records"], expect)
+            if len(r["records"]) != PAR_ITERS:
+                raise RuntimeError(f"main_parallel ({label}): {len(r['records'])} steps")
+        res[label] = run
+    a, b = res["a"]["ranks"][0], res["b"]["ranks"]
+    loss_a = [s["loss"] for s in a["records"]]
+    loss_b = [sum(r["records"][i]["loss"] for r in b) / len(b) for i in range(PAR_ITERS)]
+    rel = [abs(x - y) / abs(y) for x, y in zip(loss_b, loss_a)]
+    hashes = [[(s["params_hash"], s["ema_hash"]) for s in r["records"]] for r in b]
+    log(f"main_parallel (a) torchrun --nproc_per_node 1 -m-style launcher run (main_launch's "
+        f"experiment, three levels, global batch {LAUNCH_BATCH}, gradacc {TRAIN_ACCUM}, "
+        f"uniform shards): printed {res['a']['printed']}, backend {a['backend']}, losses "
+        f"{loss_a}, steps {[round(s['seconds'], 3) for s in a['records']]} s, peak "
+        f"{a['peak_gib']:.2f} GiB, launches a step {a['records'][-1]['launches']} "
+        f"(expected {expect}), {res['a']['wall_s']:.1f} s in all [{state.get('card')}]")
+    for r in b:
+        warm = r["records"][1:]
+        step = sum(s["seconds"] for s in warm) / len(warm)
+        comm = sum(s["comm_s"] for s in warm) / len(warm)
+        log(f"main_parallel (b) dp = 2, two ranks sharing the card over {r['backend']}: rank "
+            f"{r['rank']} losses {[s['loss'] for s in r['records']]}, steps "
+            f"{[round(s['seconds'], 3) for s in r['records']]} s (warm {step:.3f} s, of it the "
+            f"all-reduce {comm:.3f} s = {comm / step:.3f}), peak {r['peak_gib']:.2f} GiB "
+            f"[{state.get('card')}]")
+    log(f"main_parallel (b) mean losses {loss_b} vs (a) {loss_a}: relative {rel} (bound "
+        f"{PAR_LOSS_RTOL}); replica hashes equal after every step: "
+        f"{all(h == hashes[0] for h in hashes)}; printed {res['b']['printed']}; "
+        f"{res['b']['wall_s']:.1f} s in all [{state.get('card')}]")
+    if a["backend"] != "nccl" or res["a"]["printed"] != [("nccl", "1")]:
+        raise RuntimeError(f"main_parallel (a): backend {a['backend']} {res['a']['printed']}")
+    if [r["backend"] for r in b] != ["gloo", "gloo"] or res["b"]["printed"] != [("gloo", "2")]:
+        raise RuntimeError(f"main_parallel (b): backends {[r['backend'] for r in b]}")
+    if not all(h == hashes[0] for h in hashes):
+        raise RuntimeError(f"main_parallel (b): the replicas differ: {hashes}")
+    if not all(math.isfinite(x) for x in loss_a + loss_b) or max(rel) > PAR_LOSS_RTOL:
+        raise RuntimeError(f"main_parallel (b): losses {loss_b} vs {loss_a}")
+    return dict(a_losses=loss_a, b_losses=loss_b, rel=rel,
+                b_ranks=[dict(rank=r["rank"], peak_gib=r["peak_gib"],
+                              steps_s=[s["seconds"] for s in r["records"]],
+                              comm_s=[s["comm_s"] for s in r["records"]]) for r in b],
+                a_steps_s=[s["seconds"] for s in a["records"]], a_peak_gib=a["peak_gib"])
+
+
+def _dryrun(label: str, root: str, *args) -> list[dict]:
+    """``python -m vdtpu_torch.parallel.dryrun`` on the card (gloo, the
+    ranks sharing it); returns the ranks' results."""
+    out = os.path.join(root, f"dryrun_{label}")
+    cmd = [sys.executable, "-m", "vdtpu_torch.parallel.dryrun", "--device", "cuda",
+           "--out", out, "--config", "vd_four_flow_v1-0", "--seed", str(SEED),
+           "--image-size", "512", "--latent-downsample", "8", "--timeout",
+           str(PAR_TIMEOUT - 20), *args]
+    text, wall = _run_ranks(label, cmd)
+    n = int(args[args.index("--nproc") + 1])
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    ranks[0]["wall_s"] = wall
+    return ranks
+
+
+def _parallel_tp(state, root: str) -> dict:
+    """(c) tp = 2 at three levels: one CFG eps call, then two Trainer steps,
+    each against one process on rank 0."""
+    from vdtpu_torch.serving.api import VDSystem
+    margs = os.path.join(root, "model_args.json")
+    with open(margs, "w") as f:
+        json.dump(_launch_model_args(), f)
+    meta = VDSystem("vd_four_flow_v1-0", device="meta", model_args=_launch_model_args())
+    expect_eps = {"flash_fwd": _flash_sites(meta.model), "flash_bwd": 0,
+                  "gn_silu": _n_gn(meta.model)}
+    del meta
+    expect = _par_expect(_launch_model_args(), accum=1)
+    ranks = _dryrun("c", root, "--nproc", "2", "--tp", "2", "--phases", "eps,train",
+                    "--model-args", margs, "--train-steps", "2", "--batch", str(PAR_TP_BATCH),
+                    "--accum", "1", "--compute-dtype", "bfloat16", "--dtype", "bfloat16",
+                    "--base-lr", "1e-5", "--reference")
+    e0, t0 = ranks[0]["eps"], ranks[0]["train"]
+    agree, raw = e0["vs_one_process"], e0["raw_vs_one_process"]
+    to32, one32 = e0["vs_f32"], e0["one_process_vs_f32"]
+    g, pa = t0["grads_vs_one_process"], t0["params_vs_one_process"]
+    steps = [[s["launches"] for s in r["train"]["steps"]] for r in ranks]
+    log(f"main_parallel (c) tp = 2 at three levels ({ranks[0]['wall_s']:.1f} s with the ranks' "
+        f"start; {ranks[0]['sharded']} tensors sharded): a CFG eps call (batch {PAR_TP_BATCH} x "
+        f"CFG, 64^2 latent, bf16): model output vs one process cosine {raw['cosine']:.6f} "
+        f"rel_l2 {raw['rel_l2']:.3e} (limits >= {PAR_EPS_MIN_COS}, <= {PAR_EPS_MAX_REL_L2}); "
+        f"guided eps vs one process cosine {agree['cosine']:.6f} rel_l2 {agree['rel_l2']:.3e}, "
+        f"vs f32 {to32['cosine']:.6f} / {to32['rel_l2']:.3e} beside one process's "
+        f"{one32['cosine']:.6f} / {one32['rel_l2']:.3e} (limit {PAR_EPS_F32_RATIO}x); launches "
+        f"per rank {[r['eps']['launches'] for r in ranks]} (expected {expect_eps}), seconds "
+        f"{[round(r['eps']['seconds'], 3) for r in ranks]}, gathers by route "
+        f"{[r['gather_routes'] for r in ranks]} [{state.get('card')}]")
+    log(f"main_parallel (c) two Trainer steps (batch {PAR_TP_BATCH}, bf16 compute, f32 masters)"
+        f" vs one process: last gradients cosine {g['cosine']:.6f} rel_l2 {g['rel_l2']:.3e}, "
+        f"parameters cosine {pa['cosine']:.9f} rel_l2 {pa['rel_l2']:.3e} (limits cos >= "
+        f"{TRAIN_MIN_COS}, rel_l2 <= {TRAIN_MAX_REL_L2}); losses "
+        f"{[[round(s['loss'], 6) for s in r['train']['steps']] for r in ranks]} vs "
+        f"{t0['loss_one_process']:.6f}; steps "
+        f"{[[round(s['seconds'], 3) for s in r['train']['steps']] for r in ranks]} s; launches "
+        f"a step per rank {steps} (expected {expect}); peak "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB [{state.get('card')}]")
+    if not (raw["cosine"] >= PAR_EPS_MIN_COS and raw["rel_l2"] <= PAR_EPS_MAX_REL_L2
+            and to32["rel_l2"] <= PAR_EPS_F32_RATIO * one32["rel_l2"]) or \
+            any(r["eps"]["launches"] != expect_eps or not r["eps"]["finite"] for r in ranks):
+        raise RuntimeError("main_parallel (c): the tp = 2 eps call disagrees")
+    for agreement in (g, pa):
+        if not (agreement["cosine"] >= TRAIN_MIN_COS and agreement["rel_l2"] <= TRAIN_MAX_REL_L2):
+            raise RuntimeError("main_parallel (c): tp = 2 training disagrees with one process")
+    if any(c != expect for r in steps for c in r):
+        raise RuntimeError(f"main_parallel (c): launches {steps} != {expect}")
+    return dict(eps=agree, eps_raw=raw, eps_vs_f32=to32, eps_one_vs_f32=one32,
+                eps_launches=e0["launches"], grads=g, params=pa, train_launches=steps[0][-1],
+                routes=ranks[0]["gather_routes"], peak_gib=[r["peak_gib"] for r in ranks],
+                wall_s=ranks[0]["wall_s"])
+
+
+def _parallel_serve(state, root: str) -> dict:
+    """(d) dp = 2 serving at three levels (the model args (c) wrote): t2i
+    at DDIM-50 on both ranks, the queue on a leader and a follower, each
+    image against one process."""
+    from vdtpu_torch.serving.api import VDSystem
+    meta = VDSystem("vd_four_flow_v1-0", device="meta", model_args=_launch_model_args())
+    n_unet, n_dec, _ = _gn_sites(meta)
+    expect = {"flash_fwd": _flash_sites(meta.model) * STEPS, "flash_bwd": 0,
+              "gn_silu": n_unet * STEPS + n_dec}
+    del meta
+    ranks = _dryrun("d", root, "--nproc", "2", "--tp", "1", "--phases", "serve", "--steps",
+                    str(STEPS), "--dtype", "bfloat16", "--reference", "--model-args",
+                    os.path.join(root, "model_args.json"))
+    sv = ranks[0]["serve"]
+    rows = sv["t2i_vs_one_process"] + sv["queue_vs_one_process"]
+    log(f"main_parallel (d) dp = 2 serving at three levels (two ranks sharing the card "
+        f"over gloo; "
+        f"{ranks[0]['wall_s']:.1f} s with the ranks' start): t2i 2 images "
+        f"DDIM-{STEPS} CFG 7.5 {[round(r['serve']['t2i_seconds'], 3) for r in ranks]} s per rank"
+        f" vs {sv['t2i_one_process_seconds']:.3f} s in one process (host-bound: each rank runs "
+        f"batch 1 and both share the card); queue bucket 2 on the leader {sv['queue_seconds']:.3f}"
+        f" s, follower calls {ranks[1]['serve']['followed']}; per image vs one process "
+        f"{[(round(r['cosine'], 6), round(r['rel_l2'], 5)) for r in rows]} (limits cos >= "
+        f"{QUEUE_MIN_COS}, rel_l2 <= {QUEUE_MAX_REL_L2}); t2i launches per rank "
+        f"{[r['serve']['t2i_launches'] for r in ranks]} (expected {expect}: one image a rank); "
+        f"peak {[round(r['peak_gib'], 2) for r in ranks]} GiB [{state.get('card')}]")
+    if any(not (r["cosine"] >= QUEUE_MIN_COS and r["rel_l2"] <= QUEUE_MAX_REL_L2) for r in rows) \
+            or not (sv["t2i_finite"] and sv["queue_finite"]) or len(rows) != 4 \
+            or any(r["serve"]["t2i_launches"] != expect for r in ranks):
+        raise RuntimeError("main_parallel (d): dp serving disagrees with one process")
+    return dict(t2i_s=[r["serve"]["t2i_seconds"] for r in ranks],
+                one_process_s=sv["t2i_one_process_seconds"], queue_s=sv["queue_seconds"],
+                images=rows)
+
+
+def _parallel_utilities(state) -> dict:
+    """(e) a traced UNet step broken down by summarize_trace, ``checked`` on
+    a clean and a NaN-injected UNet call, the allocator's counters."""
+    import gc
+    import torch
+    from vdtpu_torch.serving.api import VDSystem
+    from vdtpu_torch.utils.debug import checked
+    from vdtpu_torch.utils.profiling import device_memory_stats
+    system = VDSystem("vd_four_flow_v1-0", dtype=torch.bfloat16, device="cuda",
+                      model_args=_launch_model_args(), with_text_vae=False)
+    system.init_random(SEED)
+    derandomize_zeros(system.net, SEED + 1)
+    ids = stand_in_tokenizer(["", "a red cat sitting on a wooden bench in the sun"])
+    u1, c1 = system.ctx_encode(ids[:1], "text"), system.ctx_encode(ids[1:], "text")
+    prof = _profile_step(state, system, "main_parallel (e)", u1, c1, images=1)
+    x = torch.randn(2, 4, 64, 64, device="cuda", dtype=torch.bfloat16)
+    t = torch.full((2,), 500, device="cuda")
+    cc = torch.cat([u1, c1])
+    call = checked(lambda z: system.model.apply_model(z, t, cc, "image", "text"))
+    with torch.no_grad():
+        clean = call(x)
+        bad = x.clone()
+        bad[0, 0, 0, 0] = float("nan")
+        try:
+            call(bad)
+            caught = None
+        except FloatingPointError as e:
+            caught = str(e)
+    mem = device_memory_stats()
+    keys = ("allocated_bytes.all.peak", "reserved_bytes.all.current")
+    log(f"main_parallel (e) checked: clean UNet call passes ({tuple(clean.shape)}, finite "
+        f"{bool(torch.isfinite(clean).all())}), a NaN in the input raises {caught!r}; "
+        f"device_memory_stats {[{k: v[k] for k in keys if k in v} for v in mem.values()]} "
+        f"[{state.get('card')}]")
+    if caught is None or not bool(torch.isfinite(clean).all()) or not mem or prof is None:
+        raise RuntimeError("main_parallel (e): checked / device_memory_stats / the trace failed")
+    del system, clean
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(caught=caught, busy_ms=prof[2], kinds_us=prof[4])
+
+
+def phase_main_parallel(state):
+    """Data and tensor parallelism on the one card: (a)-(b) the launcher under
+    torchrun, (c)-(d) the dry run at tp = 2 and dp = 2, (e) the utilities."""
+    import gc
+    import shutil
+    import torch
+    state.pop("system", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.abspath(PAR_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    res = {}
+    try:
+        res["launcher"] = _parallel_launcher(state, root)
+        res["tp"] = _parallel_tp(state, root)
+        res["serve"] = _parallel_serve(state, root)
+        res["utilities"] = _parallel_utilities(state)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(os.path.abspath(LAUNCH_DIR), ignore_errors=True)
+    state["main_parallel"] = res
 
 
 def _dev_t(e) -> float:
@@ -4460,12 +4894,13 @@ def _profile_step(state, system, label, u1, c1, images: int = 2):
     cc = torch.cat([u1.repeat(images, 1, 1), c1.repeat(images, 1, 1)])
     step = lambda: system.model.apply_model(x, tt, cc, "image", "text")
     iters = 5
+    from vdtpu_torch.utils.profiling import summarize_trace, trace
+    out = os.path.join("build", "profile", re.sub(r"\W+", "_", label))
     with torch.no_grad():
         for _ in range(3):
             step()
         sync()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        with trace(out) as prof:
             t = time.perf_counter()
             for _ in range(iters):
                 step()
@@ -4480,9 +4915,10 @@ def _profile_step(state, system, label, u1, c1, images: int = 2):
     if not rows:
         log("profile: the profiler saw no device time")
         return None
-    kinds: dict[str, float] = {}
-    for e in rows:
-        kinds[_kernel_kind(e.key)] = kinds.get(_kernel_kind(e.key), 0.0) + _dev_t(e)
+    # device us by kind, from the written trace's kernel events
+    kinds = {k: 1e3 * ms for k, ms in summarize_trace(out, None, _kernel_kind).items()}
+    log(f"  trace {out}/trace.json: device {sum(kinds.values()) / iters / 1e3:.3f} ms/step "
+        f"by summarize_trace, {busy:.3f} by the profiler's rows")
     for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
         log(f"  kind {kind}: {us / iters / 1e3:.3f} ms/step ({us / iters / 1e3 / busy:.3f})")
     return rows, iters, busy, wall, kinds
@@ -4558,6 +4994,8 @@ def phase_profile(state):
 
 def main() -> int:
     global _LOG
+    if "--launch-worker" in sys.argv:    # a rank of main_parallel's launcher runs
+        return _launch_worker(sys.argv)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES))
     args = ap.parse_args()

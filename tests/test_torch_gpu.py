@@ -1457,3 +1457,67 @@ def test_reconstruction_pass_under_autograd_on_the_card(gen):
                 flash_attention_bwd.launches_by_path["f32"] - f32_before[1]) == (2, 2)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+# -- collectives of two ranks sharing the card over gloo ------------------------------------
+
+_GLOO_CUDA = r"""
+import json, os, sys, torch, torch.distributed as dist
+sys.path.insert(0, os.environ["ROOT"])
+from vdtpu_torch.parallel import collectives
+from vdtpu_torch.parallel.mesh import init_distributed, make_mesh
+init_distributed("cuda", "gloo")
+mesh, r = make_mesh(2), dist.get_rank()
+x = torch.arange(12.0, device="cuda").reshape(2, 6) + 100 * r
+x.requires_grad_(True)
+y = collectives.gather_features(x, 1, mesh)
+(y * torch.arange(12.0, device="cuda")[None]).sum().backward()
+g = [torch.full((3,), float(r + 1), device="cuda")]
+collectives.all_reduce_mean(g, make_mesh(1).dp_group)
+obj = collectives.broadcast_object({"t": torch.ones(2, device="cuda") * 7}, src=0,
+                                   device="cuda")
+h = collectives.gather_dim(torch.full((1, 3), 1.0 + r / 128, device="cuda",
+                                      dtype=torch.bfloat16), 0, mesh.tp_group)
+res = {"y": y.tolist(), "grad": x.grad.tolist(), "mean": g[0].tolist(),
+       "obj": obj["t"].tolist(), "device": str(obj["t"].device),
+       "bf16": [h.dtype == torch.bfloat16, h.float().tolist()],
+       "routes": dict(collectives.gather_routes)}
+with open(os.path.join(os.environ["OUT"], f"{r}.json"), "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def test_gather_features_over_gloo_on_cuda_tensors(tmp_path):
+    """Two ranks on the one card, gloo: the feature gather (forward joins the
+    slices, backward hands each rank its slice of the gradient), the mean
+    over dp and the broadcast, on CUDA tensors; a bf16 gather (widened to
+    f32 under gloo) is exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, ROOT=root, OUT=str(tmp_path), WORLD_SIZE="2",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    procs = [subprocess.Popen([sys.executable, "-c", _GLOO_CUDA], cwd=root,
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    for p in procs:
+        assert p.wait(timeout=180) == 0, p.stderr.read()[-3000:]
+    res = [json.load(open(tmp_path / f"{r}.json")) for r in range(2)]
+    whole = [[float(v) for v in range(6)] + [100.0 + v for v in range(6)],
+             [6.0 + v for v in range(6)] + [106.0 + v for v in range(6)]]
+    for r, out in enumerate(res):
+        assert out["y"] == whole
+        assert out["grad"] == [[6.0 * r + v for v in range(6)]] * 2
+        assert out["mean"] == [1.5] * 3 and out["obj"] == [7.0, 7.0]
+        assert out["device"].startswith("cuda")
+        assert out["routes"] == {"host": 1, "host_f32": 1}
+        assert out["bf16"] == [True, [[1.0] * 3, [1.0 + 1 / 128] * 3]]

@@ -39,7 +39,16 @@ _SLICE2 = ("ops/nomax.py", "ops/qconv.py", "ops/quant.py", "ops/tome.py",
            "models/autokl_loss.py", "training/evaluator.py", "training/launch.py",
            "quality.py", "data/webdataset.py", "data/images.py", "data/benchmark.py",
            "data/native/__init__.py", "data/native/tario.cpp", "training/experiment.py",
-           "config/experiments.py", "csrc/flash_fwd.cu")
+           "config/experiments.py", "csrc/flash_fwd.cu", "parallel/mesh.py",
+           "parallel/collectives.py", "parallel/dryrun.py", "utils/profiling.py",
+           "utils/debug.py", "utils/units.py")
+
+# the modules that may use torch.distributed: the parallel package and the
+# modules that run under a mesh
+_DISTRIBUTED = ("parallel/mesh.py", "parallel/collectives.py", "parallel/dryrun.py",
+                "training/harness.py", "training/checkpoints.py", "training/experiment.py",
+                "training/launch.py", "utils/logging.py", "serving/api.py")
+_DIST_RE = re.compile(r"torch\.distributed|from torch import distributed")
 
 
 def test_every_module_imports_with_jax_flax_yaml_blocked():
@@ -62,6 +71,9 @@ def test_every_module_imports_with_jax_flax_yaml_blocked():
     assert {"vdtpu_torch.data.webdataset", "vdtpu_torch.data.images",
             "vdtpu_torch.data.benchmark", "vdtpu_torch.data.native",
             "vdtpu_torch.training.experiment", "vdtpu_torch.config.experiments"} <= set(modules)
+    assert {"vdtpu_torch.parallel.mesh", "vdtpu_torch.parallel.collectives",
+            "vdtpu_torch.parallel.dryrun", "vdtpu_torch.utils.profiling",
+            "vdtpu_torch.utils.debug", "vdtpu_torch.utils.units"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         *[f"sys.modules[{name!r}] = None" for name in _BLOCKED],
@@ -95,6 +107,24 @@ def test_slice2_sources_name_no_library_attention_or_compiler():
             text = f.read()
         assert "scaled_dot_product_attention" not in text, rel
         assert "torch.compile" not in text, rel
+
+
+def test_no_ddp_or_dtensor_and_distributed_only_where_it_runs():
+    """No module of the port (nor chip_smoke.py) imports DDP or DTensor;
+    ``torch.distributed`` appears only in the parallel package and the
+    modules that run under a mesh."""
+    ddp = re.compile(r"^\s*(?:import|from)\s+torch\.(?:nn\.parallel|distributed\.tensor)"
+                     r"|^\s*from\s+torch\.nn\s+import\s+.*parallel"
+                     r"|^\s*(?:import|from)\s.*\b(?:DistributedDataParallel|DTensor)\b",
+                     re.MULTILINE)
+    for path in _sources():
+        rel = os.path.relpath(path, PKG)
+        with open(path) as f:
+            text = f.read()
+        assert not ddp.search(text), rel
+        if path.endswith(".py") and rel not in _DISTRIBUTED and \
+                os.path.basename(path) != "chip_smoke.py":
+            assert not _DIST_RE.search(text), f"{rel} uses torch.distributed"
 
 
 def test_no_module_imports_pil_at_import():

@@ -28,7 +28,8 @@ import pytest
 import torch
 
 from _tiny import det_tokenizer
-from test_torch_slice import PROMPT, build_tiny_systems
+from test_torch_i2i import tiny_systems_from_port
+from test_torch_slice import PROMPT
 from vdtpu.models.transformer import CrossAttention as JCrossAttention
 from vdtpu.ops import quant as jquant
 from vdtpu.sampling.ddim import DDIMSampler as JDDIMSampler
@@ -313,7 +314,7 @@ def _jax_calibrate(jsys, probes):
 def tiny():
     """Both systems, vdtpu's scales (and its scales on probes one ulp
     away), and the port's own calibration state on the same probes."""
-    jsys, psys, sd = build_tiny_systems()
+    jsys, psys, sd = tiny_systems_from_port()
     probes = _probes(np.random.RandomState(11))
     jscales = _jax_calibrate(jsys, probes)
     jscales_ulp = _jax_calibrate(jsys, [(np.nextafter(x, np.float32(np.inf)), t, c)

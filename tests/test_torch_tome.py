@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from _tiny import det_tokenizer
-from test_torch_slice import PROMPT, build_tiny_systems
+from test_torch_i2i import tiny_systems_from_port
+from test_torch_slice import PROMPT
 from vdtpu.ops import tome as jtome
 from vdtpu_torch.models.transformer import BasicTransformerBlock
 from vdtpu_torch.ops.flash import flash_attention
@@ -165,7 +166,7 @@ def test_walk_reuses_one_merge_per_size():
 
 @pytest.fixture(scope="module")
 def systems():
-    return build_tiny_systems()
+    return tiny_systems_from_port()
 
 
 # f32, both packages merge the same tokens (the assignment is an argmax of

@@ -55,6 +55,22 @@ def shared():
     return tiny_systems_from_port()
 
 
+@pytest.fixture(scope="module")
+def jax_adamw(shared):
+    """vdtpu's AdamW (decay 0.01) over the diffuser tree, with its optax
+    update and EMA jitted once for the module (both text-flow cases run the
+    same update on the same tree)."""
+    jparams = shared[0].params["diffuser"]
+    tx, jset_lr = joptim.get_optimizer("adamw", jparams, weight_decay=0.01)
+
+    @jax.jit
+    def jax_update(g, jopt, jp, jema_st):
+        upd, jopt = tx.update(g, jopt, jp)
+        jp = optax.apply_updates(jp, upd)
+        return jopt, jp, jema.ema_update(jema_st, jp, 0.9999)
+    return tx, jset_lr, jax_update
+
+
 def _port_system(sd):
     from vdtpu_torch.serving.api import VDSystem
     psys = VDSystem("vd_test_tiny", device="cpu")
@@ -102,7 +118,7 @@ def _grads_close(params, ref):
 
 
 @pytest.mark.parametrize("c_type", ["text", "image"])
-def test_text_flow_steps_match_jax(shared, c_type):
+def test_text_flow_steps_match_jax(shared, jax_adamw, c_type):
     """x_type "text" (the 0-D diffuser's data blocks, [B, 96] latents):
     one gradient, then two AdamW + EMA steps (vdtpu's step body: its
     jitted value_and_grad, optax update and EMA on its own draws). Loss within 1e-5 relative;
@@ -135,15 +151,9 @@ def test_text_flow_steps_match_jax(shared, c_type):
 
     # vdtpu's step body (make_train_step at grad_accum 1): its loss and
     # gradients from the jitted value_and_grad on its own draws, then the
-    # optax update and the EMA, jitted once
-    tx, jset_lr = joptim.get_optimizer("adamw", jparams, weight_decay=0.01)
+    # optax update and the EMA, jitted once for the module
+    tx, jset_lr, jax_update = jax_adamw
     jopt, jema_st = jset_lr(tx.init(jparams), LR), jema.ema_init(jparams)
-
-    @jax.jit
-    def jax_update(g, jopt, jp, jema_st):
-        upd, jopt = tx.update(g, jopt, jp)
-        jp = optax.apply_updates(jp, upd)
-        return jopt, jp, jema.ema_update(jema_st, jp, 0.9999)
 
     opt, set_lr = optim.get_optimizer("adamw", params, weight_decay=0.01)
     step = make_train_step(psys.model, opt, "text", c_type, ema_decay=0.9999)

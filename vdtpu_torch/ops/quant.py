@@ -255,9 +255,14 @@ class QDense(QuantState, nn.Linear):
         wq, ws = quantize_weight(self.weight2d())
         return wq.reshape(wq.shape[0], -1), ws
 
+    def linear(self, x):
+        """The exact projection (a tensor-parallel layer gathers its output
+        features here, ``parallel/mesh.py``)."""
+        return F.linear(x, self.weight2d(), self.bias)
+
     def forward(self, x, add=None):
         if not self.int8_active(x.shape[-1]):
-            y = F.linear(x, self.weight2d(), self.bias)
+            y = self.linear(x)
             return y if add is None else y + add
         xq, s_x = self.quantize_input(x)
         return self.matmul_q(xq, s_x, add, x.dtype)
@@ -292,6 +297,11 @@ class QConv(QuantState, nn.Conv2d):
         wq, ws = quantize_weight(self.weight)
         return wq.permute(0, 2, 3, 1).contiguous(), ws
 
+    def conv(self, x):
+        """The exact convolution (a tensor-parallel layer gathers its output
+        channels here, ``parallel/mesh.py``)."""
+        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+
     def forward(self, x, gn=None, add=None, fused: bool = False):
         """x NCHW. gn: the GroupNorm32 whose GN+SiLU precedes this conv (run
         as the policy's prologue) or None. add: FiLM [B, N, 1, 1] or a full
@@ -301,7 +311,7 @@ class QConv(QuantState, nn.Conv2d):
         b, c, h, w = x.shape
         if pol is None or h * w < pol.min_pixels or not self.int8_active(c):
             hx = x if gn is None else gn(x, silu=True)
-            y = F.conv2d(hx, self.weight, self.bias, self.stride, self.padding)
+            y = self.conv(hx)
             return y if add is None else y + add
         w_q, w_s = self.tables()
         add_vec, add_full = split_add(add)
@@ -358,7 +368,7 @@ def fused_proj(owner: QuantState, x, denses, suffix: str = ""):
     quantize (the owner holds ``act_scale`` + suffix; each layer its own
     weight table). Numerically identical to separate int8 calls."""
     if not owner.int8_active(x.shape[-1], ".qkv" + suffix):
-        return [F.linear(x, d.weight2d(), d.bias) for d in denses]
+        return [d.linear(x) for d in denses]
     xq, s_x = owner.quantize_input(x, suffix)
     return [d.matmul_q(xq, s_x, None, x.dtype) for d in denses]
 

@@ -33,9 +33,32 @@ loss (the trainable context encoder). ``with_text_vae=False`` leaves the
 Optimus VAE out (image-flow training needs no text VAE); ``free_towers``
 drops the VAEs and the context encoders once a latent cache holds what
 they encode.
+
+Batch-parallel serving (``VDInference(mesh=)``, ``parallel/mesh.py``):
+every rank of a dp group draws the whole request's x_T (or its q-sample
+noise) from the seed, exactly as one process draws it, and samples its
+own rows of x_T, cond and uncond (``Mesh.row_range``); the latents are
+gathered so every rank holds the whole batch (the text flows decode it
+whole, their generator where one process's would be), and the images are
+decoded by rows and all-gathered, so every rank returns the whole result.
+Each rank runs a smaller batch than one process, so the kernels and
+libraries see other shapes: f32 agrees to rounding, not bit for bit.
+Sampling at eta > 0 under dp raises (each rank would draw its own step
+noise). Two ways to drive it: every rank calls the same flow (SPMD), or
+rank 0 leads (``with vdi.lead():``, e.g. around a ``BatchingQueue``) and
+every other rank runs ``vdi.follow()``: each ``_sample`` /
+``_sample_multi`` call (``_sample_text`` goes through ``_sample``) and,
+under dp, each image decode of the leader is first broadcast
+(``collectives.broadcast_object``), and the followers run it until the
+leader's stop message. Under tp the ranks of a tp group run the same rows
+through sharded layers (``shard_module``), so they follow the sampling
+too. The int8 policy and ToMe run under dp as they run alone (their rows
+are independent at a calibrated scale); the int8 policy under tp raises
+(``shard_module``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
@@ -415,12 +438,15 @@ class VDInference:
                  output_dim=(512, 512), ddim_steps: int = 50, ddim_eta: float = 0.0,
                  n_sample_image: int = 2, n_sample_text: int = 4, image_latent_dim: int = 4,
                  text_latent_dim: int = 768, latent_downsample: int = 8,
-                 sampler: str = "ddim", encoder_reuse=None, cfg_interval=None):
+                 sampler: str = "ddim", encoder_reuse=None, cfg_interval=None, mesh=None):
         """``sampler`` ("ddim" or "dpmpp2m"), ``encoder_reuse`` (None, an
         interval or {"interval", "warmup"}) and ``cfg_interval`` (None or
         (lo, hi)) are the sampler modes of every flow
-        (``sampling/ddim.py``); the defaults are exact DDIM."""
+        (``sampling/ddim.py``); the defaults are exact DDIM. ``mesh``: the
+        batch rows go over its dp group (module docstring)."""
         self.sys = system
+        self.mesh = mesh
+        self._leading = False
         self.tokenizer = text_tokenizer
         self.output_dim = tuple(output_dim)
         self.ddim_steps = ddim_steps
@@ -465,13 +491,107 @@ class VDInference:
                     method=self.sampler, encoder_reuse=self.encoder_reuse,
                     cfg_interval=self.cfg_interval)
 
+    def _dp(self) -> bool:
+        return self.mesh is not None and self.mesh.dp > 1
+
     def _sample(self, gen, shape, x_info, c_info):
-        return self.sys.sampler.sample(gen, self.ddim_steps, shape, x_info, c_info,
-                                       **self._modes())
+        return self._run("sample", gen, shape, x_info, c_info)
 
     def _sample_multi(self, gen, shape, x_info, c_info_list):
-        return self.sys.sampler.sample_multicontext(gen, self.ddim_steps, shape, x_info,
-                                                    c_info_list, **self._modes())
+        return self._run("multi", gen, shape, x_info, c_info_list)
+
+    def _run(self, kind: str, gen, shape, x_info, c_info):
+        """``_sample`` ("sample") and ``_sample_multi`` ("multi"); under dp,
+        x_T (or the q-sample noise) is drawn whole from ``gen`` as the
+        sampler would draw it, this rank's rows are sampled and the latents
+        gathered."""
+        from vdtpu_torch.parallel.collectives import gather_rows
+        if self._leading:
+            state = None if gen is None else gen.get_state()
+            self._send((kind, state, tuple(shape), x_info, c_info))
+        sample = (self.sys.sampler.sample if kind == "sample"
+                  else self.sys.sampler.sample_multicontext)
+        if not self._dp():
+            return sample(gen, self.ddim_steps, shape, x_info, c_info, **self._modes())
+        if self.ddim_eta:
+            raise NotImplementedError("batch-parallel sampling at eta > 0: each rank would "
+                                      "draw its own step noise (serve it at dp = 1)")
+        n, dt, dev = shape[0], self.sys.dtype, self.sys.device
+        x_info = dict(x_info)
+        if x_info.get("xt") is None:
+            key = "noise" if x_info.get("x0") is not None else "xt"
+            if x_info.get(key) is None:
+                x_info[key] = torch.randn(tuple(shape), generator=gen, device=dev, dtype=dt)
+        lo, hi = self.mesh.row_range(n)
+
+        def rows(d):
+            return {k: v[lo:hi] if torch.is_tensor(v) and v.dim() and v.shape[0] == n else v
+                    for k, v in d.items()}
+        local_shape = (hi - lo, *shape[1:])
+        if hi == lo:      # fewer rows than ranks: a zero block in the gather
+            x = torch.zeros(local_shape, device=dev, dtype=dt)
+        else:
+            ci = rows(c_info) if kind == "sample" else [rows(c) for c in c_info]
+            x = sample(gen, self.ddim_steps, local_shape, rows(x_info), ci, **self._modes())
+        return gather_rows(x, n, self.mesh)
+
+    def _decode_images(self, x):
+        """[n, H, W, 3] images of latents x; under dp each rank decodes its
+        rows and the images are all-gathered."""
+        from vdtpu_torch.parallel.collectives import gather_rows
+        if not self._dp():   # the VAE is not sharded: a tp follower has no part in it
+            return self.sys.vae_decode(x, "image")
+        if x.shape[0] < self.mesh.dp:
+            raise ValueError(f"{x.shape[0]} images over dp={self.mesh.dp}: every rank "
+                             "decodes a row at least")
+        if self._leading:
+            self._send(("decode", x))
+        lo, hi = self.mesh.row_range(x.shape[0])
+        return gather_rows(self.sys.vae_decode(x[lo:hi], "image"), x.shape[0], self.mesh)
+
+    # ---- leader and followers ----
+
+    def _send(self, msg) -> None:
+        from vdtpu_torch.parallel.collectives import broadcast_object
+        broadcast_object(msg, src=0)
+
+    @contextlib.contextmanager
+    def lead(self):
+        """Context manager on rank 0 of a mesh of several ranks: its samples
+        and decodes are broadcast to the followers (``follow``) while it is
+        open; leaving it sends them the stop message."""
+        if self.mesh is None or self.mesh.size == 1 or self.mesh.rank != 0:
+            raise RuntimeError("lead() runs on rank 0 of a mesh of several ranks")
+        self._leading = True
+        try:
+            yield self
+        finally:
+            self._leading = False
+            self._send(None)
+
+    @torch.no_grad()
+    def follow(self) -> int:
+        """A follower's loop (every rank but 0): run each sample and decode
+        the leader broadcasts, until its stop message. Returns the number
+        of calls run."""
+        from vdtpu_torch.parallel.collectives import broadcast_object
+        if self.mesh is None or self.mesh.rank == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0")
+        calls = 0
+        while True:
+            msg = broadcast_object(None, src=0, device=self.sys.device)
+            if msg is None:
+                return calls
+            calls += 1
+            if msg[0] == "decode":
+                self._decode_images(msg[1])
+                continue
+            kind, state, shape, x_info, c_info = msg
+            gen = None
+            if state is not None:
+                gen = torch.Generator(device=self.sys.device)
+                gen.set_state(state.cpu())
+            self._run(kind, gen, shape, x_info, c_info)
 
     @torch.no_grad()
     def inference_t2i(self, text: str, seed: int):
@@ -483,7 +603,7 @@ class VDInference:
         x = self._sample(gen, self._image_shape(n), {"type": "image"},
                          {"type": "text", "conditioning": c, "unconditional_conditioning": u,
                           "unconditional_guidance_scale": self.scale_textto})
-        return self.sys.vae_decode(x, "image")
+        return self._decode_images(x)
 
     @torch.no_grad()
     def inference_i2i(self, image, fid_lvl: float, fcs_lvl: float, clr_adj: str | None,
@@ -510,7 +630,7 @@ class VDInference:
         x = self._sample(gen, self._image_shape(n), x_info,
                          {"type": "image", "conditioning": c, "unconditional_conditioning": u,
                           "unconditional_guidance_scale": self.scale_imgto})
-        out = self.sys.vae_decode(x, "image")
+        out = self._decode_images(x)
         if clr_adj == "Simple":
             out = color_adjust_simple(out, cx)
         return out
@@ -576,7 +696,7 @@ class VDInference:
         inputs_shown, c_info_list = self._mcg_context(image_ctxs, text, textstrength, n)
         gen = torch.Generator(device=self.sys.device).manual_seed(seed)
         x = self._sample_multi(gen, self._image_shape(n), {"type": "image"}, c_info_list)
-        return inputs_shown, self.sys.vae_decode(x, "image")
+        return inputs_shown, self._decode_images(x)
 
     def _mcg_context(self, image_ctxs, text: str | None, textstrength: float, n: int):
         """(inputs_shown, c_info_list) of a multi-context request, tiled to n

@@ -36,6 +36,22 @@ All model work runs on the one worker thread, under ``torch.no_grad()``
 ``concurrent.futures.Future``: one [H, W, 3] image tensor on the system's
 device, or one string for the text flows. A failure in a group is set on
 every future of that group and on no other.
+
+Batch-parallel serving needs nothing of the queue (the JAX package's queue
+drives ``VDInference(mesh=)`` unchanged): it runs on rank 0 over a leader
+``VDInference``, whose ``_sample`` / ``_sample_multi`` calls split each
+bucket's rows over the dp group, while every other rank runs
+``follow()``::
+
+    vdi = VDInference(system, mesh=make_mesh(), ...)
+    if mesh.rank == 0:
+        with vdi.lead(), BatchingQueue(vdi) as q:   # the queue closes first
+            ...
+    else:
+        vdi.follow()
+
+A bucket smaller than dp leaves some ranks without rows (they sample
+nothing). The decode stays rank 0's.
 """
 from __future__ import annotations
 

@@ -15,6 +15,14 @@ are written in the order they were made; ``link_checkpoint`` saves a tag
 of a state already saved as a hard link. ``wait_for_saves()`` joins them
 and re-raises a writer's error; a blocking save, ``restore_checkpoint`` and
 ``latest_tag`` each join them first, so none sees a half-written tag.
+
+Under a mesh (``parallel/mesh.py``) the layout does not depend on (dp, tp):
+a checkpoint has the keys and full shapes of a one-process run. Every rank
+gathers its tp slices (parameters, optimizer moments, EMA shadow) in step,
+then rank 0 alone snapshots and writes (in the background with
+``block=False``); the other ranks write nothing. A restore reads the full
+tensors on every rank and each takes its slice (``Trainer.restore``), so a
+tp = 2 checkpoint loads at tp = 1 and back.
 """
 from __future__ import annotations
 
@@ -54,13 +62,32 @@ def _host_copy(obj, memo=None):
     return obj
 
 
-def _payload(state) -> dict[str, Any]:
-    from vdtpu_torch.training.ema import tree_map
+def map_opt_tensors(sd: dict[str, Any], optimizer: torch.optim.Optimizer, fn) -> dict:
+    """An optimizer state dict with every per-parameter tensor t replaced by
+    fn(t, parameter); scalars and the groups stay as they are."""
+    order = [p for g in optimizer.param_groups for p in g["params"]]
+    state = {i: {k: fn(v, order[i]) if torch.is_tensor(v) and v.dim() > 0 else v
+                 for k, v in st.items()} for i, st in sd["state"].items()}
+    return {**sd, "state": state}
+
+
+def _payload(state, mesh=None) -> dict[str, Any]:
+    from vdtpu_torch.training.ema import tree_items, tree_map
+    params = tree_map(lambda v: v.detach(), state.params)
+    opt = state.opt_state.state_dict()
+    shadow = None if state.ema is None else state.ema.shadow
+    if mesh is not None and mesh.tp > 1:
+        from vdtpu_torch.parallel.mesh import full_state_dict, full_tensor
+        live = dict(tree_items(state.params))
+        opt = map_opt_tensors(opt, state.opt_state, lambda t, p: full_tensor(t, p, mesh))
+        if shadow is not None:
+            shadow = full_state_dict(shadow, mesh, like=live)
+        params = tree_map(lambda v: v.detach(), full_state_dict(state.params, mesh))
     return {
-        "params": tree_map(lambda v: v.detach(), state.params),
-        "opt_state": state.opt_state.state_dict(),
+        "params": params,
+        "opt_state": opt,
         "ema": None if state.ema is None else
-            {"shadow": state.ema.shadow, "num_updates": state.ema.num_updates},
+            {"shadow": shadow, "num_updates": state.ema.num_updates},
         "step": state.step,
     }
 
@@ -90,9 +117,9 @@ def wait_for_saves() -> None:
         raise RuntimeError(f"an async checkpoint save failed: {errors[0]!r}") from errors[0]
 
 
-def snapshot(state) -> dict[str, Any]:
+def snapshot(state, mesh=None) -> dict[str, Any]:
     """The checkpoint payload of ``state`` copied to host memory."""
-    return _host_copy(_payload(state))
+    return _host_copy(_payload(state, mesh))
 
 
 def _in_background(tag: str, job) -> None:
@@ -116,16 +143,21 @@ def _in_background(tag: str, job) -> None:
     t.start()
 
 
-def save_checkpoint(ckpt_dir: str, tag: str, state, *, block: bool = True) -> str:
+def save_checkpoint(ckpt_dir: str, tag: str, state, *, block: bool = True,
+                    mesh=None) -> str:
     """state: ``vdtpu_torch.training.harness.TrainState``. ``block=False``
-    snapshots to host memory now and writes in the background."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    snapshots to host memory now and writes in the background. Under a
+    ``mesh`` every rank must call it (the tp gather); rank 0 writes."""
     path = checkpoint_path(ckpt_dir, tag)
+    if mesh is not None and mesh.rank != 0:
+        _payload(state, mesh)    # the tp gather is a collective
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     if block:
         wait_for_saves()
-        _write(path, _payload(state))
+        _write(path, _payload(state, mesh))
     else:
-        payload = snapshot(state)   # before the next step moves the tensors
+        payload = snapshot(state, mesh)   # before the next step moves the tensors
         _in_background(tag, lambda: _write(path, payload))
     return path
 

@@ -10,6 +10,12 @@ directory, the config dump, the code snapshot, seeding and resume.
 - a snapshot of the ``vdtpu_torch`` package under ``code/``;
 - ``resume(dir)`` reads the dumped config back, dumps a versioned copy and
   logs into the same ``train.log``.
+
+Under a started process group every rank builds an ``Experiment``, but
+rank 0 alone makes the run dir, dumps the config and snapshots the code,
+and broadcasts the dir (the experiment id is the clock's, so each rank
+would otherwise name its own); on resume rank 0 reads the config and
+broadcasts it, then dumps the versioned copy.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from typing import Any
 
 import numpy as np
 
-from vdtpu_torch.utils.logging import set_log_file
+from vdtpu_torch.utils.logging import process_rank, set_log_file
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,11 +61,14 @@ class Experiment:
         self.tb_dir = os.path.join(log_dir, "tensorboard")
 
     def initiate(self, snapshot_code: bool = True) -> "Experiment":
-        os.makedirs(self.weight_dir, exist_ok=True)
-        os.makedirs(self.tb_dir, exist_ok=True)
-        self.dump_cfg()
-        if snapshot_code:
-            self.save_code()
+        from vdtpu_torch.parallel.collectives import broadcast_object
+        if process_rank() == 0:
+            os.makedirs(self.weight_dir, exist_ok=True)
+            os.makedirs(self.tb_dir, exist_ok=True)
+            self.dump_cfg()
+            if snapshot_code:
+                self.save_code()
+        self._set_dir(broadcast_object(self.log_dir, src=0))
         set_log_file(os.path.join(self.log_dir, "train.log"))
         if self.seed is not None:
             np.random.seed(self.seed)
@@ -83,12 +92,17 @@ class Experiment:
 
     @classmethod
     def resume(cls, resume_dir: str) -> "Experiment":
-        with open(os.path.join(resume_dir, "config.json")) as f:
-            cfg = json.load(f)
+        from vdtpu_torch.parallel.collectives import broadcast_object
+        cfg = None
+        if process_rank() == 0:
+            with open(os.path.join(resume_dir, "config.json")) as f:
+                cfg = json.load(f)
+        cfg = broadcast_object(cfg, src=0)
         exp = cls.__new__(cls)
         exp.cfg, exp.debug, exp.seed = cfg, False, None
         exp._set_dir(resume_dir)
         exp.experiment_id = cfg.get("experiment_id", 0)
-        exp.dump_cfg()   # a versioned copy for the resumed run
+        if process_rank() == 0:
+            exp.dump_cfg()   # a versioned copy for the resumed run
         set_log_file(os.path.join(exp.log_dir, "train.log"))
         return exp

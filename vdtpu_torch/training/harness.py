@@ -32,7 +32,23 @@ tree of the live parameters by name (``VDModel.named_parameters``, or the
 combined tree above), which the step updates in place, and ``opt_state``
 is the optimizer that owns the optimizer state. ``donate`` is accepted and
 means nothing here: the step already updates in place, so no second copy
-of the training state exists to give up. Not ported: the device mesh.
+of the training state exists to give up.
+
+Data and tensor parallelism (``Trainer(mesh=)``, ``parallel/mesh.py``):
+the diffusers are sharded over tp (``shard_module``: the same
+``Parameter`` objects keep their names and hold their slices, so the
+optimizer built over them and the EMA made here work on the slices), and
+each rank's batches are its own rows of the global batch. The step draws t
+and noise for the global batch from the (seed, step) generator and takes
+its rows (given t and noise are the global batch's too), so every rank
+draws what one process would draw. After the micro-batch loop and before
+``optimizer.step()`` one all-reduce mean a step runs over the dp group, on
+flat buckets of the gradients that exist: the JAX package's psum. Then dp
+= 2 equals one process up to summation order, and every replica applies
+the same update. A checkpoint holds the full tensors whatever (dp, tp):
+every rank gathers, rank 0 writes, and a restore gives each rank its slice.
+The JAX package's DDP-free design is kept on purpose (``parallel/mesh.py``
+says why).
 """
 from __future__ import annotations
 
@@ -99,22 +115,34 @@ def make_train_step(model: VDModel, optimizer: torch.optim.Optimizer,
                     x_type: str = "image", c_type: str = "text",
                     ema_decay: float | None = None, grad_accum: int = 1,
                     freeze_groups: tuple[str, ...] = (), ctx_encode_fn: Callable | None = None,
-                    params: Mapping[str, Any] | None = None):
+                    params: Mapping[str, Any] | None = None, mesh=None):
     """step(state, x, ctx, t=None, noise=None, gen=None) -> (loss, aux):
     one update of ``state`` in place. x [B, ...] in the model's layout, ctx
     [B, L, C] (the encoder's raw input with ``ctx_encode_fn``); t [B] and
     noise like x, or both None and drawn from ``gen``. The lr is whatever
-    ``set_lr`` last pushed."""
+    ``set_lr`` last pushed. Under a ``mesh`` with dp > 1, x and ctx are
+    the rank's rows of a global batch of dp * B, t and noise (given or
+    drawn) the global batch's, and the gradients are averaged over the dp
+    group before the update; ``step.comm_s`` holds the seconds of the last
+    step's all-reduce (the device synchronized first)."""
+    from vdtpu_torch.parallel.collectives import all_reduce_mean
+    from vdtpu_torch.parallel.mesh import batch_rows
     loss_fn = make_loss_fn(model, x_type, c_type, freeze_groups, ctx_encode_fn, params)
     n_t = model.schedule.num_timesteps
+    dp = 1 if mesh is None else mesh.dp
 
     def step(state: TrainState, x, ctx, t=None, noise=None, gen=None):
         b = x.shape[0]
         if b % grad_accum:
             raise ValueError(f"batch {b} does not split into {grad_accum} micro-batches")
         if t is None:
-            t = torch.randint(0, n_t, (b,), generator=gen, device=x.device)
-            noise = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+            t = torch.randint(0, n_t, (b * dp,), generator=gen, device=x.device)
+            noise = torch.randn((b * dp, *x.shape[1:]), generator=gen, device=x.device,
+                                dtype=x.dtype)
+        if dp > 1:
+            if t.shape[0] != b * dp:
+                raise ValueError(f"t of {t.shape[0]} rows: the global batch is {b * dp}")
+            t, noise = batch_rows(t, mesh), batch_rows(noise, mesh)
         optimizer.zero_grad(set_to_none=True)
         mb = b // grad_accum
         losses, auxs = [], []
@@ -124,9 +152,15 @@ def make_train_step(model: VDModel, optimizer: torch.optim.Optimizer,
             loss.backward()
             losses.append(loss.detach())
             auxs.append({k: v.detach() for k, v in aux.items()})
+        grads = [p.grad for _, p in tree_items(state.params) if p.grad is not None]
         if grad_accum > 1:
-            grads = [p.grad for _, p in tree_items(state.params) if p.grad is not None]
             torch._foreach_div_(grads, float(grad_accum))
+        if dp > 1:
+            if x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            t0 = time.perf_counter()
+            all_reduce_mean(grads, mesh.dp_group)
+            step.comm_s = time.perf_counter() - t0
         optimizer.step()
         if ema_decay is not None:
             ema_update(state.ema, state.params, ema_decay)
@@ -134,6 +168,7 @@ def make_train_step(model: VDModel, optimizer: torch.optim.Optimizer,
         aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
         return loss, aux
 
+    step.comm_s = 0.0
     return step
 
 
@@ -148,12 +183,23 @@ class Trainer:
                  ckpt_dir: str | None = None, eval_fn: Callable | None = None,
                  eval_every: int | None = None, freeze_groups: tuple[str, ...] = (),
                  ctx_encode_fn: Callable | None = None, async_ckpt: bool = False,
-                 donate: bool = False):
+                 donate: bool = False, mesh=None):
         """``params``: the trainable tree (with ``ctx_encode_fn``, the
         ``{"diffuser", "ctx"}`` one); ``donate`` is accepted for the JAX
-        package's config key and does nothing (module docstring)."""
+        package's config key and does nothing (module docstring). ``mesh``
+        (``parallel.mesh.make_mesh``): the diffusers are sharded over its tp
+        group here, before the EMA exists and before the optimizer's first
+        step; a trainable context encoder stays whole on every rank (its
+        gradients are averaged over dp with the rest)."""
         del donate
         self.model = model
+        self.mesh = mesh
+        if mesh is not None and mesh.tp > 1:
+            from vdtpu_torch.parallel.mesh import shard_module
+            if optimizer.state:
+                raise RuntimeError("Trainer(mesh=) shards the parameters: hand it an "
+                                   "optimizer that has not stepped")
+            shard_module(model.diffuser, mesh)
         self.set_lr = set_lr
         self.scheduler = scheduler
         self.grad_accum = grad_accum
@@ -164,11 +210,13 @@ class Trainer:
         self.eval_every = eval_every
         self.async_ckpt = async_ckpt
         self.best_metric = None
+        self.after_step: Callable | None = None
         self._loss_dev = None  # device scalar; float'd lazily (last_loss)
         self._saved = None     # (step, file) of the last save
         params = dict(params)
         self._step = make_train_step(model, optimizer, x_type, c_type, ema_decay,
-                                     grad_accum, tuple(freeze_groups), ctx_encode_fn, params)
+                                     grad_accum, tuple(freeze_groups), ctx_encode_fn, params,
+                                     mesh)
         frozen = [k for k, _ in tree_items(params) if parameter_group_of(k) in freeze_groups]
         ema = ema_init(params, alias=frozen) if ema_decay is not None else None
         self.state = TrainState(params, optimizer, ema, 0)
@@ -176,9 +224,13 @@ class Trainer:
     def run(self, batches: Iterable[Mapping[str, Any]], num_iters: int | None = None,
             seed: int = 0, unit: str = "iter", num_units: int | None = None,
             batches_per_epoch: int | None = None, batch_size: int | None = None):
-        """batches yield {'x': latents, 'ctx': context}. unit='iter' runs
-        num_iters (or num_units) optimizer steps, 'epoch' num_units *
-        batches_per_epoch, 'sample' ceil(num_units / batch_size)."""
+        """batches yield {'x': latents, 'ctx': context} (under a mesh, the
+        rank's rows), and may carry the step's draws {'t', 'noise'} (of the
+        global batch), else they come from the (seed, step) generator.
+        unit='iter' runs num_iters (or num_units) optimizer steps, 'epoch'
+        num_units * batches_per_epoch, 'sample' ceil(num_units /
+        batch_size). ``after_step(trainer)``, if set as an attribute, runs
+        after every step (the replicas' check of the dry run)."""
         if unit == "iter":
             num_iters = num_iters if num_iters is not None else num_units
         elif unit == "epoch":
@@ -209,11 +261,18 @@ class Trainer:
             self.set_lr(self.state.opt_state, lr)
             x = torch.as_tensor(batch["x"], device=device)
             ctx = torch.as_tensor(batch["ctx"], device=device)
-            gen = step_generator(seed, self.state.step, device)
-            loss, aux = self._step(self.state, x, ctx, gen=gen)
+            if batch.get("t") is not None:   # given draws (the global batch's)
+                loss, aux = self._step(self.state, x, ctx,
+                                       torch.as_tensor(batch["t"], device=device),
+                                       torch.as_tensor(batch["noise"], device=device))
+            else:
+                gen = step_generator(seed, self.state.step, device)
+                loss, aux = self._step(self.state, x, ctx, gen=gen)
             self.state.step += 1
             self._loss_dev = loss
             pending.append((aux, x.shape[0]))
+            if self.after_step is not None:
+                self.after_step(self)
             if len(pending) >= 256:
                 drain_metrics()
             if self.state.step % self.log_every == 0:
@@ -233,8 +292,15 @@ class Trainer:
         if self.async_ckpt:
             from vdtpu_torch.training.checkpoints import wait_for_saves
             wait_for_saves()   # 'last' and the cadence saves on disk
+        if self.mesh is not None:
+            self.mesh.barrier()   # rank 0's files are on disk for every rank
         self._saved = None
         return self.state
+
+    @property
+    def comm_seconds(self) -> float:
+        """Seconds of the last step's dp all-reduce (0 without one)."""
+        return self._step.comm_s
 
     @property
     def last_loss(self):
@@ -247,31 +313,39 @@ class Trainer:
         from vdtpu_torch.training.checkpoints import link_checkpoint, save_checkpoint
         step, block = self.state.step, not self.async_ckpt
         if self._saved is not None and self._saved[0] == step:   # one state, one file
-            link_checkpoint(self.ckpt_dir, tag, self._saved[1], block=block)
+            if self.mesh is None or self.mesh.rank == 0:
+                link_checkpoint(self.ckpt_dir, tag, self._saved[1], block=block)
         else:
-            self._saved = (step, save_checkpoint(self.ckpt_dir, tag, self.state, block=block))
+            self._saved = (step, save_checkpoint(self.ckpt_dir, tag, self.state, block=block,
+                                                 mesh=self.mesh))
 
     @torch.no_grad()
     def restore(self, ckpt_dir: str | None = None, tag: str | None = None):
         """Resume from a checkpoint: params, optimizer state, EMA and step,
-        copied into the live tensors."""
-        from vdtpu_torch.training.checkpoints import latest_tag, restore_checkpoint
+        copied into the live tensors (under a mesh, each rank its tp slice
+        of the full tensors every checkpoint holds)."""
+        from vdtpu_torch.parallel.mesh import Mesh, local_slice
+        from vdtpu_torch.training.checkpoints import (
+            latest_tag, map_opt_tensors, restore_checkpoint)
         ckpt_dir = ckpt_dir or self.ckpt_dir
         if tag is None:
             tag = latest_tag(ckpt_dir)
+        mesh = self.mesh or Mesh()
         payload = restore_checkpoint(ckpt_dir, tag, map_location="cpu")
         params = dict(tree_items(self.state.params))
         saved = dict(tree_items(payload["params"]))
         if set(saved) != set(params):
             raise KeyError(f"checkpoint {tag!r} has other parameters than this model")
         for k, v in saved.items():
-            params[k].copy_(v)
-        self.state.opt_state.load_state_dict(payload["opt_state"])
+            params[k].copy_(local_slice(v, params[k], mesh))
+        opt = self.state.opt_state
+        opt.load_state_dict(map_opt_tensors(payload["opt_state"], opt,
+                                            lambda t, p: local_slice(t, p, mesh)))
         ema = self.state.ema
         if ema is not None and payload.get("ema") is not None:
             shadow = dict(tree_items(ema.shadow))
             for k, v in tree_items(payload["ema"]["shadow"]):
-                shadow[k].copy_(v)
+                shadow[k].copy_(local_slice(v, params[k], mesh))
             ema.num_updates = int(payload["ema"]["num_updates"])
         self.state.step = int(payload["step"])
         return self.state

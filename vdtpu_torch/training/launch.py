@@ -8,6 +8,8 @@ resume and the eval run.
     python -m vdtpu_torch.training.launch --config exp.json --resume_dir log/<name>/<run>
     python -m vdtpu_torch.training.launch --config exp.json --eval [--resume_dir RUN]
 
+    torchrun --nproc_per_node N -m vdtpu_torch.training.launch --config exp.json
+
 ``--config`` is the name of a literal of ``config/experiments.py`` or a
 JSON file with its keys (the port reads no YAML); a resumed run reads its
 run dir's ``config.json``. The system runs on the card unless ``--device
@@ -15,8 +17,20 @@ cpu``. Data: webdataset shards through ``data/webdataset.py``; the frozen
 VAE and the context encoder turn each raw batch into latents and context
 (``encode_batches``), or, with ``data.cache_latents: N``, the first N
 batches are encoded once and the towers freed before the training state
-exists (``cached_latent_batches``). ``train.tp`` other than 1 raises: the
-port drives one card. ``--eval`` scores the run's checkpoint (its EMA
+exists (``cached_latent_batches``).
+
+Several processes (torchrun's environment, or ``--multihost``, which
+requires it): the process group starts first (``parallel/mesh.py``:
+NCCL where each rank of the host has a card of its own, gloo where ranks
+share one or on the CPU, ``--dist-backend`` to choose), each rank on
+``cuda:(LOCAL_RANK % device_count)``. ``train.tp`` lays the ranks out as
+(dp, tp); ``data.batch_size`` is the global batch and must divide by dp x
+``gradacc_every``. Each rank reads the shards of its dp index
+(``ShardIndex(process_index=dp index, process_count=dp)``, batches of
+batch_size / dp), so the ranks of one tp group read the same batches; the
+latent cache is built on every rank from its own shards. Rank 0 makes the
+run dir and writes the log and the checkpoints; ``--eval`` runs on rank 0
+alone while the others wait at a barrier. ``--eval`` scores the run's checkpoint (its EMA
 shadow by default) or the pretrained weights and writes
 ``<run>/<eval_subdir or eval>/summary.yaml``, one ``key: float`` line a
 metric, written by hand.
@@ -101,10 +115,14 @@ def run_eval(system, tokenizer: Callable, vcfg: Mapping | None,
     return EvalStage(evaluator, sample_fn)(loader)
 
 
-def build_dataloader(dcfg: Mapping[str, Any]):
+def build_dataloader(dcfg: Mapping[str, Any], mesh=None):
+    """The shards of the mesh's dp index in batches of batch_size / dp (the
+    whole batch without a mesh)."""
     from vdtpu_torch.data.webdataset import ImageTextPipeline, ShardIndex
-    index = ShardIndex.from_dir(dcfg["shards"], seed=dcfg.get("seed", 0))
-    return ImageTextPipeline(index, batch_size=dcfg["batch_size"],
+    dp, index = (1, 0) if mesh is None else (mesh.dp, mesh.dp_index)
+    index = ShardIndex.from_dir(dcfg["shards"], process_index=index, process_count=dp,
+                                seed=dcfg.get("seed", 0))
+    return ImageTextPipeline(index, batch_size=dcfg["batch_size"] // dp,
                              image_size=dcfg.get("image_size", 512),
                              shuffle_buffer=dcfg.get("shuffle_buffer", 1000))
 
@@ -289,9 +307,36 @@ def main(argv=None):
     p.add_argument("--eval", action="store_true", help="run the eval stage only")
     p.add_argument("--eval_subdir", default=None)
     p.add_argument("--device", default=None, help="default: the card ('cpu' for the CPU)")
+    p.add_argument("--multihost", action="store_true",
+                   help="start the process group (torchrun's environment; implied by it)")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="default: nccl where each rank has a card of its own, else gloo")
     args = p.parse_args(argv)
+    if args.multihost and "WORLD_SIZE" not in os.environ:
+        raise SystemExit("--multihost needs torchrun's environment (RANK, WORLD_SIZE, ...)")
+    return _main(args)
+
+
+def _start_ranks(args):
+    """The process group from torchrun's environment (none without it) and
+    the rank's device; returns (rank, world)."""
+    from vdtpu_torch.parallel.mesh import init_distributed
+    device_type = "cpu" if (args.device or "cuda").startswith("cpu") else "cuda"
+    rank, world, local = init_distributed(device_type, args.dist_backend)
+    if world > 1 or "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+        if device_type == "cuda" and args.device is None:
+            args.device = f"cuda:{local % torch.cuda.device_count()}"
+        print_log(f"distributed: backend {dist.get_backend()}, world {world}, "
+                  f"device {args.device or device_type}")
+    return rank, world
+
+
+def _main(args):
+    rank, world = _start_ranks(args)
 
     from vdtpu_torch.config.experiments import load_experiment
+    from vdtpu_torch.parallel.mesh import make_mesh
     from vdtpu_torch.training.experiment import Experiment
     from vdtpu_torch.training.harness import Trainer
     from vdtpu_torch.training.optim import get_optimizer
@@ -305,6 +350,9 @@ def main(argv=None):
         exp = Experiment(ecfg, signature=args.signature, debug=args.debug,
                          seed=args.seed).initiate()
     try:
+        if args.eval and rank != 0:
+            make_mesh().barrier()   # rank 0 runs the eval
+            return None
         if args.eval:
             system, _ = build_system(ecfg, args, training=False)
             try:
@@ -316,21 +364,27 @@ def main(argv=None):
                 if args.resume_weight is not None:
                     raise SystemExit(f"--resume_weight {args.resume_weight!r} not found "
                                      f"under {exp.weight_dir}")
-            return eval_run(ecfg, system, exp, args)
+            summary = eval_run(ecfg, system, exp, args)
+            if world > 1:
+                make_mesh().barrier()
+            return summary
 
         tcfg = ecfg["train"]
-        if tcfg.get("tp", 1) != 1:
-            raise SystemExit(f"train.tp={tcfg['tp']}: the port drives one card "
-                             "(tensor parallelism is not ported)")
+        try:
+            mesh = make_mesh(tp=int(tcfg.get("tp", 1)))
+        except ValueError as e:   # tp does not divide the world (a world of one)
+            raise SystemExit(f"train.tp={tcfg.get('tp')}: {e}") from e
         accum = tcfg.get("gradacc_every", 1)
         bsz = ecfg["data"]["batch_size"]
-        if bsz % accum:
-            raise SystemExit(f"data.batch_size={bsz} must be divisible by "
+        if bsz % (mesh.dp * accum):
+            raise SystemExit(f"data.batch_size={bsz} must be divisible by dp={mesh.dp} x "
                              f"gradacc_every={accum}")
+        if world > 1:
+            print_log(f"mesh: dp {mesh.dp} x tp {mesh.tp}")
         system, params = build_system(ecfg, args, training=True)
         x_type, c_type = tcfg.get("x_type", "image"), tcfg.get("c_type", "text")
         tokenizer = build_tokenizer(ecfg)
-        pipeline = build_dataloader(ecfg["data"])
+        pipeline = build_dataloader(ecfg["data"], mesh)
         cache_n = ecfg["data"].get("cache_latents")
         if cache_n is not None:
             # encode now, before the optimizer state exists, then free the towers
@@ -353,7 +407,8 @@ def main(argv=None):
                           ckpt_every=tcfg.get("ckpt_every"), ckpt_dir=exp.weight_dir,
                           async_ckpt=bool(tcfg.get("async_ckpt", False)),
                           freeze_groups=tuple(tcfg.get("freeze") or ()),
-                          donate=bool(tcfg.get("donate", False)))
+                          donate=bool(tcfg.get("donate", False)),
+                          mesh=mesh)
         if args.resume_dir:
             state = trainer.restore(exp.weight_dir, tag=args.resume_weight)
             print_log(f"resumed from {exp.weight_dir} at step {state.step}")
@@ -372,3 +427,6 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as _dist
+    if _dist.is_initialized():
+        _dist.destroy_process_group()

@@ -2,8 +2,11 @@
 (``set_log_file``, which the training launcher registers) and
 ``MetricAccumulator`` (weighted running means of scalar metrics).
 
-One process drives one card here, so there is no cross-process mean. The
-JAX package's multi-host gather and TensorBoard writer are not ported.
+Under a started process group (``parallel/mesh.py``) ``print_log`` and the
+log file are rank 0's alone, and ``MetricAccumulator.means()`` is the mean
+of every rank's means, as the JAX package's
+``process_allgather(...).mean(0)`` gives it: a collective, so every rank
+calls it at the same point. The TensorBoard writer is not ported.
 """
 from __future__ import annotations
 
@@ -21,9 +24,18 @@ def set_log_file(path: str | None):
         _LOG_FILES.append(path)
 
 
+def process_rank() -> int:
+    """This process's rank in the started process group (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 def print_log(*console_info):
     """One console line from the parts, appended to the log file if one is
-    set; a failed append drops the line rather than stop a training step."""
+    set, on rank 0 only; a failed append drops the line rather than stop a
+    training step."""
+    if process_rank() != 0:
+        return
     msg = " ".join(str(i) for i in console_info)
     print(msg)
     for f in _LOG_FILES:
@@ -47,7 +59,16 @@ class MetricAccumulator:
             self.weights[k] = self.weights.get(k, 0.0) + weight
 
     def means(self) -> dict[str, float]:
-        return {k: self.sums[k] / max(self.weights[k], 1e-12) for k in self.sums}
+        """{metric: weighted mean}; across processes the mean of the ranks'
+        means (every rank must hold the same metric names)."""
+        local = {k: self.sums[k] / max(self.weights[k], 1e-12) for k in self.sums}
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            from vdtpu_torch.parallel.collectives import all_reduce_scalars
+            keys = sorted(local)
+            vals = all_reduce_scalars([local[k] for k in keys], dist.group.WORLD)
+            local = dict(zip(keys, vals))
+        return local
 
     def summary(self) -> str:
         return " ".join(f"{k}:{v:.4f}" for k, v in sorted(self.means().items()))
