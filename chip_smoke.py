@@ -4,7 +4,8 @@ image-to-text and text-to-text, the multi-context blends, int8 serving,
 the serving queue and CLI, the VAE loss, the eval stage and the
 serving-policy gate, the Mosaic probes, t2i training, the training
 launcher and its data path, data and tensor parallelism over
-torch.distributed with ranks sharing the card) on one CUDA card.
+torch.distributed with ranks sharing the card, the legacy diffuser zoo
+and vd_inference) on one CUDA card.
 
     python3 chip_smoke.py            # the default phases, on one card
 
@@ -34,7 +35,10 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             path asserted; the serving queue's bucket batches too (8 images:
             the UNet at batch 16 for the attention forwards, the GN kernel,
             the int8 conv and the whole-ResBlock kernel, the decoder at 8;
-            1 image: the UNet at batch 2)
+            1 image: the UNet at batch 2); the legacy zoo's sites
+            (``FLASH_QKV_SHAPES``: the AttentionBlock's q, k, v as strided
+            views of its fused qkv, both orders; ADM's GN sites at 256^2 with
+            SiLU and 128^2 without, ``GN_NO_SILU``)
   main      vd_four_flow_v1-0 at full width in bf16, seeded random weights,
             inference_t2i at 512^2, n = 2, DDIM-50, CFG 7.5, cold then warm;
             the launch counters are zeroed just before each run and read
@@ -84,6 +88,27 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             yardstick of the modes' times
   eps       one full-width UNet eps call on the card (bf16) against the port
             on the CPU in f32, same weights and inputs
+  main_legacy the legacy diffuser zoo (vdtpu_torch/models/legacy.py) at
+            published widths, seeded weights (zero tensors redrawn), bf16,
+            one family built at a time and freed after: (a) UNetModelVD at
+            VD v1's widths: a t2i request through cfg_eps_fn + ddim_loop over
+            its image route (the serving system's CLIP text tower, DDIM-50,
+            CFG 7.5, n = 2, KL-f8 decode to 512^2) cold then warm, the text
+            route sampled 50 steps on [2, 768] latents, one eps call a
+            (xtype, ctype) route and forward_dc at r = 0.3 (the image route
+            also against f32 on the CPU); (b) SD v1 (openai_unet), ADM
+            ImageNet-256 (openai_unet: scale-shift, resblock up/down, 1000
+            classes, legacy qkv order, 256^2 pixels), the dual-context
+            family (which 0, 1, a 0.3 blend of 77 text and 257 image tokens),
+            no-context, no-attention, decoder-only, 2d, 0d and 0dmd, one eps
+            call each at batch 2; every call against the same module in f32
+            on the card (TF32 off; EPS_MIN_COS / EPS_MAX_REL_L2), every
+            distinct GN and flash site against its plain version on its
+            recorded input, flash launches by path and GN launches by route
+            derived from the layer program (``legacy_sites``); (c)
+            vd_inference(fp16=True, checkpoint=...) on the serving system's
+            weights saved as a .pt into memory: its t2i request bit-equal to
+            the serving system's on the same dict
   main_int8 the calibrated int8 serving policy on the same system:
             enable_int8 over vdtpu's four flows (calibration, timed); the
             int8 conv kernel against
@@ -262,7 +287,7 @@ import time
 import zlib
 
 PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "main_mcg",
-          "main_modes", "eps",
+          "main_modes", "eps", "main_legacy",
           "main_int8", "modes", "eps_int8", "main_fused2", "main_queue", "main_quality", "probes",
           "train", "main_launch", "main_parallel",
           "profile", "gn_sweep", "gnq_sweep", "gnq_compare")
@@ -303,6 +328,11 @@ FLASH_MMA_SHAPES = [(4, 1024, 8, 40, 1), (4, 1024, 8, 96, 0)]
 FLASH_XATTN_SHAPES = [(4, 4096, 8, 40, 0, 1028), (4, 1024, 8, 80, 0, 1028),
                       (4, 256, 8, 160, 0, 1028)]
 NOMAX_MMA_SHAPES = [(4, 1024, 8, 36, 0), (4, 1024, 8, 96, 0)]
+# the legacy AttentionBlock's flash site (main_legacy (b), ADM ImageNet-256
+# at its 32^2 map: 1024 tokens, 8 heads of 64, CFG batch 2): q, k and v as
+# strided views of one fused qkv projection, [B, N, H, 3, d] (legacy order)
+# or [B, N, 3, H, d] (new order), as the block hands them over
+FLASH_QKV_SHAPES = [(2, 1024, 8, 64, "legacy"), (2, 1024, 8, 64, "new")]
 # int8 3x3 conv: (B, C_in, H, W, C_out, stride, add); the first is the
 # commonest site (64^2 ResBlock conv with its FiLM vector); 64^2, 32^2 and
 # 16^2 maps are the int8 sites' three sizes
@@ -354,7 +384,14 @@ GN_ROUTES = {(4, 320, 64, 64): "resident", (4, 640, 32, 32): "resident",
              # more than a wave) and the decoder's 512^2 and 64^2 maps at 8
              (16, 320, 64, 64): "streaming", (16, 640, 32, 32): "resident",
              (16, 1280, 16, 16): "resident", (16, 2560, 8, 8): "resident",
-             (8, 128, 512, 512): "streaming", (8, 512, 64, 64): "streaming"}
+             (8, 128, 512, 512): "streaming", (8, 512, 64, 64): "streaming",
+             # ADM ImageNet-256 (main_legacy (b)) at batch 2: the 256^2 map of
+             # 256 channels (GN + SiLU) and a scale-shift FiLM norm (no SiLU)
+             # at 128^2
+             (2, 256, 256, 256): "streaming", (2, 256, 128, 128): "resident"}
+# GN_ROUTES sites timed without SiLU (the scale-shift FiLM norms); the rest
+# are timed with it
+GN_NO_SILU = {(2, 256, 128, 128)}
 # the GN plan's deciding sites (gn_sweep): the commonest UNet map, the
 # 960-channel 64^2 UNet site (two waves of resident CTAs), and the VAE's maps
 # at batch 2 from 64^2 (resident, clusters of 2) to 512^2 (streaming)
@@ -539,6 +576,35 @@ QUALITY_SWEEP = "q99.9"
 QUALITY_SECONDS = 150
 TOME_SHAPES = [(4, 4096, 320), (16, 4096, 320)]
 TOME_RUNS = 20
+# main_legacy: the legacy diffuser zoo (vdtpu_torch/models/legacy.py) at
+# published widths, nothing downloaded. VD v1's two trunks are
+# openai_unet_2d_v1's and openai_unet_0d_v1's args less ``parts``
+# (vdtpu/config/configs/openai_unet.yaml; ``_legacy_vd_cfg``). SD v1 is CompVis
+# configs/stable-diffusion/v1-inference.yaml's unet_config. ADM is
+# openai/guided-diffusion's README flags for the ImageNet 256x256
+# class-conditional model (--attention_resolutions 32,16,8 --class_cond True
+# --image_size 256 --learn_sigma True --num_channels 256
+# --num_head_channels 64 --num_res_blocks 2 --resblock_updown True
+# --use_fp16 True --use_scale_shift_norm True; channel_mult (1, 1, 2, 2, 4,
+# 4) for 256^2 in its script_util.py; 32,16,8 are resolutions, ds 8, 16, 32).
+# Each bf16 eps call is held to the same module in f32 on the card (TF32
+# off) at EPS_MIN_COS / EPS_MAX_REL_L2, fixed before the first run
+LEGACY_SD_V1 = dict(image_size=32, in_channels=4, out_channels=4, model_channels=320,
+                    attention_resolutions=[4, 2, 1], num_res_blocks=2, channel_mult=[1, 2, 4, 4],
+                    num_heads=8, use_spatial_transformer=True, transformer_depth=1,
+                    context_dim=768, use_checkpoint=True, legacy=False)
+LEGACY_ADM_256 = dict(image_size=256, in_channels=3, model_channels=256, out_channels=6,
+                      num_res_blocks=2, attention_resolutions=[8, 16, 32], dropout=0.0,
+                      channel_mult=[1, 1, 2, 2, 4, 4], num_classes=1000, use_checkpoint=False,
+                      use_fp16=True, num_heads=4, num_head_channels=64, num_heads_upsample=-1,
+                      use_scale_shift_norm=True, resblock_updown=True,
+                      use_new_attention_order=False)
+LEGACY_DC_RATIO = 0.3    # the dual-context blend and forward_dc's mixed ratio
+LEGACY_BATCH = 2         # (b)'s eps calls: the CFG batch of one image
+# the dual-context family's branches (which_attn 1, the blend) against
+# branch 0: random weights give another output (relative L2 ~0.9 read on
+# an H100), so a selection that changed nothing reads far below this
+LEGACY_DC_APART = 0.05
 
 _LOG = None
 # vdtpu_torch.utils.timing.time_graph_ms, bound in main() once the port imports
@@ -689,6 +755,55 @@ def _attention_case(shape, gen, nomax: bool = False):
                 plain_ms=plain_ms, library_ms=lib_ms, library="F.scaled_dot_product_attention",
                 bound_ms=bound_ms, bound_by=bound_by, eager=eager,
                 bound_detail=dict(bytes=nbytes, flops=flops, exps=exps), **extra)
+
+
+def _attention_qkv_case(shape, gen):
+    """The flash forward on the legacy AttentionBlock's q, k and v: strided
+    views of one fused qkv projection [B, N, 3 * H * d], split heads-first
+    ([B, N, H, 3, d], legacy order) or q/k/v-first ([B, N, 3, H, d], new
+    order), against its plain version on the same views and SDPA on their
+    [B, H, N, d] transposes; the path ``attn_fwd_plan`` takes from their
+    pointers and strides (no copy is made to reach a kernel)."""
+    import torch
+    import torch.nn.functional as F
+    from vdtpu_torch.ops.flash import _plan_for, flash_attention, flash_attention_plain
+    b, n, h, d, order = shape
+    qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen).to(torch.bfloat16)
+    if order == "new":
+        v5 = qkv.view(b, n, 3, h, d)
+        q, k, v = v5[:, :, 0], v5[:, :, 1], v5[:, :, 2]
+    else:
+        v5 = qkv.view(b, n, h, 3, d)
+        q, k, v = v5[..., 0, :], v5[..., 1, :], v5[..., 2, :]
+    kern = lambda: flash_attention(q, k, v)
+    plain = lambda: flash_attention_plain(q, k, v)
+    before = dict(flash_attention.launches_by_path)
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    took = [p for p, c in flash_attention.launches_by_path.items() if c != before[p]]
+    path = _plan_for(q, k, v).path
+    err, rel, ok = compare(out, ref)
+    ok = ok and rel <= ATTN_MAX_REL_L2 and took == [path] and not q.is_contiguous()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+    eager = dict(ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3, warmup=1),
+                 library_ms=time_ms(lib, 20))
+    ms, plain_ms, lib_ms = time_graph_ms(kern), time_graph_ms(plain, 2, 2), time_graph_ms(lib)
+    nbytes = 2 * 4 * b * n * h * d      # q, k, v read once, out written once, bf16
+    flops, exps = 4.0 * b * h * n * n * d, float(b * h * n * n)
+    bound_ms, bound_by = _bound(nbytes, max(flops / PEAK_BF16, exps / PEAK_EXP))
+    return dict(shape=[b, n, h, d], qkv_order=order, strides=list(q.stride()),
+                max_abs_err=err, rel_l2_err=rel, ok=ok, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library="F.scaled_dot_product_attention (on the views)",
+                bound_ms=bound_ms, bound_by=bound_by, eager=eager, path=path,
+                bound_detail=dict(bytes=nbytes, flops=flops, exps=exps))
+
+
+def _flash_fwd_case(shape, gen):
+    """``_attention_qkv_case`` at FLASH_QKV_SHAPES, else ``_attention_case``."""
+    if isinstance(shape[-1], str):
+        return _attention_qkv_case(shape, gen)
+    return _attention_case(shape, gen)
 
 
 def _flash_bwd_case(shape, gen):
@@ -864,9 +979,11 @@ def _gn_case(shape, gen):
                                                                          silu))
         worst = (max(worst[0], err), max(worst[1], rel), worst[2] and ok)
     iters = 50 if x.numel() < 1 << 24 else 10
-    kern = lambda: gn_silu(x, w, bias, 32, 1e-5, True)
-    plain = lambda: gn_silu_plain(x, w, bias, 32, 1e-5, True)
-    lib = lambda: F.silu(F.group_norm(x, 32, w, bias, 1e-5))
+    silu = tuple(shape) not in GN_NO_SILU
+    kern = lambda: gn_silu(x, w, bias, 32, 1e-5, silu)
+    plain = lambda: gn_silu_plain(x, w, bias, 32, 1e-5, silu)
+    lib = ((lambda: F.silu(F.group_norm(x, 32, w, bias, 1e-5))) if silu else
+           (lambda: F.group_norm(x, 32, w, bias, 1e-5)))
     eager = dict(ms=time_ms(kern, iters), plain_ms=time_ms(plain, iters),
                  library_ms=time_ms(lib, iters))
     ms, plain_ms, lib_ms = time_graph_ms(kern), time_graph_ms(plain), time_graph_ms(lib)
@@ -875,9 +992,10 @@ def _gn_case(shape, gen):
     bound_ms, bound_by = _bound(nbytes, flops / PEAK_F32)
     return dict(shape=list(shape), route=plan.route, layout=plan.layout, cluster=plan.cluster,
                 ctas=plan.ctas, threads=plan.threads, smem_bytes=plan.smem_bytes,
-                max_abs_err=worst[0], rel_l2_err=worst[1], ok=worst[2],
+                max_abs_err=worst[0], rel_l2_err=worst[1], ok=worst[2], timed_with_silu=silu,
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library="F.group_norm + F.silu (two calls)", bound_ms=bound_ms,
+                library="F.group_norm + F.silu (two calls)" if silu else "F.group_norm (one call)",
+                bound_ms=bound_ms,
                 bound_by=bound_by, eager=eager, bound_detail=dict(bytes=nbytes, flops=flops))
 
 
@@ -1236,9 +1354,9 @@ def phase_kernels(state):
     gen = torch.Generator(device="cuda").manual_seed(0)
     specs = [
         ("flash_fwd", "cuda", "vdtpu_torch/csrc/flash_fwd.cu",
-         "vdtpu/ops/pallas/flash.py:40", _attention_case,
+         "vdtpu/ops/pallas/flash.py:40", _flash_fwd_case,
          FLASH_SHAPES + FLASH_MMA_SHAPES + FLASH_XATTN_SHAPES + FLASH_HALF_SHAPES
-         + ATTN_BUCKET_SHAPES),
+         + ATTN_BUCKET_SHAPES + FLASH_QKV_SHAPES),
         ("flash_bwd", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
          "vdtpu/ops/pallas/flash.py:444", _flash_bwd_case, FLASH_SHAPES),
         ("flash_fwd_f32", "cuda", "vdtpu_torch/csrc/flash_fwd.cu",
@@ -2266,6 +2384,480 @@ def phase_eps(state):
     state["eps"] = dict(cosine=cos, rel_l2=rel)
     if not (math.isfinite(cos) and cos >= EPS_MIN_COS and rel <= EPS_MAX_REL_L2):
         raise RuntimeError("eps: card result disagrees with the f32 CPU result")
+
+
+# ---- main_legacy -----------------------------------------------------------------------
+
+def legacy_sites(model, batch: int, side: int = 0, ctx=None, which=None, xtype: str = "image"):
+    """(GN input shapes, attention sites (queries, keys, heads, d_head)) of
+    one call of a legacy family at ``batch``, walked from its layer
+    program: a ResBlock's two norms (the second after its in-block
+    resample), a transformer's norm on [B, C, N] and per block attn1 (on
+    the context where self-attention is disabled) and attn2, the
+    AttentionBlock's norm and self-attention, an FC block's two norms on
+    [B, F, 1], the head's norm. ``side``: the input map's side (2-D
+    streams); ``ctx``: the context length (None: no context, attn2 attends
+    to the tokens), or the two lengths of a dual blend; ``which``: the dual
+    branch (0 or 1) or None for a blend (a transformer layer given two
+    lengths runs a stack on each, as ``forward_dc``); ``xtype``: the VD
+    route."""
+    from vdtpu_torch.models import legacy as L
+    gn, attn = [], []
+    if isinstance(model, L.LegacyUNetVD):
+        model = model.unet_image if xtype == "image" else model.unet_text
+    if isinstance(model, L.LegacyFCUNet):
+        side = 0
+
+    def stack(spec, n, kv):
+        for _ in range(spec.depth):
+            attn.append((n, kv if spec.disable_self else n, spec.heads, spec.dim_head))
+            attn.append((n, n if kv is None else kv, spec.heads, spec.dim_head))
+
+    def walk(specs, side, flat):
+        for spec in specs:
+            k = spec.kind
+            n = side * side if side else (flat // spec.ch if flat else 1)
+            if k in ("res", "res_up", "res_down"):
+                gn.append((batch, spec.ch, side, side))
+                side = side * 2 if k == "res_up" else side // 2 if k == "res_down" else side
+                gn.append((batch, spec.out_ch, side, side))
+            elif k in ("down", "pool"):
+                side //= 2
+            elif k in ("up", "nn_up"):
+                side *= 2
+            elif k == "attn":
+                gn.append((batch, spec.ch, n))
+                attn.append((n, n, spec.heads, spec.ch // spec.heads))
+            elif k == "st":   # a pair of lengths: forward_dc runs two stacks
+                for kv in (ctx if isinstance(ctx, tuple) else (ctx,)):
+                    gn.append((batch, spec.ch, n))
+                    stack(spec, n, kv)
+            elif k == "dual":
+                for branch in ((which,) if isinstance(which, int) else (0, 1)):
+                    gn.append((batch, spec.ch, n))
+                    stack(spec, n, ctx[branch] if isinstance(ctx, tuple) else ctx)
+            elif k == "fc":
+                gn.append((batch, spec.ch, 1))
+                gn.append((batch, spec.out_ch, 1))
+                flat = spec.out_ch if flat else 0
+            elif k == "lin_in":
+                flat = spec.out_ch
+        return side, flat
+
+    if isinstance(model, L.LegacyDecoderOnly):
+        side, _ = walk([sp for st in model.program for sp in st], side, 0)
+        gn.append((batch, model.out[0].weight.shape[0], side, side))
+        return gn, attn
+    ins, mid, outs = model.program
+    md = isinstance(model, L.LegacyFCUNet) and model.second_dim is not None
+    side, flat = walk([sp for st in (*ins, mid, *outs) for sp in st], side, 1 if md else 0)
+    if isinstance(model, L.LegacyFCUNet):
+        c = model.final_ch
+        gn.append((batch, c, flat // c) if md else (batch, c, 1, 1))
+    else:
+        norm = model.id_predictor[0] if model.n_embed is not None else model.out[0]
+        gn.append((batch, norm.weight.shape[0], side, side))
+    return gn, attn
+
+
+def _legacy_expect(sites, calls: int = 1) -> tuple[dict, dict]:
+    """Flash launches by path and GN launches by route of ``calls`` calls
+    whose sites are ``sites`` (``legacy_sites``), bf16: an attention site
+    takes the flash kernel where ``pick_backend`` sends it (q >= 256, kv >=
+    1024, d <= 256), the wgmma kernel for d <= 80 with d % 8 == 0 (every
+    legacy site's q, k and v are 16-byte aligned views), else mma.sync;
+    each GN site the route of ``gn_plan``."""
+    import torch
+    from vdtpu_torch.ops.gn_silu import _sm_count, gn_plan
+    gn_shapes, attn = sites
+    flash = {"wgmma": 0, "mma": 0}
+    for q, kv, _, d in attn:
+        if q >= 256 and kv >= 1024 and d <= 256:
+            flash["wgmma" if d % 8 == 0 and d <= 80 else "mma"] += calls
+    gn = {"resident": 0, "streaming": 0}
+    for shape in gn_shapes:
+        gn[gn_plan(shape, torch.bfloat16, 32, True, _sm_count(0)).route] += calls
+    return flash, gn
+
+
+@contextlib.contextmanager
+def _recording_flash(calls: list):
+    """Record the (q, k, v) views of every call the attention dispatch makes
+    to the flash kernel (held, not copied: their strides are the site's),
+    calling through."""
+    from vdtpu_torch.ops import attention
+    inner = attention.flash_attention
+
+    def record(q, k, v, scale=None):
+        calls.append((q.detach(), k.detach(), v.detach()))
+        return inner(q, k, v, scale)
+
+    attention.flash_attention = record
+    try:
+        yield
+    finally:
+        attention.flash_attention = inner
+
+
+def _flash_site_check(state, label: str, calls):
+    """The flash kernel against its plain version at each distinct recorded
+    site (shapes, strides, dtype), on that site's own q, k and v views,
+    within the two-ulp band and ATTN_MAX_REL_L2; the path each takes."""
+    import torch
+    from vdtpu_torch.ops.flash import _plan_for, flash_attention, flash_attention_plain
+    seen, rows = set(), []
+    for q, k, v in calls:
+        sig = (tuple(q.shape), tuple(k.shape), q.stride(), k.stride(), str(q.dtype))
+        if sig in seen:
+            continue
+        seen.add(sig)
+        err, rel, ok = compare(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+        rows.append(dict(site=[list(q.shape), list(k.shape), list(q.stride())],
+                         path=_plan_for(q, k, v).path, max_abs_err=err, rel_l2_err=rel,
+                         ok=ok and rel <= ATTN_MAX_REL_L2))
+    torch.cuda.synchronize()
+    bad = [r["site"] for r in rows if not r["ok"]]
+    if rows:
+        log(f"  site check flash_fwd ({label}): {len(rows)} distinct sites of {len(calls)} "
+            f"calls, {[(r['site'], r['path']) for r in rows]}: max_abs_err "
+            f"{max(r['max_abs_err'] for r in rows):.3e}, max rel_l2 "
+            f"{max(r['rel_l2_err'] for r in rows):.3e}, disagreeing {bad} [{state.get('card')}]")
+    if bad:
+        raise RuntimeError(f"flash_fwd disagrees with its plain version at {label} sites {bad}")
+    if rows and "flash_fwd" in state["kernels"]:
+        k = state["kernels"]["flash_fwd"]
+        k.setdefault("site_checks", {})[label] = rows
+        k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in rows))
+    return rows
+
+
+def _legacy_build(cfg: dict, seed: int):
+    """(f32 module, bf16 module) of a legacy config on the card: the port's
+    seeded init with the zero-initialized tensors drawn from N(0, 0.02),
+    the bf16 copy cast from the f32 weights."""
+    import torch
+    from vdtpu_torch.config.registry import build
+    from vdtpu_torch.models.layers import init_random
+    with torch.device("cuda"):
+        f32 = build(cfg).eval().requires_grad_(False)
+    init_random(f32, torch.Generator(device="cuda").manual_seed(seed))
+    derandomize_zeros(f32, seed + 1)
+    with torch.device("meta"):
+        b16 = build(cfg).eval().requires_grad_(False).to(torch.bfloat16)
+    b16.to_empty(device="cuda")
+    b16.load_state_dict(f32.state_dict())
+    return f32, b16
+
+
+def _agreement(got, ref):
+    """(cosine, relative L2) of two outputs, in f64."""
+    a, b = got.flatten().double().cpu(), ref.flatten().double().cpu()
+    return float(a @ b / (a.norm() * b.norm())), float((a - b).norm() / b.norm())
+
+
+def _legacy_call(state, label: str, f32, b16, call, sites, f32_ref=None):
+    """One bf16 call of ``b16`` with its flash and GN launches counted by
+    path and route against ``sites`` (``legacy_sites``) and every distinct
+    GN and flash site checked against its plain version; the output held
+    to the f32 module's on the card (TF32 off, or ``f32_ref``) at
+    EPS_MIN_COS / EPS_MAX_REL_L2. Returns a row for the log."""
+    import torch
+    from vdtpu_torch.ops.flash import flash_attention
+    from vdtpu_torch.ops.gn_silu import gn_silu
+    gn_calls, fa_calls = [], []
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    with torch.no_grad(), _recording_gn(gn_calls), _recording_flash(fa_calls):
+        out = call(b16, torch.bfloat16)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {"flash_fwd": dict(flash_attention.launches_by_path), "gn_silu": _gn_routes(label)}
+    got["flash_fwd"].pop("f32")
+    flash, gn = _legacy_expect(sites)
+    if got != {"flash_fwd": flash, "gn_silu": gn} or len(fa_calls) != sum(flash.values()):
+        raise RuntimeError(f"{label}: launches {got} != derived {dict(flash_fwd=flash, gn_silu=gn)}")
+    if f32_ref is None:
+        with torch.no_grad(), _no_tf32():
+            f32_ref = call(f32, torch.float32)
+    cos, rel = _agreement(out.float(), f32_ref.float())
+    ok = bool(torch.isfinite(out).all()) and cos >= EPS_MIN_COS and rel <= EPS_MAX_REL_L2
+    log(f"  {label}: bf16 {tuple(out.shape)} in {dt * 1e3:.1f} ms (first call, GN inputs "
+        f"recorded), against f32: "
+        f"cosine {cos:.7f} rel_l2 {rel:.6f} (limits cos >= {EPS_MIN_COS}, rel_l2 <= "
+        f"{EPS_MAX_REL_L2}); launches {got} as derived [{state.get('card')}]")
+    if not ok:
+        raise RuntimeError(f"{label}: bf16 output disagrees with f32 (cos {cos}, rel {rel})")
+    _gn_site_check(state, label, gn_calls)
+    _flash_site_check(state, label, fa_calls)
+    del gn_calls, fa_calls
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        call(b16, torch.bfloat16)
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t0) * 1e3
+    log(f"  {label}: warm bf16 call {warm:.1f} ms (host clock, eager) [{state.get('card')}]")
+    return dict(ms_cold=dt * 1e3, ms_warm=warm, cosine=cos, rel_l2=rel, launches=got)
+
+
+def _legacy_vd_cfg(bank) -> dict:
+    """VD v1's two trunks: openai_unet_2d_v1's and openai_unet_0d_v1's args
+    less ``parts`` (the port's bank holds the latter as its
+    openai_unet_0d_v1_dc, the same args with parts [data, context])."""
+    strip = lambda name: {k: v for k, v in bank(name)["args"].items() if k != "parts"}
+    return {"type": "openai_unet_vd",
+            "args": {"unet_image_cfg": {"type": "openai_unet_2d",
+                                        "args": strip("openai_unet_2d_v1")},
+                     "unet_text_cfg": {"type": "openai_unet_0dmd",
+                                       "args": strip("openai_unet_0d_v1_dc")}}}
+
+
+def _legacy_vd(state, system) -> dict:
+    """(a) UNetModelVD at VD v1's widths: a t2i request (the port's CLIP text
+    tower on the prompt and "", cfg_eps_fn + ddim_loop over the image route,
+    DDIM-50 at CFG 7.5, n = 2, KL-f8 decode to 512^2) cold then warm, the
+    text route sampled 50 steps on [2, 768] latents, then one eps call a
+    route and forward_dc: the image route against f32 on the CPU, the
+    others against f32 on the card; launches derived and asserted."""
+    import torch
+    from vdtpu_torch.config.configs import model_cfg_bank
+    from vdtpu_torch.config.registry import build
+    from vdtpu_torch.ops.flash import flash_attention
+    from vdtpu_torch.ops.gn_silu import gn_silu
+    from vdtpu_torch.sampling.ddim import DDIMTables, cfg_eps_fn, ddim_loop
+    cfg = _legacy_vd_cfg(model_cfg_bank())
+    t0 = time.perf_counter()
+    f32, b16 = _legacy_build(cfg, SEED + 20)
+    n_params = sum(p.numel() for p in b16.parameters())
+    log(f"main_legacy (a): openai_unet_vd at VD v1's widths, {n_params / 1e6:.1f} M params, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    prompt = "a red cat sitting on a wooden bench in the sun"
+    n = 2
+    cond = system.ctx_encode(stand_in_tokenizer([prompt] * n), "text")
+    uncond = system.ctx_encode(stand_in_tokenizer([""] * n), "text")
+    vision = system.ctx_encode(_i2i_image(SEED + 21).expand(n, -1, -1, -1), "image")
+    tables = DDIMTables.create(system.model.schedule, STEPS, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    x_img = torch.randn(n, 4, 64, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    x_txt = torch.randn(n, 768, device="cuda", generator=gen).to(torch.bfloat16)
+    vae_routes = _vae_routes(system, False, n)
+    vae_gn = sum(vae_routes.values())
+    res = {}
+
+    def request(xtype, x):
+        eps = cfg_eps_fn(lambda xx, tt, cc: b16(xx, tt, cc, xtype=xtype, ctype="prompt"),
+                         cond, uncond, 7.5)
+        z = ddim_loop(eps, x, tables)
+        return system.vae_decode(z.permute(0, 2, 3, 1), "image") if xtype == "image" else z
+
+    for run, xtype, x in (("t2i cold", "image", x_img), ("t2i warm", "image", x_img),
+                          ("text route", "text", x_txt)):
+        flash, gn = _legacy_expect(legacy_sites(b16, 2 * n, 64, 77, xtype=xtype), STEPS)
+        if xtype == "image":
+            gn = {r: gn[r] + vae_routes.get(r, 0) for r in gn}
+        torch.cuda.synchronize()
+        _zero_counters()
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = request(xtype, x)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = {"flash_fwd": {p: c for p, c in flash_attention.launches_by_path.items()
+                             if p != "f32"}, "gn_silu": _gn_routes(f"main_legacy {run}")}
+        want_shape = (n, 512, 512, 3) if xtype == "image" else (n, 768)
+        fine = bool(torch.isfinite(out).all()) and tuple(out.shape) == want_shape
+        if xtype == "image":
+            fine = fine and float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+        log(f"main_legacy (a) {run}: {dt:.3f} s, shape {tuple(out.shape)} finite/range ok "
+            f"{fine}, launches {got} (derived {dict(flash_fwd=flash, gn_silu=gn)}; the VAE's GN "
+            f"{vae_gn}) [{state.get('card')}]")
+        if not fine:
+            raise RuntimeError(f"main_legacy (a) {run}: bad output")
+        if got != {"flash_fwd": flash, "gn_silu": gn}:
+            raise RuntimeError(f"main_legacy (a) {run}: launches {got} != derived")
+        res[run] = dict(seconds=dt, launches=got, flash=flash_attention.launches,
+                        gn=gn_silu.launches)
+    t_ = torch.full((n,), 500, device="cuda")
+    cpu = _cpu_f32(b16, lambda: build(cfg))
+    t = time.perf_counter()
+    with torch.no_grad():
+        cpu_img = cpu(x_img[:1].float().cpu(), t_[:1].cpu(), cond[:1].float().cpu(),
+                      xtype="image", ctype="prompt")
+    log(f"main_legacy (a): the image route in f32 on the CPU at batch 1: "
+        f"{time.perf_counter() - t:.1f} s")
+    del cpu
+    routes = [("image", "prompt", x_img, cond), ("image", "vision", x_img, vision),
+              ("text", "prompt", x_txt, cond), ("text", "vision", x_txt, vision)]
+    for xtype, ctype, x, c in routes:
+        sites = legacy_sites(b16, n, 64, c.shape[1], xtype=xtype)
+        call = lambda m, dt, x=x, c=c, xtype=xtype, ctype=ctype: m(
+            x.to(dt), t_, c.to(dt), xtype=xtype, ctype=ctype)
+        if xtype == "image" and ctype == "prompt":   # batch 1 against the CPU
+            call1 = lambda m, dt: m(x_img[:1].to(dt), t_[:1], cond[:1].to(dt), xtype="image",
+                                    ctype="prompt")
+            res["eps image/prompt (cpu f32)"] = _legacy_call(
+                state, "main_legacy (a) eps image/prompt, f32 on the CPU", f32, b16, call1,
+                legacy_sites(b16, 1, 64, 77), f32_ref=cpu_img)
+        res[f"eps {xtype}/{ctype}"] = _legacy_call(
+            state, f"main_legacy (a) eps {xtype}/{ctype}", f32, b16, call, sites)
+    for xtype, x in (("image", x_img), ("text", x_txt)):
+        # forward_dc: both contexts' stacks run at every context layer
+        sites = legacy_sites(b16, n, 64, (vision.shape[1], cond.shape[1]), xtype=xtype)
+        call = lambda m, dt, x=x, xtype=xtype: m.forward_dc(
+            x.to(dt), t_, vision.to(dt), cond.to(dt), xtype, "vision", "prompt", LEGACY_DC_RATIO)
+        res[f"forward_dc {xtype}"] = _legacy_call(
+            state, f"main_legacy (a) forward_dc {xtype} r={LEGACY_DC_RATIO}", f32, b16, call,
+            sites)
+    del f32, b16
+    torch.cuda.empty_cache()
+    return res
+
+
+def _legacy_families(state, system) -> dict:
+    """(b) every other family, one bf16 eps call each at batch 2 (the CFG
+    size) at published widths, built one at a time and freed after: each
+    against f32 on the card, every GN and flash site against its plain
+    version, launches derived and asserted."""
+    import torch
+    from vdtpu_torch.config.configs import model_cfg_bank
+    bank = model_cfg_bank()
+    vd = _legacy_vd_cfg(bank)["args"]
+    img, txt = vd["unet_image_cfg"]["args"], vd["unet_text_cfg"]["args"]
+    b = LEGACY_BATCH
+    u = system.ctx_encode(stand_in_tokenizer([""]), "text")
+    c = system.ctx_encode(stand_in_tokenizer(["a red cat sitting on a wooden bench"]), "text")
+    text = torch.cat([u, c])                                    # [2, 77, 768]
+    image = system.ctx_encode(_i2i_image(SEED + 23).expand(b, -1, -1, -1), "image")  # 257
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    lat = torch.randn(b, 4, 64, 64, device="cuda", generator=gen)
+    px = torch.randn(b, 3, 256, 256, device="cuda", generator=gen)
+    flat = torch.randn(b, 768, device="cuda", generator=gen)
+    y = torch.tensor([1, 207], device="cuda")
+    t = torch.full((b,), 500, device="cuda")
+    nc = {k: v for k, v in LEGACY_SD_V1.items() if k != "context_dim"}
+    noatt = {k: LEGACY_SD_V1[k] for k in ("image_size", "in_channels", "out_channels",
+                                          "model_channels", "num_res_blocks", "channel_mult",
+                                          "use_checkpoint")}
+    cases = [   # (label, type, args, [(call label, call, sites arguments)])
+        ("openai_unet SD v1", "openai_unet", LEGACY_SD_V1,
+         [("", lambda m, dt: m(lat.to(dt), t, text.to(dt)), dict(side=64, ctx=77))]),
+        ("openai_unet ADM-256", "openai_unet", LEGACY_ADM_256,
+         [("", lambda m, dt: m(px.to(dt), t, None, y), dict(side=256))]),
+        ("openai_unet_dual_context SD v1", "openai_unet_dual_context", LEGACY_SD_V1,
+         [("which 0", lambda m, dt: m(lat.to(dt), t, text.to(dt), which_attn=0),
+           dict(side=64, ctx=77, which=0)),
+          ("which 1", lambda m, dt: m(lat.to(dt), t, image.to(dt), which_attn=1),
+           dict(side=64, ctx=257, which=1)),
+          (f"blend {LEGACY_DC_RATIO}", lambda m, dt: m(lat.to(dt), t, (text.to(dt), image.to(dt)),
+                                                       which_attn=LEGACY_DC_RATIO),
+           dict(side=64, ctx=(77, 257)))]),
+        ("openai_unet_nocontext SD v1", "openai_unet_nocontext", nc,
+         [("", lambda m, dt: m(lat.to(dt), t), dict(side=64))]),
+        ("openai_unet_nocontext_noatt SD v1", "openai_unet_nocontext_noatt", noatt,
+         [("", lambda m, dt: m(lat.to(dt), t), dict(side=64))]),
+        ("decoder-only defaults", "openai_unet_nocontext_noatt_decoderonly", {},
+         [("", lambda m, dt: m(lat.to(dt), t), dict(side=64))]),
+        ("openai_unet_2d VD v1", "openai_unet_2d", img,
+         [("", lambda m, dt: m(lat.to(dt), t, text.to(dt)), dict(side=64, ctx=77))]),
+        ("openai_unet_0d VD v1", "openai_unet_0d",
+         {k: v for k, v in txt.items() if k != "second_dim"},
+         [("", lambda m, dt: m(flat.to(dt), t, text.to(dt)), dict(ctx=77))]),
+        ("openai_unet_0dmd VD v1", "openai_unet_0dmd", txt,
+         [("", lambda m, dt: m(flat.to(dt), t, text.to(dt)), dict(ctx=77))]),
+    ]
+    res = {}
+    for i, (label, kind, args, calls) in enumerate(cases):
+        t0 = time.perf_counter()
+        f32, b16 = _legacy_build({"type": kind, "args": dict(args)}, SEED + 30 + i)
+        n_params = sum(p.numel() for p in b16.parameters())
+        log(f"main_legacy (b) {label}: {n_params / 1e6:.1f} M params, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        outs = []
+        for name, call, where in calls:
+            key = f"{label} {name}".strip()
+            res[key] = _legacy_call(state, f"main_legacy (b) {key}", f32, b16, call,
+                                    legacy_sites(b16, b, **where))
+            with torch.no_grad():
+                outs.append(call(b16, torch.bfloat16).float())
+        if len(outs) > 1:   # the dual family: each which_attn gives its own output
+            apart = [float((o - outs[0]).norm() / outs[0].norm()) for o in outs[1:]]
+            log(f"  main_legacy (b) {label}: outputs apart from the first call's by relative "
+                f"L2 {apart} [{state.get('card')}]")
+            if min(apart) < LEGACY_DC_APART:
+                raise RuntimeError(f"main_legacy (b) {label}: which_attn changed nothing {apart}")
+        del f32, b16, outs
+        torch.cuda.empty_cache()
+    return res
+
+
+def _legacy_vd_inference(state, system) -> dict:
+    """(c) ``vd_inference(fp16=True, checkpoint=...)`` on a seeded bf16
+    checkpoint of vd_four_flow_v1-0 (the serving system's weights under
+    ``state_dict``, torch.save'd into memory: a call may write 45 GiB to
+    the disk and main_launch writes most of it), its t2i request against
+    the same request on the serving system, which loads the same dict
+    directly: bit-equal."""
+    import gc
+    import io
+    import torch
+    from vdtpu_torch.serving.api import VDInference, vd_inference
+    t0 = time.perf_counter()
+    sd = {k: v.to("cpu", torch.bfloat16) for k, v in system.net.state_dict().items()}
+    buf = io.BytesIO()
+    torch.save({"state_dict": sd}, buf)
+    size = buf.tell()
+    buf.seek(0)
+    t1 = time.perf_counter()
+    kw = dict(text_tokenizer=stand_in_tokenizer, output_dim=(512, 512), ddim_steps=STEPS,
+              n_sample_image=2)
+    vdi = vd_inference(fp16=True, checkpoint=buf, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del buf
+    dtypes = {str(p.dtype) for p in vdi.sys.net.parameters()}
+    missing = system.load_torch_checkpoint(sd)
+    direct = VDInference(system, **kw)
+    prompt = "a red cat sitting on a wooden bench in the sun"
+    out = vdi.inference_t2i(prompt, seed=SEED)
+    t3 = time.perf_counter()
+    ref = direct.inference_t2i(prompt, seed=SEED)
+    torch.cuda.synchronize()
+    equal = torch.equal(out, ref)
+    log(f"main_legacy (c) vd_inference(fp16=True, checkpoint=<{size / 2**30:.2f} GiB .pt>): "
+        f"saved in {t1 - t0:.1f} s, built and loaded in {t2 - t1:.1f} s on "
+        f"{vdi.sys.device}, parameter dtypes {sorted(dtypes)}; t2i {t3 - t2:.2f} s; bit-equal to "
+        f"the serving system's request on the same dict {equal} (its direct load missed "
+        f"{len(missing)} keys) [{state.get('card')}]")
+    if not equal or dtypes != {"torch.bfloat16"} or missing or vdi.sys.device.type != "cuda":
+        raise RuntimeError("main_legacy (c): vd_inference differs from a direct load")
+    del vdi, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(checkpoint_gib=size / 2**30, save_s=t1 - t0, build_load_s=t2 - t1,
+                t2i_s=t3 - t2, bit_equal=equal)
+
+
+def phase_main_legacy(state):
+    """The legacy diffuser zoo at published widths: (a) UNetModelVD at VD
+    v1's widths (a t2i request, the text route, every route and
+    forward_dc), (b) every other family, (c) vd_inference."""
+    import torch
+    system = _system(state)
+    t0 = time.perf_counter()
+    res = {"a": _legacy_vd(state, system)}
+    t1 = time.perf_counter()
+    res["b"] = _legacy_families(state, system)
+    t2 = time.perf_counter()
+    res["c"] = _legacy_vd_inference(state, system)
+    log(f"main_legacy: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{time.perf_counter() - t2:.1f} s [{state.get('card')}]")
+    for name in ("flash_fwd", "gn_silu"):
+        if name in state["kernels"]:
+            state["kernels"][name]["legacy_launches"] = {
+                "t2i warm": res["a"]["t2i warm"]["launches"][name],
+                "text route": res["a"]["text route"]["launches"][name]}
+    torch.cuda.empty_cache()
+    state["main_legacy"] = res
 
 
 def _ctx_tokens(unet, latent: int):

@@ -116,6 +116,47 @@ def test_flash_kernel_reads_strided_views(gen):
                                rtol=RTOL)
 
 
+@pytest.mark.parametrize("new_order", [False, True])
+def test_legacy_attention_block_flash_site(gen, new_order):
+    """The legacy AttentionBlock's flash site (ADM's 32^2 map: 1024 tokens,
+    8 heads of 64): q, k and v as the block takes them, strided views of
+    one fused qkv projection, [B, N, H, 3, d] (legacy order) or
+    [B, N, 3, H, d] (new order), through the attention dispatch; the
+    wgmma kernel reads the views, no copy."""
+    from vdtpu_torch.models.legacy import LegacyAttentionBlock
+    from vdtpu_torch.models.layers import init_random
+    b, n, h, d = 2, 1024, 8, 64
+    qkv = _randn(gen, b, n, 3 * h * d)
+    if new_order:
+        v5 = qkv.view(b, n, 3, h, d)
+        q, k, v = v5[:, :, 0], v5[:, :, 1], v5[:, :, 2]
+    else:
+        v5 = qkv.view(b, n, h, 3, d)
+        q, k, v = v5[..., 0, :], v5[..., 1, :], v5[..., 2, :]
+    assert not q.is_contiguous()
+    out = _one_launch(flash_attention, "wgmma", lambda: flash_attention(q, k, v))
+    ref = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+    assert _rel_l2(out, ref) <= ATTN_MAX_REL_L2
+    # the block itself in f32 on the card (one launch on the flash kernel's
+    # f32 route) against the plain block on the CPU: the attention branch
+    # (output less input) within relative L2 1e-4 (f32 both sides, TF32 off;
+    # GN, the projections and the attention sum in other orders)
+    block = LegacyAttentionBlock(h * d, h, new_order).cuda()
+    init_random(block, torch.Generator(device="cuda").manual_seed(1))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            block.proj_out.weight.normal_(0, (h * d) ** -0.5, generator=gen)
+            x = torch.randn(b, h * d, n, device="cuda", generator=gen)
+            got = _one_launch(flash_attention, "f32", lambda: block(x)) - x
+            cpu = block.cpu()(x.cpu()) - x.cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert _rel_l2(got.cpu(), cpu) <= 1e-4
+
+
 def test_flash_kernel_refuses(gen):
     q = _randn(gen, 1, 64, 1, 40, dtype=torch.float16)   # bf16 and f32 only
     with pytest.raises(TypeError):

@@ -46,19 +46,25 @@ def tiny_systems_from_port(seed: int = 0, image_size: int = 64):
     sd = {k: np.asarray(v, np.float32) for k, v in sd.items()}
     psys.load_state_dict(sd, strict=True)
     jsys = JVDSystem("vd_test_tiny")
+    jsys.params = jax_param_templates(jsys, image_size)
+    assert not jsys.load_torch_checkpoint(sd, strict=True)
+    return jsys, psys, sd
+
+
+def jax_param_templates(jsys, image_size: int = 64):
+    """vdtpu's param tree of ``jsys`` as shapes (``jax.eval_shape``, no
+    init run): the structure its checkpoint loader fills."""
     key = jax.random.PRNGKey(0)
     zeros = lambda *shape, dt=jnp.float32: jnp.zeros(shape, dt)
     sz = jsys.ctx["image"].image_size
     shapes = lambda init, *args: jax.eval_shape(lambda: init(key, *args)["params"])
-    jsys.params = {
+    return {
         "diffuser": jax.eval_shape(jsys.model.init_params, key),
         "vae": {"image": shapes(jsys.vae["image"].init, zeros(1, image_size, image_size, 3)),
                 "text": jax.eval_shape(jsys.vae["text"].init_params, key)},
         "ctx": {"image": shapes(jsys.ctx["image"].init, zeros(1, sz, sz, 3)),
                 "text": shapes(jsys.ctx["text"].init,
                                zeros(1, jsys.ctx["text"].max_len, dt=jnp.int32))}}
-    assert not jsys.load_torch_checkpoint(sd, strict=True)
-    return jsys, psys, sd
 
 
 @pytest.fixture(scope="module")

@@ -74,6 +74,7 @@ def test_every_module_imports_with_jax_flax_yaml_blocked():
     assert {"vdtpu_torch.parallel.mesh", "vdtpu_torch.parallel.collectives",
             "vdtpu_torch.parallel.dryrun", "vdtpu_torch.utils.profiling",
             "vdtpu_torch.utils.debug", "vdtpu_torch.utils.units"} <= set(modules)
+    assert "vdtpu_torch.models.legacy" in modules
     code = "\n".join([
         "import importlib, sys",
         *[f"sys.modules[{name!r}] = None" for name in _BLOCKED],

@@ -20,6 +20,17 @@ _TYPES = {
     "optimus_gpt2_connector": ("vdtpu_torch.models.optimus", "OptimusGPT2Connector"),
     "optimus_bert_tokenizer": ("vdtpu_torch.models.optimus", "build_bert_tokenizer"),
     "optimus_gpt2_tokenizer": ("vdtpu_torch.models.optimus", "build_gpt2_tokenizer"),
+    # the legacy (pre-v2) diffuser zoo, vdtpu/models/legacy.py's nine families
+    "openai_unet": ("vdtpu_torch.models.legacy", "LegacyUNetModel"),
+    "openai_unet_dual_context": ("vdtpu_torch.models.legacy", "LegacyUNetDualContext"),
+    "openai_unet_nocontext": ("vdtpu_torch.models.legacy", "LegacyUNetNoContext"),
+    "openai_unet_nocontext_noatt": ("vdtpu_torch.models.legacy", "LegacyUNetNoContextNoAtt"),
+    "openai_unet_nocontext_noatt_decoderonly": ("vdtpu_torch.models.legacy",
+                                                "LegacyDecoderOnly"),
+    "openai_unet_2d": ("vdtpu_torch.models.legacy", "legacy_unet_2d"),
+    "openai_unet_0d": ("vdtpu_torch.models.legacy", "LegacyUNet0D"),
+    "openai_unet_0dmd": ("vdtpu_torch.models.legacy", "LegacyUNet0DMultiDim"),
+    "openai_unet_vd": ("vdtpu_torch.models.legacy", "LegacyUNetVD"),
 }
 
 

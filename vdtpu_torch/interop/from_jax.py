@@ -14,7 +14,8 @@ and position embeddings, HF's LayerNorm names), the whole image VAE
 (``encoder``, ``quant_conv``, ``decoder``, ``post_quant_conv``) and the
 Optimus text VAE (BERT and GPT-2 towers); ``loss_state_dict_from_jax``
 converts the VAE training loss (LPIPS, the discriminator and its
-BatchNorm statistics). ``quant_state_from_jax`` converts the int8 serving policy's calibrated
+BatchNorm statistics); ``legacy_state_dict_from_jax`` the legacy diffuser
+zoo (``vdtpu/models/legacy.py``). ``quant_state_from_jax`` converts the int8 serving policy's calibrated
 scales and weight tables the same way.
 """
 from __future__ import annotations
@@ -86,6 +87,32 @@ def system_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, np.ndarra
         sd.update(state_dict_from_jax(p, f"vae.{name}."))
     for name, p in params.get("ctx", {}).items():
         sd.update(state_dict_from_jax(p, f"ctx.{name}.model."))
+    return sd
+
+
+# dense kernels of the legacy zoo that the port keeps as 1x1 convs
+# ([O, I, 1, 1], ``Conv1x1Linear``): the transformers' projections and the
+# FC blocks' convs (the ResBlocks' are 3x3 / 1x1 conv kernels already)
+_LEGACY_1X1 = (".proj_in.weight", ".proj_out.weight", ".proj_in_0.weight",
+               ".proj_in_1.weight", ".proj_out_0.weight", ".proj_out_1.weight",
+               ".in_layers.2.weight", ".out_layers.3.weight", ".skip_connection.weight")
+
+
+def legacy_state_dict_from_jax(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
+    """A param tree of vdtpu's legacy zoo (one family, numpy leaves) -> the
+    state dict of the port's module (``vdtpu_torch/models/legacy.py``), the
+    reference's keys: every layer of ``state_dict_from_jax``'s rules (the
+    time and label embeddings, ``id_predictor``, the DualSpatialTransformer's
+    ``norm_i`` / ``proj_in_i`` / ``transformer_blocks_i.d`` / ``proj_out_i``),
+    with the transformers' projections and the FC blocks' convs as
+    [O, I, 1, 1]; the AttentionBlock's ``qkv`` and ``proj_out`` stay
+    [O, I]."""
+    sd = state_dict_from_jax(tree, prefix)
+    attn = {k[:-len("qkv.weight")] for k in sd if k.endswith(".qkv.weight")}
+    for k, v in sd.items():
+        attn_proj = k.endswith(".proj_out.weight") and k[:-len("proj_out.weight")] in attn
+        if v.ndim == 2 and k.endswith(_LEGACY_1X1) and not attn_proj:
+            sd[k] = v[:, :, None, None]
     return sd
 
 

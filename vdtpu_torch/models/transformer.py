@@ -112,11 +112,18 @@ class CrossAttention(QuantState, nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn(context) -> GEGLU FF, pre-LN residuals."""
+    """self-attn -> cross-attn(context) -> GEGLU FF, pre-LN residuals.
+    ``disable_self_attn`` (a legacy-zoo option) makes attn1 a second
+    cross-attention on the context, with token merging off for it;
+    ``context_dim`` None (the legacy no-context families) keeps attn2 a
+    self-attention."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int | None,
+                 disable_self_attn: bool = False):
         super().__init__()
-        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.disable_self_attn = disable_self_attn
+        self.attn1 = CrossAttention(dim, heads, dim_head,
+                                    context_dim if disable_self_attn else None)
         self.ff = FeedForward(dim)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
         self.norm1 = LayerNorm(dim, eps=1e-5)
@@ -124,7 +131,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, eps=1e-5)
 
     def forward(self, x, context, tome=None):
-        if tome is not None and tome.applies(x):
+        if self.disable_self_attn:
+            x = self.attn1(self.norm1(x), context=context, residual=x)
+        elif tome is not None and tome.applies(x):
             merge, unmerge, _ = tome.merge(x)
             x = x + unmerge(self.attn1(merge(self.norm1(x))))
         else:
@@ -137,14 +146,15 @@ class SpatialTransformer(nn.Module):
     """GroupNorm(eps 1e-6) -> proj_in -> transformer blocks -> zero proj_out,
     plus the input. proj_in/proj_out are the reference's 1x1 convs."""
 
-    def __init__(self, channels: int, heads: int, dim_head: int, context_dim: int,
-                 depth: int = 1):
+    def __init__(self, channels: int, heads: int, dim_head: int, context_dim: int | None,
+                 depth: int = 1, disable_self_attn: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = Conv1x1Linear(channels, inner)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth)])
+            [BasicTransformerBlock(inner, heads, dim_head, context_dim, disable_self_attn)
+             for _ in range(depth)])
         self.proj_out = Conv1x1Linear(inner, channels, zero_init=True)
 
     def forward(self, x, context, tome=None):

@@ -105,6 +105,26 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def vd_inference(which: str = "v1.0", fp16: bool = False, checkpoint: str | None = None,
+                 device=None, **kw) -> "VDInference":
+    """Drop-in for the reference constructor (``app.py``):
+    ``vd_inference(which="v1.0", fp16=True)`` -> a ready ``VDInference`` of
+    ``vd_four_flow_v1-0``, on the card unless ``device`` names another.
+    ``fp16`` means bf16 (the system is built in it, so the checkpoint's
+    tensors are cast as they load); ``checkpoint`` is a torch ``.pt`` /
+    ``.pth`` of the reference's keys (a ``{"state_dict": ...}`` wrapper or
+    the flat dict; a path or anything ``torch.load`` reads), loaded
+    non-strict over the seeded init. ``kw`` goes to ``VDInference``."""
+    if which != "v1.0":
+        raise ValueError("Model type not supported")
+    dtype = torch.bfloat16 if fp16 else torch.float32
+    system = VDSystem("vd_four_flow_v1-0", dtype=dtype, device=device).init_random(0)
+    if checkpoint:
+        sd = torch.load(checkpoint, map_location="cpu")
+        system.load_torch_checkpoint(sd.get("state_dict", sd))
+    return VDInference(system, **kw)
+
+
 class _CtxHolder(nn.Module):
     """Keeps the reference's ``ctx.<name>.model.`` key prefix."""
 
@@ -226,6 +246,14 @@ class VDSystem:
         own = {k: v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
                for k, v in sd.items() if k.startswith(self.PREFIXES)}
         return self.net.load_state_dict(own, strict=strict)
+
+    def load_torch_checkpoint(self, state_dict: Mapping[str, Any], strict: bool = False
+                              ) -> list[str]:
+        """Load the published flat state dict (``vd-four-flow-v1-0.pth``'s
+        keys), non-strict by default as the JAX package's
+        ``load_torch_checkpoint``: returns the keys the port builds that the
+        dict lacks."""
+        return list(self.load_state_dict(state_dict, strict=strict).missing_keys)
 
     def load_jax_params(self, params: Mapping[str, Any], strict: bool = True):
         """Load a JAX ``VDSystem.params`` tree (numpy leaves)."""
