@@ -15,7 +15,10 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             Triton kernels; print the seconds
   kernels   each kernel against its plain version at the main paths'
             shapes (the flash forward and backward also on their f32 route
-            at FLASH_SHAPES, in f32 with TF32 off): max error, kernel / plain / library-call ms and the
+            at FLASH_SHAPES, in f32 with TF32 off: the tf32x3 kernels, with
+            the SIMT f32 kernels checked and timed beside them through their
+            own C entries, and both bounds, 3xTF32 and f32 FMAs): max error,
+            kernel / plain / library-call ms and the
             bound (bytes or operations over the card's peak). "ms" is device
             time (calls captured in a CUDA graph, replayed between CUDA
             events); the "eager" times are the same calls launched one by
@@ -43,6 +46,12 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             inference_t2i at 512^2, n = 2, DDIM-50, CFG 7.5, cold then warm;
             the launch counters are zeroed just before each run and read
             just after it
+  main_f32  the same request at the port's default dtype: the system in
+            f32 (seeded as main), once (the process warm from main), every
+            flash launch on the tf32x3 kernel (500), peak GiB; one f32 eps call against f32 on
+            the CPU with the card's default TF32 flags (printed; cuDNN's
+            convs run TF32: F32_EPS_MAX_REL_L2) and with TF32 off
+            (F32_EPS_NO_TF32_MAX_REL_L2)
   main_i2i  inference_i2i on the same system, exact bf16, on a seeded 512^2
             image: (a) fid 0, focus 0.5, no colour adjust (50 steps) and
             (b) fid 0.5, focus 0.3, "Simple" (25 steps: VAE encoder, x0
@@ -207,8 +216,8 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             launches; then on a system of its own at the same three levels
             (with the Optimus VAE):
             (h) f32 compute, a micro-batch-2 gradient through the flash
-            kernels' f32 route against the plain versions (TF32 off), the f32
-            path's launches; (e) the text flow's gradient (Optimus latents)
+            kernels' f32 route against the plain versions (TF32 off), every
+            launch on the tf32x3 kernels; (e) the text flow's gradient (Optimus latents)
             against the plain versions, the GN kernel at the text diffuser's
             sites, two Trainer steps; (f) two t2i steps with the CLIP text
             tower trained inside the loss; (g) two steps on bf16 master
@@ -286,7 +295,7 @@ import sys
 import time
 import zlib
 
-PHASES = ("device", "build", "kernels", "main", "main_i2i", "main_text", "main_mcg",
+PHASES = ("device", "build", "kernels", "main", "main_f32", "main_i2i", "main_text", "main_mcg",
           "main_modes", "eps", "main_legacy",
           "main_int8", "modes", "eps_int8", "main_fused2", "main_queue", "main_quality", "probes",
           "train", "main_launch", "main_parallel",
@@ -300,11 +309,15 @@ PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_EXP = 16 * 132 * 1.98e9
 # int32 adds outside the tensor cores: 64 lanes per SM per clock
 PEAK_INT32 = 64 * 132 * 1.98e9
 
 FLASH_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
+# the flash wrappers' f32 plan paths (the tf32x3 kernels, the SIMT ones),
+# which no bf16 path launches
+F32_PATHS = ("f32", "tf32x3")
 # the flash forward at half batch: the UNet's self-attention sites on the
 # steps outside the cfg interval (main_modes (c))
 FLASH_HALF_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80)]
@@ -458,6 +471,15 @@ TEXT_PROMPT = "a red cat"
 GNQ_MAX_OFF_BY_ONE = 1e-3
 # gn_stats against its plain version (f32 sums in another order): relative
 GNQ_STATS_RTOL = 1e-4
+# main_f32's eps call, f32 on the card against f32 on the CPU on the same
+# weights and inputs (fixed before the first run). With the card's default
+# flags cuDNN runs f32 convolutions in TF32, which rounds 8 times finer than
+# bf16 (10 mantissa bits to 7), and bf16 eps calls read relative L2
+# 0.011-0.018 against f32 (main_legacy's calls): about 0.002 is expected,
+# 0.005 is the bound. With TF32 off both sides are f32 (the flash sites on
+# the tf32x3 kernel, ~1e-6 from f32) and differ in summation order only
+F32_EPS_MIN_COS, F32_EPS_MAX_REL_L2 = 0.9999, 0.005
+F32_EPS_NO_TF32_MAX_REL_L2 = 1e-4
 # the flash kernels' f32 route against their plain versions in f32 (TF32
 # off): |k - p| <= F32_ATOL + F32_RTOL * |p|, the CPU f32 flash band (both
 # sides sum f32 products in other orders), and relative L2 <= F32_MAX_REL_L2
@@ -516,7 +538,7 @@ LAUNCH_LEVELS = {"image": {"num_res_blocks": [1, 1, 1], "channel_mult": [1, 2, 4
 # f32 on the same weights, at most PAR_EPS_F32_RATIO times one process's
 # own distance to f32
 PAR_DIR = os.path.join("build", "main_parallel")
-PAR_SHARDS, PAR_PER_SHARD, PAR_ITERS, PAR_CACHE = 2, 12, 3, 1
+PAR_SHARDS, PAR_PER_SHARD, PAR_ITERS, PAR_CACHE = 2, 12, 2, 1
 # (c) runs at main_launch's three levels, one dry run for the eps call and
 # the training, batch 2 in one micro-batch: every sharded layer gathers its
 # output and sums its input gradient through the host (gloo), ~19 s a
@@ -856,10 +878,47 @@ def _flash_bwd_case(shape, gen):
                 bound_detail=dict(bytes=nbytes, flops=5 * prod, exps=exps))
 
 
+def _simt_f32(name: str, *tensors, scale: float):
+    """A call of the f32 route's SIMT kernel through its own C
+    entry (``vd_flash_fwd_f32`` / ``vd_flash_bwd_f32``), bypassing the plan,
+    on contiguous f32 tensors: (call, outputs). Forward: (q, k, v, out,
+    lse or None); backward: (q, k, v, dO, lse, delta, dq, dk, dv). These
+    launches count on no wrapper: they are timed and checked beside the
+    plan's kernels, not run by any main path."""
+    import torch
+    from vdtpu_torch.ops.flash import _flash_lib
+    lib = _flash_lib(name)
+    b, n, h, d = tensors[0].shape
+    m = tensors[1].shape[1]
+    st = lambda t: tuple(t.stride()[:3])
+    ptr = lambda t: None if t is None else t.data_ptr()
+    if name == "flash_fwd":
+        q, k, v, out, lse = tensors
+        args = (ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), b, n, m, h, d, *st(q), *st(k),
+                *st(v), *st(out), scale)
+        fn, outs = lib.vd_flash_fwd_f32, (out, lse)
+    else:
+        q, k, v, do, lse, delta, dq, dk, dv = tensors
+        args = (*(ptr(t) for t in tensors), b, n, m, h, d, *st(q), *st(k), *st(v), *st(do),
+                *st(dq), *st(dk), *st(dv), scale)
+        fn, outs = lib.vd_flash_bwd_f32, (dq, dk, dv)
+
+    def call():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} SIMT f32 launch failed: cudaError {rc}")
+    return call, outs
+
+
 def _flash_f32_case(shape, gen):
-    """The f32 route of the flash forward, with and without lse, against the
-    plain forward in f32 (TF32 off), on the "f32" path; SDPA in f32 is the
-    yardstick."""
+    """The flash forward's f32 route at ``shape``, with and without lse,
+    against the plain forward in f32 (TF32 off): the tf32x3 kernel (the
+    plan's path here, asserted) and, through its own C entry, the SIMT
+    kernel (``_simt_f32``), both within F32_ATOL / F32_RTOL /
+    F32_MAX_REL_L2; timed in turns (tf32x3, SIMT, tf32x3, SIMT) with SDPA
+    in f32 as the yardstick. ``bound_ms``: the 3xTF32 bound (three tf32
+    passes of both products at PEAK_TF32, the exponentials, the bytes);
+    ``bound_f32_ms``: the same work as f32 FMAs at PEAK_F32."""
     import torch
     import torch.nn.functional as F
     from vdtpu_torch.ops.flash import _plan_for, flash_attention, flash_attention_fwd, \
@@ -880,28 +939,47 @@ def _flash_f32_case(shape, gen):
         err, rel, ok = compare(out, ref, F32_ATOL, F32_RTOL)
         err_l, rel_l, ok_l = compare(out_l, ref, F32_ATOL, F32_RTOL)
         lse_err, _, ok_lse = compare(lse, lse_ref, F32_ATOL, F32_RTOL)
-        ok = (ok and ok_l and ok_lse and max(rel, rel_l) <= F32_MAX_REL_L2 and path == "f32"
-              and took == {"f32": 2})
+        ok = (ok and ok_l and ok_lse and max(rel, rel_l) <= F32_MAX_REL_L2
+              and path == "tf32x3" and took == {"tf32x3": 2})
+        simt, (s_out, _) = _simt_f32("flash_fwd", q, k, v, torch.empty_like(q), None,
+                                     scale=d ** -0.5)
+        simt_lse, (_, s_lse) = _simt_f32("flash_fwd", q, k, v, torch.empty_like(q),
+                                         torch.empty_like(lse), scale=d ** -0.5)
+        simt()
+        simt_lse()
+        s_err, s_rel, s_ok = compare(s_out, ref, F32_ATOL, F32_RTOL)
+        s_ok = s_ok and s_rel <= F32_MAX_REL_L2 and compare(s_lse, lse_ref, F32_ATOL, F32_RTOL)[2]
+        del out, out_l, lse, ref, lse_ref
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)
         eager = dict(ms=time_ms(kern, 5), plain_ms=time_ms(plain, 3, warmup=1),
-                     library_ms=time_ms(lib, 5))
-        ms, plain_ms, lib_ms = time_graph_ms(kern), time_graph_ms(plain, 2, 2), time_graph_ms(lib)
-        ms_lse = time_graph_ms(kern_lse)
-    nbytes = 4 * (q.numel() + 3 * k.numel())
+                     library_ms=time_ms(lib, 5), simt_ms=time_ms(simt, 3, warmup=1))
+        turns = [time_graph_ms(kern), time_graph_ms(simt), time_graph_ms(kern),
+                 time_graph_ms(simt)]
+        plain_ms, lib_ms = time_graph_ms(plain, 2, 2), time_graph_ms(lib)
+        ms_lse, simt_ms_lse = time_graph_ms(kern_lse), time_graph_ms(simt_lse)
     flops, exps = 4.0 * b * h * n * n * d, float(b * h * n * n)
-    bound_ms, bound_by = _bound(nbytes, max(flops / PEAK_F32, exps / PEAK_EXP))
-    return dict(shape=list(shape), max_abs_err=max(err, err_l), rel_l2_err=max(rel, rel_l), ok=ok,
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library="F.scaled_dot_product_attention (f32)", bound_ms=bound_ms,
-                bound_by=bound_by, eager=eager, path=path, lse_max_abs_err=lse_err,
-                ms_with_lse=ms_lse, bound_detail=dict(bytes=nbytes, flops=flops, exps=exps))
+    nbytes = 4 * (q.numel() + 3 * k.numel())
+    bound_ms, bound_by = _bound(nbytes, max(3 * flops / PEAK_TF32, exps / PEAK_EXP))
+    bound_f32_ms, _ = _bound(nbytes, max(flops / PEAK_F32, exps / PEAK_EXP))
+    return dict(shape=list(shape), max_abs_err=max(err, err_l), rel_l2_err=max(rel, rel_l),
+                ok=ok and s_ok, ms=turns[0], ms_turns=turns, plain_ms=plain_ms,
+                library_ms=lib_ms, library="F.scaled_dot_product_attention (f32)",
+                bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms, eager=eager,
+                path=path, lse_max_abs_err=lse_err, ms_with_lse=ms_lse, simt_ms=turns[1],
+                simt_ms_with_lse=simt_ms_lse, simt_max_abs_err=s_err, simt_rel_l2_err=s_rel,
+                simt_ok=s_ok, bound_detail=dict(bytes=nbytes, flops=flops, exps=exps,
+                                                tf32_passes=3))
 
 
 def _flash_bwd_f32_case(shape, gen):
-    """The f32 route of the flash backward against the plain backward in
-    f32 (TF32 off) on the same (q, k, v, o, lse, dO), on the "f32" path, and
-    bit-equal across two runs; SDPA's f32 backward is the yardstick."""
+    """The flash backward's f32 route at ``shape`` against the plain
+    backward in f32 (TF32 off) on the same (q, k, v, o, lse, dO): the
+    tf32x3 kernels (the plan's path here, asserted) and, through its own C
+    entry, the SIMT kernels, both within the f32 gate and bit-equal
+    across two runs; timed in turns with SDPA's f32 backward as the
+    yardstick. Bounds as ``_flash_f32_case``'s over the 5 products of one
+    pass (the kernels keep the TPU's split and take 7)."""
     import torch
     import torch.nn.functional as F
     from vdtpu_torch.ops.flash import (
@@ -919,30 +997,49 @@ def _flash_bwd_f32_case(shape, gen):
         took = {p: c - before[p] for p, c in flash_attention_bwd.launches_by_path.items()
                 if c != before[p]}
         err = rel = 0.0
-        ok = took == {"f32": 2} and all(torch.equal(a, r) for a, r in zip(outs, again))
+        bit_equal = all(torch.equal(a, r) for a, r in zip(outs, again))
+        ok = took == {"tf32x3": 2} and bit_equal
         for a, r in zip(outs, refs):
             e, rl, ok_a = compare(a, r, F32_ATOL, F32_RTOL)
             err, rel, ok = max(err, e), max(rel, rl), ok and ok_a
         ok = ok and rel <= F32_MAX_REL_L2
-        del outs, again, refs
+        delta = (do * o).sum(dim=-1).transpose(1, 2).contiguous()
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        simt, s_outs = _simt_f32("flash_bwd", q, k, v, do, lse, delta, *grads, scale=scale)
+        simt()
+        s_first = [t.clone() for t in s_outs]
+        simt()
+        s_err = s_rel = 0.0
+        s_ok = all(torch.equal(a, r) for a, r in zip(s_first, s_outs))
+        for a, r in zip(s_outs, refs):
+            e, rl, ok_a = compare(a, r, F32_ATOL, F32_RTOL)
+            s_err, s_rel, s_ok = max(s_err, e), max(s_rel, rl), s_ok and ok_a
+        s_ok = s_ok and s_rel <= F32_MAX_REL_L2
+        del outs, again, refs, s_first
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         dot = do.transpose(1, 2)
         lib_f = lambda: F.scaled_dot_product_attention(qt, kt, vt)
         lib_fb = lambda: torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt),
                                              (qt, kt, vt), dot)
         eager = dict(ms=time_ms(kern, 3, warmup=1), plain_ms=time_ms(plain, 3, warmup=1),
-                     library_ms=time_ms(lib_fb, 5) - time_ms(lib_f, 5))
-        ms, plain_ms = time_graph_ms(kern), time_graph_ms(plain, 2, 2)
+                     library_ms=time_ms(lib_fb, 5) - time_ms(lib_f, 5),
+                     simt_ms=time_ms(simt, 3, warmup=1))
+        turns = [time_graph_ms(kern), time_graph_ms(simt, 3, 2), time_graph_ms(kern),
+                 time_graph_ms(simt, 3, 2)]
+        plain_ms = time_graph_ms(plain, 2, 2)
         lib_ms = time_graph_ms(lib_fb) - time_graph_ms(lib_f)
     prod = 2.0 * b * h * n * n * d
     exps = float(b * h * n * n)
     nbytes = 4 * (8 * q.numel() + 2 * lse.numel())
-    bound_ms, bound_by = _bound(nbytes, max(5 * prod / PEAK_F32, exps / PEAK_EXP))
-    return dict(shape=list(shape), max_abs_err=err, rel_l2_err=rel, ok=ok, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, path="f32",
+    bound_ms, bound_by = _bound(nbytes, max(3 * 5 * prod / PEAK_TF32, exps / PEAK_EXP))
+    bound_f32_ms, _ = _bound(nbytes, max(5 * prod / PEAK_F32, exps / PEAK_EXP))
+    return dict(shape=list(shape), max_abs_err=err, rel_l2_err=rel, ok=ok and s_ok,
+                ms=turns[0], ms_turns=turns, plain_ms=plain_ms, library_ms=lib_ms,
+                path="tf32x3", simt_ms=turns[1], simt_max_abs_err=s_err, simt_rel_l2_err=s_rel,
+                simt_ok=s_ok, bit_equal=bit_equal,
                 library="F.scaled_dot_product_attention backward, f32 (graphed fwd+bwd minus fwd)",
-                bound_ms=bound_ms, bound_by=bound_by, eager=eager,
-                bound_detail=dict(bytes=nbytes, flops=5 * prod, exps=exps))
+                bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms, eager=eager,
+                bound_detail=dict(bytes=nbytes, flops=5 * prod, exps=exps, tf32_passes=3))
 
 
 @contextlib.contextmanager
@@ -1359,9 +1456,9 @@ def phase_kernels(state):
          + ATTN_BUCKET_SHAPES + FLASH_QKV_SHAPES),
         ("flash_bwd", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
          "vdtpu/ops/pallas/flash.py:444", _flash_bwd_case, FLASH_SHAPES),
-        ("flash_fwd_f32", "cuda", "vdtpu_torch/csrc/flash_fwd.cu",
+        ("flash_fwd_tf32x3", "cuda", "vdtpu_torch/csrc/flash_fwd.cu",
          "vdtpu/ops/pallas/flash.py:40", _flash_f32_case, FLASH_SHAPES),
-        ("flash_bwd_f32", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
+        ("flash_bwd_tf32x3", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
          "vdtpu/ops/pallas/flash.py:444", _flash_bwd_f32_case, FLASH_SHAPES),
         ("gn_silu", "cuda", "vdtpu_torch/csrc/gn_silu.cu",
          "vdtpu/ops/pallas/gn_silu.py:45", _gn_case, list(GN_ROUTES)),
@@ -1409,7 +1506,7 @@ def phase_kernels(state):
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=head.get("library"), shape=head["shape"],
             shapes=rows)
-        if name in ("flash_bwd", "flash_bwd_f32"):  # _bwd_impl's two TPU kernels: dq :444, dk/dv :474
+        if name in ("flash_bwd", "flash_bwd_tf32x3"):  # _bwd_impl's two TPU kernels: dq :444, dk/dv :474
             state["kernels"][name]["replaces_also"] = "vdtpu/ops/pallas/flash.py:474"
         if name == "gn_silu_q":  # _gn_silu_q_blocked's apply pass
             state["kernels"][name]["replaces_also"] = "vdtpu/ops/pallas/gn_silu.py:210"
@@ -1704,6 +1801,99 @@ def phase_main(state):
     if "gn_silu" in state["kernels"]:
         state["kernels"]["gn_silu"]["launches_by_path"] = results["warm"]["gn_by_route"]
     state["main"] = results
+
+
+def phase_main_f32(state):
+    """The port's default dtype end to end: one 2-image t2i request (512^2,
+    DDIM-50, CFG 7.5) on ``VDSystem("vd_four_flow_v1-0")`` in f32 holding
+    ``main``'s seeded weights, once, in a process ``main`` has warmed (the
+    default run nears its time limit: cold and warm read 2.927 / 2.705 s on
+    an H100): 500 flash launches, every one on the tf32x3 kernel (none on
+    "f32", "mma" or "wgmma"), the GN kernel at every site; seconds, peak GiB
+    (the bf16 system of ``main`` included); outputs finite, in [0, 1], of
+    their shape. Then one f32 eps call against f32 on the CPU on the same
+    weights and inputs (``_eps_ref``, shared with ``eps``), with the card's
+    default TF32 flags (printed: cuDNN's convolutions run TF32) and with
+    TF32 off (F32_EPS_*)."""
+    import gc
+    import torch
+    from vdtpu_torch.ops.flash import flash_attention
+    from vdtpu_torch.ops.gn_silu import gn_silu
+    from vdtpu_torch.serving.api import VDInference, VDSystem
+    t0 = time.perf_counter()
+    system = VDSystem("vd_four_flow_v1-0", dtype=torch.float32, device="cuda")
+    with torch.no_grad():  # main's seeded weights, upcast
+        src = _system(state).net.state_dict()
+        for name, tensor in system.net.state_dict().items():
+            tensor.copy_(src[name])
+    torch.cuda.synchronize()
+    flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    log(f"main_f32: f32 system built from main's weights in {time.perf_counter() - t0:.1f} s; "
+        f"TF32 flags as a request finds them: {flags}")
+    vdi = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
+                      ddim_steps=STEPS, n_sample_image=2)
+    unet_gn, vae_gn, _ = _gn_sites(system)
+    expect = {"flash_fwd": 10 * STEPS, "gn_silu": unet_gn * STEPS + vae_gn}
+    expect_paths = {"wgmma": 0, "mma": 0, "f32": 0, "tf32x3": 10 * STEPS}
+    prompt = "a red cat sitting on a wooden bench in the sun"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    t = time.perf_counter()
+    img = vdi.inference_t2i(prompt, seed=SEED)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = {"flash_fwd": flash_attention.launches, "gn_silu": gn_silu.launches}
+    paths = dict(flash_attention.launches_by_path)
+    gn_routes = _gn_routes("main_f32")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(img).all())
+    lo, hi = float(img.min()), float(img.max())
+    log(f"main_f32 request: {dt:.3f} s, {2 / dt:.3f} images/s, peak {peak:.2f} GiB, shape "
+        f"{tuple(img.shape)} finite {finite} range [{lo:.4f}, {hi:.4f}], launches {counts} "
+        f"(expected {expect}), flash by path {paths} (expected {expect_paths}), GN by route "
+        f"{gn_routes} [{state.get('card')}]")
+    if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0 and hi <= 1.0):
+        raise RuntimeError("main_f32: bad output")
+    if counts != expect or paths != expect_paths:
+        raise RuntimeError(f"main_f32: launches {counts} by path {paths} != {expect} / "
+                           f"{expect_paths}")
+    results = {"request": dict(seconds=dt, images_per_s=2 / dt, peak_gib=peak, launches=counts,
+                               flash_by_path=paths, gn_by_route=gn_routes)}
+    del img, vdi
+
+    # one eps call (the t2i UNet: image data blocks, text context blocks) on
+    # the inputs and weights of the shared CPU reference
+    ref = _eps_ref(state)
+    x, t, ctx = ref["x"].float(), ref["t"], ref["ctx"].float()
+    _zero_counters()
+    with torch.no_grad():
+        eps_default = system.model.apply_model(x, t, ctx, "image", "text").cpu()
+        with _no_tf32():
+            eps_exact = system.model.apply_model(x, t, ctx, "image", "text").cpu()
+    eps_paths = dict(flash_attention.launches_by_path)
+    eps_cpu, cpu_s = ref["eps_cpu"], ref["cpu_s"]
+    cos, rel = _agreement(eps_default, eps_cpu)
+    cos0, rel0 = _agreement(eps_exact, eps_cpu)
+    log(f"main_f32 eps [1, 4, 64, 64] f32 card vs f32 cpu: default flags {flags}: cosine "
+        f"{cos:.8f} rel_l2 {rel:.3e} (limits cos >= {F32_EPS_MIN_COS}, rel_l2 <= "
+        f"{F32_EPS_MAX_REL_L2}: cuDNN's TF32 convs); TF32 off: cosine {cos0:.10f} rel_l2 "
+        f"{rel0:.3e} (limit rel_l2 <= {F32_EPS_NO_TF32_MAX_REL_L2}); flash by path {eps_paths}; "
+        f"cpu {cpu_s:.1f} s [{state.get('card')}]")
+    results["eps"] = dict(flags=flags, cosine=cos, rel_l2=rel, cosine_no_tf32=cos0,
+                          rel_l2_no_tf32=rel0, flash_by_path=eps_paths)
+    state["main_f32"] = results
+    if "flash_fwd_tf32x3" in state["kernels"]:
+        k = state["kernels"]["flash_fwd_tf32x3"]
+        k["launches"] = results["request"]["flash_by_path"]["tf32x3"]
+        k["path"] = "main_f32 (f32 exact t2i request)"
+    del system
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (math.isfinite(cos) and cos >= F32_EPS_MIN_COS and rel <= F32_EPS_MAX_REL_L2
+            and rel0 <= F32_EPS_NO_TF32_MAX_REL_L2 and eps_paths["tf32x3"] == 20):
+        raise RuntimeError("main_f32: the f32 eps call disagrees with f32 on the CPU")
 
 
 def _i2i_image(seed: int, h: int = 512, w: int = 512):
@@ -2360,27 +2550,43 @@ def phase_main_modes(state):
     state["main_modes"] = results
 
 
+def _eps_ref(state):
+    """The eps calls' inputs on the bf16 system (x [1, 4, 64, 64] and the
+    text context of "a red cat", bf16 on the card; t = 500) and the eps of
+    its diffusers' f32 CPU copy on them: one full-width UNet call on the
+    CPU, made once and shared by ``eps`` and ``main_f32`` (whose f32 system
+    holds the same weights)."""
+    import torch
+    if "eps_ref" not in state:
+        system = _system(state)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        x = torch.randn(1, 4, 64, 64, device="cuda", generator=gen).to(torch.bfloat16)
+        t = torch.tensor([500], device="cuda")
+        ctx = system.ctx_encode(stand_in_tokenizer(["a red cat"]), "text")
+        t0 = time.perf_counter()
+        cpu_model = _cpu_model(system)
+        with torch.no_grad():
+            eps_cpu = cpu_model.apply_model(x.float().cpu(), t.cpu(), ctx.float().cpu(),
+                                            "image", "text")
+        state["eps_ref"] = dict(x=x, t=t, ctx=ctx, eps_cpu=eps_cpu,
+                                cpu_s=time.perf_counter() - t0)
+    return state["eps_ref"]
+
+
 def phase_eps(state):
     import torch
     system = _system(state)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    x = torch.randn(1, 4, 64, 64, device="cuda", generator=gen).to(torch.bfloat16)
-    t = torch.tensor([500], device="cuda")
-    ctx = system.ctx_encode(stand_in_tokenizer(["a red cat"]), "text")
+    ref = _eps_ref(state)
     with torch.no_grad():
-        eps_gpu = system.model.apply_model(x, t, ctx, "image", "text").float().cpu()
-    t0 = time.perf_counter()
-    cpu_model = _cpu_model(system)
-    with torch.no_grad():
-        eps_cpu = cpu_model.apply_model(x.float().cpu(), t.cpu(), ctx.float().cpu(),
-                                        "image", "text")
-    dt = time.perf_counter() - t0
+        eps_gpu = system.model.apply_model(ref["x"], ref["t"], ref["ctx"], "image",
+                                           "text").float().cpu()
+    dt, eps_cpu = ref["cpu_s"], ref["eps_cpu"]
     a, b = eps_gpu.flatten().double(), eps_cpu.flatten().double()
     cos = float(a @ b / (a.norm() * b.norm()))
     rel = float((a - b).norm() / b.norm())
     log(f"eps: card bf16 vs cpu f32 at [1, 4, 64, 64]: cosine {cos:.6f} rel_l2 {rel:.5f} "
-        f"(limits cos >= {EPS_MIN_COS}, rel_l2 <= {EPS_MAX_REL_L2}); cpu {dt:.1f} s "
-        f"[{state.get('card')}]")
+        f"(limits cos >= {EPS_MIN_COS}, rel_l2 <= {EPS_MAX_REL_L2}); cpu {dt:.1f} s (once, "
+        f"shared with main_f32) [{state.get('card')}]")
     state["eps"] = dict(cosine=cos, rel_l2=rel)
     if not (math.isfinite(cos) and cos >= EPS_MIN_COS and rel <= EPS_MAX_REL_L2):
         raise RuntimeError("eps: card result disagrees with the f32 CPU result")
@@ -2573,7 +2779,8 @@ def _legacy_call(state, label: str, f32, b16, call, sites, f32_ref=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     got = {"flash_fwd": dict(flash_attention.launches_by_path), "gn_silu": _gn_routes(label)}
-    got["flash_fwd"].pop("f32")
+    for p in F32_PATHS:
+        got["flash_fwd"].pop(p)
     flash, gn = _legacy_expect(sites)
     if got != {"flash_fwd": flash, "gn_silu": gn} or len(fa_calls) != sum(flash.values()):
         raise RuntimeError(f"{label}: launches {got} != derived {dict(flash_fwd=flash, gn_silu=gn)}")
@@ -2663,7 +2870,7 @@ def _legacy_vd(state, system) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         got = {"flash_fwd": {p: c for p, c in flash_attention.launches_by_path.items()
-                             if p != "f32"}, "gn_silu": _gn_routes(f"main_legacy {run}")}
+                             if p not in F32_PATHS}, "gn_silu": _gn_routes(f"main_legacy {run}")}
         want_shape = (n, 512, 512, 3) if xtype == "image" else (n, 768)
         fine = bool(torch.isfinite(out).all()) and tuple(out.shape) == want_shape
         if xtype == "image":
@@ -3013,11 +3220,12 @@ def _gn_routes(label: str) -> dict:
 
 def _attn_paths(label: str) -> dict:
     """Launches by ``attn_fwd_plan`` path of the two attention forwards since
-    their counters were zeroed; raises unless they add up. The f32 path is
-    listed only where it launched (the bf16 paths' expectations name the
-    two tensor-core kernels)."""
+    their counters were zeroed; raises unless they add up. The f32 paths
+    are listed only where they launched (the bf16 paths' expectations name
+    the two tensor-core kernels)."""
     c = _counters()
-    paths = {name: {p: n for p, n in c[name].launches_by_path.items() if p != "f32" or n}
+    paths = {name: {p: n for p, n in c[name].launches_by_path.items()
+                    if p not in F32_PATHS or n}
              for name in ("flash_fwd", "nomax_fwd")}
     for name, by in paths.items():
         if sum(by.values()) != c[name].launches:
@@ -4903,7 +5111,7 @@ def _launch_flows(state) -> dict:
                                    f"{got} != {expect}")
         return tr, opt, times
 
-    # (h) f32 compute: the f32 route at the 4096- and 1024-token sites
+    # (h) f32 compute: the tf32x3 route at the 4096- and 1024-token sites
     params = system.for_training(torch.float32)
     t_mb = torch.tensor([100, 700], device="cuda")
     noise = torch.randn(2, 4, 64, 64, device="cuda", generator=gen)
@@ -4926,15 +5134,20 @@ def _launch_flows(state) -> dict:
         f"(expected {expect_h}), forward by path {f32_paths[0]}, backward by path "
         f"{f32_paths[1]}; plain run {counts_p} [{state.get('card')}]")
     if not (cos >= TRAIN_MIN_COS and rel <= TRAIN_MAX_REL_L2) or counts_k != expect_h \
-            or f32_paths[0]["f32"] != n_fl or f32_paths[1]["f32"] != n_fl \
+            or f32_paths[0]["tf32x3"] != n_fl or f32_paths[1]["tf32x3"] != n_fl \
+            or sum(f32_paths[0].values()) != n_fl or sum(f32_paths[1].values()) != n_fl \
             or any(counts_p.values()):
         raise RuntimeError("main_launch (h): the f32 route's gradient or launches disagree")
     res["h"] = dict(cosine=cos, rel_l2=rel, launches=counts_k, fwd_by_path=f32_paths[0],
                     bwd_by_path=f32_paths[1])
-    for name, n in (("flash_fwd_f32", f32_paths[0]["f32"]), ("flash_bwd_f32", f32_paths[1]["f32"])):
+    for name, n in (("flash_fwd_tf32x3", f32_paths[0]["tf32x3"]),
+                    ("flash_bwd_tf32x3", f32_paths[1]["tf32x3"])):
         if name in state["kernels"]:
-            state["kernels"][name]["launches"] = n
-            state["kernels"][name]["path"] = "main_launch (h): f32 micro-batch-2 gradient"
+            k = state["kernels"][name]
+            k["launches_main_launch_h"] = n
+            if not k["launches"]:
+                k["launches"] = n
+                k["path"] = "main_launch (h): f32 micro-batch-2 gradient"
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5617,7 +5830,7 @@ def main() -> int:
         log(f"all phases: {time.perf_counter() - t_all:.1f} s")
     finally:
         _LOG.close()
-    if {"main", "main_int8", "modes", "main_fused2", "probes", "train",
+    if {"main", "main_f32", "main_int8", "modes", "main_fused2", "probes", "train",
             "main_launch"} <= set(phases):
         missing = [k for k, v in state["kernels"].items() if not v["launches"]]
         if missing:

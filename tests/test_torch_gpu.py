@@ -139,7 +139,7 @@ def test_legacy_attention_block_flash_site(gen, new_order):
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
     assert _rel_l2(out, ref) <= ATTN_MAX_REL_L2
     # the block itself in f32 on the card (one launch on the flash kernel's
-    # f32 route) against the plain block on the CPU: the attention branch
+    # tf32x3 route, the views read in place) against the plain block on the CPU: the attention branch
     # (output less input) within relative L2 1e-4 (f32 both sides, TF32 off;
     # GN, the projections and the attention sum in other orders)
     block = LegacyAttentionBlock(h * d, h, new_order).cuda()
@@ -150,7 +150,7 @@ def test_legacy_attention_block_flash_site(gen, new_order):
         with torch.no_grad():
             block.proj_out.weight.normal_(0, (h * d) ** -0.5, generator=gen)
             x = torch.randn(b, h * d, n, device="cuda", generator=gen)
-            got = _one_launch(flash_attention, "f32", lambda: block(x)) - x
+            got = _one_launch(flash_attention, "tf32x3", lambda: block(x)) - x
             cpu = block.cpu()(x.cpu()) - x.cpu()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
@@ -870,17 +870,28 @@ def test_flash_bwd_takes_an_offset_lse(gen):
     _bwd_close(out, flash_attention_bwd_plain(q, k, v, o, lse, do, d ** -0.5))
 
 
-# the f32 route against its plain version in f32 (the CPU f32 flash band):
-# both sides sum f32 products, in other orders
+# the f32 routes against their plain version in f32 (the CPU f32 flash
+# band): both sides sum f32 products, in other orders (the tf32x3 route's
+# split products keep about 21 bits of each)
 F32_ATOL, F32_RTOL, F32_MAX_REL_L2 = 2e-5, 1e-4, 1e-5
 
 
+def _f32_path(d):
+    """The f32 plan path of contiguous (16-byte aligned) q, k, v: tf32x3 for
+    d % 8 == 0 up to 80, else the SIMT kernels."""
+    return "tf32x3" if d % 8 == 0 and d <= 80 else "f32"
+
+
 @pytest.mark.parametrize("b,n,m,h,d", [
-    (4, 4096, 4096, 8, 40),    # the 64^2 sites of an f32 training run
+    (4, 4096, 4096, 8, 40),    # the 64^2 sites of an f32 request or training run
     (4, 1024, 1024, 8, 80),    # the 32^2 sites
     (1, 1024, 1024, 2, 64),    # the tiny VAE's mid attention at 64^2
     (2, 100, 300, 3, 8),       # ragged keys and queries
+    (1, 1000, 777, 2, 40),     # ragged: neither a multiple of a tile
+    (1, 300, 1030, 2, 80),     # ragged at d 80 (32-key tiles)
+    (2, 333, 515, 2, 64),
     (1, 257, 1023, 2, 36),     # d % 16 != 0
+    (4, 256, 1028, 8, 160),    # the four-image mcg's 16^2 cross-attention
     (1, 128, 200, 1, 256),     # the widest head
 ])
 def test_flash_f32_forward_matches_plain(gen, b, n, m, h, d):
@@ -888,8 +899,9 @@ def test_flash_f32_forward_matches_plain(gen, b, n, m, h, d):
     prev = _f32_no_tf32()
     try:
         q, k, v = (_randn(gen, b, r, h, d, dtype=torch.float32) for r in (n, m, m))
-        out = _one_launch(flash_attention, "f32", lambda: flash_attention(q, k, v))
-        out_l, lse = _one_launch(flash_attention, "f32",
+        path = _f32_path(d)
+        out = _one_launch(flash_attention, path, lambda: flash_attention(q, k, v))
+        out_l, lse = _one_launch(flash_attention, path,
                                  lambda: flash_attention_fwd(q, k, v, d ** -0.5, with_lse=True))
         ref, lse_ref = flash_attention_plain(q, k, v, with_lse=True)
         for o in (out, out_l):
@@ -903,18 +915,20 @@ def test_flash_f32_forward_matches_plain(gen, b, n, m, h, d):
 
 @pytest.mark.parametrize("b,n,m,h,d", [
     (4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80), (1, 1024, 1024, 2, 64),
-    (2, 100, 300, 3, 8), (1, 257, 1023, 2, 36), (1, 130, 200, 1, 128),
+    (2, 100, 300, 3, 8), (1, 1000, 777, 2, 40), (1, 300, 1030, 2, 80), (2, 333, 515, 2, 64),
+    (1, 257, 1023, 2, 36), (1, 130, 200, 1, 128),
 ])
 def test_flash_f32_backward_matches_plain(gen, b, n, m, h, d):
-    """dQ, dK and dV of the f32 route within the f32 band of the plain
-    backward, bit-equal across two runs (no adds across blocks)."""
+    """dQ, dK and dV of the f32 routes (tf32x3, or the SIMT kernels) within
+    the f32 band of the plain backward, bit-equal across two runs (no adds
+    across blocks)."""
     from vdtpu_torch.ops.flash import flash_attention_bwd, flash_attention_bwd_plain
     prev = _f32_no_tf32()
     try:
         q, k, v = (_randn(gen, b, r, h, d, dtype=torch.float32) for r in (n, m, m))
         do = _randn(gen, b, n, h, d, dtype=torch.float32)
         o, lse = flash_attention_plain(q, k, v, with_lse=True)
-        first = _one_launch(flash_attention_bwd, "f32",
+        first = _one_launch(flash_attention_bwd, _f32_path(d),
                             lambda: flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5))
         second = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)
         ref = flash_attention_bwd_plain(q, k, v, o, lse, do, d ** -0.5)
@@ -927,26 +941,67 @@ def test_flash_f32_backward_matches_plain(gen, b, n, m, h, d):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
-def test_flash_f32_autograd_on_strided_views(gen):
+@pytest.mark.parametrize("order", ["new", "legacy"])
+def test_flash_f32_autograd_on_strided_views(gen, order):
     """An f32 flash site under autograd (a ``bf16: false`` training run):
-    the f32 forward with lse and the f32 backward, on views of one packed
-    projection, against autograd through the plain forward."""
+    the tf32x3 forward with lse and backward, on strided views of one packed
+    f32 qkv ([B, N, 3, H, d], new order, or the legacy AttentionBlock's [B,
+    N, H, 3, d]), read in place, against autograd through the plain forward."""
     from vdtpu_torch.ops.attention import scaled_dot_product_attention
     from vdtpu_torch.ops.flash import flash_attention_bwd
     prev = _f32_no_tf32()
     try:
         b, n, h, d = 1, 1024, 2, 64
-        qkv = _randn(gen, b, n, 3, h, d, dtype=torch.float32).requires_grad_()
+        dim = 2 if order == "new" else 3
+        shape = (b, n, 3, h, d) if order == "new" else (b, n, h, 3, d)
+        qkv = _randn(gen, *shape, dtype=torch.float32).requires_grad_()
         do = _randn(gen, b, n, h, d, dtype=torch.float32)
         fwd, bwd = dict(flash_attention.launches_by_path), dict(flash_attention_bwd.launches_by_path)
-        out = scaled_dot_product_attention(*qkv.unbind(dim=2))
+        assert not qkv.unbind(dim=dim)[0].is_contiguous()
+        out = scaled_dot_product_attention(*qkv.unbind(dim=dim))
         (g,) = torch.autograd.grad(out, qkv, do)
-        assert flash_attention.launches_by_path["f32"] == fwd["f32"] + 1
-        assert flash_attention_bwd.launches_by_path["f32"] == bwd["f32"] + 1
-        ref = torch.autograd.grad(flash_attention_plain(*qkv.unbind(dim=2)), qkv, do)[0]
+        assert flash_attention.launches_by_path["tf32x3"] == fwd["tf32x3"] + 1
+        assert flash_attention_bwd.launches_by_path["tf32x3"] == bwd["tf32x3"] + 1
+        assert sum(flash_attention.launches_by_path.values()) == sum(fwd.values()) + 1
+        ref = torch.autograd.grad(flash_attention_plain(*qkv.unbind(dim=dim)), qkv, do)[0]
         torch.testing.assert_close(g, ref, atol=F32_ATOL, rtol=F32_RTOL)
+        assert _rel_l2(g, ref) <= F32_MAX_REL_L2
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("d,offset", [(36, 0), (40, 1), (88, 0)])
+def test_tf32x3_entries_refuse_what_they_do_not_take(gen, d, offset):
+    """vd_flash_fwd_tf32x3 and vd_flash_bwd_tf32x3 recheck the route's
+    conditions (vdf::takes: d % 8 == 0 up to 80, 16-byte rows) and refuse
+    anything else with cudaErrorInvalidValue, launching nothing; the plan
+    sends such calls to the SIMT kernels."""
+    from vdtpu_torch.ops.flash import _flash_lib, _plan_for, flash_attention_bwd
+    b, n, h = 1, 64, 1
+    q, k, v, do = (torch.randn(b * n * h * d + offset, device="cuda", generator=gen)[offset:]
+                   .view(b, n, h, d) for _ in range(4))
+    assert _plan_for(q, k, v).path == "f32"
+    out, lse = torch.empty_like(q), torch.zeros(b, h, n, device="cuda")
+    st = lambda t: tuple(t.stride()[:3])
+    stream = torch.cuda.current_stream().cuda_stream
+    ws = torch.zeros(1 << 20, device="cuda")   # larger than any workspace these calls need
+    rc = _flash_lib("flash_fwd").vd_flash_fwd_tf32x3(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, ws.data_ptr(), b, n, n,
+        h, d, *st(q), *st(k), *st(v), *st(out), d ** -0.5, stream)
+    assert rc == 1   # cudaErrorInvalidValue
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    rc = _flash_lib("flash_bwd").vd_flash_bwd_tf32x3(
+        *(t.data_ptr() for t in (q, k, v, do, lse, lse, *grads, ws, ws)), b, n, n, h, d, *st(q),
+        *st(k), *st(v), *st(do), *(s for g in grads for s in st(g)), d ** -0.5, stream)
+    assert rc == 1
+    if d <= 128:
+        prev = _f32_no_tf32()
+        try:
+            o, lse = flash_attention_plain(q, k, v, with_lse=True)
+            _one_launch(flash_attention_bwd, "f32",
+                        lambda: flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 def test_flash_bwd_refuses(gen):
@@ -1470,13 +1525,13 @@ def test_reconstruction_pass_under_autograd_on_the_card(gen):
         loss_cpu = _seeded_loss(4)
         loss_card = copy.deepcopy(loss_cpu).cuda()
         # 64^2: the tiny mid-block attention (1024 keys, d 64) takes the flash
-        # rule in f32, so the f32 route's forward and backward run
+        # rule in f32, so the tf32x3 route's forward and backward run
         x = torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(5))
         n_gn = sum(isinstance(m, GroupNorm32) for m in vae_card.modules())
         outs = []
         from vdtpu_torch.ops.flash import flash_attention_bwd
-        f32_before = (flash_attention.launches_by_path["f32"],
-                      flash_attention_bwd.launches_by_path["f32"])
+        f32_before = (flash_attention.launches_by_path["tf32x3"],
+                      flash_attention_bwd.launches_by_path["tf32x3"])
         for vae, loss, xx in ((vae_card, loss_card, x.cuda()), (vae_cpu, loss_cpu, x)):
             before = gn_silu.launches
             rec, post = vae(xx)
@@ -1494,8 +1549,8 @@ def test_reconstruction_pass_under_autograd_on_the_card(gen):
         assert abs(dw_card - dw_cpu) <= 1e-3 * abs(dw_cpu)
         assert n_card == n_gn and n_cpu == 0
         # one encoder and one decoder mid attention: forward and backward each
-        assert (flash_attention.launches_by_path["f32"] - f32_before[0],
-                flash_attention_bwd.launches_by_path["f32"] - f32_before[1]) == (2, 2)
+        assert (flash_attention.launches_by_path["tf32x3"] - f32_before[0],
+                flash_attention_bwd.launches_by_path["tf32x3"] - f32_before[1]) == (2, 2)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 

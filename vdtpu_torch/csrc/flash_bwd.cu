@@ -46,18 +46,42 @@
 // shared-memory rows, the 64-query tiles double-buffered by cp.async, dQ
 // through shared memory and one bulk reduce-add a tile.
 //
-// The f32 route (vd_flash_bwd_f32) is _bwd_impl for f32 operands, in the
-// TPU's split and with every product, p and dS in f32: wgmma and mma.sync
-// take no f32 operands, so two plain SIMT kernels, 64 rows and 256 threads
-// a block, four threads a row (as the forward's f32 route).
-// flash_bwd_dkv_f32_kernel owns 64 keys and walks the query tiles: s and
-// dO.V^T of its 16 queries a thread by FMAs over the head, p and dS through
-// shared memory, dK and dV (a quarter of the row's columns a thread) in
-// registers. flash_bwd_dq_f32_kernel owns 64 queries and walks the key
-// tiles the same way for dQ. Neither adds across blocks, so the f32 route
-// is deterministic. About 7 head-length products a score (the split
-// recomputes s and dO.V^T), 150 GFLOP at [4, 4096, 8, 40]: 2.2 ms at
-// 67 TFLOP/s f32. Only f32 experiments (`bf16: false`) reach it.
+// The f32 routes are _bwd_impl for f32 operands (p and dS in f32 too), in
+// the TPU's split: a dK/dV kernel that owns keys and walks the query tiles
+// and a dQ kernel that owns queries and walks the key tiles, recomputing s
+// and dO.V^T. Neither adds across blocks, so both are bit-equal from run to
+// run. The plan (flash_bwd_path) picks one of two:
+// - tf32x3 (vd_flash_bwd_tf32x3, flash_bwd_dkv_tf32x3_kernel and
+//   flash_bwd_dq_tf32x3_kernel below): heads up to 80 with d % 8 == 0 and
+//   16-byte aligned rows (every f32 site of the UNet: an f32 training run).
+//   Bound at [4, 4096, 8, 40]: the split takes 7 products of 42.9 GFLOP
+//   each (5 in one pass), as split-f32 wgmma passes (csrc/tf32x3.cuh) 3 x
+//   7 x 42.9 GFLOP at 495 TFLOP/s, 1.82 ms (1.30 for 5). Design: the
+//   streamed tiles of 32 rows are split once a call (split_tiles,
+//   row_tiles) into two device workspaces, each tile in the layout of a
+//   stage in shared memory: q and dO as rows (B of S^T = K.Q^T, dP^T =
+//   V.dO^T) and transposed in a permuted order (B of dK += dS^T.Q, dV +=
+//   P^T.dO) with lse log2 e and delta, for the dK/dV kernel; k as rows (B
+//   of S = Q.K^T) and transposed (B of dQ += dS.K) and v as rows (B of dP
+//   = dO.V^T), for the dQ kernel. In each kernel two warpgroups (one where
+//   shared memory holds only one: the dK/dV kernel at 80, the dQ kernel
+//   from 72) own 64 rows each, split once into shared memory as the A
+//   operand of the score products, and share the streamed tiles, which
+//   come in a stage at a time by one bulk TMA copy on an mbarrier; P^T,
+//   dS^T and dS go from the accumulators to A fragments in registers; each
+//   tile's dK, dV or dQ is a fresh accumulator added in f32. The dQ kernel
+//   double-buffers its tiles, the dK/dV kernel where they fit (heads up to
+//   56). Measured on an H100 at [4, 4096, 8, 40]: 6.47 ms with one
+//   warpgroup a block splitting every tile itself, 5.69 with two, 4.03
+//   with the split workspaces by cp.async, 3.64 by bulk TMA copies.
+// - f32 (vd_flash_bwd_f32): every other f32 head and layout. Two plain SIMT
+//   kernels, 64 rows and 256 threads a block, four threads a row (as the
+//   forward's f32 kernel): flash_bwd_dkv_f32_kernel owns 64 keys, s and
+//   dO.V^T of its 16 queries a thread by FMAs over the head, p and dS
+//   through shared memory, dK and dV in registers; flash_bwd_dq_f32_kernel
+//   owns 64 queries the same way. About 7 head-length products a score,
+//   150 GFLOP at [4, 4096, 8, 40]: 2.2 ms at 67 TFLOP/s; one shared-memory
+//   load an FMA holds it back to ~27 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,6 +89,7 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "tf32x3.cuh"
 #include "tma_map.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -988,6 +1013,340 @@ int launch_f32(const ParamsF32& p, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+// ---- the tf32x3 route: the f32 route on the tensor cores ----
+
+// dK and dV: each of NC warpgroups owns 64 keys (K and V split once,
+// RowsTiles, the A operands); the block walks tiles of kT queries, split
+// once a call in device memory (launch_tf32x3) and copied in: Q and dO as
+// RowsTiles (B of S^T = K.Q^T, dP^T = V.dO^T) and as ColsTiles (B of dK
+// += dS^T.Q, dV += P^T.dO), lse log2 e and delta beside them. Two
+// warpgroups share each streamed tile where shared memory holds them
+// (heads up to 72), with two stages up to 56.
+template <int DP>
+struct DkvTc {
+  static constexpr int kT = 32;
+  static constexpr int kOwn = 64 * DP;             // floats of K or V, hi or lo
+  static constexpr int kPart = kT * DP;            // floats of one streamed part
+  static constexpr int kStage = 8 * kPart + 2 * kT;
+  static constexpr int kOwnBytes = 16 * kOwn, kStageBytes = 4 * kStage;
+  static constexpr int kNC = 2 * kOwnBytes + kStageBytes <= kMaxSmem ? 2 : 1;
+  static constexpr int kStages = kNC * kOwnBytes + 2 * kStageBytes + 16 <= kMaxSmem ? 2 : 1;
+  static constexpr int kSmem = kNC * kOwnBytes + kStages * kStageBytes + 8 * kStages;
+  static constexpr int kThreads = 128 * kNC;
+};
+// dQ: each of NC warpgroups owns 64 queries (Q and dO split once); the
+// block walks tiles of kT keys, split once a call in device memory and
+// copied in: K as a RowsTile (B of S = Q.K^T) and a ColsTile (B of dQ +=
+// dS.K), V as a RowsTile (B of dP = dO.V^T); two stages, two warpgroups
+// where both fit (heads up to 64).
+template <int DP>
+struct DqTc {
+  static constexpr int kT = 32;
+  static constexpr int kOwn = 64 * DP;
+  static constexpr int kPart = kT * DP;
+  static constexpr int kStage = 6 * kPart;
+  static constexpr int kOwnBytes = 16 * kOwn, kStageBytes = 4 * kStage;
+  static constexpr int kNC = 2 * kOwnBytes + 2 * kStageBytes + 16 <= kMaxSmem ? 2 : 1;
+  static constexpr int kSmem = kNC * kOwnBytes + 2 * kStageBytes + 16;  // + two mbarriers
+  static constexpr int kThreads = 128 * kNC;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(DkvTc<DP>::kThreads, 1)
+    flash_bwd_dkv_tf32x3_kernel(const ParamsF32 p, const float* ws) {
+  using G = DkvTc<DP>;
+  constexpr int T = G::kT, KS = T / 8, NS = G::kStages;
+  extern __shared__ __align__(128) float tc_smem[];
+  // warpgroup w's K hi, K lo, V hi, V lo, then stage st: Q hi, Q lo, Q^T
+  // hi, Q^T lo, dO hi, dO lo, dO^T hi, dO^T lo, lse log2 e [kT], delta [kT]
+  auto part = [&](int st, int i) {
+    return tc_smem + 4 * G::kNC * G::kOwn + st * G::kStage + i * G::kPart;
+  };
+
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  // with one warpgroup its index, and a thread's in it, are compile-time
+  const int tid = threadIdx.x;
+  const int wg = G::kNC == 1 ? 0 : tid >> 7, lt = G::kNC == 1 ? tid : tid & 127;
+  const int warp = lt >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int k0 = (blockIdx.x * G::kNC + wg) * 64;  // this warpgroup's first key
+  float* sKh = tc_smem + 4 * wg * G::kOwn;
+  float* sKl = sKh + G::kOwn;
+  float* sVh = sKl + G::kOwn;
+  float* sVl = sVh + G::kOwn;
+  // query tile i, split in device memory by split_tiles / row_tiles (rows
+  // past N zero, their lse +inf and delta 0), into stage i % NS by one bulk
+  // copy completing on bars + 8 (i % NS)
+  const int nqt = (p.N + T - 1) / T;
+  const float* wsb = ws + size_t(bh) * nqt * G::kStage;
+  const uint32_t bars = vdt::smem_addr(part(NS, 0));
+  auto load = [&](int i) {
+    vdf::stage_copy(part(i % NS, 0), wsb + size_t(i) * G::kStage, 4 * G::kStage,
+                    bars + 8 * (i % NS));
+  };
+  if (tid == 0) {
+    for (int st = 0; st < NS; ++st) vdt::bar_init(bars + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load(0);
+  }
+  {
+    vdf::RowsTile<64, DP> own;
+    own.fetch(p.k + b * p.skb + h * p.skh, p.skn, k0, p.M, lt);
+    own.put(sKh, sKl, lt);
+    own.fetch(p.v + b * p.svb + h * p.svh, p.svn, k0, p.M, lt);
+    own.put(sVh, sVl, lt);
+  }
+  vdw::fence_async_smem();  // K and V, read next by wgmma (the async proxy)
+  __syncthreads();
+
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  const bool key_ok[2] = {k0 + 16 * warp + g < p.M, k0 + 16 * warp + g + 8 < p.M};
+  const float c = p.scale * vdf::kLog2e;
+#pragma unroll 1
+  for (int i = 0; i < nqt; ++i) {
+    const int st = NS == 2 ? (i & 1) : 0;
+    const bool more = i + 1 < nqt;
+    if (NS == 2 && tid == 0 && more) load(i + 1);  // into the buffer tile i - 1 read
+    vdt::bar_wait(bars + 8 * st, (i / NS) & 1);  // tile i landed
+    // S^T and dP^T: this warpgroup's 64 keys x the tile's queries
+    float s[T / 2], dp[T / 2];
+    vdw::keep(s);
+    vdw::keep(dp);
+    vdw::wg_fence();
+    vdf::mm3_ss<T, DP / 8>(s, sKh, sKl, 64, part(st, 0), part(st, 1), T);
+    vdf::mm3_ss<T, DP / 8>(dp, sVh, sVl, 64, part(st, 4), part(st, 5), T);
+    vdw::wg_commit();
+    vdw::wg_wait<0>();
+    vdw::keep(s);
+    vdw::keep(dp);
+    // P^T and dS^T in place: key row e >> 1, query column 8 n + 2 t + (e & 1)
+    const float* L = part(st, 8);
+#pragma unroll
+    for (int n = 0; n < T / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(L + 8 * n + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(L + T + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr =
+            key_ok[e >> 1] ? vdf::ex2(__fmaf_rn(s[4 * n + e], c, -(e & 1 ? l2.y : l2.x))) : 0.f;
+        s[4 * n + e] = pr;
+        dp[4 * n + e] = pr * (dp[4 * n + e] - (e & 1 ? d2.y : d2.x)) * p.scale;
+      }
+    }
+    // dV_i = P^T.dO, dK_i = dS^T.Q, each in a fresh accumulator added to
+    // dV, dK in f32 (the tensor core's sums stay within one tile)
+    float acc[DP / 2];
+    {
+      uint32_t fh[KS][4], fl[KS][4];
+      vdf::split_frags<KS>(fh, fl, s);
+      vdw::keep(fh);
+      vdw::keep(fl);
+      vdw::keep(acc);
+      vdw::wg_fence();
+      vdf::mm3_rs<DP, KS>(acc, fh, fl, part(st, 6), part(st, 7));
+      vdw::wg_commit();
+      vdw::wg_wait<0>();
+      vdw::keep(acc);
+      vdw::keep(fh);
+      vdw::keep(fl);
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 2; ++j) dv[j] += acc[j];
+    {
+      uint32_t fh[KS][4], fl[KS][4];
+      vdf::split_frags<KS>(fh, fl, dp);
+      vdw::keep(fh);
+      vdw::keep(fl);
+      vdw::keep(acc);
+      vdw::wg_fence();
+      vdf::mm3_rs<DP, KS>(acc, fh, fl, part(st, 2), part(st, 3));
+      vdw::wg_commit();
+      vdw::wg_wait<0>();
+      vdw::keep(acc);
+      vdw::keep(fh);
+      vdw::keep(fl);
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 2; ++j) dk[j] += acc[j];
+    __syncthreads();  // every product of tile i done: its buffer is free
+    if (NS == 1 && tid == 0 && more) load(i + 1);
+  }
+  vdf::store_acc<DP>(p.dk + b * p.sdkb + h * p.sdkh, p.sdkn, dk, k0, p.M, lt);
+  vdf::store_acc<DP>(p.dv + b * p.sdvb + h * p.sdvh, p.sdvn, dv, k0, p.M, lt);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DqTc<DP>::kThreads, 1)
+    flash_bwd_dq_tf32x3_kernel(const ParamsF32 p, const float* ws) {
+  using G = DqTc<DP>;
+  constexpr int T = G::kT, KS = T / 8;
+  extern __shared__ __align__(128) float tc_smem[];
+  // warpgroup w's Q hi, Q lo, dO hi, dO lo, then stage st: K hi, K lo, K^T
+  // hi, K^T lo, V hi, V lo
+  auto part = [&](int st, int i) {
+    return tc_smem + 4 * G::kNC * G::kOwn + st * G::kStage + i * G::kPart;
+  };
+
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  // with one warpgroup its index, and a thread's in it, are compile-time
+  const int tid = threadIdx.x;
+  const int wg = G::kNC == 1 ? 0 : tid >> 7, lt = G::kNC == 1 ? tid : tid & 127;
+  const int warp = lt >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = (blockIdx.x * G::kNC + wg) * 64;  // this warpgroup's first query
+  float* sQh = tc_smem + 4 * wg * G::kOwn;
+  float* sQl = sQh + G::kOwn;
+  float* sOh = sQl + G::kOwn;
+  float* sOl = sOh + G::kOwn;
+  // key tile j, split in device memory by split_tiles, into stage j & 1 by
+  // one bulk copy completing on bars + 8 (j & 1)
+  const int nkt = (p.M + T - 1) / T;
+  const float* wsb = ws + size_t(bh) * nkt * G::kStage;
+  const uint32_t bars = vdt::smem_addr(part(2, 0));
+  auto load = [&](int j) {
+    vdf::stage_copy(part(j & 1, 0), wsb + size_t(j) * G::kStage, 4 * G::kStage,
+                    bars + 8 * (j & 1));
+  };
+  if (tid == 0) {
+    vdt::bar_init(bars, 1);
+    vdt::bar_init(bars + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load(0);
+  }
+  {
+    vdf::RowsTile<64, DP> own;
+    own.fetch(p.q + b * p.sqb + h * p.sqh, p.sqn, q0, p.N, lt);
+    own.put(sQh, sQl, lt);
+    own.fetch(p.dout + b * p.sdob + h * p.sdoh, p.sdon, q0, p.N, lt);
+    own.put(sOh, sOl, lt);
+  }
+  // this thread's rows g and g + 8: lse log2 e (+inf past N: p = 0), delta
+  float lse2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + g + 8 * r;
+    lse2[r] = row < p.N ? p.lse[size_t(bh) * p.N + row] * vdf::kLog2e : INFINITY;
+    del[r] = row < p.N ? p.delta[size_t(bh) * p.N + row] : 0.f;
+  }
+  vdw::fence_async_smem();  // Q and dO, read next by wgmma (the async proxy)
+  __syncthreads();
+
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+  const float c = p.scale * vdf::kLog2e;
+#pragma unroll 1
+  for (int j = 0; j < nkt; ++j) {
+    const int st = j & 1;
+    const bool more = j + 1 < nkt;
+    if (tid == 0 && more) load(j + 1);  // into the buffer tile j - 1 read
+    vdt::bar_wait(bars + 8 * st, (j >> 1) & 1);  // tile j landed
+    float s[T / 2], dp[T / 2];
+    vdw::keep(s);
+    vdw::keep(dp);
+    vdw::wg_fence();
+    vdf::mm3_ss<T, DP / 8>(s, sQh, sQl, 64, part(st, 0), part(st, 1), T);
+    vdf::mm3_ss<T, DP / 8>(dp, sOh, sOl, 64, part(st, 4), part(st, 5), T);
+    vdw::wg_commit();
+    vdw::wg_wait<0>();
+    vdw::keep(s);
+    vdw::keep(dp);
+    // dS in place: query row e >> 1, key column 8 n + 2 t + (e & 1)
+#pragma unroll
+    for (int n = 0; n < T / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = j * T + 8 * n + 2 * t + (e & 1) < p.M
+                             ? vdf::ex2(__fmaf_rn(s[4 * n + e], c, -lse2[e >> 1]))
+                             : 0.f;
+        dp[4 * n + e] = pr * (dp[4 * n + e] - del[e >> 1]) * p.scale;
+      }
+    uint32_t fh[KS][4], fl[KS][4];
+    vdf::split_frags<KS>(fh, fl, dp);
+    float acc[DP / 2];
+    vdw::keep(fh);
+    vdw::keep(fl);
+    vdw::keep(acc);
+    vdw::wg_fence();
+    vdf::mm3_rs<DP, KS>(acc, fh, fl, part(st, 2), part(st, 3));
+    vdw::wg_commit();
+    vdw::wg_wait<0>();
+    vdw::keep(acc);
+    vdw::keep(fh);
+    vdw::keep(fl);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] += acc[i];
+    __syncthreads();
+  }
+  vdf::store_acc<DP>(p.dq + b * p.sdqb + h * p.sdqh, p.sdqn, dq, q0, p.N, lt);
+}
+
+// lse log2 e (+inf past N: p = 0) and delta (0 past N) of query tile i,
+// kT of each, after its split tiles in the dK/dV kernel's workspace
+template <int T>
+__global__ void row_tiles_kernel(const float* lse, const float* delta, int N, float* out,
+                                 long long bh_stride, long long tile_stride) {
+  const int bh = blockIdx.y, i = blockIdx.x, row = i * T + threadIdx.x % T;
+  float x;
+  if (threadIdx.x < T)
+    x = row < N ? lse[size_t(bh) * N + row] * vdf::kLog2e : INFINITY;
+  else
+    x = row < N ? delta[size_t(bh) * N + row] : 0.f;
+  out[bh * bh_stride + i * tile_stride + threadIdx.x] = x;
+}
+
+// The streamed tiles split once in device memory (ws_kv: f32 [B * H,
+// ceil(N / kT), DkvTc::kStage], a stage of the dK/dV kernel a query tile;
+// ws_q: [B * H, ceil(M / kT), DqTc::kStage], a stage of the dQ kernel a key
+// tile), then the dK/dV and the dQ kernels.
+template <int DP>
+int launch_tf32x3(const ParamsF32& p, float* ws_kv, float* ws_q, cudaStream_t stream) {
+  using KV = DkvTc<DP>;
+  using Q = DqTc<DP>;
+  constexpr int T = KV::kT, part = KV::kPart;
+  static_assert(KV::kSmem <= kMaxSmem && Q::kSmem <= kMaxSmem, "the tf32x3 tiles fit");
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tf32x3_kernel<DP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, KV::kSmem);
+    if (err != cudaSuccess) return int(err);
+    err = cudaFuncSetAttribute(flash_bwd_dq_tf32x3_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Q::kSmem);
+    if (err != cudaSuccess) return int(err);
+    ready = true;
+  }
+  const int nqt = (p.N + T - 1) / T, nkt = (p.M + T - 1) / T;
+  const long long kv_bh = (long long)nqt * KV::kStage, q_bh = (long long)nkt * Q::kStage;
+  int rc = vdf::split_tiles<T, DP, false>(p.q, p.B, p.H, p.N, p.sqb, p.sqn, p.sqh, ws_kv, kv_bh,
+                                          KV::kStage, stream);
+  if (!rc) rc = vdf::split_tiles<T, DP, true>(p.q, p.B, p.H, p.N, p.sqb, p.sqn, p.sqh,
+                                              ws_kv + 2 * part, kv_bh, KV::kStage, stream);
+  if (!rc) rc = vdf::split_tiles<T, DP, false>(p.dout, p.B, p.H, p.N, p.sdob, p.sdon, p.sdoh,
+                                               ws_kv + 4 * part, kv_bh, KV::kStage, stream);
+  if (!rc) rc = vdf::split_tiles<T, DP, true>(p.dout, p.B, p.H, p.N, p.sdob, p.sdon, p.sdoh,
+                                              ws_kv + 6 * part, kv_bh, KV::kStage, stream);
+  if (!rc) {
+    row_tiles_kernel<T><<<dim3(nqt, p.B * p.H), 2 * T, 0, stream>>>(
+        p.lse, p.delta, p.N, ws_kv + 8 * part, kv_bh, KV::kStage);
+    rc = int(cudaGetLastError());
+  }
+  if (!rc) rc = vdf::split_tiles<T, DP, false>(p.k, p.B, p.H, p.M, p.skb, p.skn, p.skh, ws_q,
+                                               q_bh, Q::kStage, stream);
+  if (!rc) rc = vdf::split_tiles<T, DP, true>(p.k, p.B, p.H, p.M, p.skb, p.skn, p.skh,
+                                              ws_q + 2 * part, q_bh, Q::kStage, stream);
+  if (!rc) rc = vdf::split_tiles<T, DP, false>(p.v, p.B, p.H, p.M, p.svb, p.svn, p.svh,
+                                               ws_q + 4 * part, q_bh, Q::kStage, stream);
+  if (rc) return rc;
+  constexpr int kv_rows = 64 * KV::kNC, q_rows = 64 * Q::kNC;
+  flash_bwd_dkv_tf32x3_kernel<DP><<<dim3((p.M + kv_rows - 1) / kv_rows, p.B * p.H),
+                                    KV::kThreads, KV::kSmem, stream>>>(p, ws_kv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  flash_bwd_dq_tf32x3_kernel<DP><<<dim3((p.N + q_rows - 1) / q_rows, p.B * p.H), Q::kThreads,
+                                   Q::kSmem, stream>>>(p, ws_q);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // The f32 route: f32 q, k, v, dO, lse and delta in, f32 dQ, dK and dV out
@@ -1031,6 +1390,62 @@ extern "C" int vd_flash_bwd_f32(const void* q, const void* k, const void* v, con
     case 6: return launch_f32<96>(p, st);
     case 7: return launch_f32<112>(p, st);
     case 8: return launch_f32<128>(p, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// The tf32x3 route: vd_flash_bwd_f32's arguments and the workspaces of the
+// split tiles (ws_kv: B * H * ceil(N / 32) * (8 * 32 * D + 64) f32, ws_q:
+// B * H * ceil(M / 32) * 6 * 32 * D f32), for d % 8 == 0 up to 80 with
+// 16-byte aligned rows of q, k, v, dO and the outputs (vdf::takes;
+// cudaErrorInvalidValue otherwise). The splits, then dK and dV, then dQ.
+extern "C" int vd_flash_bwd_tf32x3(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse, const void* delta,
+                                   void* dq, void* dk, void* dv, void* ws_kv, void* ws_q, int B,
+                                   int N, int M, int H, int D,
+                                   long long sqb, long long sqn, long long sqh, long long skb,
+                                   long long skn, long long skh, long long svb, long long svn,
+                                   long long svh, long long sdob, long long sdon, long long sdoh,
+                                   long long sdqb, long long sdqn, long long sdqh, long long sdkb,
+                                   long long sdkn, long long sdkh, long long sdvb, long long sdvn,
+                                   long long sdvh, float scale, void* stream) {
+  const void* ptrs[9] = {q, k, v, dout, dq, dk, dv, ws_kv, ws_q};
+  const long long strides[21] = {sqb,  sqn,  sqh,  skb,  skn,  skh,  svb,  svn,  svh,  sdob, sdon,
+                                 sdoh, sdqb, sdqn, sdqh, sdkb, sdkn, sdkh, sdvb, sdvn, sdvh};
+  if (!vdf::takes(D, ptrs, 9, strides, 21)) return int(cudaErrorInvalidValue);
+  ParamsF32 p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.dout = static_cast<const float*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.B = B; p.N = N; p.M = M; p.H = H; p.D = D;
+  p.sqb = sqb; p.sqn = sqn; p.sqh = sqh;
+  p.skb = skb; p.skn = skn; p.skh = skh;
+  p.svb = svb; p.svn = svn; p.svh = svh;
+  p.sdob = sdob; p.sdon = sdon; p.sdoh = sdoh;
+  p.sdqb = sdqb; p.sdqn = sdqn; p.sdqh = sdqh;
+  p.sdkb = sdkb; p.sdkn = sdkn; p.sdkh = sdkh;
+  p.sdvb = sdvb; p.sdvn = sdvn; p.sdvh = sdvh;
+  p.scale = scale;
+  float* wkv = static_cast<float*>(ws_kv);
+  float* wq = static_cast<float*>(ws_q);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D / 8) {
+    case 1: return launch_tf32x3<8>(p, wkv, wq, st);
+    case 2: return launch_tf32x3<16>(p, wkv, wq, st);
+    case 3: return launch_tf32x3<24>(p, wkv, wq, st);
+    case 4: return launch_tf32x3<32>(p, wkv, wq, st);
+    case 5: return launch_tf32x3<40>(p, wkv, wq, st);
+    case 6: return launch_tf32x3<48>(p, wkv, wq, st);
+    case 7: return launch_tf32x3<56>(p, wkv, wq, st);
+    case 8: return launch_tf32x3<64>(p, wkv, wq, st);
+    case 9: return launch_tf32x3<72>(p, wkv, wq, st);
+    case 10: return launch_tf32x3<80>(p, wkv, wq, st);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -31,20 +31,49 @@
 // q, k and v are read in place from [B, N, H, D] through strides, so the
 // caller's projections need no fold copies.
 //
-// The f32 route (vd_flash_fwd_f32, flash_fwd_f32_kernel below) is the same
-// function for f32 q, k and v, as _fwd_kernel computes it for f32 operands:
-// the scale folded into q in f32, f32 products, an f32 online softmax and
-// f32 accumulators. wgmma and mma.sync have no f32 operand type (TF32 keeps
-// 10 bits of mantissa), so it is a plain SIMT kernel: 64 query rows and 256
-// threads a block, four threads a row; each K/V tile of 64 keys lands in
-// shared memory, a thread takes 16 of the tile's scores with FMAs over the
-// head, the row's four threads reduce max and sum by shuffles, the
-// probabilities go through shared memory, and a thread keeps a quarter of
-// its row's output columns in registers. At [4, 4096, 8, 40] it does about
-// 86 GFLOP of f32 FMAs (1.3 ms at 67 TFLOP/s): the f32 units, not memory,
-// bound it. No main-path site runs it (the UNet runs bf16); an experiment
-// that trains in f32 (`bf16: false`) reaches it at the 4096- and 1024-token
-// sites.
+// The f32 routes are the same function for f32 q, k and v, as _fwd_kernel
+// computes it for f32 operands (_fwd_impl with f32 inputs): the scale
+// folded into q in f32, f32 logits, an f32 online softmax and f32 sums. f32
+// is the port's default dtype (VDSystem, the CLI without --bf16, training
+// without `bf16: true`), so a default 2-image t2i request runs 500 of these
+// launches. The plan picks one of two kernels:
+// - tf32x3 (vd_flash_fwd_tf32x3, flash_fwd_tf32x3_kernel below): heads up
+//   to 80 with d % 8 == 0 and 16-byte aligned rows, every f32 site of the
+//   UNet. Bound at [4, 4096, 8, 40]: the two products are 85.9 GFLOP of f32
+//   work; on the tensor cores as split-f32 products (csrc/tf32x3.cuh: each
+//   operand as tf32 hi + lo, each product lo.hi + hi.lo + hi.hi, about 21
+//   bits of each where one tf32 pass keeps 11) that is 3 x 85.9 GFLOP at 495
+//   TFLOP/s, 0.52 ms, above the exponentials' 0.13 ms and memory's 0.01.
+//   Design: K and V split once a call (split_tiles, csrc/tf32x3.cuh) into a
+//   device workspace of tiles of 64 keys (32 for heads over 48, where P's
+//   split fragments would not fit the registers): K as rows (B of S =
+//   Q.K^T), V transposed in a permuted key order (B of O += P.V: tf32 wgmma
+//   reads K-major operands only), each tile in the layout of a stage in
+//   shared memory. Two warpgroups of 64 query rows a block, each with its Q
+//   split once (scale folded in) into shared memory, share the K/V tiles,
+//   which come in a stage at a time by one bulk TMA copy on an mbarrier,
+//   double-buffered, the next tile's copy in flight during this tile's
+//   products; S by three wgmma ss passes, the
+//   online softmax in f32 (ex2 with log2 e folded in), P split in
+//   registers straight from the accumulators (the permutation makes them A
+//   fragments), O_j = P.V by three wgmma rs passes into a fresh accumulator
+//   and O = O alpha + O_j in f32, so the tensor core's own sums never span
+//   more than one tile. Measured on an H100 at [4, 4096, 8, 40]: splitting
+//   the K/V tiles in every block cost as much as the products (1.47 ms in
+//   all, 0.80 with the products alone, 0.99 with the tile stream alone,
+//   one warpgroup a block); two warpgroups sharing each tile read 1.27,
+//   the split workspace 1.07 by cp.async, 0.94 by bulk TMA copies; three
+//   warpgroups, or a producer warpgroup splitting tiles for consumers
+//   behind mbarriers, were no faster.
+// - f32 (vd_flash_fwd_f32, flash_fwd_f32_kernel below): every other f32
+//   head and layout (d % 8 != 0, heads over 80, unaligned views). A plain
+//   SIMT kernel, 64 query rows and 256 threads a block, four threads a row;
+//   each K/V tile of 64 keys lands in shared memory, a thread takes 16 of
+//   the tile's scores with FMAs over the head, the row's four threads
+//   reduce max and sum by shuffles, the probabilities go through shared
+//   memory, and a thread keeps a quarter of its row's output columns in
+//   registers. Bound: 86 GFLOP of f32 FMAs at [4, 4096, 8, 40], 1.3 ms at
+//   67 TFLOP/s; one shared-memory load an FMA holds it back to ~7.7 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,6 +82,7 @@
 
 #include "attention_tile.cuh"
 #include "attn_fwd_sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -368,6 +398,174 @@ int launch_f32(const ParamsF32& p, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+// ---- the tf32x3 route: the f32 route on the tensor cores ----
+
+// NC warpgroups of 64 query rows a block (two: each K/V tile in shared
+// memory serves 128 query rows); tiles of kT keys: K as a RowsTile (B of
+// S = Q.K^T), V as a ColsTile (B of O += P.V), split once in device memory
+// by split_tiles (launch_tf32x3) and brought in a stage at a time by bulk
+// TMA copies on two mbarriers, double-buffered; each warpgroup's Q split
+// once (scale folded in).
+template <int DP, int NC>
+struct FwdTc {
+  static constexpr int kT = DP <= 48 ? 64 : 32;   // keys a tile: the registers of P's fragments
+  static constexpr int kThreads = 128 * NC;
+  static constexpr int kQ = 64 * DP;               // floats of a warpgroup's Q hi (or lo)
+  static constexpr int kPart = kT * DP;            // floats of K hi, K lo, V^T hi or V^T lo
+  static constexpr int kStage = 4 * kPart;
+  static constexpr int kSmem = 4 * (2 * NC * kQ + 2 * kStage) + 16;  // + two mbarriers
+};
+
+template <int DP, int NC>
+__global__ void __launch_bounds__(FwdTc<DP, NC>::kThreads, 1)
+    flash_fwd_tf32x3_kernel(const ParamsF32 p, const float* ws) {
+  using G = FwdTc<DP, NC>;
+  constexpr int T = G::kT, KS = T / 8;
+  extern __shared__ __align__(128) float tc_smem[];
+  auto part = [&](int st, int i) {
+    return tc_smem + 2 * NC * G::kQ + st * G::kStage + i * G::kPart;
+  };
+  const uint32_t bars = vdt::smem_addr(part(2, 0));  // stage st's copy completes on bars + 8 st
+
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int tid = threadIdx.x, wg = tid >> 7, lt = tid & 127, lane = tid & 31, t = lane & 3;
+  const int q0 = (blockIdx.x * NC + wg) * 64;  // this warpgroup's first query row
+  float* sQh = tc_smem + 2 * wg * G::kQ;
+  float* sQl = sQh + G::kQ;
+  const int nkt = (p.M + T - 1) / T;
+  const float* wsb = ws + size_t(bh) * nkt * G::kStage;  // this head's split tiles
+  if (tid == 0) {
+    vdt::bar_init(bars, 1);
+    vdt::bar_init(bars + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    vdf::stage_copy(part(0, 0), wsb, 4 * G::kStage, bars);
+  }
+  {
+    vdf::RowsTile<64, DP> qt;  // q * scale in f32, as the TPU kernel folds it
+    qt.fetch(p.q + b * p.sqb + h * p.sqh, p.sqn, q0, p.N, lt);
+    qt.put(sQh, sQl, lt, p.scale);
+  }
+  vdw::fence_async_smem();  // Q, read next by wgmma (the async proxy)
+  __syncthreads();
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+#pragma unroll 1
+  for (int j = 0; j < nkt; ++j) {
+    const int st = j & 1;
+    if (tid == 0 && j + 1 < nkt)  // into the buffer tile j - 1 read; in flight during tile j
+      vdf::stage_copy(part(st ^ 1, 0), wsb + size_t(j + 1) * G::kStage, 4 * G::kStage,
+                      bars + 8 * (st ^ 1));
+    vdt::bar_wait(bars + 8 * st, (j >> 1) & 1);  // tile j landed
+    float s[T / 2];
+    vdw::keep(s);
+    vdw::wg_fence();
+    vdf::mm3_ss<T, DP / 8>(s, sQh, sQl, 64, part(st, 0), part(st, 1), T);
+    vdw::wg_commit();
+    vdw::wg_wait<0>();
+    vdw::keep(s);
+    if (j * T + T > p.M) {  // keys past M (the last tile)
+#pragma unroll
+      for (int n = 0; n < T / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * T + 8 * n + 2 * t + (e & 1) >= p.M) s[4 * n + e] = -INFINITY;
+    }
+    // online softmax in f32; this thread holds rows g (e = 0, 1) and g + 8
+    // (e = 2, 3); l_run is its partial row sum (the quad adds them at the end)
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < T / 8; ++n) mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      const float ms = (m_new == -INFINITY ? 0.f : m_new) * vdf::kLog2e;
+      alpha[r] = vdf::ex2(m_run[r] * vdf::kLog2e - ms);  // 0 on the first tile
+      m_run[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < T / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * n + 2 * r + e];
+          x = vdf::ex2(__fmaf_rn(x, vdf::kLog2e, -ms));
+          sum += x;
+        }
+      l_run[r] = l_run[r] * alpha[r] + sum;
+    }
+    // O_j = P.V in a fresh accumulator (the tensor core's f32 sums stay
+    // within one tile), then O = O alpha + O_j in f32
+    uint32_t ph[KS][4], pl[KS][4];
+    vdf::split_frags<KS>(ph, pl, s);
+    float ot[DP / 2];
+    vdw::keep(ph);
+    vdw::keep(pl);
+    vdw::keep(ot);
+    vdw::wg_fence();
+    vdf::mm3_rs<DP, KS>(ot, ph, pl, part(st, 2), part(st, 3));
+    vdw::wg_commit();
+    vdw::wg_wait<0>();
+    vdw::keep(ot);
+    vdw::keep(ph);
+    vdw::keep(pl);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = __fmaf_rn(o[i], alpha[(i >> 1) & 1], ot[i]);
+    __syncthreads();  // every product of this tile done: its buffer is free
+  }
+
+  // out = O / l, lse = m + log(l)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_run[r] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = o[i] / l_run[(i >> 1) & 1];
+  vdf::store_acc<DP>(p.o + b * p.sob + h * p.soh, p.son, o, q0, p.N, lt);
+  if (p.lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * (lt >> 5) + (lane >> 2) + 8 * r;
+      if (row < p.N) p.lse[size_t(bh) * p.N + row] = m_run[r] + logf(l_run[r]);
+    }
+  }
+}
+
+// K and V split once into ws (f32 [B * H, ceil(M / kT) tiles, 4 kT DP]: K
+// hi, K lo, V^T hi, V^T lo a tile, the layout of a stage in shared memory),
+// then the attention kernel
+template <int DP, int NC = 2>
+int launch_tf32x3(const ParamsF32& p, float* ws, cudaStream_t stream) {
+  using G = FwdTc<DP, NC>;
+  constexpr int T = G::kT;
+  static_assert(G::kSmem <= 232448, "the tf32x3 forward's tiles fit shared memory");
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_tf32x3_kernel<DP, NC>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 G::kSmem);
+    if (err != cudaSuccess) return int(err);
+    ready = true;
+  }
+  const long long bh_stride = (long long)((p.M + T - 1) / T) * G::kStage;
+  int rc = vdf::split_tiles<T, DP, false>(p.k, p.B, p.H, p.M, p.skb, p.skn, p.skh, ws,
+                                          bh_stride, G::kStage, stream);
+  if (rc == 0)
+    rc = vdf::split_tiles<T, DP, true>(p.v, p.B, p.H, p.M, p.svb, p.svn, p.svh,
+                                       ws + 2 * G::kPart, bh_stride, G::kStage, stream);
+  if (rc != 0) return rc;
+  const dim3 grid((p.N + 64 * NC - 1) / (64 * NC), p.B * p.H);
+  flash_fwd_tf32x3_kernel<DP, NC><<<grid, G::kThreads, G::kSmem, stream>>>(p, ws);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // The f32 route: f32 q, k, v, o and lse (nullptr skips it), strides in
@@ -408,6 +606,49 @@ extern "C" int vd_flash_fwd_f32(const void* q, const void* k, const void* v, voi
     case 14: return launch_f32<224>(p, st);
     case 15: return launch_f32<240>(p, st);
     case 16: return launch_f32<256>(p, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// The tf32x3 route: vd_flash_fwd_f32's arguments and ws, the split K/V
+// tiles' workspace (f32, B * H * ceil(M / kT) * 4 * kT * D, kT =
+// FwdTc::kT), for d % 8 == 0 up to 80 with 16-byte aligned rows
+// (vdf::takes; cudaErrorInvalidValue otherwise). Three launches: K's split,
+// V's split, the attention.
+extern "C" int vd_flash_fwd_tf32x3(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, void* ws, int B, int N, int M, int H, int D,
+                                   long long sqb, long long sqn, long long sqh, long long skb,
+                                   long long skn, long long skh, long long svb, long long svn,
+                                   long long svh, long long sob, long long son, long long soh,
+                                   float scale, void* stream) {
+  const void* ptrs[5] = {q, k, v, o, ws};
+  const long long strides[12] = {sqb, sqn, sqh, skb, skn, skh, svb, svn, svh, sob, son, soh};
+  if (!vdf::takes(D, ptrs, 5, strides, 12)) return int(cudaErrorInvalidValue);
+  ParamsF32 p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.B = B; p.N = N; p.M = M; p.H = H; p.D = D;
+  p.sqb = sqb; p.sqn = sqn; p.sqh = sqh;
+  p.skb = skb; p.skn = skn; p.skh = skh;
+  p.svb = svb; p.svn = svn; p.svh = svh;
+  p.sob = sob; p.son = son; p.soh = soh;
+  p.scale = scale;
+  float* w = static_cast<float*>(ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D / 8) {
+    case 1: return launch_tf32x3<8>(p, w, st);
+    case 2: return launch_tf32x3<16>(p, w, st);
+    case 3: return launch_tf32x3<24>(p, w, st);
+    case 4: return launch_tf32x3<32>(p, w, st);
+    case 5: return launch_tf32x3<40>(p, w, st);
+    case 6: return launch_tf32x3<48>(p, w, st);
+    case 7: return launch_tf32x3<56>(p, w, st);
+    case 8: return launch_tf32x3<64>(p, w, st);
+    case 9: return launch_tf32x3<72>(p, w, st);
+    case 10: return launch_tf32x3<80>(p, w, st);
     default: return int(cudaErrorInvalidValue);
   }
 }

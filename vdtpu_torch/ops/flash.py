@@ -29,12 +29,29 @@ without lse. ``flash_attention_fwd`` and ``flash_attention_bwd`` take the
 plain versions for CPU tensors only; for CUDA tensors they launch the
 kernels or raise, never falling back.
 
-bf16 takes the tensor-core kernels above. f32 q, k and v (an experiment
-that trains with ``bf16: false``) take the f32 route of the same sources
-(``vd_flash_fwd_f32``, ``vd_flash_bwd_f32``): SIMT kernels with f32
-products, softmax and accumulators, free of TF32, as the TPU kernels
-compute f32 operands. Its plan path is "f32" (``attn_fwd_plan``,
-``flash_bwd_path``), and ``launches_by_path`` counts it. The kernels read q, k, v and dO in
+bf16 takes the tensor-core kernels above. f32 q, k and v (the port's
+default dtype: ``VDSystem(dtype=torch.float32)``, the CLI without
+``--bf16``, an experiment that trains with ``bf16: false``) take one of two
+f32 routes of the same sources, as the plan decides from shape and
+alignment alone:
+- "tf32x3" (``vd_flash_fwd_tf32x3``, ``vd_flash_bwd_tf32x3``): heads up to
+  80 with d % 8 == 0 and 16-byte aligned rows (every f32 site of the UNet,
+  the legacy zoo's AttentionBlock, the VAE's mid attention): wgmma with
+  split-f32 products, each operand split into tf32 hi and lo and each
+  product taken as lo.hi + hi.lo + hi.hi in f32 accumulators (about 21
+  bits of each product; one tf32 pass keeps 11), the softmax and every
+  sum in f32. The streamed tiles (K and V forward; q, dO, k and v
+  backward) are split once a call into a device workspace the wrappers
+  allocate. The backward keeps the TPU's split (a dK/dV kernel and a dQ
+  kernel), so no adds cross blocks and it is bit-equal across runs.
+  ``flash_attention_fwd_tf32x3_blocked_plain`` and
+  ``flash_attention_bwd_tf32x3_blocked_plain`` are their order of work and
+  rounding in plain PyTorch, for the tests;
+- "f32" (``vd_flash_fwd_f32``, ``vd_flash_bwd_f32``): SIMT kernels with
+  f32 products, softmax and accumulators, for every other f32 head and
+  layout.
+Neither reads ``torch.backends.*.allow_tf32``: the plain versions are the
+reference, in full f32. ``launches_by_path`` counts each path. The kernels read q, k, v and dO in
 place through their strides (any layout whose last axis is contiguous), so
 callers pass views of their projections without copies. The plain versions
 run with autocast off, so they keep their f32 arithmetic inside an
@@ -64,6 +81,12 @@ ATTN_WG_MAX_D = 80
 ATTN_BOX_COLS = 64
 MAX_SMEM = 232448           # bytes of shared memory a block may take on an H100
 F32_ROWS = 64               # the f32 route's query rows a block and keys a tile
+# the tf32x3 route (csrc/tf32x3.cuh): heads up to TF32X3_MAX_D with d % 8
+# == 0, warpgroups of 64 rows (queries forward, keys or queries backward),
+# two a block where shared memory holds them; the backward's streamed tiles
+# TF32X3_BWD_TILE rows
+TF32X3_MAX_D = 80
+TF32X3_BWD_TILE = 32
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -112,23 +135,47 @@ def _wg_geometry(dp: int, nc: int) -> tuple[int, int]:
     return stages, smem(stages)
 
 
-def _rows_aligned(ptrs, strides) -> bool:
-    """16-byte aligned data pointers and (batch, row, head) element strides:
-    every row of every head starts on 16 bytes (cp.async's 16-byte chunks,
-    TMA's box starts)."""
-    return not any(p % 16 for p in ptrs) and not any(s % 8 for trio in strides for s in trio)
+def _rows_aligned(ptrs, strides, elem: int = 2) -> bool:
+    """16-byte aligned data pointers and (batch, row, head) element strides
+    of ``elem``-byte elements: every row of every head starts on 16 bytes
+    (cp.async's 16-byte chunks, TMA's box starts, the tf32x3 route's
+    16-byte loads)."""
+    return not any(p % 16 for p in ptrs) and not any(s * elem % 16 for trio in strides
+                                                     for s in trio)
+
+
+def _takes_tf32x3(d: int, ptrs, strides) -> bool:
+    """f32 operands the tf32x3 route takes: d % 8 == 0 up to TF32X3_MAX_D,
+    16-byte aligned rows (``vdf::takes``)."""
+    return d % 8 == 0 and d <= TF32X3_MAX_D and _rows_aligned(ptrs, strides, 4)
+
+
+def _tf32x3_fwd_tile(d: int) -> int:
+    """Keys a tile of the tf32x3 forward (``FwdTc::kT``): 64 for heads up
+    to 48, else 32 (P's hi and lo fragments take a register a key)."""
+    return 64 if d <= 48 else 32
 
 
 def attn_fwd_plan(b: int, n: int, m: int, h: int, d: int, strides, ptrs,
                   dtype=torch.bfloat16) -> AttnFwdPlan:
     """Which forward kernel a call on q [b, n, h, d], k and v [b, m, h, d]
     takes, and its geometry. ``strides``: (batch, row, head) element
-    strides of q, k and v; ``ptrs``: their data pointers. f32 takes the f32
-    route (64 query rows a block, 64-key tiles). In bf16 the wgmma kernel
-    takes d <= 80 with d % 8 == 0 and aligned rows (its tiles come by TMA);
-    everything else takes the mma.sync kernel."""
+    strides of q, k and v; ``ptrs``: their data pointers. In f32 the
+    tf32x3 kernel takes d <= 80 with d % 8 == 0 and aligned rows (two
+    warpgroups of 64 query rows a block sharing double-buffered split key
+    tiles, no padding of d); the f32 route everything else (64 query rows
+    a block, 64-key tiles). In bf16 the wgmma kernel takes d <= 80 with d %
+    8 == 0 and aligned rows (its tiles come by TMA); everything else takes
+    the mma.sync kernel."""
     dp = -(-d // 16) * 16
     if dtype == torch.float32:
+        if _takes_tf32x3(d, ptrs, strides):
+            # FwdTc: two warpgroups' Q hi and lo, two stages of K hi, K lo,
+            # V^T hi, V^T lo, their two mbarriers
+            tile = _tf32x3_fwd_tile(d)
+            return AttnFwdPlan("tf32x3", d, 128, tile, 2,
+                               4 * (2 * 128 * d + 2 * 4 * tile * d) + 16,
+                               (-(-n // 128), b * h), True)
         return AttnFwdPlan("f32", dp, F32_ROWS, F32_ROWS, 1, _f32_fwd_smem(dp),
                            (-(-n // F32_ROWS), b * h), False)
     vec = d % 8 == 0 and _rows_aligned(ptrs, strides)
@@ -153,11 +200,12 @@ def _f32_fwd_smem(dp: int) -> int:
 
 
 def flash_bwd_path(d: int, dtype, vec: bool) -> str:
-    """The backward kernel a call takes (csrc/flash_bwd.cu's ``launch``):
-    "f32" for f32 operands; in bf16 "wgmma" for heads up to 80 with aligned
-    rows (``vec``), else "mma"."""
+    """The backward kernels a call takes (csrc/flash_bwd.cu): in f32
+    "tf32x3" for heads up to 80 with d % 8 == 0 and aligned rows (``vec``),
+    else "f32"; in bf16 "wgmma" for heads up to 80 with aligned rows
+    (``vec``), else "mma"."""
     if dtype == torch.float32:
-        return "f32"
+        return "tf32x3" if vec and d <= TF32X3_MAX_D else "f32"
     return "wgmma" if vec and d <= ATTN_WG_MAX_D else "mma"
 
 
@@ -268,10 +316,98 @@ def flash_attention_bwd_blocked_plain(q, k, v, o, lse, do, scale: float | None =
     return back(dq), back(dk), back(dv)
 
 
+def _tf32(x):
+    """f32 x rounded to tf32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``; f32 out."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b, passes: int = 3):
+    """a @ b in f32 with both operands split into tf32 hi and lo (hi =
+    tf32(x), lo = tf32(x - hi)): lo.hi + hi.lo, then hi.hi, the tf32x3
+    kernels' three passes; ``passes=1`` is one tf32 product, hi.hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def flash_attention_fwd_tf32x3_blocked_plain(q, k, v, scale: float | None = None,
+                                             with_lse: bool = False, passes: int = 3):
+    """``flash_attention_plain``'s function for f32 q, k, v in the tf32x3
+    forward's order of work and rounding, for the tests: q * scale in f32,
+    over tiles of ``_tf32x3_fwd_tile(d)`` keys S = Q.K^T by ``_mm3``, a
+    running row max m (keys past M masked), p = exp2(s log2 e - m log2 e),
+    O_j = P.V_j by ``_mm3`` in a fresh sum, O = O alpha + O_j and l = l alpha
+    + rowsum(p) with alpha = exp2((m_old - m) log2 e); out = O / l, lse = m
+    + log(l). ``passes=1`` models one tf32 pass a product (hi.hi)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, n, h, d = q.shape
+    m_len, tile = k.shape[1], _tf32x3_fwd_tile(d)
+    with torch.autocast(q.device.type, enabled=False):
+        f = lambda t: t.float().transpose(1, 2)                      # [B, H, rows, D]
+        qs, kf, vf = f(q.float() * scale), f(k), f(v)
+        log2e = torch.tensor(LOG2E, dtype=torch.float32)
+        m_run = torch.full((b, h, n), -torch.inf)
+        l_run = torch.zeros(b, h, n)
+        acc = torch.zeros(b, h, n, d)
+        for k0 in range(0, m_len, tile):
+            s = _mm3(qs, kf[:, :, k0:k0 + tile].transpose(-1, -2), passes)
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            ms = m_new * log2e
+            p = torch.exp2(s * log2e - ms[..., None])
+            alpha = torch.exp2(m_run * log2e - ms)
+            l_run = l_run * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + _mm3(p, vf[:, :, k0:k0 + tile], passes)
+            m_run = m_new
+        out = (acc / l_run[..., None]).transpose(1, 2).contiguous()
+    return (out, m_run + torch.log(l_run)) if with_lse else out
+
+
+def flash_attention_bwd_tf32x3_blocked_plain(q, k, v, o, lse, do, scale: float | None = None,
+                                             passes: int = 3):
+    """``flash_attention_bwd_plain``'s function for f32 operands in the
+    tf32x3 backward's order of work and rounding, for the tests: the dK/dV
+    kernel over tiles of TF32X3_BWD_TILE queries (S^T = K.Q^T and dP^T =
+    V.dO^T by ``_mm3``, p = exp2(s scale log2 e - lse log2 e), dS = p (dP -
+    delta) scale, dV += P^T.dO and dK += dS^T.Q by ``_mm3``, each tile's
+    sum added in f32), then the dQ kernel over tiles of as many keys (dQ
+    += dS.K). ``passes=1`` models one tf32 pass a product."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, n, h, d = q.shape
+    m, tile = k.shape[1], TF32X3_BWD_TILE
+    with torch.autocast(q.device.type, enabled=False):
+        f = lambda t: t.float().transpose(1, 2)                       # [B, H, rows, D]
+        qf, kf, vf, dof = f(q), f(k), f(v), f(do)
+        delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)  # [B, H, N]
+        c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
+        lse2 = lse.float() * torch.tensor(LOG2E, dtype=torch.float32)
+        mm = lambda x, y: _mm3(x, y, passes)
+        dq, dk, dv = torch.zeros(b, h, n, d), torch.zeros(b, h, m, d), torch.zeros(b, h, m, d)
+        for q0 in range(0, n, tile):
+            qs = slice(q0, q0 + tile)
+            p = torch.exp2(mm(kf, qf[:, :, qs].transpose(-1, -2)) * c - lse2[:, :, None, qs])
+            dp = mm(vf, dof[:, :, qs].transpose(-1, -2))
+            ds = p * (dp - delta[:, :, None, qs]) * scale                # dS^T [B, H, M, tile]
+            dv += mm(p, dof[:, :, qs])
+            dk += mm(ds, qf[:, :, qs])
+        for k0 in range(0, m, tile):
+            ks = slice(k0, k0 + tile)
+            p = torch.exp2(mm(qf, kf[:, :, ks].transpose(-1, -2)) * c - lse2[..., None])
+            dp = mm(dof, vf[:, :, ks].transpose(-1, -2))
+            dq += mm(p * (dp - delta[..., None]) * scale, kf[:, :, ks])
+    back = lambda t: t.transpose(1, 2).contiguous()
+    return back(dq), back(dk), back(dv)
+
+
 def _aligned(t: torch.Tensor) -> bool:
-    """16-byte rows: the backward's cp.async and TMA paths need every row
-    start aligned."""
-    return _rows_aligned((t.data_ptr(),), (t.stride()[:3],))
+    """16-byte rows: the backward's cp.async, TMA and tf32x3 paths need
+    every row start aligned."""
+    return _rows_aligned((t.data_ptr(),), (t.stride()[:3],), t.element_size())
 
 
 def _check(name: str, q, k, v, max_d: int):
@@ -318,6 +454,11 @@ def flash_attention_fwd(q, k, v, scale: float, with_lse: bool = False):
         stream = torch.cuda.current_stream().cuda_stream
         if plan.path == "f32":
             rc = lib.vd_flash_fwd_f32(*args, stream)
+        elif plan.path == "tf32x3":
+            # K and V split once into tiles of hi and lo (4 block_k d floats a tile)
+            ws = torch.empty(b * h * -(-k.shape[1] // plan.block_k) * 4 * plan.block_k * d,
+                             dtype=torch.float32, device=q.device)
+            rc = lib.vd_flash_fwd_tf32x3(*args[:5], ws.data_ptr(), *args[5:], stream)
         else:
             rc = lib.vd_flash_fwd(*args, plan.code, stream)
     if rc != 0:
@@ -328,12 +469,13 @@ def flash_attention_fwd(q, k, v, scale: float, with_lse: bool = False):
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
-    """(dq, dk, dv): the backward kernel (one pass over key blocks; its f32
-    dQ workspace zeroed here and converted to bf16 by a second small kernel),
-    or its plain version for CPU tensors. delta = rowsum(dO * O) is one plain
+    """(dq, dk, dv): the backward kernels ``flash_bwd_path`` picks, or the
+    plain version for CPU tensors. delta = rowsum(dO * O) is one plain
     elementwise pass here, as the JAX package computes it outside Pallas.
-    dQ's f32 partials are added in device memory in no fixed order, so its
-    last bits may differ from run to run."""
+    bf16 (one pass over key blocks; its f32 dQ workspace zeroed here and
+    converted to bf16 by a second small kernel) adds dQ's f32 partials in
+    device memory in no fixed order, so its last bits may differ from run
+    to run; the f32 routes add nothing across blocks and are bit-equal."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
     _check("flash_attention_bwd", q, k, v, MAX_BWD_HEAD_DIM)
@@ -350,9 +492,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    # aligned rows (and a 16-byte aligned lse, which the wgmma kernel reads
-    # by TMA) take cp.async or TMA; anything else the element-wise loads
-    vec = int(d % 8 == 0 and all(_aligned(t) for t in (q, k, v, do)) and lse.data_ptr() % 16 == 0)
+    # aligned rows (and in bf16 a 16-byte aligned lse, which the wgmma
+    # kernel reads by TMA) take cp.async, TMA or the tf32x3 kernels;
+    # anything else the element-wise loads
+    vec = int(d % 8 == 0 and all(_aligned(t) for t in (q, k, v, do))
+              and (q.dtype == torch.float32 or lse.data_ptr() % 16 == 0))
     path = flash_bwd_path(d, q.dtype, bool(vec))
     st = lambda t: (t.stride(0), t.stride(1), t.stride(2))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -363,6 +507,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
         if path == "f32":
             rc = lib.vd_flash_bwd_f32(*ptrs, b, n, k.shape[1], h, d, *strides, float(scale),
                                       stream)
+        elif path == "tf32x3":
+            # the streamed tiles split once: a dK/dV stage a query tile (q, dO
+            # as rows and columns, lse and delta), a dQ stage a key tile
+            t = TF32X3_BWD_TILE
+            ws_kv = torch.empty(b * h * -(-n // t) * (8 * t * d + 2 * t), dtype=torch.float32,
+                                device=q.device)
+            ws_q = torch.empty(b * h * -(-k.shape[1] // t) * 6 * t * d, dtype=torch.float32,
+                               device=q.device)
+            rc = lib.vd_flash_bwd_tf32x3(*ptrs, ws_kv.data_ptr(), ws_q.data_ptr(), b, n,
+                                         k.shape[1], h, d, *strides, float(scale), stream)
         else:
             n_pad = -(-n // BWD_QUERIES) * BWD_QUERIES
             dq_acc = torch.zeros((b * h, n_pad, -(-d // 16) * 16), dtype=torch.float32,
@@ -377,22 +531,26 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_path = {"wgmma": 0, "mma": 0, "f32": 0}   # flash_bwd_path
+# flash_bwd_path's path -> launches
+flash_attention_bwd.launches_by_path = {"wgmma": 0, "mma": 0, "f32": 0, "tf32x3": 0}
 
 
 @functools.cache
 def _flash_lib(name: str):
-    """The library of ``csrc/<name>.cu`` with its f32 entry point's types
+    """The library of ``csrc/<name>.cu`` with its f32 entry points' types
     (``build.SOURCES`` types the bf16 one)."""
     import ctypes
     from vdtpu_torch.ops.kernels.build import load
     lib = load(name)
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     if name == "flash_fwd":
-        fn, types = lib.vd_flash_fwd_f32, [p] * 5 + [i] * 5 + [ll] * 12 + [f, p]
+        f32 = [p] * 5 + [i] * 5 + [ll] * 12 + [f, p]
+        types = {"vd_flash_fwd_f32": f32, "vd_flash_fwd_tf32x3": [p] * 6 + f32[5:]}
     else:
-        fn, types = lib.vd_flash_bwd_f32, [p] * 9 + [i] * 5 + [ll] * 21 + [f, p]
-    fn.argtypes, fn.restype = types, i
+        f32 = [p] * 9 + [i] * 5 + [ll] * 21 + [f, p]
+        types = {"vd_flash_bwd_f32": f32, "vd_flash_bwd_tf32x3": [p] * 11 + f32[9:]}
+    for fn, argtypes in types.items():
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, i
     return lib
 
 
@@ -427,4 +585,5 @@ def flash_attention(q, k, v, scale: float | None = None):
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_path = {"wgmma": 0, "mma": 0, "f32": 0}   # attn_fwd_plan's path
+# attn_fwd_plan's path -> launches
+flash_attention.launches_by_path = {"wgmma": 0, "mma": 0, "f32": 0, "tf32x3": 0}
