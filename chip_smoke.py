@@ -12,7 +12,7 @@ and vd_inference) on one CUDA card.
 Phases (each one's failure fails the run; nothing falls back to the CPU):
   device    require CUDA; print the card's name and power limit
   build     compile every CUDA source (one nvcc each, in parallel) and the
-            Triton kernels; print the seconds
+            Triton kernels; print the seconds, each nvcc's too
   kernels   each kernel against its plain version at the main paths'
             shapes (the flash forward and backward also on their f32 route
             at FLASH_SHAPES, in f32 with TF32 off: the tf32x3 kernels, with
@@ -26,7 +26,12 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             held on both of their kernels (the wgmma one at the main
             paths' shapes, the mma.sync one at ``*_MMA_SHAPES``; the
             flash forward also at the four-image mcg request's
-            cross-attentions, ``FLASH_XATTN_SHAPES``: 1028 keys), the
+            cross-attentions, ``FLASH_XATTN_SHAPES``: 1028 keys); the
+            forwards at heads of 88-160 (``FLASH_WIDE_SHAPES``: the wgmma
+            kernel's wide heads in Flash, FlashLse and NoMax, timed in turns
+            against the mma.sync kernel they replaced and against SDPA;
+            ``FLASH_F32_WIDE_SHAPES``: the wide tf32x3 kernel against the
+            SIMT kernel and SDPA f32), the
             whole-ResBlock kernel on both of its routes (halo at the
             UNet's sites, general at ``RESBLOCK_GENERAL_SHAPES``), the GN
             kernel on both of its routes (``GN_ROUTES``: resident at the
@@ -51,16 +56,19 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             flash launch on the tf32x3 kernel (500), peak GiB; one f32 eps call against f32 on
             the CPU with the card's default TF32 flags (printed; cuDNN's
             convs run TF32: F32_EPS_MAX_REL_L2) and with TF32 off
-            (F32_EPS_NO_TF32_MAX_REL_L2)
+            (F32_EPS_NO_TF32_MAX_REL_L2); main_mcg's four-image mcg (c) in
+            f32, once: 1250 flash launches, all tf32x3 (250 on the wide
+            kernel), output finite, in [0, 1], of its shape, every distinct
+            flash site against its plain version in f32
   main_i2i  inference_i2i on the same system, exact bf16, on a seeded 512^2
             image: (a) fid 0, focus 0.5, no colour adjust (50 steps) and
             (b) fid 0.5, focus 0.3, "Simple" (25 steps: VAE encoder, x0
-            start, focus filter, colour adjust), each cold then warm, with
+            start, focus filter, colour adjust), each once, with
             their launch counts; regularize_image on a non-512^2 image
   main_text inference_i2t on the seeded 512^2 image of main_i2i and
             inference_t2t on a prompt, exact bf16, n = 4, DDIM-50, CFG 7.5,
-            then the 29-step GPT-2 decode of the Optimus text VAE, each cold
-            then warm with its launch counts; every decoded row is checked
+            then the 29-step GPT-2 decode of the Optimus text VAE, each once
+            with its launch counts; every decoded row is checked
             (BOS first, EOS by the last step, ids inside the vocabulary);
             one full-width text-diffuser eps call per context type (at the
             requests' batch 8) and the first decode step's logits against
@@ -74,13 +82,13 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             given three images (it keeps two; the second masked) and a
             prompt at 0.3, (c) inference_mcg with four images and no prompt
             (1028 context tokens: the cross-attentions take the flash
-            kernel, d 160 the mma.sync one), each cold then warm, with the
+            kernel, d 160 the wgmma kernel's wide heads), each once, with the
             inputs shown and the launch counts by path derived from the
             program; one full-width multi-context eps call (text + image)
             under attention mixing and one under a layer-mixing draw, each
             against f32 on the CPU
   main_modes the sampler modes on the same system, exact bf16, n = 2, CFG 7.5,
-            each request cold then warm: (a) t2i under DPM-Solver++(2M), 20
+            each request once: (a) t2i under DPM-Solver++(2M), 20
             steps; (b) t2i under encoder_reuse=2 (warmup 5), 50 steps; (c)
             t2i under cfg_interval=(0.1, 0.8), 50 steps (the steps outside
             at half batch); (d) t2i, DPM-Solver++ 20 + encoder reuse 2; (e)
@@ -93,8 +101,8 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             full-width split walk (input half, then the mid and output walk
             from its cache) against the full walk, and cfg_interval=(0, 1)
             against plain CFG on the t2i request, each bit-equal or within
-            relative L2 MODE_MAX_REL_L2; and the exact t2i request warm, the
-            yardstick of the modes' times
+            relative L2 MODE_MAX_REL_L2; the exact t2i request warm is the
+            yardstick of the modes' (first) times
   eps       one full-width UNet eps call on the card (bf16) against the port
             on the CPU in f32, same weights and inputs
   main_legacy the legacy diffuser zoo (vdtpu_torch/models/legacy.py) at
@@ -122,13 +130,13 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             enable_int8 over vdtpu's four flows (calibration, timed); the
             int8 conv kernel against
             its plain version at every distinct conv site of one UNet call,
-            on that site's own arguments; then the same request cold and
-            warm as (a) int8 and (b) int8 + ToMe 0.75, each with its launch
+            on that site's own arguments; then the same request once as
+            (a) int8 and (b) int8 + ToMe 0.75, each with its launch
             counts of the no-max (also by kv length: ToMe's merged sites),
             int8 conv and torch._int_mm paths, and the int8 conv's launches
             by tile-plan path (halo or general) against qconv3_plan's; then
-            main_mcg's tcg request (b) under int8 + ToMe 0.75, cold and
-            warm, with its launch counts; then one int8 + ToMe 0.75 t2i
+            main_mcg's tcg request (b) under int8 + ToMe 0.75, once,
+            with its launch counts; then one int8 + ToMe 0.75 t2i
             request under encoder_reuse=2 (the split walk on the no-max,
             int8 conv and GN kernels), launches derived per half
   modes     one full-width int8 eps call in each opt-in policy mode
@@ -138,23 +146,25 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             fused-prologue conv against its plain version at every distinct
             site of its call; then t2i requests under the default int8
             policy, gn_prologue "fused", gn_prologue "stats", conv "fused"
-            and the default again, each cold then warm (times recorded
-            beside each other, the opt-in modes' launch counts asserted)
+            and the default again, each once (times recorded beside each
+            other, the opt-in modes' launch counts asserted)
   eps_int8  one full-width int8 eps call on the card (bf16) against the
-            port's int8 plain path on the CPU in f32, same scales
+            port's int8 plain path on the CPU in f32, same scales (the CPU
+            call runs in a thread during main_parallel, whose process waits
+            on its ranks, where that phase runs too)
   main_fused2 QuantPolicy(conv="fused2") on the calibrated system: the
             whole-ResBlock kernel against its plain version at every
             distinct fused2 site of one UNet call (the site's own
             arguments), one eps call against conv="fused", then t2i and i2i
-            (a) requests cold and warm with their launch counts (the
+            (a) requests once with their launch counts (the
             whole-ResBlock kernel's also by resblock_plan route)
   main_queue the serving queue (vdtpu_torch.serving.queue.BatchingQueue,
             buckets 1, 2, 4, 8) on the same system: ToMe's merge timed at
             TOME_SHAPES (deterministic, against the scatter_add_ merge it
             replaced); (a) 8 concurrent exact t2i requests as one bucket of
-            8 (the UNet at batch 16), DDIM-50, cold then warm, beside a
-            2-image inference_t2i, with peak memory, launches and GN routes
-            derived from the program, and one profiled batch-16 CFG step;
+            8 (the UNet at batch 16), DDIM-50, once, with peak memory,
+            launches and GN routes derived from the program, and one
+            profiled batch-16 CFG step;
             (d) the bucket's first request alone at bucket 1, within
             QUEUE_MAX_REL_L2 / QUEUE_MIN_COS of its bucket-8 image, and (c)
             bit-equal to inference_t2i at n = 1; (b) a request in two
@@ -244,7 +254,10 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             QUEUE_MIN_COS); (e) the utilities: a UNet step traced by
             ``utils.profiling.trace`` and broken down by ``summarize_trace``,
             ``utils.debug.checked`` on a clean and a NaN-injected UNet call,
-            ``device_memory_stats``. Every rank runs under a timeout; a rank
+            ``device_memory_stats``. (a) and (b) run at once, as do (c) and
+            (d), with (e) in this process meanwhile: the processes share the
+            card and the host, so their step times are not one run's alone.
+            Every rank runs under a timeout; a rank
             that fails or hangs fails the phase. The launcher runs save no
             checkpoint (a call may write 45 GiB to the disk, and main_launch
             writes most of it)
@@ -268,6 +281,11 @@ Phases (each one's failure fails the run; nothing falls back to the CPU):
             It assumes no plan, route or counter of the kernels, so a copy of
             this script placed at another checkout's root times that
             checkout's package the same way, in the same call
+  wide_sweep (not run by default) the wgmma forward's wide heads at other
+            block heights and key tiles than its plan's (WIDE_SWEEP_VARIANTS,
+            built from csrc/attn_fwd_sm90.cuh into a library of their own),
+            each held to the plain version and timed in turns with the
+            plan's launch at WIDE_SWEEP_SHAPES
   profile   (not run by default) the warm request split into its stages,
             and one CFG UNet step under torch.profiler (exact, int8, int8 +
             ToMe, int8 gn_prologue="fused" and int8 conv="fused2"): device
@@ -292,6 +310,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import zlib
 
@@ -299,8 +318,8 @@ PHASES = ("device", "build", "kernels", "main", "main_f32", "main_i2i", "main_te
           "main_modes", "eps", "main_legacy",
           "main_int8", "modes", "eps_int8", "main_fused2", "main_queue", "main_quality", "probes",
           "train", "main_launch", "main_parallel",
-          "profile", "gn_sweep", "gnq_sweep", "gnq_compare")
-DEFAULT_PHASES = PHASES[:-4]
+          "profile", "gn_sweep", "gnq_sweep", "gnq_compare", "wide_sweep")
+DEFAULT_PHASES = PHASES[:-5]
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # and the special-function units' exponentials: 16 per SM per clock on 132
@@ -329,18 +348,26 @@ ATTN_BUCKET_SHAPES = [(16, 4096, 8, 40), (16, 1024, 8, 80)]
 # site (4096 tokens merged to 1024 at d_head 40)
 NOMAX_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 40), (4, 1024, 8, 80)] + ATTN_BUCKET_SHAPES
 # shapes that take the two forwards' mma.sync kernels, which no main-path
-# site reaches (heads over 80, d % 8 != 0 and unaligned views go there):
+# site reaches (heads over 160, d % 8 != 0 and unaligned views go there):
 # (B, N, H, D, elements q, k and v start into their buffers); element loads
 # at an offset of one and at d 36 (the TPU's _nomax_kernel case), 16-byte
-# cp.async loads at d 96
-FLASH_MMA_SHAPES = [(4, 1024, 8, 40, 1), (4, 1024, 8, 96, 0)]
+# cp.async loads at d 168
+FLASH_MMA_SHAPES = [(4, 1024, 8, 40, 1), (4, 1024, 8, 168, 0)]
 # the flash forward at a four-image mcg request's cross-attentions
 # (main_mcg (c)): 4 x 257 = 1028 image tokens as keys, a ragged last key
 # tile, under the queries of the 64^2, 32^2 and 16^2 maps; (B, N, H, D,
-# offset, keys). d 160 takes the mma.sync kernel
+# offset, keys). d 160 takes the wgmma kernel's wide heads
+# (csrc/attn_fwd_wide.cu)
 FLASH_XATTN_SHAPES = [(4, 4096, 8, 40, 0, 1028), (4, 1024, 8, 80, 0, 1028),
                       (4, 256, 8, 160, 0, 1028)]
-NOMAX_MMA_SHAPES = [(4, 1024, 8, 36, 0), (4, 1024, 8, 96, 0)]
+NOMAX_MMA_SHAPES = [(4, 1024, 8, 36, 0), (4, 1024, 8, 168, 0)]
+# the forwards at heads of 88-160 (csrc/attn_fwd_wide.cu in bf16 for Flash,
+# FlashLse and NoMax; csrc/tf32x3_fwd_wide.cu in f32): the mcg's 16^2
+# cross-attention first, then a d-128 self-attention; (B, N, H, D, offset,
+# keys) in bf16, (B, N, H, D, keys) in f32. Each is timed in turns against
+# the kernel it replaced (mma.sync; SIMT f32) and against SDPA.
+FLASH_WIDE_SHAPES = [(4, 256, 8, 160, 0, 1028), (4, 1024, 8, 128, 0, 1024)]
+FLASH_F32_WIDE_SHAPES = [(4, 256, 8, 160, 1028), (4, 1024, 8, 128, 1024)]
 # the legacy AttentionBlock's flash site (main_legacy (b), ADM ImageNet-256
 # at its 32^2 map: 1024 tokens, 8 heads of 64, CFG batch 2): q, k and v as
 # strided views of one fused qkv projection, [B, N, H, 3, d] (legacy order)
@@ -377,6 +404,38 @@ GNQ_SWEEP_SHAPES = [(4, 320, 64, 64), (4, 960, 64, 64), (4, 640, 32, 32), (4, 19
 # gnq_compare: warm requests of each policy, taken in turn (the host's load
 # moves a request's time by up to 20% from call to call)
 GNQ_COMPARE_ROUNDS = 5
+# wide_sweep: (B, N, H, D, keys) and the (padded head, consumer warpgroups,
+# key tile) variants of the wgmma forward's wide heads timed against the
+# plan's own (one warpgroup over <= 256 queries, 64-key tiles past d 128)
+WIDE_SWEEP_SHAPES = [(4, 256, 8, 160, 1028), (4, 4096, 8, 160, 1028), (4, 1024, 8, 96, 1024),
+                     (4, 1024, 8, 128, 1024)]
+WIDE_SWEEP_VARIANTS = [(160, 2, 64), (160, 1, 64), (160, 1, 128), (96, 2, 128), (96, 1, 128),
+                       (128, 2, 128), (128, 2, 64), (128, 1, 128)]
+# its library: the variants' instantiations with hidden visibility (a
+# template instantiated in csrc/attn_fwd_wide.cu's library too would
+# otherwise bind to that library's copy and its launch setup)
+WIDE_SWEEP_SRC = """#include "attn_fwd_sm90.cuh"
+extern "C" __attribute__((visibility("default"))) int vd_wide_sweep(
+    int variant, const void* q, const void* k, const void* v, void* o, int B, int N, int M,
+    int H, int D, long long sqb, long long sqn, long long sqh, long long skb, long long skn,
+    long long skh, long long svb, long long svn, long long svh, long long sob, long long son,
+    long long soh, float qscale, void* stream) {
+  vdattn::Args a = {};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.B = B; a.N = N; a.M = M; a.H = H; a.D = D;
+  a.sqb = sqb; a.sqn = sqn; a.sqh = sqh; a.skb = skb; a.skn = skn; a.skh = skh;
+  a.svb = svb; a.svn = svn; a.svh = svh; a.sob = sob; a.son = son; a.soh = soh;
+  a.qscale = qscale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+CASES
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+"""
 # the GN kernel's shapes in the kernels phase, each with gn_plan's route
 # (asserted a launch): GN_SHAPES (the UNet's maps resident, the VAE's 512^2 map
 # streaming: its CTAs would take more than one wave), the commonest
@@ -484,6 +543,10 @@ F32_EPS_NO_TF32_MAX_REL_L2 = 1e-4
 # off): |k - p| <= F32_ATOL + F32_RTOL * |p|, the CPU f32 flash band (both
 # sides sum f32 products in other orders), and relative L2 <= F32_MAX_REL_L2
 F32_ATOL, F32_RTOL, F32_MAX_REL_L2 = 2e-5, 1e-4, 1e-5
+# the wide tf32x3 forward's lse (heads over 80) against the plain one's: the
+# 128-row kernel's largest error at the main path's shapes (1.14e-5 at 4096
+# keys on an H100, inside the F32_ATOL / F32_RTOL band that gates it)
+F32_LSE_ATOL = 1.1e-5
 # flash backward against its plain version: the gradients are small (about
 # 1e-2 at the path's shapes), so the two bf16 ulps are taken at the largest
 # magnitude of each output, |k - p| <= ATOL * max|p| + RTOL * |p|, and the
@@ -548,9 +611,17 @@ PAR_TP_BATCH = 2
 PAR_LOSS_RTOL = 1e-2
 PAR_EPS_MIN_COS, PAR_EPS_MAX_REL_L2, PAR_EPS_F32_RATIO = 0.999, 0.02, 1.5
 PAR_TIMEOUT = 420     # seconds for each multi-process run, every rank killed after
+# intra-op threads of eps_int8's CPU call while main_parallel's ranks run
+PAR_CPU_THREADS = 4
 TOME_RATIO = 0.75
 SEED = 0      # weights, noise and inputs are made from it
 STEPS = 50    # DDIM steps of the main-path request
+# the requests of main_i2i, main_text, main_mcg, main_modes, main_int8, modes,
+# main_fused2 and main_queue (a) run once: their warm repeats and
+# main_modes' timing rounds
+# are the port's benchmark's to time (ROADMAP queue 1 item 1). main keeps
+# cold and warm: its warm seconds are the host's pace.
+ONCE = ("once",)
 # main_modes: DPM-Solver++(2M) steps, the encoder-reuse interval (warmup 5,
 # the JAX package's default), the cfg interval of request (c); the split
 # walk and cfg_interval=(0, 1) against the full walk and plain CFG, in
@@ -559,11 +630,6 @@ MODE_STEPS = 20
 MODE_REUSE = 2
 MODE_BAND = (0.1, 0.8)
 MODE_MAX_REL_L2 = 1e-3
-# warm t2i requests of each mode and of exact DDIM-50, taken in turn, for
-# the modes' time against exact (one request moves by 15% from run to run;
-# one round since main_parallel joined the default run, which must end
-# within 1200 s)
-MODE_ROUNDS = 1
 # main_queue: the serving queue's buckets; its full bucket of 8 t2i requests
 # (UNet batch 16) at DDIM-50; the co-rider, bucket-1 and seven-flow checks at
 # QUEUE_STEPS; the CLI at CLI_STEPS
@@ -700,8 +766,8 @@ def phase_build(state):
     for name, text in build.build_logs.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(m) > 0 for m in re.findall(r"(\d+) bytes spill stores", text))
-        log(f"  nvcc {name}: {len(regs)} kernels, registers {min(regs, default=0)}-"
-            f"{max(regs, default=0)}, {spills} with spills")
+        log(f"  nvcc {name}: {build.build_seconds.get(name, 0.0):.1f} s, {len(regs)} kernels, "
+            f"registers {min(regs, default=0)}-{max(regs, default=0)}, {spills} with spills")
         # ptxas -v of the setmaxnreg kernels, whose launch needs an exact count
         wg = []
         for fn, n in re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
@@ -721,6 +787,7 @@ def phase_build(state):
     probe_scratch(torch.zeros((4, 4), dtype=torch.bfloat16, device="cuda"))
     torch.cuda.synchronize()
     state["build_s"] = time.perf_counter() - t0
+    state["nvcc_s"] = dict(build.build_seconds)
     log(f"build: nvcc {t_nvcc:.2f} s, with triton {state['build_s']:.2f} s")
 
 
@@ -821,6 +888,69 @@ def _attention_qkv_case(shape, gen):
                 bound_detail=dict(bytes=nbytes, flops=flops, exps=exps))
 
 
+def _mma_fwd(q, k, v, out):
+    """A call of the flash forward's mma.sync kernel (16-byte cp.async
+    loads) through its own C entry (``vd_flash_fwd_mma``), bypassing the
+    plan: the kernel that heads of 88-160 took before the wgmma kernel's
+    wide heads. Counts on no wrapper."""
+    import ctypes
+    import torch
+    from vdtpu_torch.ops.flash import _flash_lib
+    fn = _flash_lib("flash_fwd").vd_flash_fwd_mma
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    b, n, h, d = q.shape
+    st = lambda t: tuple(t.stride()[:3])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b, n, k.shape[1], h,
+            d, *st(q), *st(k), *st(v), *st(out), d ** -0.5, 1)
+
+    def call():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"flash_fwd mma.sync launch failed: cudaError {rc}")
+    return call
+
+
+def _wide_case(shape, gen):
+    """The wgmma forward at a head of 88-160 (csrc/attn_fwd_wide.cu):
+    ``_attention_case`` for Flash (with its FlashLse check) and for NoMax,
+    each on the wgmma path, one launch each on ``launches_wide``; the
+    mma.sync kernel it replaced on the same q, k, v (``_mma_fwd``, held to
+    the plain version too) timed in turns (wgmma, mma.sync, wgmma,
+    mma.sync)."""
+    import torch
+    from vdtpu_torch.ops.flash import flash_attention, flash_attention_plain
+    from vdtpu_torch.ops.nomax import flash_attention_nomax
+    before = (flash_attention.launches_wide["wgmma"],
+              flash_attention_nomax.launches_wide["wgmma"])
+    r = _attention_case(shape, gen)
+    rn = _attention_case(shape, gen, nomax=True)
+    wide = (flash_attention.launches_wide["wgmma"] - before[0],
+            flash_attention_nomax.launches_wide["wgmma"] - before[1])
+    b, n, h, d = shape[:4]
+    m = shape[5] if len(shape) > 5 else n
+    q, k, v = (torch.randn(b, rows, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+               for rows in (n, m, m))
+    kern = lambda: flash_attention(q, k, v)
+    mma_out = torch.empty_like(q)
+    mma = _mma_fwd(q, k, v, mma_out)
+    mma()
+    ref = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    m_err, m_rel, m_ok = compare(mma_out, ref)
+    turns = [time_graph_ms(kern), time_graph_ms(mma), time_graph_ms(kern), time_graph_ms(mma)]
+    r.update(ok=r["ok"] and rn["ok"] and m_ok and m_rel <= ATTN_MAX_REL_L2 and wide[0] >= 2
+             and wide[1] >= 1,
+             max_abs_err=max(r["max_abs_err"], rn["max_abs_err"]), ms_turns=turns,
+             mma_ms=turns[1], mma_max_abs_err=m_err, mma_rel_l2_err=m_rel,
+             launches_wide=list(wide),
+             nomax=dict(ms=rn["ms"], plain_ms=rn["plain_ms"], library_ms=rn["library_ms"],
+                        max_abs_err=rn["max_abs_err"], rel_l2_err=rn["rel_l2_err"],
+                        ok=rn["ok"], path=rn["path"], bound_ms=rn["bound_ms"]))
+    return r
+
+
 def _flash_fwd_case(shape, gen):
     """``_attention_qkv_case`` at FLASH_QKV_SHAPES, else ``_attention_case``."""
     if isinstance(shape[-1], str):
@@ -887,7 +1017,7 @@ def _simt_f32(name: str, *tensors, scale: float):
     plan's kernels, not run by any main path."""
     import torch
     from vdtpu_torch.ops.flash import _flash_lib
-    lib = _flash_lib(name)
+    lib = _flash_lib("flash_fwd_f32" if name == "flash_fwd" else name)
     b, n, h, d = tensors[0].shape
     m = tensors[1].shape[1]
     st = lambda t: tuple(t.stride()[:3])
@@ -911,20 +1041,22 @@ def _simt_f32(name: str, *tensors, scale: float):
 
 
 def _flash_f32_case(shape, gen):
-    """The flash forward's f32 route at ``shape``, with and without lse,
-    against the plain forward in f32 (TF32 off): the tf32x3 kernel (the
-    plan's path here, asserted) and, through its own C entry, the SIMT
-    kernel (``_simt_f32``), both within F32_ATOL / F32_RTOL /
-    F32_MAX_REL_L2; timed in turns (tf32x3, SIMT, tf32x3, SIMT) with SDPA
-    in f32 as the yardstick. ``bound_ms``: the 3xTF32 bound (three tf32
-    passes of both products at PEAK_TF32, the exponentials, the bytes);
-    ``bound_f32_ms``: the same work as f32 FMAs at PEAK_F32."""
+    """The flash forward's f32 route at ``shape`` ((B, N, H, D) or (B, N,
+    H, D, keys)), with and without lse, against the plain forward in f32
+    (TF32 off): the tf32x3 kernel (the plan's path here, asserted) and,
+    through its own C entry, the SIMT kernel (``_simt_f32``), both within
+    F32_ATOL / F32_RTOL / F32_MAX_REL_L2 (lse within F32_LSE_ATOL); timed in
+    turns (tf32x3, SIMT, tf32x3, SIMT) with SDPA in f32 as the yardstick.
+    ``bound_ms``: the 3xTF32 bound (three tf32 passes of both products at
+    PEAK_TF32, the exponentials, the bytes); ``bound_f32_ms``: the same
+    work as f32 FMAs at PEAK_F32."""
     import torch
     import torch.nn.functional as F
-    from vdtpu_torch.ops.flash import _plan_for, flash_attention, flash_attention_fwd, \
-        flash_attention_plain
-    b, n, h, d = shape
-    q, k, v = (torch.randn(shape, device="cuda", generator=gen) for _ in range(3))
+    from vdtpu_torch.ops.flash import TF32X3_BWD_MAX_D, _plan_for, flash_attention, \
+        flash_attention_fwd, flash_attention_plain
+    b, n, h, d = shape[:4]
+    m = shape[4] if len(shape) > 4 else n
+    q, k, v = (torch.randn(b, rows, h, d, device="cuda", generator=gen) for rows in (n, m, m))
     with _no_tf32():
         before = dict(flash_attention.launches_by_path)
         kern = lambda: flash_attention(q, k, v)
@@ -940,6 +1072,7 @@ def _flash_f32_case(shape, gen):
         err_l, rel_l, ok_l = compare(out_l, ref, F32_ATOL, F32_RTOL)
         lse_err, _, ok_lse = compare(lse, lse_ref, F32_ATOL, F32_RTOL)
         ok = (ok and ok_l and ok_lse and max(rel, rel_l) <= F32_MAX_REL_L2
+              and (d <= TF32X3_BWD_MAX_D or lse_err <= F32_LSE_ATOL)
               and path == "tf32x3" and took == {"tf32x3": 2})
         simt, (s_out, _) = _simt_f32("flash_fwd", q, k, v, torch.empty_like(q), None,
                                      scale=d ** -0.5)
@@ -958,8 +1091,8 @@ def _flash_f32_case(shape, gen):
                  time_graph_ms(simt)]
         plain_ms, lib_ms = time_graph_ms(plain, 2, 2), time_graph_ms(lib)
         ms_lse, simt_ms_lse = time_graph_ms(kern_lse), time_graph_ms(simt_lse)
-    flops, exps = 4.0 * b * h * n * n * d, float(b * h * n * n)
-    nbytes = 4 * (q.numel() + 3 * k.numel())
+    flops, exps = 4.0 * b * h * n * m * d, float(b * h * n * m)
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
     bound_ms, bound_by = _bound(nbytes, max(3 * flops / PEAK_TF32, exps / PEAK_EXP))
     bound_f32_ms, _ = _bound(nbytes, max(flops / PEAK_F32, exps / PEAK_EXP))
     return dict(shape=list(shape), max_abs_err=max(err, err_l), rel_l2_err=max(rel, rel_l),
@@ -1458,6 +1591,10 @@ def phase_kernels(state):
          "vdtpu/ops/pallas/flash.py:444", _flash_bwd_case, FLASH_SHAPES),
         ("flash_fwd_tf32x3", "cuda", "vdtpu_torch/csrc/flash_fwd.cu",
          "vdtpu/ops/pallas/flash.py:40", _flash_f32_case, FLASH_SHAPES),
+        ("attn_fwd_wide", "cuda", "vdtpu_torch/csrc/attn_fwd_wide.cu",
+         "vdtpu/ops/pallas/flash.py:40", _wide_case, FLASH_WIDE_SHAPES),
+        ("flash_fwd_tf32x3_wide", "cuda", "vdtpu_torch/csrc/tf32x3_fwd_wide.cu",
+         "vdtpu/ops/pallas/flash.py:40", _flash_f32_case, FLASH_F32_WIDE_SHAPES),
         ("flash_bwd_tf32x3", "cuda", "vdtpu_torch/csrc/flash_bwd.cu",
          "vdtpu/ops/pallas/flash.py:444", _flash_bwd_f32_case, FLASH_SHAPES),
         ("gn_silu", "cuda", "vdtpu_torch/csrc/gn_silu.cu",
@@ -1508,6 +1645,8 @@ def phase_kernels(state):
             shapes=rows)
         if name in ("flash_bwd", "flash_bwd_tf32x3"):  # _bwd_impl's two TPU kernels: dq :444, dk/dv :474
             state["kernels"][name]["replaces_also"] = "vdtpu/ops/pallas/flash.py:474"
+        if name == "attn_fwd_wide":  # Mode NoMax: _nomax_slim_kernel, _nomax_packed_kernel
+            state["kernels"][name]["replaces_also"] = "vdtpu/ops/pallas/flash.py:223"
         if name == "gn_silu_q":  # _gn_silu_q_blocked's apply pass
             state["kernels"][name]["replaces_also"] = "vdtpu/ops/pallas/gn_silu.py:210"
     if failed:
@@ -1696,6 +1835,78 @@ def _gnq_trace(state, shape, plan, run) -> dict:
     return out
 
 
+def phase_wide_sweep(state):
+    """The wide heads' block heights and key tiles measured (see the
+    docstring's phase list)."""
+    import ctypes
+    import torch
+    from vdtpu_torch.ops.flash import _plan_for, flash_attention, flash_attention_plain
+    from vdtpu_torch.ops.kernels import build
+    out = os.path.join(os.path.dirname(build.BUILD_DIR), "wide_sweep")
+    os.makedirs(out, exist_ok=True)
+    cases = "\n".join(f"    case {i}: return vdattn::launch_wg<{dp}, {nc}, vdattn::Mode::Flash, "
+                      f"{bk}>(a, st);" for i, (dp, nc, bk) in enumerate(WIDE_SWEEP_VARIANTS))
+    src, lib_path = os.path.join(out, "wide_sweep.cu"), os.path.join(out, "libwide_sweep.so")
+    with open(src, "w") as f:
+        f.write(WIDE_SWEEP_SRC.replace("CASES", cases))
+    t = time.perf_counter()
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xcompiler",
+                           "-fvisibility=hidden", "-I", build.CSRC_DIR, "-o", lib_path, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"wide_sweep: nvcc failed: {proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    regs = re.findall(r"Compiling entry function '\w+?Li(\d+)ELi(\d+)E\w+?ModeE0ELi(\d+)\w*'"
+                      r".*?Used (\d+) registers", proc.stdout + proc.stderr, re.S)
+    log(f"wide_sweep: built in {time.perf_counter() - t:.1f} s; registers (d, warpgroups, key "
+        f"tile, registers) {regs}")
+    fn = ctypes.CDLL(lib_path).vd_wide_sweep
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    st = lambda x: tuple(x.stride()[:3])
+    rows = []
+    for b, n, h, d, m in WIDE_SWEEP_SHAPES:
+        q, k, v = (torch.randn(b, r, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for r in (n, m, m))
+        ref, plan = flash_attention_plain(q, k, v), _plan_for(q, k, v)
+        calls = {"plan": lambda: flash_attention(q, k, v)}
+        errs = {}
+        for i, (dp, nc, bk) in enumerate(WIDE_SWEEP_VARIANTS):
+            if dp != plan.dp:
+                continue
+            o = torch.empty_like(q)
+
+            def call(i=i, o=o):
+                rc = fn(i, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, m, h, d,
+                        *st(q), *st(k), *st(v), *st(o), d ** -0.5,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"wide_sweep variant {WIDE_SWEEP_VARIANTS[i]}: "
+                                       f"cudaError {rc}")
+            call()
+            torch.cuda.synchronize()
+            err, rel, ok = compare(o, ref)
+            if not (ok and rel <= ATTN_MAX_REL_L2):
+                raise RuntimeError(f"wide_sweep variant {(dp, nc, bk)} at {(b, n, h, d, m)}: "
+                                   f"max_abs_err {err}, rel_l2 {rel}")
+            calls[f"{nc} warpgroups, {bk}-key tiles"] = call
+            errs[f"{nc} warpgroups, {bk}-key tiles"] = rel
+        times = {name: [] for name in calls}
+        for _ in range(2):   # in turns
+            for name, call in calls.items():
+                times[name].append(time_graph_ms(call))
+        row = dict(shape=[b, n, h, d, m], plan=dict(block_q=plan.block_q, block_k=plan.block_k,
+                                                    stages=plan.stages), ms=times, rel_l2=errs)
+        rows.append(row)
+        log(f"wide_sweep {(b, n, h, d, m)}: the plan ({plan.block_q} query rows, "
+            f"{plan.block_k}-key tiles, {plan.stages} stages) and the variants, device ms in "
+            f"turns: {json.dumps({k: [round(x, 5) for x in t] for k, t in times.items()})}; "
+            f"relative L2 {json.dumps({k: round(x, 6) for k, x in errs.items()})} "
+            f"[{state.get('card')}]")
+    state["wide_sweep"] = rows
+
+
 def phase_gnq_compare(state):
     import statistics
     import torch
@@ -1814,7 +2025,12 @@ def phase_main_f32(state):
     their shape. Then one f32 eps call against f32 on the CPU on the same
     weights and inputs (``_eps_ref``, shared with ``eps``), with the card's
     default TF32 flags (printed: cuDNN's convolutions run TF32) and with
-    TF32 off (F32_EPS_*)."""
+    TF32 off (F32_EPS_*). Then main_mcg's four-image mcg request (c) in f32,
+    once: its flash launches as ``_mc_launches`` derives them (1250), every
+    one on the tf32x3 kernels, its 250 d-160 cross-attentions on the wide
+    one (csrc/tf32x3_fwd_wide.cu); output finite, in [0, 1], of its shape;
+    every distinct flash site of the request held to its plain version in
+    f32 (``_flash_site_check``)."""
     import gc
     import torch
     from vdtpu_torch.ops.flash import flash_attention
@@ -1888,12 +2104,63 @@ def phase_main_f32(state):
         k = state["kernels"]["flash_fwd_tf32x3"]
         k["launches"] = results["request"]["flash_by_path"]["tf32x3"]
         k["path"] = "main_f32 (f32 exact t2i request)"
-    del system
-    gc.collect()
-    torch.cuda.empty_cache()
     if not (math.isfinite(cos) and cos >= F32_EPS_MIN_COS and rel <= F32_EPS_MAX_REL_L2
             and rel0 <= F32_EPS_NO_TF32_MAX_REL_L2 and eps_paths["tf32x3"] == 20):
         raise RuntimeError("main_f32: the f32 eps call disagrees with f32 on the CPU")
+    results["mcg"] = _f32_mcg(state, system)
+    del system
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _f32_mcg(state, system):
+    """main_mcg's four-image mcg request (c) on the f32 system, once (see
+    ``phase_main_f32``)."""
+    import torch
+    from vdtpu_torch.ops.flash import flash_attention
+    from vdtpu_torch.ops.gn_silu import gn_silu
+    from vdtpu_torch.serving.api import VDInference
+    vdi = VDInference(system, text_tokenizer=stand_in_tokenizer, output_dim=(512, 512),
+                      ddim_steps=STEPS, n_sample_image=2)
+    images, mask = _mcg_inputs()
+    _, call, n_shown, contexts = next(r for r in _mcg_requests(vdi, images, mask)
+                                      if r[0] == "c")
+    expect, bf16_paths, wide = _mc_launches(system, contexts)
+    expect_paths = {"wgmma": 0, "mma": 0, "f32": 0, "tf32x3": sum(bf16_paths.values())}
+    expect_wide = {"wgmma": 0, "tf32x3": wide}
+    calls = []
+    torch.cuda.synchronize()
+    _zero_counters()
+    t = time.perf_counter()
+    with _recording_flash(calls, distinct=True):
+        shown, img = call()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = {"flash_fwd": flash_attention.launches, "gn_silu": gn_silu.launches}
+    paths = dict(flash_attention.launches_by_path)
+    got_wide = dict(flash_attention.launches_wide)
+    finite = bool(torch.isfinite(img).all())
+    lo, hi = float(img.min()), float(img.max())
+    log(f"main_f32 mcg (c): {dt:.3f} s (once, cold), shape {tuple(img.shape)} finite {finite} "
+        f"range [{lo:.4f}, {hi:.4f}], inputs shown {len(shown)} (expected {n_shown}), "
+        f"launches {counts} (expected {expect}), flash by path {paths} (expected "
+        f"{expect_paths}), at heads over 80 {got_wide} (expected {expect_wide}) "
+        f"[{state.get('card')}]")
+    if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0 and hi <= 1.0
+            and len(shown) == n_shown):
+        raise RuntimeError("main_f32 mcg: bad output")
+    if counts != expect or paths != expect_paths or got_wide != expect_wide:
+        raise RuntimeError(f"main_f32 mcg: launches {counts} by path {paths} wide {got_wide} "
+                           f"!= {expect} / {expect_paths} / {expect_wide}")
+    del img, shown
+    rows = _flash_site_check(state, "main_f32 mcg (c)", calls)
+    if "flash_fwd_tf32x3_wide" in state["kernels"]:
+        k = state["kernels"]["flash_fwd_tf32x3_wide"]
+        k["launches"] = got_wide["tf32x3"]
+        k["path"] = "main_f32 (four-image mcg, f32 exact)"
+        k["site_checks"] = [r for r in rows if r["site"][0][-1] > 80]
+    return dict(seconds=dt, launches=counts, flash_by_path=paths, flash_wide=got_wide,
+                sites=rows)
 
 
 def _i2i_image(seed: int, h: int = 512, w: int = 512):
@@ -1936,7 +2203,7 @@ def phase_main_i2i(state):
     results = {}
     for label, fid, fcs, clr, steps in I2I_REQUESTS:
         expect = _i2i_launches(system, steps, fid != 0)
-        for run in ("cold", "warm"):
+        for run in ONCE:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _zero_counters()
@@ -1962,7 +2229,7 @@ def phase_main_i2i(state):
                                              launches=counts)
     for name in ("flash_fwd", "gn_silu"):
         if name in state["kernels"]:
-            state["kernels"][name]["launches_i2i_a"] = results["a_warm"]["launches"][name]
+            state["kernels"][name]["launches_i2i_a"] = results["a_once"]["launches"][name]
     state["main_i2i"] = results
 
 
@@ -2103,7 +2370,7 @@ def phase_main_text(state):
     results = {}
     for label, c_type, run_request in requests:
         expect = _text_launches(system, c_type)
-        for run in ("cold", "warm"):
+        for run in ONCE:
             calls = []
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2190,7 +2457,7 @@ def phase_main_text(state):
     if "gn_silu" in state["kernels"]:
         for label in ("i2t", "t2t"):
             state["kernels"]["gn_silu"][f"launches_{label}"] = \
-                results[f"{label}_warm"]["launches"]["gn_silu"]
+                results[f"{label}_once"]["launches"]["gn_silu"]
 
 
 def _mcg_inputs():
@@ -2235,31 +2502,36 @@ def _mc_launches(system, contexts):
     self-attention takes the flash kernel on maps of 1024 tokens or more,
     its cross-attention on maps of 256 or more when the context has 1024
     keys or more (the flash rule), on the wgmma kernel for heads up to
-    ATTN_WG_MAX_D and the mma.sync one above; every GroupNorm of the UNet
-    call and of the VAE decoder the GN kernel. Returns (launches, flash
-    launches by path)."""
-    from vdtpu_torch.ops.flash import ATTN_WG_MAX_D
+    ATTN_WG_MAX_D (the forward's limit) and the mma.sync one above; every
+    GroupNorm of the UNet call and of the VAE decoder the GN kernel.
+    Returns (launches, flash launches by path, flash launches at heads
+    over ATTN_WG_NARROW_D: the wide heads' kernels)."""
+    from vdtpu_torch.ops.flash import ATTN_WG_MAX_D, ATTN_WG_NARROW_D
     d = system.model.diffuser
-    paths = {"wgmma": 0, "mma": 0}
+    paths, wide = {"wgmma": 0, "mma": 0}, 0
     for ci, n in enumerate(_ctx_tokens(d["image"], 64)):
         for c_type, keys in contexts:
             dh = d[c_type].program.ctx[ci].dim_head
             path = "wgmma" if dh <= ATTN_WG_MAX_D and dh % 8 == 0 else "mma"
-            paths[path] += STEPS * ((n >= 1024) + (n >= 256 and keys >= 1024))
+            calls = STEPS * ((n >= 1024) + (n >= 256 and keys >= 1024))
+            paths[path] += calls
+            wide += calls if dh > ATTN_WG_NARROW_D else 0
     _, vae_gn, _ = _gn_sites(system)
     gn = _mc_gn(system, [c for c, _ in contexts]) * STEPS + vae_gn
-    return {"flash_fwd": sum(paths.values()), "gn_silu": gn}, paths
+    return {"flash_fwd": sum(paths.values()), "gn_silu": gn}, paths, wide
 
 
-def _mc_request(state, label, call, n_shown, expect, expect_paths, expect_kv=None):
-    """Run one multi-context request cold then warm; gate its output, its
+def _mc_request(state, label, call, n_shown, expect, expect_paths, expect_kv=None,
+                expect_wide=None):
+    """Run one multi-context request once (``ONCE``); gate its output, its
     inputs shown and its launches: ``expect``'s counts, every other counter
     of ``_counters`` at 0, the attention forwards by path and (where given)
-    the no-max kernel's by kv length."""
+    the no-max kernel's by kv length and the flash forward's launches at
+    heads over 80 (``launches_wide``)."""
     import torch
     by_kv_now = _counters()["nomax_fwd"].launches_by_kv
     results = {}
-    for run in ("cold", "warm"):
+    for run in ONCE:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counters()
@@ -2268,6 +2540,7 @@ def _mc_request(state, label, call, n_shown, expect, expect_paths, expect_kv=Non
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         got, by_kv = _read_counters(), dict(by_kv_now)
+        wide = dict(_counters()["flash_fwd"].launches_wide)
         counts = {k: got[k] for k in expect}
         paths = _attn_paths(f"{label} {run}")
         gn_routes = _gn_routes(f"{label} {run}")
@@ -2278,8 +2551,9 @@ def _mc_request(state, label, call, n_shown, expect, expect_paths, expect_kv=Non
         log(f"{label} {run}: {dt:.3f} s, {2 / dt:.3f} images/s, peak {peak:.2f} GiB, shape "
             f"{tuple(img.shape)} finite {finite} range [{lo:.4f}, {hi:.4f}], inputs shown "
             f"{n_got} (expected {n_shown}), launches {counts} (expected {expect}), attention "
-            f"by path {paths} (expected {expect_paths}), GN by route {gn_routes}, no-max by kv "
-            f"length {by_kv} (expected {expect_kv}) [{state.get('card')}]")
+            f"by path {paths} (expected {expect_paths}), flash at heads over 80 {wide} "
+            f"(expected {expect_wide}), GN by route {gn_routes}, no-max by kv length {by_kv} "
+            f"(expected {expect_kv}) [{state.get('card')}]")
         if not (finite and tuple(img.shape) == (2, 512, 512, 3) and lo >= 0.0 and hi <= 1.0):
             raise RuntimeError(f"{label} {run}: bad output")
         if n_got != n_shown or (shown and any(tuple(s.shape) != (1, 512, 512, 3)
@@ -2292,8 +2566,10 @@ def _mc_request(state, label, call, n_shown, expect, expect_paths, expect_kv=Non
                 raise RuntimeError(f"{label} {run}: {name} by path {paths[name]} != {want}")
         if expect_kv is not None and by_kv != expect_kv:
             raise RuntimeError(f"{label} {run}: no-max by kv length {by_kv} != {expect_kv}")
+        if expect_wide is not None and wide != expect_wide:
+            raise RuntimeError(f"{label} {run}: flash at heads over 80 {wide} != {expect_wide}")
         results[run] = dict(seconds=dt, images_per_s=2 / dt, peak_gib=peak, launches=counts,
-                            attention_by_path=paths, gn_by_route=gn_routes)
+                            attention_by_path=paths, gn_by_route=gn_routes, flash_wide=wide)
     return results
 
 
@@ -2332,9 +2608,10 @@ def phase_main_mcg(state):
     images, mask = _mcg_inputs()
     results = {}
     for label, call, n_shown, contexts in _mcg_requests(vdi, images, mask):
-        expect, flash_paths = _mc_launches(system, contexts)
+        expect, flash_paths, wide = _mc_launches(system, contexts)
         res = _mc_request(state, f"main_mcg ({label})", call, n_shown, expect,
-                          {"flash_fwd": flash_paths, "nomax_fwd": {"wgmma": 0, "mma": 0}})
+                          {"flash_fwd": flash_paths, "nomax_fwd": {"wgmma": 0, "mma": 0}},
+                          expect_wide={"wgmma": wide, "tf32x3": 0})
         for run, r in res.items():
             results[f"{label}_{run}"] = r
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -2347,9 +2624,13 @@ def phase_main_mcg(state):
         if name in state["kernels"]:
             k = state["kernels"][name]
             for label in "abc":
-                k[f"launches_mcg_{label}"] = results[f"{label}_warm"]["launches"][name]
+                k[f"launches_mcg_{label}"] = results[f"{label}_once"]["launches"][name]
             if name == "flash_fwd":
-                k["launches_by_path_mcg_c"] = results["c_warm"]["attention_by_path"][name]
+                k["launches_by_path_mcg_c"] = results["c_once"]["attention_by_path"][name]
+    if "attn_fwd_wide" in state["kernels"]:   # the 16^2 cross-attentions at d 160
+        k = state["kernels"]["attn_fwd_wide"]
+        k["launches"] = results["c_once"]["flash_wide"]["wgmma"]
+        k["path"] = "main_mcg (c) (four-image mcg, bf16 exact)"
     state["main_mcg"] = results
 
 
@@ -2480,9 +2761,9 @@ def phase_main_modes(state):
     system = _system(state)
     base = dict(text_tokenizer=stand_in_tokenizer, output_dim=(512, 512), n_sample_image=2)
     vae = {enc: _vae_routes(system, enc) for enc in (False, True)}
-    results, vdis = {}, {"exact": VDInference(system, **base, ddim_steps=STEPS)}
+    results = {}
     for label, modes, call, n_shown, contexts, plan, enc in _mode_requests(system):
-        vdi = vdis[label] = VDInference(system, **base, **modes)
+        vdi = VDInference(system, **base, **modes)
         flash, gn = _mode_expect(system, contexts, plan, vae[enc])
         expect = {"flash_fwd": sum(flash.values()), "gn_silu": sum(gn.values())}
         batches = {b: sum(1 for _, bb in plan if bb == b) for b in sorted({b for _, b in plan})}
@@ -2521,32 +2802,16 @@ def phase_main_modes(state):
     results["cfg_interval_0_1"] = _equal_report(state, "cfg_interval=(0, 1) vs plain CFG",
                                                 imgs["band_0_1"], imgs["exact"])
     results["exact_warm_s"] = secs["exact"]
-    ratios = {label: results[f"{label}_warm"]["seconds"] / secs["exact"] for label in "abcdef"}
-    results["warm_over_exact"] = ratios
+    ratios = {label: results[f"{label}_once"]["seconds"] / secs["exact"] for label in "abcdef"}
+    results["once_over_exact"] = ratios
     log(f"main_modes: exact t2i warm {secs['exact']:.3f} s (cfg_interval (0, 1): "
-        f"{secs['band_0_1']:.3f} s); warm request / exact t2i: "
+        f"{secs['band_0_1']:.3f} s); request (once, its first) / exact t2i: "
         f"{json.dumps({k: round(v, 4) for k, v in ratios.items()})} [{state.get('card')}]")
-    # the t2i modes and exact DDIM-50 in turn, MODE_ROUNDS warm requests each
-    rounds = {name: [] for name in ("exact", "a", "b", "c", "d")}
-    for _ in range(MODE_ROUNDS):
-        for name, times in rounds.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            vdis[name].inference_t2i(prompt, seed=SEED)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-    med = {name: sorted(v)[len(v) // 2] for name, v in rounds.items()}
-    results["rounds_s"] = rounds
-    results["median_over_exact"] = {k: med[k] / med["exact"] for k in "abcd"}
-    log(f"main_modes: {MODE_ROUNDS} warm t2i requests each, in turn: "
-        f"{json.dumps({k: [round(x, 4) for x in v] for k, v in rounds.items()})} s; median / "
-        f"exact median: {json.dumps({k: round(v, 4) for k, v in results['median_over_exact'].items()})} "
-        f"[{state.get('card')}]")
     for name in ("flash_fwd", "gn_silu"):
         if name in state["kernels"]:
             for label in "abcdef":
                 state["kernels"][name][f"launches_modes_{label}"] = \
-                    results[f"{label}_warm"]["launches"][name]
+                    results[f"{label}_once"]["launches"][name]
     state["main_modes"] = results
 
 
@@ -2670,16 +2935,18 @@ def _legacy_expect(sites, calls: int = 1) -> tuple[dict, dict]:
     """Flash launches by path and GN launches by route of ``calls`` calls
     whose sites are ``sites`` (``legacy_sites``), bf16: an attention site
     takes the flash kernel where ``pick_backend`` sends it (q >= 256, kv >=
-    1024, d <= 256), the wgmma kernel for d <= 80 with d % 8 == 0 (every
-    legacy site's q, k and v are 16-byte aligned views), else mma.sync;
-    each GN site the route of ``gn_plan``."""
+    1024, d <= 256), the wgmma kernel for d <= ATTN_WG_MAX_D (the
+    forward's limit) with d % 8 == 0 (every legacy site's q, k and v are
+    16-byte aligned views), else mma.sync; each GN site the route of
+    ``gn_plan``."""
     import torch
+    from vdtpu_torch.ops.flash import ATTN_WG_MAX_D
     from vdtpu_torch.ops.gn_silu import _sm_count, gn_plan
     gn_shapes, attn = sites
     flash = {"wgmma": 0, "mma": 0}
     for q, kv, _, d in attn:
         if q >= 256 and kv >= 1024 and d <= 256:
-            flash["wgmma" if d % 8 == 0 and d <= 80 else "mma"] += calls
+            flash["wgmma" if d % 8 == 0 and d <= ATTN_WG_MAX_D else "mma"] += calls
     gn = {"resident": 0, "streaming": 0}
     for shape in gn_shapes:
         gn[gn_plan(shape, torch.bfloat16, 32, True, _sm_count(0)).route] += calls
@@ -2687,15 +2954,21 @@ def _legacy_expect(sites, calls: int = 1) -> tuple[dict, dict]:
 
 
 @contextlib.contextmanager
-def _recording_flash(calls: list):
+def _recording_flash(calls: list, distinct: bool = False):
     """Record the (q, k, v) views of every call the attention dispatch makes
     to the flash kernel (held, not copied: their strides are the site's),
-    calling through."""
+    calling through; with ``distinct`` only the first call of each site
+    (shapes, strides, dtype), so a whole request holds no more than one
+    set of views a site."""
     from vdtpu_torch.ops import attention
     inner = attention.flash_attention
+    seen = set()
 
     def record(q, k, v, scale=None):
-        calls.append((q.detach(), k.detach(), v.detach()))
+        sig = (tuple(q.shape), tuple(k.shape), q.stride(), k.stride(), str(q.dtype))
+        if not (distinct and sig in seen):
+            seen.add(sig)
+            calls.append((q.detach(), k.detach(), v.detach()))
         return inner(q, k, v, scale)
 
     attention.flash_attention = record
@@ -2708,7 +2981,9 @@ def _recording_flash(calls: list):
 def _flash_site_check(state, label: str, calls):
     """The flash kernel against its plain version at each distinct recorded
     site (shapes, strides, dtype), on that site's own q, k and v views,
-    within the two-ulp band and ATTN_MAX_REL_L2; the path each takes."""
+    within the two-ulp band and ATTN_MAX_REL_L2 (f32 sites: the plain
+    version with TF32 off, within F32_ATOL / F32_RTOL and F32_MAX_REL_L2);
+    the path each takes."""
     import torch
     from vdtpu_torch.ops.flash import _plan_for, flash_attention, flash_attention_plain
     seen, rows = set(), []
@@ -2717,10 +2992,14 @@ def _flash_site_check(state, label: str, calls):
         if sig in seen:
             continue
         seen.add(sig)
-        err, rel, ok = compare(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+        f32 = q.dtype == torch.float32
+        with _no_tf32():
+            err, rel, ok = compare(flash_attention(q, k, v), flash_attention_plain(q, k, v),
+                                   *((F32_ATOL, F32_RTOL) if f32 else (ATOL, RTOL)))
         rows.append(dict(site=[list(q.shape), list(k.shape), list(q.stride())],
+                         dtype=str(q.dtype).replace("torch.", ""),
                          path=_plan_for(q, k, v).path, max_abs_err=err, rel_l2_err=rel,
-                         ok=ok and rel <= ATTN_MAX_REL_L2))
+                         ok=ok and rel <= (F32_MAX_REL_L2 if f32 else ATTN_MAX_REL_L2)))
     torch.cuda.synchronize()
     bad = [r["site"] for r in rows if not r["ok"]]
     if rows:
@@ -3184,7 +3463,8 @@ def _zero_counters(*extra):
     every wrapper in ``_counters`` and of ``extra``."""
     for fn in (*_counters().values(), *extra):
         fn.launches = 0
-        for by in (getattr(fn, "launches_by_path", {}), getattr(fn, "launches_by_route", {})):
+        for by in (getattr(fn, "launches_by_path", {}), getattr(fn, "launches_by_route", {}),
+                   getattr(fn, "launches_wide", {})):
             for key in by:
                 by[key] = 0
     _counters()["nomax_fwd"].launches_by_kv.clear()
@@ -3322,7 +3602,7 @@ def phase_main_int8(state):
         for mode, ratio in (("int8", None), ("int8_tome", TOME_RATIO)):
             system.enable_tome(ratio or 0)
             expect, expect_kv = _int8_launches(system, ratio)
-            for run in ("cold", "warm"):
+            for run in ONCE:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 _zero_counters()
@@ -3380,7 +3660,7 @@ def phase_main_int8(state):
                           expect, {"flash_fwd": {"wgmma": 0, "mma": 0},
                                    "nomax_fwd": {"wgmma": expect["nomax_fwd"], "mma": 0}},
                           expect_kv)
-        paths = dict(qconv3.launches_by_path)   # the warm run's
+        paths = dict(qconv3.launches_by_path)   # the request's
         log(f"main_int8 t2i int8_tome encoder_reuse: int8 conv by path {paths} (expected "
             f"{expect_paths}) [{state.get('card')}]")
         if paths != expect_paths:
@@ -3392,13 +3672,13 @@ def phase_main_int8(state):
         system.enable_tome(0)
     for name in ("nomax_fwd", "qconv3"):
         if name in state["kernels"]:
-            state["kernels"][name]["launches"] = results["int8_warm"]["launches"][name]
-            state["kernels"][name]["path"] = "main_int8 (int8, warm request)"
+            state["kernels"][name]["launches"] = results["int8_once"]["launches"][name]
+            state["kernels"][name]["path"] = "main_int8 (int8 request)"
     if "qconv3" in state["kernels"]:
-        state["kernels"]["qconv3"]["launches_by_path"] = results["int8_warm"]["qconv3_by_path"]
+        state["kernels"]["qconv3"]["launches_by_path"] = results["int8_once"]["qconv3_by_path"]
     if "nomax_fwd" in state["kernels"]:
         state["kernels"]["nomax_fwd"]["launches_by_path"] = \
-            results["int8_warm"]["attention_by_path"]["nomax_fwd"]
+            results["int8_once"]["attention_by_path"]["nomax_fwd"]
     state["main_int8"] = results
 
 
@@ -3597,12 +3877,12 @@ def phase_modes(state):
     for name, mode in (("gn_silu_q", "gn_prologue=fused"), ("gn_stats", "gn_prologue=stats")):
         if name in state["kernels"]:
             k = state["kernels"][name]
-            warm = reqs[f"{mode} warm"]
-            k["launches"] = warm[name]
-            k["launches_by_route"] = warm["gnq_by_route"][name]
+            req = reqs[f"{mode} once"]
+            k["launches"] = req[name]
+            k["launches_by_route"] = req["gnq_by_route"][name]
             k["path"] = f"modes: a {mode} t2i request (512^2, n = 2, DDIM-{STEPS}, CFG)"
             if name == "gn_stats":
-                k["launches_conv_fused"] = reqs["conv=fused warm"]["gn_stats"]
+                k["launches_conv_fused"] = reqs["conv=fused once"]["gn_stats"]
     if "qconv3" in state["kernels"]:
         state["kernels"]["qconv3"]["launches_gn_prologue"] = totals["qconv3_gn"]
     state["modes"] = results
@@ -3610,8 +3890,8 @@ def phase_modes(state):
 
 def _fused_request(state, system):
     """t2i requests under the default int8 policy, gn_prologue "fused" and
-    "stats", conv "fused" and the default again, each cold then warm, in
-    this call: times recorded beside each other, not gated. The opt-in
+    "stats", conv "fused" and the default again, each once, in this call:
+    times recorded beside each other, not gated. The opt-in
     modes' int8 GN launches are asserted as derived from the program: a
     request's UNet calls (STEPS, batch 4: 2 images x CFG) each launch
     gn_silu_q ("fused") or gn_stats ("stats") once at every int8 ResBlock
@@ -3645,7 +3925,7 @@ def _fused_request(state, system):
                       ("default again", system.quant_policy)):
         counts, want_q, want_st = want[mode.replace(" again", "")]
         with _policy(system, pol):
-            for run in ("cold", "warm"):
+            for run in ONCE:
                 torch.cuda.synchronize()
                 _zero_counters()
                 t = time.perf_counter()
@@ -3674,6 +3954,10 @@ def _fused_request(state, system):
 
 
 def phase_eps_int8(state):
+    """The card's int8 eps and the CPU copy with the same scales; the CPU
+    call itself (tens of seconds of host work at full width) runs during
+    ``main_parallel``, whose own process mostly waits on its ranks, where
+    that phase runs too (``_eps_int8_cpu``), else here."""
     import torch
     from vdtpu_torch.ops.quant import load_quant_state, quant_state, set_quant_policy
     system = state.get("system")
@@ -3681,22 +3965,45 @@ def phase_eps_int8(state):
         raise RuntimeError("eps_int8 needs the calibrated system of main_int8")
     x, t, ctx = _eps_inputs(system, 1)
     eps_gpu, effect = _int8_eps(system, x, t, ctx)
-    eps_gpu = eps_gpu.cpu()
     t0 = time.perf_counter()
     cpu_model = _cpu_model(system)
     set_quant_policy(cpu_model.diffuser, system.quant_policy)
     load_quant_state(cpu_model.diffuser,
                      {k: v.cpu() for k, v in quant_state(system.model.diffuser).items()})
-    with torch.no_grad():
-        eps_cpu = cpu_model.apply_model(x.float().cpu(), t.cpu(), ctx.float().cpu(),
-                                        "image", "text")
+    job = dict(eps_gpu=eps_gpu.cpu(), effect=effect, model=cpu_model,
+               inputs=(x.float().cpu(), t.cpu(), ctx.float().cpu()),
+               build_s=time.perf_counter() - t0)
+    if "main_parallel" in state.get("phases", ()):
+        state["eps_int8_job"] = job
+        log(f"eps_int8: card eps done, CPU copy built in {job['build_s']:.1f} s; its call runs "
+            f"during main_parallel")
+    else:
+        _eps_int8_cpu(state, job)
+
+
+def _eps_int8_cpu(state, job, threads: int | None = None):
+    """eps_int8's CPU call (in ``threads`` intra-op threads where given)
+    and its gate."""
+    import torch
+    t0 = time.perf_counter()
+    prev = torch.get_num_threads()
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        with torch.no_grad():
+            eps_cpu = job.pop("model").apply_model(*job["inputs"], "image", "text")
+    finally:
+        torch.set_num_threads(prev)
     dt = time.perf_counter() - t0
-    cos, rel = _cosine(eps_gpu, eps_cpu)
+    cos, rel = _cosine(job["eps_gpu"], eps_cpu)
     log(f"eps_int8: card bf16 int8 vs cpu f32 int8 (same scales) at [1, 4, 64, 64]: cosine "
         f"{cos:.6f} rel_l2 {rel:.5f} (limits cos >= {INT8_MIN_COS}, rel_l2 <= "
         f"{INT8_MAX_REL_L2}; int8's own error on the card, against the exact bf16 eps: rel_l2 "
-        f"{effect:.5f}); cpu {dt:.1f} s [{state.get('card')}]")
-    state["eps_int8"] = dict(cosine=cos, rel_l2=rel, int8_rel_l2_to_exact=effect)
+        f"{job['effect']:.5f}); cpu copy built in {job['build_s']:.1f} s, its call {dt:.1f} s"
+        f"{f' in {threads} threads beside main_parallel' if threads else ''} "
+        f"[{state.get('card')}]")
+    state["eps_int8"] = dict(cosine=cos, rel_l2=rel, int8_rel_l2_to_exact=job["effect"],
+                             cpu_s=dt)
     if not (math.isfinite(rel) and rel <= INT8_MAX_REL_L2 and cos >= INT8_MIN_COS):
         raise RuntimeError("eps_int8: card result disagrees with the f32 CPU result")
 
@@ -3788,7 +4095,7 @@ def phase_main_fused2(state):
                                                                   seed=SEED)))
         for label, c_type, run_request in requests:
             expect = _fused2_launches(system, c_type)
-            for run in ("cold", "warm"):
+            for run in ONCE:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 _zero_counters()
@@ -3820,10 +4127,10 @@ def phase_main_fused2(state):
                                                  resblock_q_by_route=rb_paths)
     if "resblock_q" in state["kernels"]:
         k = state["kernels"]["resblock_q"]
-        k["launches"] = results["t2i_warm"]["launches"]["resblock_q"]
-        k["launches_by_path"] = results["t2i_warm"]["resblock_q_by_route"]
-        k["launches_i2i_a"] = results["i2i_a_warm"]["launches"]["resblock_q"]
-        k["path"] = "main_fused2 (int8 conv=\"fused2\", warm t2i request)"
+        k["launches"] = results["t2i_once"]["launches"]["resblock_q"]
+        k["launches_by_path"] = results["t2i_once"]["resblock_q_by_route"]
+        k["launches_i2i_a"] = results["i2i_a_once"]["launches"]["resblock_q"]
+        k["path"] = "main_fused2 (int8 conv=\"fused2\", t2i request)"
     state["main_fused2"] = results
 
 
@@ -3868,9 +4175,9 @@ def _image_ok(img) -> bool:
 
 def _queue_full_bucket(state, system):
     """(a) 8 concurrent exact t2i requests, one bucket of 8 (the UNet at
-    batch 16), DDIM-50, cold then warm, beside a 2-image inference_t2i;
-    launches, GN routes at batch 16, peak memory; one profiled batch-16
-    CFG step. Returns (results, the warm bucket's images)."""
+    batch 16), DDIM-50, once; launches, GN routes at batch 16, peak
+    memory; one profiled batch-16 CFG step. Returns (results, the
+    bucket's images)."""
     import torch
     from vdtpu_torch.ops.flash import flash_attention
     from vdtpu_torch.ops.gn_silu import gn_silu
@@ -3881,7 +4188,7 @@ def _queue_full_bucket(state, system):
     _, expect_routes = _mode_expect(system, [("text", 77)], [(True, 16)] * STEPS,
                                     _vae_routes(system, False, batch=8))
     results = {}
-    for run in ("cold", "warm"):
+    for run in ONCE:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counters()
@@ -3906,21 +4213,6 @@ def _queue_full_bucket(state, system):
         results[run] = dict(seconds=dt, s_per_image=dt / 8, images_per_s=8 / dt,
                             peak_gib=peak, launches=counts, attention_by_path=paths,
                             gn_by_route=routes)
-    vdi2 = _queue_vdi(system, STEPS, n_sample_image=2)
-    vdi2.inference_t2i(QUEUE_PROMPTS[0], seed=SEED)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    vdi2.inference_t2i(QUEUE_PROMPTS[0], seed=SEED)
-    torch.cuda.synchronize()
-    dt2 = time.perf_counter() - t
-    peak2 = torch.cuda.max_memory_allocated() / 2**30
-    warm = results["warm"]
-    log(f"main_queue (a) beside a 2-image inference_t2i (warm, same call): {dt2:.3f} s, "
-        f"{dt2 / 2:.4f} s an image, peak {peak2:.2f} GiB; the bucket of 8 takes "
-        f"{warm['seconds'] / dt2:.3f}x its time, {warm['s_per_image'] / (dt2 / 2):.3f}x "
-        f"its time an image [{state.get('card')}]")
-    results["t2i_2_image_warm"] = dict(seconds=dt2, s_per_image=dt2 / 2, peak_gib=peak2)
     ids = stand_in_tokenizer(["", QUEUE_PROMPTS[0]])
     prof = _profile_step(state, system, "main_queue (a)", system.ctx_encode(ids[:1], "text"),
                          system.ctx_encode(ids[1:], "text"), images=8)
@@ -3930,7 +4222,7 @@ def _queue_full_bucket(state, system):
                                         idle_share=1 - busy / (1e3 * wall))
     for name in ("flash_fwd", "gn_silu"):
         if name in state["kernels"]:
-            state["kernels"][name]["launches_queue_bucket8"] = warm["launches"][name]
+            state["kernels"][name]["launches_queue_bucket8"] = results["once"]["launches"][name]
     return results, imgs
 
 
@@ -5302,37 +5594,64 @@ def _launch_worker(argv: list[str]) -> int:
     return 0
 
 
-def _run_ranks(label: str, cmd: list, cwd: str | None = None,
-               timeout: float = PAR_TIMEOUT) -> tuple[str, float]:
-    """Run one multi-process command (torchrun, or the dry run) in a session
-    of its own, output to chiprun_out/main_parallel_<label>.log. A nonzero
-    exit or the timeout fails the phase, and every process of the session
-    is killed. Returns (the output, seconds)."""
-    import signal
+def _spawn_ranks(label: str, cmd: list, cwd: str | None = None) -> dict:
+    """Start one multi-process command (torchrun, or the dry run) in a
+    session of its own, output to chiprun_out/main_parallel_<label>.log;
+    ``_reap_ranks`` waits for it."""
     path = os.path.abspath(os.path.join("chiprun_out", f"main_parallel_{label}.log"))
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    t = time.perf_counter()
+    os.makedirs(cwd or repo, exist_ok=True)
     with open(path, "w") as f:
         p = subprocess.Popen(cmd, cwd=cwd or repo, stdout=f, stderr=subprocess.STDOUT, env=env,
                              start_new_session=True)
-        try:
-            rc = p.wait(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            rc = None
-        finally:
-            with contextlib.suppress(ProcessLookupError):
-                os.killpg(p.pid, signal.SIGKILL)
-            p.wait()
-    with open(path) as f:
+    return dict(label=label, proc=p, path=path, t0=time.perf_counter())
+
+
+def _reap_ranks(job: dict, timeout: float = PAR_TIMEOUT) -> tuple[str, float]:
+    """Wait for a ``_spawn_ranks`` command until ``timeout`` seconds after its
+    start. A nonzero exit or the timeout fails the phase; every process of
+    its session is killed either way. Returns (the output, seconds), kept
+    in the job for a second call."""
+    import signal
+    if "result" in job:
+        return job["result"]
+    p, label = job["proc"], job["label"]
+    try:
+        rc = p.wait(timeout=max(1.0, job["t0"] + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+    wall = time.perf_counter() - job["t0"]
+    with open(job["path"]) as f:
         out = f.read()
     if rc is None:
         raise RuntimeError(f"main_parallel {label}: no end after {timeout} s (every rank "
                            f"killed): {out[-2000:]}")
     if rc != 0:
         raise RuntimeError(f"main_parallel {label}: exit {rc}: {out[-3000:]}")
-    return out, time.perf_counter() - t
+    job["result"] = out, wall
+    return out, wall
+
+
+def _reap_all(jobs: list) -> list:
+    """``_reap_ranks`` of every job, in order; if one fails, the others are
+    killed too before the failure propagates."""
+    out = []
+    try:
+        for job in jobs:
+            out.append(_reap_ranks(job))
+    finally:
+        for job in jobs[len(out):]:
+            with contextlib.suppress(Exception):
+                job["t0"] = -PAR_TIMEOUT        # no wait: kill now
+                _reap_ranks(job)
+    return out
+
 
 
 def _uniform_shards(root: str) -> str:
@@ -5388,13 +5707,21 @@ def _parallel_setup(state, root: str) -> str:
     return path
 
 
-def _worker_runs(state, root: str, cfg_path: str, nproc: int, label: str) -> dict:
-    """The launcher under torchrun with ``nproc`` ranks on the card."""
+def _worker_spawn(root: str, cfg_path: str, nproc: int, label: str) -> dict:
+    """Start the launcher under torchrun with ``nproc`` ranks on the card (a
+    run dir of its own under ``root``)."""
     out = os.path.join(root, f"worker_{label}")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            str(nproc), os.path.abspath(__file__), "--launch-worker", out, "--config",
            cfg_path, "--debug"]
-    text, wall = _run_ranks(label, cmd, cwd=root)
+    return dict(_spawn_ranks(label, cmd, cwd=os.path.join(root, f"cwd_{label}")), out=out,
+                nproc=nproc)
+
+
+def _worker_runs(job: dict) -> dict:
+    """The ranks' records of a ``_worker_spawn`` run, once it ended."""
+    text, wall = _reap_ranks(job)
+    out, nproc = job["out"], job["nproc"]
     ranks = []
     for r in range(nproc):
         with open(f"{out}.rank{r}.json") as f:
@@ -5412,12 +5739,17 @@ def _par_expect(model_args=None, accum: int = TRAIN_ACCUM) -> dict:
 
 
 def _parallel_launcher(state, root: str) -> dict:
-    """(a) torchrun, NCCL, world 1; (b) torchrun, two ranks over gloo."""
+    """(a) torchrun, NCCL, world 1; (b) torchrun, two ranks over gloo: both
+    at once, each in a run dir of its own (three processes sharing the
+    card; their step times are not the card's alone)."""
     cfg_path = _parallel_setup(state, root)
     expect = _par_expect(_launch_model_args())
     res = {}
-    for label, nproc in (("a", 1), ("b", 2)):
-        run = _worker_runs(state, root, cfg_path, nproc, label)
+    jobs = [_worker_spawn(root, cfg_path, nproc, label) for label, nproc in (("a", 1), ("b", 2))]
+    _reap_all(jobs)
+    for job in jobs:
+        label = job["label"]
+        run = _worker_runs(job)
         for r in run["ranks"]:
             _check_steps(f"main_parallel ({label}) rank {r['rank']}", r["records"], expect)
             if len(r["records"]) != PAR_ITERS:
@@ -5462,16 +5794,21 @@ def _parallel_launcher(state, root: str) -> dict:
                 a_steps_s=[s["seconds"] for s in a["records"]], a_peak_gib=a["peak_gib"])
 
 
-def _dryrun(label: str, root: str, *args) -> list[dict]:
-    """``python -m vdtpu_torch.parallel.dryrun`` on the card (gloo, the
-    ranks sharing it); returns the ranks' results."""
+def _dryrun_spawn(label: str, root: str, *args) -> dict:
+    """Start ``python -m vdtpu_torch.parallel.dryrun`` on the card (gloo, the
+    ranks sharing it)."""
     out = os.path.join(root, f"dryrun_{label}")
     cmd = [sys.executable, "-m", "vdtpu_torch.parallel.dryrun", "--device", "cuda",
            "--out", out, "--config", "vd_four_flow_v1-0", "--seed", str(SEED),
            "--image-size", "512", "--latent-downsample", "8", "--timeout",
            str(PAR_TIMEOUT - 20), *args]
-    text, wall = _run_ranks(label, cmd)
-    n = int(args[args.index("--nproc") + 1])
+    return dict(_spawn_ranks(label, cmd), out=out, nproc=int(args[args.index("--nproc") + 1]))
+
+
+def _dryrun(job: dict) -> list[dict]:
+    """The ranks' results of a ``_dryrun_spawn`` run, once it ended."""
+    text, wall = _reap_ranks(job)
+    out, n = job["out"], job["nproc"]
     ranks = []
     for r in range(n):
         with open(os.path.join(out, f"rank{r}.json")) as f:
@@ -5480,22 +5817,36 @@ def _dryrun(label: str, root: str, *args) -> list[dict]:
     return ranks
 
 
-def _parallel_tp(state, root: str) -> dict:
-    """(c) tp = 2 at three levels: one CFG eps call, then two Trainer steps,
-    each against one process on rank 0."""
-    from vdtpu_torch.serving.api import VDSystem
+def _parallel_dryruns(state, root: str) -> tuple[dict, dict, dict]:
+    """(c) and (d) at once (four processes sharing the card; their times are
+    not the card's alone), and (e) in this process while they run."""
     margs = os.path.join(root, "model_args.json")
     with open(margs, "w") as f:
         json.dump(_launch_model_args(), f)
+    jobs = [_dryrun_spawn("c", root, "--nproc", "2", "--tp", "2", "--phases", "eps,train",
+                          "--model-args", margs, "--train-steps", "2", "--batch",
+                          str(PAR_TP_BATCH), "--accum", "1", "--compute-dtype", "bfloat16",
+                          "--dtype", "bfloat16", "--base-lr", "1e-5", "--reference"),
+            _dryrun_spawn("d", root, "--nproc", "2", "--tp", "1", "--phases", "serve",
+                          "--steps", str(STEPS), "--dtype", "bfloat16", "--reference",
+                          "--model-args", margs)]
+    try:
+        utilities = _parallel_utilities(state)
+    finally:
+        _reap_all(jobs)
+    return _parallel_tp(state, _dryrun(jobs[0])), _parallel_serve(state, _dryrun(jobs[1])), \
+        utilities
+
+
+def _parallel_tp(state, ranks) -> dict:
+    """(c) tp = 2 at three levels: one CFG eps call, then two Trainer steps,
+    each against one process on rank 0 (``ranks``: the dry run's results)."""
+    from vdtpu_torch.serving.api import VDSystem
     meta = VDSystem("vd_four_flow_v1-0", device="meta", model_args=_launch_model_args())
     expect_eps = {"flash_fwd": _flash_sites(meta.model), "flash_bwd": 0,
                   "gn_silu": _n_gn(meta.model)}
     del meta
     expect = _par_expect(_launch_model_args(), accum=1)
-    ranks = _dryrun("c", root, "--nproc", "2", "--tp", "2", "--phases", "eps,train",
-                    "--model-args", margs, "--train-steps", "2", "--batch", str(PAR_TP_BATCH),
-                    "--accum", "1", "--compute-dtype", "bfloat16", "--dtype", "bfloat16",
-                    "--base-lr", "1e-5", "--reference")
     e0, t0 = ranks[0]["eps"], ranks[0]["train"]
     agree, raw = e0["vs_one_process"], e0["raw_vs_one_process"]
     to32, one32 = e0["vs_f32"], e0["one_process_vs_f32"]
@@ -5535,19 +5886,16 @@ def _parallel_tp(state, root: str) -> dict:
                 wall_s=ranks[0]["wall_s"])
 
 
-def _parallel_serve(state, root: str) -> dict:
-    """(d) dp = 2 serving at three levels (the model args (c) wrote): t2i
-    at DDIM-50 on both ranks, the queue on a leader and a follower, each
-    image against one process."""
+def _parallel_serve(state, ranks) -> dict:
+    """(d) dp = 2 serving at three levels: t2i at DDIM-50 on both ranks, the
+    queue on a leader and a follower, each image against one process
+    (``ranks``: the dry run's results)."""
     from vdtpu_torch.serving.api import VDSystem
     meta = VDSystem("vd_four_flow_v1-0", device="meta", model_args=_launch_model_args())
     n_unet, n_dec, _ = _gn_sites(meta)
     expect = {"flash_fwd": _flash_sites(meta.model) * STEPS, "flash_bwd": 0,
               "gn_silu": n_unet * STEPS + n_dec}
     del meta
-    ranks = _dryrun("d", root, "--nproc", "2", "--tp", "1", "--phases", "serve", "--steps",
-                    str(STEPS), "--dtype", "bfloat16", "--reference", "--model-args",
-                    os.path.join(root, "model_args.json"))
     sv = ranks[0]["serve"]
     rows = sv["t2i_vs_one_process"] + sv["queue_vs_one_process"]
     log(f"main_parallel (d) dp = 2 serving at three levels (two ranks sharing the card "
@@ -5614,7 +5962,8 @@ def _parallel_utilities(state) -> dict:
 
 def phase_main_parallel(state):
     """Data and tensor parallelism on the one card: (a)-(b) the launcher under
-    torchrun, (c)-(d) the dry run at tp = 2 and dp = 2, (e) the utilities."""
+    torchrun, at once; (c)-(d) the dry run at tp = 2 and dp = 2, at once,
+    with (e) the utilities in this process meanwhile."""
     import gc
     import shutil
     import torch
@@ -5625,14 +5974,30 @@ def phase_main_parallel(state):
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     res = {}
+    # eps_int8's CPU call in a thread of this process meanwhile (4 intra-op
+    # threads: the ranks take the other cores)
+    job, failed = state.pop("eps_int8_job", None), []
+    cpu = None
+    if job is not None:
+        def run():
+            try:
+                _eps_int8_cpu(state, job, threads=PAR_CPU_THREADS)
+            except BaseException as e:     # re-raised below, after the ranks
+                failed.append(e)
+        cpu = threading.Thread(target=run, daemon=True)
+        cpu.start()
     try:
         res["launcher"] = _parallel_launcher(state, root)
-        res["tp"] = _parallel_tp(state, root)
-        res["serve"] = _parallel_serve(state, root)
-        res["utilities"] = _parallel_utilities(state)
+        res["tp"], res["serve"], res["utilities"] = _parallel_dryruns(state, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(os.path.abspath(LAUNCH_DIR), ignore_errors=True)
+        if cpu is not None:
+            t = time.perf_counter()
+            cpu.join()
+            log(f"main_parallel: waited {time.perf_counter() - t:.1f} s for eps_int8's CPU call")
+    if failed:
+        raise failed[0]
     state["main_parallel"] = res
 
 
@@ -5818,7 +6183,7 @@ def main() -> int:
     from vdtpu_torch.utils.timing import time_graph_ms
     os.makedirs("chiprun_out", exist_ok=True)
     _LOG = open(os.path.join("chiprun_out", "chip_smoke.log"), "w")
-    state = {"kernels": {}}
+    state = {"kernels": {}, "phases": phases}
     try:
         t_all = time.perf_counter()
         for phase in PHASES:
@@ -5827,11 +6192,13 @@ def main() -> int:
             t = time.perf_counter()
             globals()[f"phase_{phase}"](state)
             log(f"phase {phase}: {time.perf_counter() - t:.1f} s")
-        log(f"all phases: {time.perf_counter() - t_all:.1f} s")
+        warm = state.get("main", {}).get("warm", {}).get("seconds")
+        log(f"all phases: {time.perf_counter() - t_all:.1f} s; the main bf16 t2i request warm: "
+            f"{'not run' if warm is None else f'{warm:.3f} s'} (the host's pace)")
     finally:
         _LOG.close()
-    if {"main", "main_f32", "main_int8", "modes", "main_fused2", "probes", "train",
-            "main_launch"} <= set(phases):
+    if {"main", "main_f32", "main_mcg", "main_int8", "modes", "main_fused2", "probes",
+            "train", "main_launch"} <= set(phases):
         missing = [k for k, v in state["kernels"].items() if not v["launches"]]
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: {missing}")

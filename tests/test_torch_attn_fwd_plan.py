@@ -1,13 +1,14 @@
 """The attention forward's wgmma kernel (``csrc/attn_fwd_sm90.cuh``) on the
 CPU: its order of work (``flash_attention_fwd_blocked_plain``: 128-key
-tiles, a running max, exp2 with log2 e folded in) against vdtpu's
-``_fwd_impl`` in interpret mode at the kernel's key tile; the no-max plain
-version against ``_nomax_slim_impl``; ``attn_fwd_plan`` at every attention
-site of the full-width UNet that reaches a kernel, and on the shapes and
+tiles, 64 past d 128, a running max, exp2 with log2 e folded in) against
+vdtpu's ``_fwd_impl`` in interpret mode at the kernel's key tile, heads of
+8-160; the no-max plain version against ``_nomax_slim_impl``;
+``attn_fwd_plan`` at every attention site of the full-width UNet that
+reaches a kernel, at every wide head (88-160), and on the shapes and
 layouts that must take the mma.sync kernel; and a numpy model of the
 swizzled shared-memory layout the kernel's TMA boxes produce and of the
 wgmma descriptors and register fragments it reads them through, against
-dense products."""
+dense products (two boxes of 64 columns at d 96-128, three at d 160)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +18,8 @@ from vdtpu.ops.pallas import flash as jflash
 from vdtpu_torch.config import configs
 from vdtpu_torch.ops import attention
 from vdtpu_torch.ops.flash import (
-    ATTN_BK, ATTN_BOX_COLS, MAX_SMEM, attn_fwd_plan,
-    flash_attention_fwd_blocked_plain, flash_attention_plain)
+    ATTN_BK, ATTN_BOX_COLS, ATTN_WG_BWD_MAX_D, ATTN_WG_MAX_D, MAX_SMEM, _key_tile,
+    attn_fwd_plan, flash_attention_fwd_blocked_plain, flash_attention_plain, flash_bwd_path)
 from vdtpu_torch.ops.nomax import flash_attention_nomax_plain
 
 torch.set_num_threads(2)
@@ -45,15 +46,21 @@ def _unfold(a, b, h):
     (1, 1000, 1000, 2, 80),
     (2, 300, 77, 1, 40),      # kv shorter than one tile
     (1, 130, 257, 1, 8),      # two whole tiles and one key
+    # the wide heads: 128-key tiles at d 96 and 128, 64-key tiles at 160
+    # (the four-image mcg's 16^2 cross-attention: 1028 keys, 4 in the last)
+    (1, 200, 333, 2, 96),
+    (1, 130, 300, 1, 128),
+    (1, 260, 1028, 1, 160),
 ])
 def test_blocked_model_matches_jax(b, n, m, h, d):
     rs = np.random.RandomState(n + m + d)
     q, k, v = (rs.randn(b, s, h, d).astype(np.float32) for s in (n, m, m))
     scale = d ** -0.5
-    o_j, lse_j = jflash._fwd_impl(_fold(q), _fold(k), _fold(v), scale, 128, ATTN_BK,
+    bk = _key_tile(-(-d // 16) * 16)
+    o_j, lse_j = jflash._fwd_impl(_fold(q), _fold(k), _fold(v), scale, 128, bk,
                                   interpret=True, with_lse=True)
     out, lse = flash_attention_fwd_blocked_plain(*(torch.tensor(a) for a in (q, k, v)), scale,
-                                                 with_lse=True)
+                                                 with_lse=True, block_k=bk)
     r = _unfold(o_j, b, h)
     np.testing.assert_allclose(out.numpy(), r, rtol=TOL, atol=TOL * np.abs(r).max())
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j).reshape(b, h, n), rtol=TOL,
@@ -62,7 +69,9 @@ def test_blocked_model_matches_jax(b, n, m, h, d):
                                              scale).shape == (b, n, h, d)
 
 
-@pytest.mark.parametrize("b,n,m,h,d", [(1, 1000, 1000, 2, 40), (2, 200, 77, 2, 80)])
+@pytest.mark.parametrize("b,n,m,h,d", [(1, 1000, 1000, 2, 40), (2, 200, 77, 2, 80),
+                                       (1, 200, 333, 2, 96), (1, 130, 300, 1, 128),
+                                       (1, 260, 1028, 1, 160)])
 def test_nomax_plain_matches_jax(b, n, m, h, d):
     rs = np.random.RandomState(7 * n + m + d)
     q, k, v = (rs.randn(b, s, h, d).astype(np.float32) for s in (n, m, m))
@@ -70,21 +79,24 @@ def test_nomax_plain_matches_jax(b, n, m, h, d):
     s = np.einsum("bqhd,bkhd->bhqk", q, k) * scale
     shift = s.max(axis=(0, 2, 3)).astype(np.float32)      # the calibrated per-head bound
     o_j = jflash._nomax_slim_impl(_fold(q), _fold(k), _fold(v), scale,
-                                  jnp.asarray(np.tile(shift, b)), 128, ATTN_BK, True)
+                                  jnp.asarray(np.tile(shift, b)), 128,
+                                  _key_tile(-(-d // 16) * 16), True)
     out = flash_attention_nomax_plain(*(torch.tensor(a) for a in (q, k, v)),
                                       torch.tensor(shift), scale)
     r = _unfold(o_j, b, h)
     np.testing.assert_allclose(out.numpy(), r, rtol=TOL, atol=TOL * np.abs(r).max())
 
 
-@pytest.mark.parametrize("b,n,m,h,d", [(1, 200, 300, 2, 40), (1, 130, 1000, 2, 80)])
+@pytest.mark.parametrize("b,n,m,h,d", [(1, 200, 300, 2, 40), (1, 130, 1000, 2, 80),
+                                       (1, 200, 333, 2, 96), (1, 260, 1028, 2, 160)])
 def test_blocked_model_within_the_card_gate_in_bf16(b, n, m, h, d):
     """The running max rounds p to bf16 against the tile's max, the plain
     version against the row's: both within the gate the card holds the
-    kernel to."""
+    kernel to (at the kernel's key tile: 64 keys at d 160)."""
     gen = torch.Generator().manual_seed(n + m)
     q, k, v = (torch.randn(b, s, h, d, generator=gen).to(torch.bfloat16) for s in (n, m, m))
-    out, lse = flash_attention_fwd_blocked_plain(q, k, v, with_lse=True)
+    out, lse = flash_attention_fwd_blocked_plain(q, k, v, with_lse=True,
+                                                 block_k=_key_tile(-(-d // 16) * 16))
     ref, lse_ref = flash_attention_plain(q, k, v, with_lse=True)
     assert out.dtype == torch.bfloat16
     a, r = out.float(), ref.float()
@@ -169,7 +181,7 @@ def test_plan_takes_wgmma_at_every_main_path_site(batch, n, m, h, d):
 
 
 @pytest.mark.parametrize("d,offset,why", [
-    (96, 0, "head over 80"), (160, 0, "the 16^2 sites' head"), (256, 0, "widest head"),
+    (168, 0, "head over 160"), (100, 0, "a wide head with d % 8 != 0"), (256, 0, "widest head"),
     (36, 0, "d % 8 != 0"), (40, 1, "one element into the buffer"),
 ])
 def test_plan_takes_mma_elsewhere(d, offset, why):
@@ -179,6 +191,34 @@ def test_plan_takes_mma_elsewhere(d, offset, why):
     assert plan.path == "mma", why
     assert plan.vec == (offset == 0 and d % 8 == 0) and plan.code == int(plan.vec)
     assert plan.smem_bytes is None and plan.grid == (-(-n // 64), h)
+
+
+@pytest.mark.parametrize("d", range(88, ATTN_WG_MAX_D + 1, 8))
+@pytest.mark.parametrize("n,m", [(256, 1028), (1000, 333)])
+def test_plan_takes_wgmma_at_wide_heads_forward_only(d, n, m):
+    """Heads of 88-160 (d % 8 == 0, aligned rows) take the wgmma forward in
+    every mode (one plan for Flash, FlashLse and NoMax): one consumer
+    warpgroup a block over 256 queries or fewer (the mcg's 16^2 site [4,
+    256, 8, 160] over 1028 keys: 128 blocks), else two; 128-key tiles up
+    to d 128 and 64-key tiles past it; the deepest ring that fits the
+    card's shared memory. The backward keeps the mma.sync kernel there:
+    its wgmma kernel takes heads up to 80."""
+    b, h = 4, 8
+    st = lambda rows: (rows * h * d, h * d, d)
+    plan = attn_fwd_plan(b, n, m, h, d, (st(n), st(m), st(m)), (0, 1 << 20, 1 << 21))
+    dp = -(-d // 16) * 16
+    nc = 1 if n <= 256 else 2
+    assert plan.path == "wgmma" and plan.dp == dp and plan.block_q == 64 * nc
+    assert plan.block_k == (128 if dp <= 128 else 64) == _key_tile(dp)
+    boxes = -(-dp // ATTN_BOX_COLS)
+    smem = lambda s: (1024 + boxes * 64 * nc * 128 + s * 2 * boxes * plan.block_k * 128
+                      + 8 * (1 + 2 * s))
+    stages = max(s for s in (2, 3, 4) if smem(s) <= MAX_SMEM)
+    assert plan.stages == stages >= 3 and plan.smem_bytes == smem(stages)
+    assert plan.grid == (-(-n // (64 * nc)), b * h)
+    assert plan.code == (2 | stages << 4 | plan.block_k // 64 << 8 | nc << 12
+                         | plan.smem_bytes // 8 << 16) < 2 ** 31
+    assert flash_bwd_path(d, torch.bfloat16, True) == "mma" and d > ATTN_WG_BWD_MAX_D
 
 
 def test_plan_takes_mma_for_unaligned_strides():
@@ -243,6 +283,10 @@ def _acc_layout(rows=64, cols=ATTN_BK):
     (40, 4096, 4096, 256, 1024),   # the 64^2 site: d padded to 48
     (80, 1000, 1000, 896, 896),    # ragged last query block and key tile
     (8, 100, 77, 0, 0),
+    (96, 1000, 333, 896, 256),     # two boxes, the second zero past column 96
+    (128, 300, 300, 128, 128),
+    (160, 256, 1028, 128, 1024),   # the mcg's 16^2 site: three boxes, 64-key
+                                   # tiles, 4 keys in the last
 ])
 def test_box_layout_and_descriptors_give_dense_products(d, n_rows, m_rows, q0, k0):
     """S = Q.K^T through the kernel's K-major 128-byte-swizzle descriptors
@@ -272,7 +316,7 @@ def test_box_layout_and_descriptors_give_dense_products(d, n_rows, m_rows, q0, k
                                                          (0, dp - d)))
     qd, kd, vd = pad(q, q0, bq), pad(k, k0, bk), pad(v, k0, bk)
 
-    layout = _acc_layout()
+    layout = _acc_layout(cols=bk)
     for wg in range(bq // 64):
         s = np.zeros((64, bk))
         for kk in range(dp // 16):   # qk(): box kk / 4, 32 (kk % 4) bytes in, SBO 1024

@@ -4,11 +4,14 @@ and rounding (``flash_attention_fwd_tf32x3_blocked_plain``,
 ``flash_attention_bwd_tf32x3_blocked_plain``: tf32 hi and lo parts, three
 passes a product, key or query tiles summed in f32) against vdtpu's
 ``_fwd_impl`` and ``_bwd_impl`` in interpret mode in f32 at the card's f32
-gate, and one tf32 pass a product failing that gate; the plan at every f32
-flash site of the full-width UNet, the legacy zoo and the mcg, and the
-shapes and strides that stay on the SIMT "f32" kernels; a numpy model of
-the kernels' shared-memory tiles (rows, and columns in the permuted key
-order) and register fragments against dense products."""
+gate, and one tf32 pass a product failing that gate; the wide forward (heads 88-160, ``csrc/tf32x3_fwd_wide.cu``: the
+same order of work at 32-key tiles) against ``_fwd_impl`` at d 96, 128 and
+160; the plan at every f32 flash site of the full-width UNet, the legacy
+zoo and the mcg, at every wide head, and the shapes and strides that stay
+on the SIMT "f32" kernels; a numpy model of the kernels' shared-memory
+tiles (rows, and columns in the permuted key order) and register fragments
+against dense products, and of the wide kernel's f32 Q rows, its A
+fragments loaded from them and P.V taken in two halves of the head."""
 import importlib.util
 import os
 
@@ -21,9 +24,9 @@ from vdtpu.ops.pallas import flash as jflash
 from vdtpu_torch.config import configs
 from vdtpu_torch.ops import attention
 from vdtpu_torch.ops.flash import (
-    MAX_SMEM, TF32X3_BWD_TILE, TF32X3_MAX_D, _tf32, attn_fwd_plan,
-    flash_attention_bwd_tf32x3_blocked_plain, flash_attention_fwd_tf32x3_blocked_plain,
-    flash_bwd_path)
+    MAX_SMEM, TF32X3_BWD_MAX_D, TF32X3_BWD_TILE, TF32X3_MAX_D, TF32X3_WIDE_TILE, _tf32,
+    attn_fwd_plan, flash_attention_bwd_tf32x3_blocked_plain,
+    flash_attention_fwd_tf32x3_blocked_plain, flash_bwd_path)
 
 torch.set_num_threads(2)
 
@@ -104,6 +107,42 @@ def test_one_tf32_pass_fails_the_f32_gate(case):
         assert _gate(a.numpy(), r)[1] > 10 * F32_MAX_REL_L2
 
 
+# the wide forward's heads with ragged query and key tiles: d 96 and 128,
+# and the mcg's 16^2 cross-attention (d 160 over 1028 keys, 4 in the last)
+WIDE_CASES = [(1, 100, 333, 2, 96), (1, 70, 130, 1, 128), (1, 130, 1028, 1, 160)]
+
+
+@pytest.fixture(scope="module", params=WIDE_CASES, ids=lambda c: "-".join(map(str, c)))
+def wide_case(request):
+    """f32 inputs and vdtpu's forward (out, lse) in interpret mode."""
+    b, n, m, h, d = request.param
+    rs = np.random.RandomState(n + m + d)
+    q, k, v = (rs.randn(b, s, h, d).astype(np.float32) for s in (n, m, m))
+    o_j, lse_j = jflash._fwd_impl(_fold(q), _fold(k), _fold(v), d ** -0.5, 64, 128,
+                                  interpret=True, with_lse=True)
+    return request.param, [torch.tensor(a) for a in (q, k, v)], _unfold(o_j, b, h), \
+        np.asarray(lse_j).reshape(b, h, n)
+
+
+def test_wide_fwd_model_matches_jax_within_the_f32_gate(wide_case):
+    """The wide kernel's order of work and rounding (32-key tiles, three
+    tf32 passes a product, each tile's P.V a fresh f32 sum) against
+    ``_fwd_impl``: out within the f32 gate, lse within 1.1e-5 (the card's
+    gate)."""
+    (b, n, m, h, d), (q, k, v), out_j, lse_j = wide_case
+    assert TF32X3_WIDE_TILE == 32
+    out, lse = flash_attention_fwd_tf32x3_blocked_plain(q, k, v, d ** -0.5, with_lse=True)
+    ok, rel = _gate(out.numpy(), out_j)
+    assert ok and rel <= F32_MAX_REL_L2, rel
+    assert float(np.abs(lse.numpy() - lse_j).max()) <= 1.1e-5
+
+
+def test_wide_fwd_one_tf32_pass_fails_the_f32_gate(wide_case):
+    (b, n, m, h, d), (q, k, v), out_j, _ = wide_case
+    out = flash_attention_fwd_tf32x3_blocked_plain(q, k, v, d ** -0.5, passes=1)
+    assert _gate(out.numpy(), out_j)[1] > 10 * F32_MAX_REL_L2
+
+
 def test_tf32_rounds_to_nearest_ties_away():
     """``_tf32`` is cvt.rna.tf32.f32: 10 mantissa bits, to nearest, ties
     away from zero (an overflow rounds to inf)."""
@@ -151,14 +190,17 @@ def _views(b, n, m, h, d):
 # serving queue's buckets of 4 and 8 images
 @pytest.mark.parametrize("batch", [2, 4, 8, 16])
 def test_plan_at_every_unet_site(batch, n, m, h, d):
-    """Heads of 40 and 80 take tf32x3 forward and backward; the mcg's 16^2
-    cross-attention (d 160) the SIMT kernels."""
+    """Every site takes the tf32x3 forward; heads of 40 and 80 the tf32x3
+    backward too, the mcg's 16^2 cross-attention (d 160, which no path
+    trains) the wide forward and the SIMT backward."""
     strides, ptrs = _views(batch, n, m, h, d)
     plan = attn_fwd_plan(batch, n, m, h, d, strides, ptrs, torch.float32)
-    want = "tf32x3" if d <= TF32X3_MAX_D else "f32"
-    assert plan.path == want
+    assert plan.path == "tf32x3"
+    want = "tf32x3" if d <= TF32X3_BWD_MAX_D else "f32"
     assert flash_bwd_path(d, torch.float32, True) == want
-    if want == "tf32x3":
+    if d > TF32X3_BWD_MAX_D:
+        _check_wide_plan(plan, batch, n, h, d)
+    else:
         # two warpgroups of 64 query rows; their Q hi and lo, two stages of
         # K hi, K lo, V^T hi and V^T lo and the stages' two mbarriers
         # (flash_fwd.cu's FwdTc)
@@ -166,6 +208,29 @@ def test_plan_at_every_unet_site(batch, n, m, h, d):
         assert (plan.dp, plan.block_q, plan.block_k, plan.stages) == (d, 128, tile, 2)
         assert plan.smem_bytes == 4 * (2 * 128 * d + 2 * 4 * tile * d) + 16 <= MAX_SMEM
         assert plan.grid == (-(-n // 128), batch * h) and plan.vec
+
+
+def _check_wide_plan(plan, b, n, h, d):
+    """The wide tf32x3 forward (tf32x3_fwd_wide.cu's Wide): one warpgroup
+    of 64 query rows a block; two stages of K hi, K lo, V^T hi and V^T lo
+    (32 x d floats each), Q's rows in f32 at a stride of d + 4 floats, two
+    mbarriers."""
+    assert (plan.dp, plan.block_q, plan.block_k, plan.stages) == (d, 64, 32, 2)
+    assert plan.smem_bytes == 4 * (2 * 4 * 32 * d + 64 * (d + 4)) + 16 <= MAX_SMEM
+    assert plan.grid == (-(-n // 64), b * h) and plan.vec
+
+
+@pytest.mark.parametrize("d", range(88, TF32X3_MAX_D + 1, 8))
+def test_plan_takes_the_wide_forward_and_the_simt_backward(d):
+    """Every head of 88-160 (d % 8 == 0, aligned rows) takes the wide
+    tf32x3 forward; the backward stays on the SIMT kernels (its tf32x3
+    kernels take heads up to 80)."""
+    n, m, h, b = 256, 1028, 8, 4
+    strides, ptrs = _views(b, n, m, h, d)
+    plan = attn_fwd_plan(b, n, m, h, d, strides, ptrs, torch.float32)
+    assert plan.path == "tf32x3"
+    _check_wide_plan(plan, b, n, h, d)
+    assert flash_bwd_path(d, torch.float32, True) == "f32"
 
 
 def _chip_smoke():
@@ -224,8 +289,8 @@ def test_plan_at_every_legacy_site(n, h, d, order):
 
 @pytest.mark.parametrize("d,offset,head_stride,why", [
     (36, 0, None, "d % 8 != 0"),
-    (88, 0, None, "head over 80"),
-    (160, 0, None, "the mcg's 16^2 head"),
+    (168, 0, None, "head over 160"),
+    (100, 0, None, "a wide head with d % 8 != 0"),
     (256, 0, None, "the widest head"),
     (40, 1, None, "one element into its buffer"),
     (40, 0, 42, "head stride of 168 bytes"),
@@ -336,8 +401,8 @@ def test_bwd_tile_constants():
     products), and every head up to 80 fits shared memory (flash_bwd.cu's
     DkvTc / DqTc: two owner warpgroups share each streamed tile up to d 72
     (dK/dV) and 64 (dQ), the dK/dV kernel double-buffers up to 56)."""
-    assert TF32X3_BWD_TILE == 32
-    for d in range(8, TF32X3_MAX_D + 1, 8):
+    assert TF32X3_BWD_TILE == 32 and TF32X3_BWD_MAX_D == 80
+    for d in range(8, TF32X3_BWD_MAX_D + 1, 8):
         # 8 bytes of mbarrier a stage
         own, dkv_stage, dq_stage = 16 * 64 * d, 4 * (8 * 32 * d + 64) + 8, 4 * 6 * 32 * d + 8
         nc_kv = 2 if d <= 72 else 1
@@ -346,3 +411,64 @@ def test_bwd_tile_constants():
         assert nc_kv * own + ns_kv * dkv_stage <= MAX_SMEM < nc_kv * own + 2 * dkv_stage or ns_kv == 2
         assert nc_q * own + 2 * dq_stage <= MAX_SMEM < 2 * own + 2 * dq_stage or nc_q == 2
         assert nc_kv == 2 or 2 * own + dkv_stage > MAX_SMEM
+
+
+@pytest.mark.parametrize("d,valid", [(160, 4), (88, 32), (120, 17)])
+def test_wide_q_rows_fragments_and_halves_give_dense_products(d, valid):
+    """The wide kernel (tf32x3_fwd_wide.cu): Q's 64 rows in f32 at a row
+    stride of d + 4 floats; qk3's A fragments (a[0] row g, column t of k8
+    step kk; a[1] row g + 8; a[2], a[3] column t + 4) read from there hit
+    32 distinct banks a warp and, against K's RowsTile through the plane
+    descriptor (LBO 32 x 16 bytes), give Q.K^T; pv3's two halves of the
+    head (kN1 = 8 ceil(d / 16) columns, then the rest) read V's ColsTile
+    through descriptors started c0 x 16 bytes into each plane with LBO one
+    plane of d rows, and give P.V."""
+    tile = TF32X3_WIDE_TILE
+    rs = np.random.RandomState(d + valid)
+    q, k, v = rs.randn(64, d), rs.randn(valid, d), rs.randn(valid, d)
+    pad = lambda x: np.pad(x, ((0, tile - len(x)), (0, 0)))
+    ldq = d + 4
+    sq = np.full(64 * ldq, np.nan)
+    for r in range(64):
+        sq[r * ldq:r * ldq + d] = q[r]
+    s = np.zeros((64, tile))
+    sk = _kmajor(_rows_tile(k, tile), tile, d, tile * 16)    # [tile, d]
+    for kk in range(d // 8):
+        frag = np.zeros((64, 8))
+        for w in range(4):
+            banks = set()
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                base = (16 * w + g) * ldq + t
+                for e, off in enumerate((8 * kk, 8 * ldq + 8 * kk, 8 * kk + 4,
+                                         8 * ldq + 8 * kk + 4)):
+                    row, col = 16 * w + g + 8 * (e & 1), 8 * kk + t + 4 * (e >> 1)
+                    assert sq[base + off] == q[row, col]
+                    frag[row, col - 8 * kk] = sq[base + off]
+                banks.add((base + 8 * kk) % 32)
+            assert len(banks) == 32
+        s += frag @ sk[:, 8 * kk:8 * kk + 8].T
+    np.testing.assert_allclose(s, q @ pad(k).T, atol=1e-12)
+    p = np.tanh(s)
+    regs = {key: p[rc] for key, rc in _acc_layout(tile).items()}
+    frag = np.zeros((64, tile))
+    for kc in range(tile // 8):
+        for w in range(4):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for r, e in enumerate((0, 2, 1, 3)):    # split_frags: a[r] = s[4 kc + e]
+                    frag[16 * w + g + 8 * (r & 1), 8 * kc + t + 4 * (r >> 1)] = \
+                        regs[w, lane, 4 * kc + e]
+    cols = _cols_tile(v, tile)
+    n1 = -(-d // 16) * 8
+    o = []
+    for c0, width in ((0, n1), (n1, d - n1)):
+        assert width % 8 == 0 and 0 < width <= 80
+        # the descriptor starts c0 x 16 bytes into plane 0: element (i, j) of
+        # the [width, tile] operand at byte 16 c0 + (j // 4) 16 d + (i // 8)
+        # 128 + (i % 8) 16 + (j % 4) 4
+        i, j = np.meshgrid(np.arange(width), np.arange(tile), indexing="ij")
+        bv = cols[(16 * c0 + (j // 4) * 16 * d + (i // 8) * 128 + (i % 8) * 16 + (j % 4) * 4)
+                  // 4]
+        o.append(frag @ bv.T)
+    np.testing.assert_allclose(np.concatenate(o, axis=1), p @ pad(v), atol=1e-12)

@@ -45,8 +45,10 @@ def _randn(gen, *shape, dtype=torch.bfloat16):
 
 
 def _expect_path(d):
-    """attn_fwd_plan's path for contiguous (16-byte aligned) q, k, v."""
-    return "wgmma" if d % 8 == 0 and d <= 80 else "mma"
+    """attn_fwd_plan's path for contiguous (16-byte aligned) q, k, v: the
+    wgmma kernel for d % 8 == 0 up to 160 (past 80 its wide heads,
+    csrc/attn_fwd_wide.cu)."""
+    return "wgmma" if d % 8 == 0 and d <= 160 else "mma"
 
 
 def _one_launch(fn, path, call):
@@ -71,7 +73,7 @@ def _one_launch(fn, path, call):
     (2, 1024, 1024, 8, 80),    # the 32^2 sites at half batch
     (2, 2100, 300, 2, 40),     # 192-row blocks, the last one ragged
     (1, 1000, 1000, 2, 80),    # ragged last query block and key tile on wgmma
-    (1, 300, 129, 2, 96),      # a head over 80: mma.sync
+    (1, 300, 129, 2, 96),      # a head over 80: the wgmma kernel's wide heads
 ])
 def test_flash_kernel_matches_plain(gen, b, n, m, h, d):
     q, k, v = _randn(gen, b, n, h, d), _randn(gen, b, m, h, d), _randn(gen, b, m, h, d)
@@ -83,7 +85,7 @@ def test_flash_kernel_matches_plain(gen, b, n, m, h, d):
 @pytest.mark.parametrize("b,n,m,h,d", [
     (4, 4096, 1028, 8, 40),    # a four-image mcg request's 64^2 cross-attentions
     (4, 1024, 1028, 8, 80),    # its 32^2 ones
-    (4, 256, 1028, 8, 160),    # its 16^2 ones: mma.sync
+    (4, 256, 1028, 8, 160),    # its 16^2 ones: the wide heads, 64-key tiles
 ])
 def test_flash_kernel_at_the_mcg_cross_attention_shapes(gen, b, n, m, h, d):
     """1028 keys: the last key tile holds 4 keys, the rest must not count."""
@@ -806,7 +808,8 @@ def test_flash_lse_kernel_matches_plain(gen):
 @pytest.mark.parametrize("b,n,m,h,d", [
     (4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80),   # training's forward sites
     (1, 1000, 1000, 2, 80), (2, 130, 77, 2, 8),       # ragged rows and keys
-    (1, 257, 300, 2, 36), (1, 200, 300, 1, 128),      # the mma.sync kernel
+    (1, 257, 300, 2, 36), (1, 200, 300, 1, 168),      # the mma.sync kernel
+    (1, 200, 300, 1, 128),                            # the wgmma kernel's wide heads
 ])
 def test_flash_lse_on_both_paths(gen, b, n, m, h, d):
     from vdtpu_torch.ops.flash import flash_attention_fwd
@@ -876,10 +879,11 @@ def test_flash_bwd_takes_an_offset_lse(gen):
 F32_ATOL, F32_RTOL, F32_MAX_REL_L2 = 2e-5, 1e-4, 1e-5
 
 
-def _f32_path(d):
+def _f32_path(d, backward: bool = False):
     """The f32 plan path of contiguous (16-byte aligned) q, k, v: tf32x3 for
-    d % 8 == 0 up to 80, else the SIMT kernels."""
-    return "tf32x3" if d % 8 == 0 and d <= 80 else "f32"
+    d % 8 == 0 up to 160 forward (past 80 csrc/tf32x3_fwd_wide.cu) and up
+    to 80 backward, else the SIMT kernels."""
+    return "tf32x3" if d % 8 == 0 and d <= (80 if backward else 160) else "f32"
 
 
 @pytest.mark.parametrize("b,n,m,h,d", [
@@ -891,7 +895,7 @@ def _f32_path(d):
     (1, 300, 1030, 2, 80),     # ragged at d 80 (32-key tiles)
     (2, 333, 515, 2, 64),
     (1, 257, 1023, 2, 36),     # d % 16 != 0
-    (4, 256, 1028, 8, 160),    # the four-image mcg's 16^2 cross-attention
+    (4, 256, 1028, 8, 160),    # the four-image mcg's 16^2 cross-attention (wide tf32x3)
     (1, 128, 200, 1, 256),     # the widest head
 ])
 def test_flash_f32_forward_matches_plain(gen, b, n, m, h, d):
@@ -928,7 +932,7 @@ def test_flash_f32_backward_matches_plain(gen, b, n, m, h, d):
         q, k, v = (_randn(gen, b, r, h, d, dtype=torch.float32) for r in (n, m, m))
         do = _randn(gen, b, n, h, d, dtype=torch.float32)
         o, lse = flash_attention_plain(q, k, v, with_lse=True)
-        first = _one_launch(flash_attention_bwd, _f32_path(d),
+        first = _one_launch(flash_attention_bwd, _f32_path(d, backward=True),
                             lambda: flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5))
         second = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)
         ref = flash_attention_bwd_plain(q, k, v, o, lse, do, d ** -0.5)
@@ -970,25 +974,31 @@ def test_flash_f32_autograd_on_strided_views(gen, order):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
-@pytest.mark.parametrize("d,offset", [(36, 0), (40, 1), (88, 0)])
+@pytest.mark.parametrize("d,offset", [(36, 0), (40, 1), (88, 0), (168, 0)])
 def test_tf32x3_entries_refuse_what_they_do_not_take(gen, d, offset):
-    """vd_flash_fwd_tf32x3 and vd_flash_bwd_tf32x3 recheck the route's
-    conditions (vdf::takes: d % 8 == 0 up to 80, 16-byte rows) and refuse
-    anything else with cudaErrorInvalidValue, launching nothing; the plan
-    sends such calls to the SIMT kernels."""
+    """vd_flash_fwd_tf32x3 (the 128-row forward) and vd_flash_bwd_tf32x3
+    recheck the route's conditions (vdf::takes: d % 8 == 0 up to 80, 16-byte
+    rows) and refuse anything else with cudaErrorInvalidValue, launching
+    nothing; vd_flash_fwd_tf32x3_wide refuses all but d % 8 == 0 in 88-160
+    with 16-byte rows. The plan sends the forward at d 88 to the wide
+    kernel, every other call here and every such backward to the SIMT
+    kernels."""
     from vdtpu_torch.ops.flash import _flash_lib, _plan_for, flash_attention_bwd
     b, n, h = 1, 64, 1
     q, k, v, do = (torch.randn(b * n * h * d + offset, device="cuda", generator=gen)[offset:]
                    .view(b, n, h, d) for _ in range(4))
-    assert _plan_for(q, k, v).path == "f32"
+    wide = d % 8 == 0 and 80 < d <= 160 and offset == 0
+    assert _plan_for(q, k, v).path == ("tf32x3" if wide else "f32")
     out, lse = torch.empty_like(q), torch.zeros(b, h, n, device="cuda")
     st = lambda t: tuple(t.stride()[:3])
     stream = torch.cuda.current_stream().cuda_stream
     ws = torch.zeros(1 << 20, device="cuda")   # larger than any workspace these calls need
-    rc = _flash_lib("flash_fwd").vd_flash_fwd_tf32x3(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, ws.data_ptr(), b, n, n,
-        h, d, *st(q), *st(k), *st(v), *st(out), d ** -0.5, stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, ws.data_ptr(), b, n,
+            n, h, d, *st(q), *st(k), *st(v), *st(out), d ** -0.5, stream)
+    rc = _flash_lib("flash_fwd_f32").vd_flash_fwd_tf32x3(*args)
     assert rc == 1   # cudaErrorInvalidValue
+    if not wide:
+        assert _flash_lib("tf32x3_fwd_wide").vd_flash_fwd_tf32x3_wide(*args) == 1
     grads = [torch.empty_like(t) for t in (q, k, v)]
     rc = _flash_lib("flash_bwd").vd_flash_bwd_tf32x3(
         *(t.data_ptr() for t in (q, k, v, do, lse, lse, *grads, ws, ws)), b, n, n, h, d, *st(q),
@@ -1002,6 +1012,98 @@ def test_tf32x3_entries_refuse_what_they_do_not_take(gen, d, offset):
                         lambda: flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5))
         finally:
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("d", range(88, 161, 8))
+def test_wide_heads_take_the_wide_forwards_and_the_old_backwards(gen, d):
+    """Heads of 88-160 (d % 8 == 0, aligned rows), ragged query and key
+    tiles: the bf16 forward on the wgmma kernel's wide heads with and
+    without lse, and the f32 forward on the wide tf32x3 kernel with and
+    without lse, each within its gate and counted on ``launches_wide``; the
+    backward of the same calls on mma.sync (bf16) and the SIMT kernels
+    (f32), within theirs, up to d 128 and refused past it, exactly as
+    before the wide forwards."""
+    from vdtpu_torch.ops.flash import (
+        MAX_BWD_HEAD_DIM, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd)
+    b, n, m, h = 2, 200, 333, 3
+    for dtype in (torch.bfloat16, torch.float32):
+        prev = _f32_no_tf32()
+        try:
+            q, k, v, do = (_randn(gen, b, r, h, d, dtype=dtype) for r in (n, m, m, n))
+            f32 = dtype == torch.float32
+            path = "tf32x3" if f32 else "wgmma"
+            wide = flash_attention.launches_wide[path]
+            out = _one_launch(flash_attention, path, lambda: flash_attention(q, k, v))
+            out_l, lse = _one_launch(flash_attention, path, lambda: flash_attention_fwd(
+                q, k, v, d ** -0.5, with_lse=True))
+            assert flash_attention.launches_wide[path] == wide + 2
+            ref, lse_ref = flash_attention_plain(q, k, v, with_lse=True)
+            tol = dict(atol=F32_ATOL, rtol=F32_RTOL) if f32 else dict(atol=ATOL, rtol=RTOL)
+            for o in (out, out_l):
+                torch.testing.assert_close(o.float(), ref.float(), **tol)
+                assert _rel_l2(o, ref) <= (F32_MAX_REL_L2 if f32 else ATTN_MAX_REL_L2)
+            torch.testing.assert_close(lse, lse_ref, atol=1.1e-5 if f32 else 1e-3, rtol=0)
+            if d > MAX_BWD_HEAD_DIM:   # no backward kernel takes the head
+                with pytest.raises(ValueError):
+                    flash_attention_bwd(q, k, v, ref, lse_ref, do, d ** -0.5)
+                continue
+            grads = _one_launch(flash_attention_bwd, "f32" if f32 else "mma",
+                                lambda: flash_attention_bwd(q, k, v, ref, lse_ref, do,
+                                                            d ** -0.5))
+            want = flash_attention_bwd_plain(q, k, v, ref, lse_ref, do, d ** -0.5)
+            if f32:
+                for a, r in zip(grads, want):
+                    torch.testing.assert_close(a, r, atol=F32_ATOL, rtol=F32_RTOL)
+            else:
+                _bwd_close(grads, want)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_wide_heads_on_strided_views_and_no_max(gen):
+    """d 160: q, k, v as views of one packed [B, N, 3, H, D] projection in
+    bf16 and in f32 (read in place by TMA and by the wide tf32x3 kernel's
+    16-byte loads); the no-max forward at the mcg's 16^2 cross-attention
+    over 1028 keys (Mode NoMax of the wide heads). The entries refuse a
+    wide plan code on a view one element in, and the backward's tf32x3
+    entry refuses the head."""
+    from vdtpu_torch.ops.flash import _flash_lib, _plan_for
+    from vdtpu_torch.ops.nomax import flash_attention_nomax, flash_attention_nomax_plain
+    b, n, h, d = 2, 300, 4, 160
+    for dtype, path in ((torch.bfloat16, "wgmma"), (torch.float32, "tf32x3")):
+        prev = _f32_no_tf32()
+        try:
+            q, k, v = _randn(gen, b, n, 3, h, d, dtype=dtype).unbind(dim=2)
+            assert not q.is_contiguous()
+            out = _one_launch(flash_attention, path, lambda: flash_attention(q, k, v))
+            ref = flash_attention_plain(q, k, v)
+            if dtype == torch.float32:
+                torch.testing.assert_close(out, ref, atol=F32_ATOL, rtol=F32_RTOL)
+                assert _rel_l2(out, ref) <= F32_MAX_REL_L2
+            else:
+                torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    q, k, v, shift = _nomax_args(gen, 4, 256, 1028, 8, d)
+    wide = flash_attention_nomax.launches_wide["wgmma"]
+    out = _one_launch(flash_attention_nomax, "wgmma",
+                      lambda: flash_attention_nomax(q, k, v, shift))
+    assert flash_attention_nomax.launches_wide["wgmma"] == wide + 1
+    ref = flash_attention_nomax_plain(q, k, v, shift)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+    assert _rel_l2(out, ref) <= ATTN_MAX_REL_L2
+    # the wide entry rechecks the plan: a wide code on a view one element in
+    flat = _randn(gen, n * h * d + 8)
+    aligned, shifted = flat[:-8].view(1, n, h, d), flat[1:-7].view(1, n, h, d)
+    code = _plan_for(aligned, aligned, aligned).code
+    o = torch.zeros_like(aligned)
+    st = [x for t in (shifted, aligned, aligned, o) for x in t.stride()[:3]]
+    rc = _flash_lib("attn_fwd_wide").vd_attn_fwd_wide(
+        shifted.data_ptr(), aligned.data_ptr(), aligned.data_ptr(), o.data_ptr(), None, None, 0,
+        0, 1, n, n, h, d, *st, d ** -0.5, code, torch.cuda.current_stream().cuda_stream)
+    assert rc == 1   # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    assert not bool(o.any())
 
 
 def test_flash_bwd_refuses(gen):

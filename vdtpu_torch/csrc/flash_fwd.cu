@@ -18,10 +18,12 @@
 //
 // Two kernels; the caller's plan (vdtpu_torch/ops/flash.py::attn_fwd_plan,
 // mirrored by vdattn::plan_code) picks one from shape and alignment alone:
-// - heads up to 80 with d % 8 == 0 and 16-byte aligned rows (every site of
-//   the main path): attn_fwd_wg_kernel in csrc/attn_fwd_sm90.cuh, Mode Flash
-//   or FlashLse: wgmma and TMA, a producer warpgroup, two or three consumer
-//   warpgroups overlapping one's exponentials with another's products;
+// - heads up to 160 with d % 8 == 0 and 16-byte aligned rows (every site of
+//   the main path, the mcg's d-160 cross-attentions): attn_fwd_wg_kernel in
+//   csrc/attn_fwd_sm90.cuh, Mode Flash or FlashLse: wgmma and TMA, a
+//   producer warpgroup, one to three consumer warpgroups overlapping one's
+//   exponentials with another's products (heads over 80 instantiated in
+//   csrc/attn_fwd_wide.cu, which vd_attn_fwd_wide launches);
 // - every other head and layout: flash_fwd_kernel below, mma.sync m16n8k16
 //   from 4 warps of 16 query rows, K/V tiles double-buffered by cp.async
 //   (16-byte chunks where rows are aligned, element loads otherwise), d
@@ -31,6 +33,12 @@
 // q, k and v are read in place from [B, N, H, D] through strides, so the
 // caller's projections need no fold copies.
 //
+// This source builds two libraries: flash_fwd (bf16: vd_flash_fwd,
+// vd_flash_fwd_mma) and, through csrc/flash_fwd_f32.cu, flash_fwd_f32 (the
+// f32 routes below: vd_flash_fwd_f32, vd_flash_fwd_tf32x3); a template
+// builds only where an entry of its library calls it, so the two nvcc runs
+// split the kernels and go in parallel.
+//
 // The f32 routes are the same function for f32 q, k and v, as _fwd_kernel
 // computes it for f32 operands (_fwd_impl with f32 inputs): the scale
 // folded into q in f32, f32 logits, an f32 online softmax and f32 sums. f32
@@ -39,7 +47,7 @@
 // launches. The plan picks one of two kernels:
 // - tf32x3 (vd_flash_fwd_tf32x3, flash_fwd_tf32x3_kernel below): heads up
 //   to 80 with d % 8 == 0 and 16-byte aligned rows, every f32 site of the
-//   UNet. Bound at [4, 4096, 8, 40]: the two products are 85.9 GFLOP of f32
+//   UNet (heads of 88-160: csrc/tf32x3_fwd_wide.cu). Bound at [4, 4096, 8, 40]: the two products are 85.9 GFLOP of f32
 //   work; on the tensor cores as split-f32 products (csrc/tf32x3.cuh: each
 //   operand as tf32 hi + lo, each product lo.hi + hi.lo + hi.hi, about 21
 //   bits of each where one tf32 pass keeps 11) that is 3 x 85.9 GFLOP at 495
@@ -66,7 +74,7 @@
 //   warpgroups, or a producer warpgroup splitting tiles for consumers
 //   behind mbarriers, were no faster.
 // - f32 (vd_flash_fwd_f32, flash_fwd_f32_kernel below): every other f32
-//   head and layout (d % 8 != 0, heads over 80, unaligned views). A plain
+//   head and layout (d % 8 != 0, heads over 160, unaligned views). A plain
 //   SIMT kernel, 64 query rows and 256 threads a block, four threads a row;
 //   each K/V tile of 64 keys lands in shared memory, a thread takes 16 of
 //   the tile's scores with FMAs over the head, the row's four threads
@@ -568,6 +576,7 @@ int launch_tf32x3(const ParamsF32& p, float* ws, cudaStream_t stream) {
 
 }  // namespace
 
+#if VD_FLASH_FWD_F32
 // The f32 route: f32 q, k, v, o and lse (nullptr skips it), strides in
 // elements. Returns a cudaError_t code; 0 means the launch was accepted.
 extern "C" int vd_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
@@ -652,6 +661,74 @@ extern "C" int vd_flash_fwd_tf32x3(const void* q, const void* k, const void* v, 
     default: return int(cudaErrorInvalidValue);
   }
 }
+#else
+
+namespace {
+
+int launch_mma(const Params& p, cudaStream_t st) {
+  switch ((p.D + 15) / 16) {
+    case 1: return launch<16>(p, st);
+    case 2: return launch<32>(p, st);
+    case 3: return launch<48>(p, st);
+    case 4: return launch<64>(p, st);
+    case 5: return launch<80>(p, st);
+    case 6: return launch<96>(p, st);
+    case 7: return launch<112>(p, st);
+    case 8: return launch<128>(p, st);
+    case 9: return launch<144>(p, st);
+    case 10: return launch<160>(p, st);
+    case 11: return launch<176>(p, st);
+    case 12: return launch<192>(p, st);
+    case 13: return launch<208>(p, st);
+    case 14: return launch<224>(p, st);
+    case 15: return launch<240>(p, st);
+    case 16: return launch<256>(p, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+Params mma_params(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                  int N, int M, int H, int D, long long sqb, long long sqn, long long sqh,
+                  long long skb, long long skn, long long skh, long long svb, long long svn,
+                  long long svh, long long sob, long long son, long long soh, float scale,
+                  int vec) {
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.B = B; p.N = N; p.M = M; p.H = H; p.D = D;
+  p.sqb = sqb; p.sqn = sqn; p.sqh = sqh;
+  p.skb = skb; p.skn = skn; p.skh = skh;
+  p.svb = svb; p.svn = svn; p.svh = svh;
+  p.sob = sob; p.son = son; p.soh = soh;
+  p.scale = scale;
+  p.vec = vec;
+  return p;
+}
+
+}  // namespace
+
+// The mma.sync kernel at any head the plan may send elsewhere (heads of
+// 88-160 with aligned rows take the wgmma kernel since csrc/attn_fwd_wide.cu):
+// vd_flash_fwd's arguments with vec (1: 16-byte cp.async loads, which need
+// d % 8 == 0 and aligned rows; 0: element loads) in place of the plan. No
+// wrapper calls it; chip_smoke.py times the kernel the wide heads left
+// beside the one that replaced it. Returns a cudaError_t code.
+extern "C" int vd_flash_fwd_mma(const void* q, const void* k, const void* v, void* o, void* lse,
+                                int B, int N, int M, int H, int D, long long sqb, long long sqn,
+                                long long sqh, long long skb, long long skn, long long skh,
+                                long long svb, long long svn, long long svh, long long sob,
+                                long long son, long long soh, float scale, int vec,
+                                void* stream) {
+  const long long strides[9] = {sqb, sqn, sqh, skb, skn, skh, svb, svn, svh};
+  if (vec != 0 && (D % 8 != 0 || !vdattn::aligned16(q, k, v, strides)))
+    return int(cudaErrorInvalidValue);
+  return launch_mma(mma_params(q, k, v, o, lse, B, N, M, H, D, sqb, sqn, sqh, skb, skn, skh,
+                               svb, svn, svh, sob, son, soh, scale, vec != 0),
+                    static_cast<cudaStream_t>(stream));
+}
 
 // Returns a cudaError_t code; 0 means the launch was accepted. plan: the
 // caller's AttnFwdPlan.code, which must be the one vdattn::plan_code gives
@@ -680,36 +757,8 @@ extern "C" int vd_flash_fwd(const void* q, const void* k, const void* v, void* o
     return lse != nullptr ? vdattn::dispatch_wg<vdattn::Mode::FlashLse>(a, st)
                           : vdattn::dispatch_wg<vdattn::Mode::Flash>(a, st);
   }
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.lse = static_cast<float*>(lse);
-  p.B = B; p.N = N; p.M = M; p.H = H; p.D = D;
-  p.sqb = sqb; p.sqn = sqn; p.sqh = sqh;
-  p.skb = skb; p.skn = skn; p.skh = skh;
-  p.svb = svb; p.svn = svn; p.svh = svh;
-  p.sob = sob; p.son = son; p.soh = soh;
-  p.scale = scale;
-  p.vec = plan;
-  switch ((D + 15) / 16) {
-    case 1: return launch<16>(p, st);
-    case 2: return launch<32>(p, st);
-    case 3: return launch<48>(p, st);
-    case 4: return launch<64>(p, st);
-    case 5: return launch<80>(p, st);
-    case 6: return launch<96>(p, st);
-    case 7: return launch<112>(p, st);
-    case 8: return launch<128>(p, st);
-    case 9: return launch<144>(p, st);
-    case 10: return launch<160>(p, st);
-    case 11: return launch<176>(p, st);
-    case 12: return launch<192>(p, st);
-    case 13: return launch<208>(p, st);
-    case 14: return launch<224>(p, st);
-    case 15: return launch<240>(p, st);
-    case 16: return launch<256>(p, st);
-    default: return int(cudaErrorInvalidValue);
-  }
+  return launch_mma(mma_params(q, k, v, o, lse, B, N, M, H, D, sqb, sqn, sqh, skb, skn, skh,
+                               svb, svn, svh, sob, son, soh, scale, plan),
+                    st);
 }
+#endif  // VD_FLASH_FWD_F32

@@ -26,8 +26,9 @@
 // - heads up to 80 with d % 8 == 0 and 16-byte aligned rows (every site of
 //   the int8 path): attn_fwd_wg_kernel in csrc/attn_fwd_sm90.cuh, Mode
 //   NoMax: wgmma and TMA, a producer warpgroup, two or three consumer
-//   warpgroups;
-// - every other head and layout (d % 8 != 0, heads over 80, unaligned
+//   warpgroups; heads of 88-160 the same kernel built in
+//   csrc/attn_fwd_wide.cu (vd_attn_fwd_wide), which refuses them here;
+// - every other head and layout (d % 8 != 0, heads over 160, unaligned
 //   views): nomax_fwd_kernel below, mma.sync from 4 warps of 16 query rows,
 //   one exp2f per score, the row sums reduced across the quad once at the
 //   end, K/V tiles double-buffered by cp.async (or element loads), d padded

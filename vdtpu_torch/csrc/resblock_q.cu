@@ -781,7 +781,10 @@ QConvParams conv_params(const int8_t* s8, const void* w, const void* sw, const v
 
 }  // namespace
 
-// dtype: 0 bf16, 1 f32 (x, skip, film, mid and out share it). The plan
+// dtype: 0 bf16, 1 f32 (x, skip, film, mid and out share it); this
+// library takes bf16 and csrc/resblock_q_f32.cu's the f32 (each dtype's
+// eight kernels a translation unit of its own: one nvcc of all sixteen set
+// the whole build's time). The plan
 // (ops/qconv.py::resblock_plan): route 1 halo with `rows` output rows a
 // tile of at most `bm` pixels, `kc` input channels a staged halo, `bn`
 // output channels a tile; 0 general (bm 128); `smem` bytes of dynamic
@@ -843,7 +846,10 @@ extern "C" int vd_resblock_q(const void* x, const void* skip, void* out, const v
   p.sxb = sxb; p.sxp = sxp; p.sxc = sxc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int kc_ = route == kHalo ? kc : 64, bn_ = route == kHalo ? bn : 64;
-  if (dtype == 0) return dispatch<__nv_bfloat16>(p, kc_, bn_, bm, smem, grid, st);
+#if VD_RESBLOCK_F32
   if (dtype == 1) return dispatch<float>(p, kc_, bn_, bm, smem, grid, st);
+#else
+  if (dtype == 0) return dispatch<__nv_bfloat16>(p, kc_, bn_, bm, smem, grid, st);
+#endif
   return int(cudaErrorInvalidValue);
 }

@@ -46,7 +46,8 @@
 namespace vdf {
 
 constexpr int kThreads = 128;  // a warpgroup
-constexpr int kMaxD = 80;      // widest head of the tf32x3 route
+constexpr int kMaxBwdD = 80;   // widest head of the tf32x3 backward and 128-row forward
+constexpr int kMaxFwdD = 160;  // widest head of the tf32x3 forward (csrc/tf32x3_fwd_wide.cu)
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -272,12 +273,13 @@ __device__ __forceinline__ void store_acc(float* base, long long stride, const f
   }
 }
 
-// The tf32x3 route takes d % 8 == 0 up to kMaxD with every row of q, k, v
-// (and dO, and the outputs) on 16 bytes: 16-byte aligned pointers, element
-// strides % 4 == 0.
+// The tf32x3 route takes d % 8 == 0 in [min_d, max_d] (the backward and
+// the 128-row forward 8-80, the wide forward 88-160) with every row of q,
+// k, v (and dO, and the outputs) on 16 bytes: 16-byte aligned pointers,
+// element strides % 4 == 0.
 inline bool takes(int D, const void* const* ptrs, int nptrs, const long long* strides,
-                  int nstrides) {
-  if (D % 8 != 0 || D < 8 || D > kMaxD) return false;
+                  int nstrides, int min_d = 8, int max_d = kMaxBwdD) {
+  if (D % 8 != 0 || D < min_d || D > max_d) return false;
   for (int i = 0; i < nptrs; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
   for (int i = 0; i < nstrides; ++i)

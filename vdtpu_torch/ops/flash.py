@@ -29,14 +29,23 @@ without lse. ``flash_attention_fwd`` and ``flash_attention_bwd`` take the
 plain versions for CPU tensors only; for CUDA tensors they launch the
 kernels or raise, never falling back.
 
+Heads of 88-160 with d % 8 == 0 and aligned rows take the same wgmma
+kernel in bf16 (its instantiations in ``csrc/attn_fwd_wide.cu``, 64-key
+tiles past d 128) and, in f32, a tf32x3 kernel of 64-row blocks
+(``csrc/tf32x3_fwd_wide.cu``); the backward stays on heads up to 80 (no
+path runs a wider one), so each head limit is split into a forward and a
+backward limit.
+
 bf16 takes the tensor-core kernels above. f32 q, k and v (the port's
 default dtype: ``VDSystem(dtype=torch.float32)``, the CLI without
 ``--bf16``, an experiment that trains with ``bf16: false``) take one of two
 f32 routes of the same sources, as the plan decides from shape and
 alignment alone:
 - "tf32x3" (``vd_flash_fwd_tf32x3``, ``vd_flash_bwd_tf32x3``): heads up to
-  80 with d % 8 == 0 and 16-byte aligned rows (every f32 site of the UNet,
-  the legacy zoo's AttentionBlock, the VAE's mid attention): wgmma with
+  80 (forward: 160, ``vd_flash_fwd_tf32x3_wide`` past 80) with d % 8 == 0
+  and 16-byte aligned rows (every f32 site of the UNet, the legacy zoo's
+  AttentionBlock, the VAE's mid attention, the mcg's d-160
+  cross-attentions): wgmma with
   split-f32 products, each operand split into tf32 hi and lo and each
   product taken as lo.hi + hi.lo + hi.hi in f32 accumulators (about 21
   bits of each product; one tf32 pass keeps 11), the softmax and every
@@ -71,21 +80,31 @@ LOG2E = 1.4426950408889634
 
 # csrc/attn_fwd_sm90.cuh's geometry (the forward's wgmma kernel): consumer
 # warpgroups of ATTN_WG_ROWS query rows (``_consumers``) and a producer
-# warpgroup, ATTN_BK-key K/V tiles in a ring of up to ATTN_MAX_STAGES, heads
-# up to ATTN_WG_MAX_D with d % 8 == 0; Q, K and V land as boxes of
-# ATTN_BOX_COLS columns (128 bytes a row, 128-byte swizzle); the mma.sync
-# kernels of csrc/flash_fwd.cu and csrc/nomax_fwd.cu take 64 query rows a
-# block
+# warpgroup, ATTN_BK-key K/V tiles (ATTN_WIDE_BK past ATTN_WIDE_BK_D,
+# ``_key_tile``) in a ring of up to ATTN_MAX_STAGES, heads up to
+# ATTN_WG_MAX_D with d % 8 == 0 (past ATTN_WG_NARROW_D instantiated in
+# csrc/attn_fwd_wide.cu); Q, K and V land as boxes of ATTN_BOX_COLS columns
+# (128 bytes a row, 128-byte swizzle); the mma.sync kernels of
+# csrc/flash_fwd.cu and csrc/nomax_fwd.cu take 64 query rows a block. The
+# backward's wgmma kernel (csrc/flash_bwd.cu) takes heads up to
+# ATTN_WG_BWD_MAX_D.
 ATTN_WG_ROWS, ATTN_BK, ATTN_MAX_STAGES = 64, 128, 4
-ATTN_WG_MAX_D = 80
+ATTN_WIDE_BK, ATTN_WIDE_BK_D = 64, 128
+ATTN_WG_MAX_D = 160
+ATTN_WG_NARROW_D = 80
+ATTN_WG_BWD_MAX_D = 80
 ATTN_BOX_COLS = 64
 MAX_SMEM = 232448           # bytes of shared memory a block may take on an H100
 F32_ROWS = 64               # the f32 route's query rows a block and keys a tile
-# the tf32x3 route (csrc/tf32x3.cuh): heads up to TF32X3_MAX_D with d % 8
-# == 0, warpgroups of 64 rows (queries forward, keys or queries backward),
-# two a block where shared memory holds them; the backward's streamed tiles
-# TF32X3_BWD_TILE rows
-TF32X3_MAX_D = 80
+# the tf32x3 route (csrc/tf32x3.cuh): forward heads up to TF32X3_MAX_D with
+# d % 8 == 0 (past TF32X3_BWD_MAX_D the 64-row kernel of
+# csrc/tf32x3_fwd_wide.cu, TF32X3_WIDE_TILE-key tiles), backward heads up to
+# TF32X3_BWD_MAX_D; warpgroups of 64 rows (queries forward, keys or queries
+# backward), two a block where shared memory holds them; the backward's
+# streamed tiles TF32X3_BWD_TILE rows
+TF32X3_MAX_D = 160
+TF32X3_BWD_MAX_D = 80
+TF32X3_WIDE_TILE = 32
 TF32X3_BWD_TILE = 32
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -93,9 +112,21 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 def _consumers(dp: int, n: int) -> int:
     """Consumer warpgroups a block (``vdattn::consumers``): three (192 query
     rows) for heads padded to 64 or less over 2048 queries or more, whose
-    accumulators fit 160 registers; else two (at 1024 queries 192-row blocks
-    leave a third of the last block empty and a second wave half full)."""
-    return 3 if dp <= 64 and n >= 2048 else 2
+    accumulators fit 160 registers; one (64 rows) for heads over
+    ATTN_WG_NARROW_D over 256 queries or fewer (the mcg's 16^2
+    cross-attention, where 128-row blocks would fill half the card); else
+    two (at 1024 queries 192-row blocks leave a third of the last block
+    empty and a second wave half full)."""
+    if dp <= 64 and n >= 2048:
+        return 3
+    return 1 if dp > ATTN_WG_NARROW_D and n <= 256 else 2
+
+
+def _key_tile(dp: int) -> int:
+    """Keys a K/V tile of the wgmma forward (``vdattn::key_tile``): 128, or
+    64 for heads padded past 128 (three boxes of 64 columns: two stages of
+    128 keys would take 241 KB of shared memory at d 160)."""
+    return ATTN_BK if dp <= ATTN_WIDE_BK_D else ATTN_WIDE_BK
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +161,8 @@ def _wg_geometry(dp: int, nc: int) -> tuple[int, int]:
     1024 bytes to align its base, Q, the deepest K/V ring that fits, and
     the mbarriers (Q, full and empty a stage)."""
     row = -(-dp // ATTN_BOX_COLS) * ATTN_BOX_COLS * 2          # bytes of a tile's row
-    smem = lambda s: 1024 + ATTN_WG_ROWS * nc * row + s * 2 * ATTN_BK * row + 8 * (1 + 2 * s)
+    bk = _key_tile(dp)
+    smem = lambda s: 1024 + ATTN_WG_ROWS * nc * row + s * 2 * bk * row + 8 * (1 + 2 * s)
     stages = max(s for s in range(2, ATTN_MAX_STAGES + 1) if smem(s) <= MAX_SMEM)
     return stages, smem(stages)
 
@@ -145,15 +177,23 @@ def _rows_aligned(ptrs, strides, elem: int = 2) -> bool:
 
 
 def _takes_tf32x3(d: int, ptrs, strides) -> bool:
-    """f32 operands the tf32x3 route takes: d % 8 == 0 up to TF32X3_MAX_D,
+    """f32 operands the tf32x3 forward takes: d % 8 == 0 up to TF32X3_MAX_D,
     16-byte aligned rows (``vdf::takes``)."""
     return d % 8 == 0 and d <= TF32X3_MAX_D and _rows_aligned(ptrs, strides, 4)
 
 
 def _tf32x3_fwd_tile(d: int) -> int:
-    """Keys a tile of the tf32x3 forward (``FwdTc::kT``): 64 for heads up
-    to 48, else 32 (P's hi and lo fragments take a register a key)."""
+    """Keys a tile of the tf32x3 forward (``FwdTc::kT``, ``Wide::kT``): 64
+    for heads up to 48, else 32 (P's hi and lo fragments take a register a
+    key)."""
     return 64 if d <= 48 else 32
+
+
+def _tf32x3_wide_smem(d: int) -> int:
+    """Shared memory of the wide tf32x3 forward (``Wide::kSmem``): two
+    stages of K hi, K lo, V^T hi and V^T lo (TF32X3_WIDE_TILE x d floats
+    each), Q's 64 rows in f32 at a stride of d + 4 floats, two mbarriers."""
+    return 4 * (2 * 4 * TF32X3_WIDE_TILE * d + 64 * (d + 4)) + 16
 
 
 def attn_fwd_plan(b: int, n: int, m: int, h: int, d: int, strides, ptrs,
@@ -161,14 +201,18 @@ def attn_fwd_plan(b: int, n: int, m: int, h: int, d: int, strides, ptrs,
     """Which forward kernel a call on q [b, n, h, d], k and v [b, m, h, d]
     takes, and its geometry. ``strides``: (batch, row, head) element
     strides of q, k and v; ``ptrs``: their data pointers. In f32 the
-    tf32x3 kernel takes d <= 80 with d % 8 == 0 and aligned rows (two
-    warpgroups of 64 query rows a block sharing double-buffered split key
-    tiles, no padding of d); the f32 route everything else (64 query rows
-    a block, 64-key tiles). In bf16 the wgmma kernel takes d <= 80 with d %
-    8 == 0 and aligned rows (its tiles come by TMA); everything else takes
-    the mma.sync kernel."""
+    tf32x3 kernel takes d <= 160 with d % 8 == 0 and aligned rows (no
+    padding of d): up to 80 two warpgroups of 64 query rows a block sharing
+    double-buffered split key tiles, past 80 one warpgroup a block with Q
+    in f32 and 32-key tiles; the f32 route everything else (64 query rows
+    a block, 64-key tiles). In bf16 the wgmma kernel takes d <= 160 with d
+    % 8 == 0 and aligned rows (its tiles come by TMA; 64-key tiles past d
+    128); everything else takes the mma.sync kernel."""
     dp = -(-d // 16) * 16
     if dtype == torch.float32:
+        if _takes_tf32x3(d, ptrs, strides) and d > TF32X3_BWD_MAX_D:
+            return AttnFwdPlan("tf32x3", d, 64, TF32X3_WIDE_TILE, 2, _tf32x3_wide_smem(d),
+                               (-(-n // 64), b * h), True)
         if _takes_tf32x3(d, ptrs, strides):
             # FwdTc: two warpgroups' Q hi and lo, two stages of K hi, K lo,
             # V^T hi, V^T lo, their two mbarriers
@@ -182,7 +226,7 @@ def attn_fwd_plan(b: int, n: int, m: int, h: int, d: int, strides, ptrs,
     if vec and d <= ATTN_WG_MAX_D:
         block_q = ATTN_WG_ROWS * _consumers(dp, n)
         stages, smem = _wg_geometry(dp, block_q // ATTN_WG_ROWS)
-        return AttnFwdPlan("wgmma", dp, block_q, ATTN_BK, stages, smem,
+        return AttnFwdPlan("wgmma", dp, block_q, _key_tile(dp), stages, smem,
                            (-(-n // block_q), b * h), True)
     return AttnFwdPlan("mma", dp, 64, 64, 2, None, (-(-n // 64), b * h), vec)
 
@@ -201,12 +245,14 @@ def _f32_fwd_smem(dp: int) -> int:
 
 def flash_bwd_path(d: int, dtype, vec: bool) -> str:
     """The backward kernels a call takes (csrc/flash_bwd.cu): in f32
-    "tf32x3" for heads up to 80 with d % 8 == 0 and aligned rows (``vec``),
-    else "f32"; in bf16 "wgmma" for heads up to 80 with aligned rows
-    (``vec``), else "mma"."""
+    "tf32x3" for heads up to TF32X3_BWD_MAX_D (80) with d % 8 == 0 and
+    aligned rows (``vec``), else "f32"; in bf16 "wgmma" for heads up to
+    ATTN_WG_BWD_MAX_D (80) with aligned rows (``vec``), else "mma". The
+    forward's wider limits (160) do not reach the backward: no path trains
+    a head over 80."""
     if dtype == torch.float32:
-        return "tf32x3" if vec and d <= TF32X3_MAX_D else "f32"
-    return "wgmma" if vec and d <= ATTN_WG_MAX_D else "mma"
+        return "tf32x3" if vec and d <= TF32X3_BWD_MAX_D else "f32"
+    return "wgmma" if vec and d <= ATTN_WG_BWD_MAX_D else "mma"
 
 
 def flash_attention_plain(q, k, v, scale: float | None = None, with_lse: bool = False):
@@ -439,7 +485,6 @@ def flash_attention_fwd(q, k, v, scale: float, with_lse: bool = False):
         res = flash_attention_plain(q, k, v, scale, with_lse)
         return res if with_lse else (res, None)
     _check("flash_attention", q, k, v, MAX_HEAD_DIM)
-    lib = _flash_lib("flash_fwd")
     b, n, h, d = q.shape
     plan = _plan_for(q, k, v)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
@@ -453,18 +498,25 @@ def flash_attention_fwd(q, k, v, scale: float, with_lse: bool = False):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if plan.path == "f32":
-            rc = lib.vd_flash_fwd_f32(*args, stream)
+            rc = _flash_lib("flash_fwd_f32").vd_flash_fwd_f32(*args, stream)
         elif plan.path == "tf32x3":
             # K and V split once into tiles of hi and lo (4 block_k d floats a tile)
             ws = torch.empty(b * h * -(-k.shape[1] // plan.block_k) * 4 * plan.block_k * d,
                              dtype=torch.float32, device=q.device)
-            rc = lib.vd_flash_fwd_tf32x3(*args[:5], ws.data_ptr(), *args[5:], stream)
+            fn = (_flash_lib("flash_fwd_f32").vd_flash_fwd_tf32x3 if d <= TF32X3_BWD_MAX_D
+                  else _flash_lib("tf32x3_fwd_wide").vd_flash_fwd_tf32x3_wide)
+            rc = fn(*args[:5], ws.data_ptr(), *args[5:], stream)
+        elif plan.path == "wgmma" and plan.dp > ATTN_WG_NARROW_D:   # csrc/attn_fwd_wide.cu
+            rc = _flash_lib("attn_fwd_wide").vd_attn_fwd_wide(
+                *args[:5], None, 0, 0, *args[5:], plan.code, stream)
         else:
-            rc = lib.vd_flash_fwd(*args, plan.code, stream)
+            rc = _flash_lib("flash_fwd").vd_flash_fwd(*args, plan.code, stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed ({plan.path} path): cudaError {rc}")
     flash_attention.launches += 1
     flash_attention.launches_by_path[plan.path] += 1
+    if d > ATTN_WG_NARROW_D and plan.path in flash_attention.launches_wide:
+        flash_attention.launches_wide[plan.path] += 1
     return out, lse
 
 
@@ -538,14 +590,16 @@ flash_attention_bwd.launches_by_path = {"wgmma": 0, "mma": 0, "f32": 0, "tf32x3"
 @functools.cache
 def _flash_lib(name: str):
     """The library of ``csrc/<name>.cu`` with its f32 entry points' types
-    (``build.SOURCES`` types the bf16 one)."""
+    (``build.SOURCES`` types each library's first entry)."""
     import ctypes
     from vdtpu_torch.ops.kernels.build import load
     lib = load(name)
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    if name == "flash_fwd":
+    if name in ("flash_fwd", "attn_fwd_wide", "tf32x3_fwd_wide"):
+        return lib
+    if name == "flash_fwd_f32":
         f32 = [p] * 5 + [i] * 5 + [ll] * 12 + [f, p]
-        types = {"vd_flash_fwd_f32": f32, "vd_flash_fwd_tf32x3": [p] * 6 + f32[5:]}
+        types = {"vd_flash_fwd_tf32x3": [p] * 6 + f32[5:]}
     else:
         f32 = [p] * 9 + [i] * 5 + [ll] * 21 + [f, p]
         types = {"vd_flash_bwd_f32": f32, "vd_flash_bwd_tf32x3": [p] * 11 + f32[9:]}
@@ -587,3 +641,6 @@ def flash_attention(q, k, v, scale: float | None = None):
 flash_attention.launches = 0
 # attn_fwd_plan's path -> launches
 flash_attention.launches_by_path = {"wgmma": 0, "mma": 0, "f32": 0, "tf32x3": 0}
+# of those, the launches at heads over 80: csrc/attn_fwd_wide.cu ("wgmma")
+# and csrc/tf32x3_fwd_wide.cu ("tf32x3")
+flash_attention.launches_wide = {"wgmma": 0, "tf32x3": 0}

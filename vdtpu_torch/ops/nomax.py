@@ -11,8 +11,8 @@ f32, bf16(p) . v accumulated in f32, the f32 row sum of p as the
 denominator, clamped at 1e-30; keys past the kv length get p = 0. The
 flash forward's plan (``ops/flash.py::attn_fwd_plan``) picks the kernel:
 the wgmma/TMA kernel (``csrc/attn_fwd_sm90.cuh``, mode NoMax) for heads up
-to 80 with d % 8 == 0 and 16-byte aligned rows, the mma.sync kernel for
-the rest. They serve the TPU's other two no-max kernels too: d % 8 != 0
+to 160 with d % 8 == 0 and 16-byte aligned rows (those past 80 built in
+``csrc/attn_fwd_wide.cu``), the mma.sync kernel for the rest. They serve the TPU's other two no-max kernels too: d % 8 != 0
 (``_nomax_kernel``, padded in shared memory here) and the native
 [B, N, H*D] layout (``_nomax_packed_kernel``: pass [B, N, H, D] views of
 it, read in place through strides).
@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from vdtpu_torch.ops.flash import MAX_HEAD_DIM, _plan_for
+from vdtpu_torch.ops.flash import ATTN_WG_NARROW_D, MAX_HEAD_DIM, _plan_for
 
 LOG2E = 1.4426950408889634
 
@@ -93,17 +93,24 @@ def flash_attention_nomax(q, k, v, shift, scale: float | None = None):
     lib = load("nomax_fwd")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     plan = _plan_for(q, k, v)
+    dims = (b, n, m, h, d, q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+            k.stride(2), v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
+            out.stride(2), float(scale * LOG2E), plan.code)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vd_nomax_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), shift_h.data_ptr(), 0,
-            b, n, m, h, d, q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
-            k.stride(2), v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
-            out.stride(2), float(scale * LOG2E), plan.code, stream)
+        if plan.path == "wgmma" and plan.dp > ATTN_WG_NARROW_D:   # csrc/attn_fwd_wide.cu
+            rc = load("attn_fwd_wide").vd_attn_fwd_wide(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+                shift_h.data_ptr(), 0, 1, *dims, stream)
+        else:
+            rc = lib.vd_nomax_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                  shift_h.data_ptr(), 0, *dims, stream)
     if rc != 0:
         raise RuntimeError(f"nomax_fwd launch failed ({plan.path} path): cudaError {rc}")
     flash_attention_nomax.launches += 1
     flash_attention_nomax.launches_by_path[plan.path] += 1
+    if plan.path == "wgmma" and plan.dp > ATTN_WG_NARROW_D:
+        flash_attention_nomax.launches_wide["wgmma"] += 1
     by_kv = flash_attention_nomax.launches_by_kv
     by_kv[m] = by_kv.get(m, 0) + 1
     return out
@@ -111,4 +118,5 @@ def flash_attention_nomax(q, k, v, shift, scale: float | None = None):
 
 flash_attention_nomax.launches = 0
 flash_attention_nomax.launches_by_path = {"wgmma": 0, "mma": 0}   # attn_fwd_plan's path
+flash_attention_nomax.launches_wide = {"wgmma": 0}   # of those, heads over 80 (attn_fwd_wide.cu)
 flash_attention_nomax.launches_by_kv = {}   # kv length -> launches (ToMe shortens it)

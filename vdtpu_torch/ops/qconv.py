@@ -559,7 +559,7 @@ def _resblock_launch(x, gn1_w, gn1_b, w1q, s1w, b1, sx1, film, gn2_w, gn2_b, w2q
                film.stride(0))
     ptr = lambda t: 0 if t is None else t.data_ptr()
     s1w_, b1_, g1w_, g1b_, s2w_, b2_, g2w_, g2b_ = vecs
-    lib = load("resblock_q")
+    lib = load("resblock_q" if dtype == 0 else "resblock_q_f32")   # one library a dtype
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.vd_resblock_q(
